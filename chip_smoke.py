@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one CUDA card.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+1. prints the card (``nvidia-smi`` name and power limit) and versions;
+2. builds the CUDA kernels from ``sparse_matrix_with_flops_tpu_torch/csrc``;
+3. holds each kernel (K1-K4) against its plain PyTorch twin on the card,
+   on inputs cut from the R-MAT s14 plan, and times both;
+4. runs ``spgemm_auto`` on R-MAT s14 (edge factor 8, seed 7, random
+   weights; routes ``ell``) and on the cant-class band
+   ``banded_csr(62451, 32)`` (routes ``block``), checks both products
+   against scipy on the host, checks that the kernels were launched by
+   that run, and times the warm multiply and the multiply with its plan.
+
+Any failure raises and exits non-zero.  Without a CUDA device, or
+without the port beside it, the script exits non-zero before any
+result.  The last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PKG = "sparse_matrix_with_flops_tpu_torch"
+REPLACES = {
+    "sort_dedup_compact": "sparse_matrix_with_flops_tpu/ops/pallas_sort.py:181",
+    "compact_nonzero_rows": "sparse_matrix_with_flops_tpu/ops/pallas_sort.py:300",
+    "window_gather": "sparse_matrix_with_flops_tpu/ops/pallas_sort.py:244",
+    "cumsum_i32": "sparse_matrix_with_flops_tpu/ops/pallas_scan.py:55",
+}
+SOURCES = {
+    "sort_dedup_compact": f"{PKG}/csrc/sort_dedup_compact.cu",
+    "compact_nonzero_rows": f"{PKG}/csrc/compact_nonzero_rows.cu",
+    "window_gather": f"{PKG}/csrc/window_gather.cu",
+    "cumsum_i32": f"{PKG}/csrc/cumsum_i32.cu",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(torch, fn, reps: int = 15, warm: int = 2) -> float:
+    """Median CUDA-event time of one call of ``fn``, in ms."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Median host-clock time of ``fn`` ending in a synchronize, in ms."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, PKG)):
+        print(f"chip_smoke: {PKG}/ not found beside the script", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import scipy.sparse as sp
+
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.config import ABS_TOL, REL_TOL
+    from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR
+    from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
+    from sparse_matrix_with_flops_tpu_torch.ops.block_spgemm import (
+        block_spgemm,
+        plan_block,
+    )
+    from sparse_matrix_with_flops_tpu_torch.ops.dispatch import route, spgemm_auto
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.scan_kernels import (
+        cumsum_i32,
+        cumsum_i32_plain,
+    )
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import exclusive_cumsum
+    from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
+        compact_nonzero_rows,
+        compact_nonzero_rows_plain,
+        sort_dedup_compact,
+        sort_dedup_compact_plain,
+        window_gather,
+        window_gather_plain,
+    )
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import (
+        banded_csr,
+        rmat_csr,
+    )
+
+    wrappers = {
+        "sort_dedup_compact": sort_dedup_compact,
+        "compact_nonzero_rows": compact_nonzero_rows,
+        "window_gather": window_gather,
+        "cumsum_i32": cumsum_i32,
+    }
+
+    # ---- 1. card -------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    log(smi[0])
+    log(
+        f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}"
+    )
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: the port needs true f32 matmuls")
+    dev = torch.device("cuda", 0)
+
+    # ---- 2. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.BUILD_DIR}")
+    for line in _build.build_log().splitlines():
+        if "Used" in line or "smem" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # ---- 3. kernels vs twins on the s14 plan's inputs ------------------
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)
+    flops, _ = spgemm_upper_bounds(a, a)
+    t0 = time.perf_counter()
+    plan = plan_ell(a, a)
+    log(
+        f"s14: rows {a.rows} nnz {int(a.nnz)} flops {flops} plan "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms chunk {plan.chunk} "
+        f"bins {[(w, int((r >= 0).sum())) for w, r, _, _ in plan.bins]} "
+        f"hub groups {[g.rows.size for g in plan.hub_groups]} "
+        f"split {plan.vstart is not None} out_cap {plan.out_cap}"
+    )
+    pt = E._plan_tensors(plan, dev)
+    prod_c, prod_v = E._b_ell_chunks(a, plan, pt)
+    results = {}
+
+    def record(name, case, err, ms, plain_ms):
+        log(
+            f"{name} [{case}]: max_abs_err {err:.3e} kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms"
+        )
+        r = results.setdefault(
+            name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "cases": {}}
+        )
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"], r["plain_ms"] = ms, plain_ms  # the last (widest) case
+        r["cases"][case] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    def check_vals(got, want, what):
+        err = (got - want).abs()
+        bound = torch.clamp(REL_TOL * torch.maximum(got.abs(), want.abs()), min=ABS_TOL)
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{what}: values differ (max err {err.max():.3e})")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: non-finite values")
+        return float(err.max()) if err.numel() else 0.0
+
+    widths = [w for w, _, _, _ in pt["bins"]]
+    for w_sel in (64, 8192):
+        _, _, tile_src, tile_ent = pt["bins"][widths.index(w_sel)]
+        tc, tv = E._bin_tiles(a, prod_c, prod_v, tile_src, tile_ent, w_sel, plan.chunk)
+        kk, kv = sort_dedup_compact(tc, tv, plan.ncols, presorted=plan.chunk)
+        pk, pv = sort_dedup_compact_plain(tc, tv, plan.ncols)
+        torch.cuda.synchronize()
+        if not torch.equal(kk, pk):
+            raise AssertionError(f"K1 W={w_sel}: cols differ from the twin")
+        err = check_vals(kv, pv, f"K1 W={w_sel}")
+        record(
+            "sort_dedup_compact", f"W={w_sel} R={tc.shape[0]} presorted={plan.chunk}", err,
+            cuda_ms(torch, lambda: sort_dedup_compact(tc, tv, plan.ncols, plan.chunk)),
+            cuda_ms(torch, lambda: sort_dedup_compact_plain(tc, tv, plan.ncols)),
+        )
+    if not plan.hub_groups:
+        raise AssertionError("the s14 plan has no hub group: K2 has no input")
+    g, _, _, _, vw, part = next(E._hub_products(a, a, plan, pt))
+    kk, kv = compact_nonzero_rows(part, vw)
+    pk, pv = compact_nonzero_rows_plain(part, vw)
+    torch.cuda.synchronize()
+    if not torch.equal(kk, pk) or not torch.equal(kv, pv):
+        raise AssertionError("K2: output differs from the twin")
+    record(
+        "compact_nonzero_rows", f"R={part.shape[0]} N={part.shape[1]} ncols={vw}", 0.0,
+        cuda_ms(torch, lambda: compact_nonzero_rows(part, vw)),
+        cuda_ms(torch, lambda: compact_nonzero_rows_plain(part, vw)),
+    )
+    flat_c, flat_v, counts, flat_base = E._tiles_impl(a, a, plan)
+    ocap = -(-E._nnz_bucket(int(counts.sum())) // 128) * 128
+    starts = exclusive_cumsum(counts)[:-1]
+    fc, fvb = E._window_source(flat_c, flat_v, plan.ncols)
+    p0 = E._window_positions(counts, flat_base, starts, ocap // 128)
+    kc, kvb = window_gather(fc, fvb, p0)
+    pc, pvb = window_gather_plain(fc, fvb, p0, 128)
+    torch.cuda.synchronize()
+    if not torch.equal(kc, pc) or not torch.equal(kvb, pvb):
+        raise AssertionError("K3: output differs from the twin")
+    record(
+        "window_gather", f"Q={p0.shape[0]} W=128 src={fc.shape[0]}", 0.0,
+        cuda_ms(torch, lambda: window_gather(fc, fvb, p0)),
+        cuda_ms(torch, lambda: window_gather_plain(fc, fvb, p0, 128)),
+    )
+    dds = E._row_start_deltas(counts, starts, ocap)
+    ks, ps = cumsum_i32(dds), cumsum_i32_plain(dds)
+    torch.cuda.synchronize()
+    if not torch.equal(ks, ps):
+        raise AssertionError("K4: output differs from the twin")
+    record(
+        "cumsum_i32", f"n={ocap}", 0.0,
+        cuda_ms(torch, lambda: cumsum_i32(dds)),
+        cuda_ms(torch, lambda: cumsum_i32_plain(dds)),
+    )
+    del prod_c, prod_v, flat_c, flat_v, fc, fvb, part
+    torch.cuda.synchronize()
+
+    # ---- 4. main path ----------------------------------------------------
+    def scipy_check(x: CSR, c: CSR, what: str, positive: bool) -> None:
+        """Structure exactly equal to scipy's pattern product; values
+        within REL_TOL of scipy's f64 product, relative to the sum of
+        absolute products (|A||A|), which bounds the f32 rounding of
+        entries that cancel.  For positive matrices that sum is the
+        value itself, and the port's is_relative_equal must hold too."""
+        rp, ci, v = x.to_numpy()
+        n = x.ncols
+        amat = sp.csr_matrix((v.astype(np.float64), ci, rp), shape=x.shape)
+        pat = sp.csr_matrix((np.ones(ci.size), ci, rp), shape=x.shape)
+        ps = (pat @ pat).tocsr()
+        ps.sort_indices()
+        cm = (amat @ amat).tocsr()
+        cm.sort_indices()
+        am = (abs(amat) @ abs(amat)).tocsr()
+        am.sort_indices()
+        grp, gci, gv = c.to_numpy()
+        if not np.array_equal(grp, ps.indptr) or not np.array_equal(gci, ps.indices):
+            raise AssertionError(f"{what}: row_ptr/col_ind differ from scipy")
+        if not np.array_equal(am.indptr, ps.indptr) or not np.array_equal(
+            am.indices, ps.indices
+        ):
+            raise AssertionError(f"{what}: |A||A| lost structure")
+        if not np.isfinite(gv).all():
+            raise AssertionError(f"{what}: non-finite values")
+
+        def keys(m):
+            r = np.repeat(np.arange(m.shape[0], dtype=np.int64), np.diff(m.indptr))
+            return r * n + m.indices
+
+        pk = keys(ps)
+        ref = np.zeros(pk.size)
+        ref[np.searchsorted(pk, keys(cm))] = cm.data
+        err = np.abs(gv - ref)
+        over_rel = int((err > REL_TOL * np.maximum(np.abs(gv), np.abs(ref))).sum())
+        ok = err <= REL_TOL * am.data + ABS_TOL
+        log(
+            f"{what}: nnz {gci.size} structure == scipy; max |err| "
+            f"{err.max():.3e}, max |err|/|A||A| {(err / am.data).max():.3e}; "
+            f"{over_rel} entries over REL_TOL of their own value"
+        )
+        if not ok.all():
+            raise AssertionError(f"{what}: {int((~ok).sum())} values off scipy")
+        if positive:
+            want = CSR.from_numpy(ps.indptr, ps.indices, ref, n, device=c.device)
+            if not c.is_relative_equal(want, REL_TOL):
+                raise AssertionError(f"{what}: is_relative_equal fails")
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    launches = {k: 0 for k in wrappers}
+    kind, fill = route(a, a)
+    if kind != "ell":
+        raise AssertionError(f"s14 routed {kind} (fill {fill})")
+    reset()
+    torch.cuda.synchronize()
+    c = spgemm_auto(a, a)
+    torch.cuda.synchronize()
+    s14_counts = {k: w.launches for k, w in wrappers.items()}
+    log(f"s14: routed ell (fill {fill:.4f}); launches {s14_counts}")
+    for k, n in s14_counts.items():
+        if n == 0:
+            raise AssertionError(f"s14 run launched {k} no time")
+        launches[k] += n
+    scipy_check(a, c, "s14", positive=True)
+
+    ca = banded_csr(62451, bandwidth=32, device=dev)
+    kind, cfill = route(ca, ca)
+    if kind != "block":
+        raise AssertionError(f"cant-class band routed {kind} (fill {cfill})")
+    reset()
+    torch.cuda.synchronize()
+    cc = spgemm_auto(ca, ca)
+    torch.cuda.synchronize()
+    band_counts = {k: w.launches for k, w in wrappers.items()}
+    log(f"band: routed block (fill {cfill:.4f}); launches {band_counts}")
+    for k in ("window_gather", "cumsum_i32"):
+        if band_counts[k] == 0:
+            raise AssertionError(f"band run launched {k} no time")
+    for k, n in band_counts.items():
+        launches[k] += n
+    scipy_check(ca, cc, "band", positive=False)
+    del c, cc
+
+    card = smi[0]
+    plan = plan_ell(a, a)
+    E.spgemm_ell(a, a, plan)  # caches the nnz(C) bucket
+    s14_warm = host_ms(torch, lambda: E.spgemm_ell(a, a, plan), 10)
+    s14_cold = host_ms(torch, lambda: spgemm_auto(a, a), 3)
+    bplan = plan_block(ca, ca)
+    block_spgemm(ca, ca, bplan)
+    band_warm = host_ms(torch, lambda: block_spgemm(ca, ca, bplan), 10)
+    band_cold = host_ms(torch, lambda: spgemm_auto(ca, ca), 3)
+    cflops, _ = spgemm_upper_bounds(ca, ca)
+    log(
+        f"s14 ell: warm {s14_warm:.3f} ms ({2 * flops / s14_warm / 1e6:.3f} "
+        f"GFLOPS), with plan {s14_cold:.3f} ms [{card}]"
+    )
+    log(
+        f"band block: warm {band_warm:.3f} ms ({2 * cflops / band_warm / 1e6:.3f} "
+        f"GFLOPS), with plan {band_cold:.3f} ms [{card}]"
+    )
+    torch.cuda.synchronize()
+
+    kernels = [
+        {
+            "name": k,
+            "route": "cuda",
+            "source": SOURCES[k],
+            "replaces": REPLACES[k],
+            "launches": launches[k],
+            "max_abs_err": results[k]["max_abs_err"],
+            "ms": results[k]["ms"],
+            "plain_ms": results[k]["plain_ms"],
+            "cases": results[k]["cases"],
+        }
+        for k in wrappers
+    ]
+    log(json.dumps({"kernels": kernels}))
+    log(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {
+                    "platform": "gpu",
+                    "kind": torch.cuda.get_device_name(0),
+                    "count": torch.cuda.device_count(),
+                },
+            }
+        )
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

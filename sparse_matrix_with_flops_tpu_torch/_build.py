@@ -1,0 +1,132 @@
+"""Build, load and launch the port's CUDA kernels.
+
+The kernels in ``csrc/*.cu`` have a plain C interface.  At first use
+they are compiled with ``nvcc`` for ``sm_90a`` into one shared library
+under ``build/`` at the repository root, and loaded with ctypes.  The
+library is rebuilt when a source is newer than it.  Nothing here runs at
+import: the CPU tests import every module on a machine with no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+_LIB = os.path.join(BUILD_DIR, "libsmf_kernels.so")
+_LOG = os.path.join(BUILD_DIR, "build.log")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry point -> argument types before the trailing stream argument;
+# each returns the cudaError_t of its launches
+_SIGNATURES = {
+    # tc, tv, kout, vout, R, W, ncols, presorted
+    "smf_sort_dedup_compact": (_P, _P, _P, _P, _I, _I, _I, _I),
+    # vals, kout, vout, R, N, ncols
+    "smf_compact_nonzero_rows": (_P, _P, _P, _I, _I, _I),
+    # src_c, src_v, p0, out_c, out_v, Q, nr, W
+    "smf_window_gather": (_P, _P, _P, _P, _P, _L, _L, _I),
+    # x, out, scratch, n
+    "smf_cumsum_i32": (_P, _P, _P, _L),
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    found = path if os.path.exists(path) else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the "
+            "port's CUDA kernels cannot be built"
+        )
+    return found
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` into the shared library if it is missing or
+    older than a source; return its path.  The compiler's output
+    (``-Xptxas -v``: registers and shared memory per kernel) is kept in
+    ``build.log`` beside it."""
+    sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    deps = sources + glob.glob(os.path.join(_CSRC, "*.cuh"))
+    newest = max(os.path.getmtime(p) for p in deps)
+    if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= newest:
+        return _LIB
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, *sources]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    with open(_LOG, "w") as f:
+        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {res.returncode}:\n{res.stderr[-4000:]}"
+        )
+    os.replace(tmp, _LIB)
+    return _LIB
+
+
+def build_log() -> str:
+    with open(_LOG) as f:
+        return f.read()
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = (*argtypes, _P)
+        fn.restype = ctypes.c_int
+    lib.smf_error_string.argtypes = (ctypes.c_int,)
+    lib.smf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry ``name`` on ``device``'s current stream; raise if
+    the launch reports an error."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        msg = lib.smf_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on a CUDA device (the wrapper launches
+    its kernel), False when they lie on the CPU (it runs the plain
+    version).  Any other device, or a mix, raises."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def check_tensor(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
+    """A kernel wrapper's argument check: contiguous, of one dtype and
+    rank (the same on the CPU, so both routes take the same inputs)."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if x.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D, got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -1,0 +1,221 @@
+"""CSR: the central sparse container, as a frozen dataclass of tensors.
+
+The port of the JAX package's ``formats/csr.py`` (the reference's
+``struct CSR``, nlibs/CSR.h:23-38).  The layout is the same:
+
+* ``col_ind`` / ``values`` have a capacity ``>= nnz``; slots in
+  ``[nnz, capacity)`` are padding with ``col == ncols`` and value 0;
+* ``nnz == row_ptr[rows]``;
+* all three tensors live on one device.
+
+The comparator trio mirrors CSR.h: ``is_equal`` (exact structure + 1e-7
+abs, CSR.h:195-245), ``is_raw_equal`` (ignores explicit zeros,
+CSR.h:249-282), ``is_relative_equal`` (CSR.h:284-321).  They return
+Python bools.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..config import ABS_TOL, INDEX_DTYPE
+from ..ops.segments import exclusive_cumsum
+
+
+@dataclasses.dataclass(frozen=True)
+class CSR:
+    """Compressed sparse row matrix with padded capacity."""
+
+    row_ptr: torch.Tensor  # int32[rows + 1]
+    col_ind: torch.Tensor  # int32[capacity]; padding slots hold ncols
+    values: torch.Tensor  # f32[capacity]; padding slots hold 0
+    ncols: int
+
+    # ---- geometry -------------------------------------------------------
+    @property
+    def rows(self) -> int:
+        return self.row_ptr.shape[0] - 1
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.rows, self.ncols)
+
+    @property
+    def capacity(self) -> int:
+        return self.col_ind.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+    @property
+    def nnz(self) -> torch.Tensor:
+        """Number of stored entries (a 0-d tensor on the CSR's device)."""
+        return self.row_ptr[-1]
+
+    def entry_rows(self) -> torch.Tensor:
+        """Row id per slot; sentinel ``rows`` for padding slots."""
+        q = torch.arange(self.capacity, device=self.device, dtype=INDEX_DTYPE)
+        rid = torch.searchsorted(self.row_ptr[1:], q, right=True)
+        return torch.where(q < self.nnz, rid.to(INDEX_DTYPE), self.rows)
+
+    def entry_valid(self) -> torch.Tensor:
+        return torch.arange(self.capacity, device=self.device) < self.nnz
+
+    # ---- constructors and conversion -----------------------------------
+    @staticmethod
+    def from_numpy(
+        row_ptr,
+        col_ind,
+        values,
+        ncols: int,
+        device: torch.device | str = "cpu",
+        capacity: int | None = None,
+    ) -> "CSR":
+        """Build from tight host arrays on ``device``, padding out to
+        ``capacity``.  The counterpart of the JAX ``CSR.from_arrays``:
+        the same numpy arrays give the same matrix in both packages."""
+        row_ptr = np.asarray(row_ptr, dtype=np.int32)
+        col_ind = np.asarray(col_ind, dtype=np.int32)
+        values = np.asarray(values, dtype=np.float32)
+        nnz = int(row_ptr[-1])
+        cap = nnz if capacity is None else int(capacity)
+        if cap < nnz:
+            raise ValueError(f"capacity {cap} < nnz {nnz}")
+        pc = np.full(cap, ncols, dtype=np.int32)
+        pv = np.zeros(cap, dtype=np.float32)
+        pc[:nnz] = col_ind[:nnz]
+        pv[:nnz] = values[:nnz]
+        out = CSR(
+            row_ptr=torch.from_numpy(row_ptr.copy()).to(device),
+            col_ind=torch.from_numpy(pc).to(device),
+            values=torch.from_numpy(pv).to(device),
+            ncols=int(ncols),
+        )
+        # the host arrays are authoritative: seed the planners' host-view
+        # cache (utils/nphost.csr_host) so planning never copies back
+        object.__setattr__(out, "_host_rp_ci", (row_ptr.astype(np.int64), pc))
+        return out
+
+    @staticmethod
+    def from_arrays(
+        row_ptr,
+        col_ind,
+        values,
+        ncols: int,
+        capacity: int | None = None,
+        device: torch.device | str = "cpu",
+    ) -> "CSR":
+        """``from_numpy`` with the JAX ``CSR.from_arrays`` argument order."""
+        return CSR.from_numpy(row_ptr, col_ind, values, ncols, device, capacity)
+
+    @staticmethod
+    def from_dense(dense, device: torch.device | str = "cpu") -> "CSR":
+        """Dense (host) matrix -> CSR; parity with CSR.h:54-82."""
+        dense = np.asarray(dense)
+        rows, cols = dense.shape
+        mask = dense != 0
+        row_ptr = np.zeros(rows + 1, dtype=np.int32)
+        np.cumsum(mask.sum(axis=1), out=row_ptr[1:])
+        r, c = np.nonzero(mask)
+        return CSR.from_numpy(row_ptr, c, dense[r, c], cols, device)
+
+    def to(self, device: torch.device | str) -> "CSR":
+        out = CSR(
+            self.row_ptr.to(device),
+            self.col_ind.to(device),
+            self.values.to(device),
+            self.ncols,
+        )
+        cached = getattr(self, "_host_rp_ci", None)
+        if cached is not None:
+            object.__setattr__(out, "_host_rp_ci", cached)
+        return out
+
+    def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Tight host arrays ``(row_ptr, col_ind[:nnz], values[:nnz])``."""
+        rp = self.row_ptr.cpu().numpy()
+        nnz = int(rp[-1])
+        return (
+            rp,
+            self.col_ind[:nnz].cpu().numpy(),
+            self.values[:nnz].cpu().numpy(),
+        )
+
+    def to_dense(self) -> torch.Tensor:
+        """Scatter to dense; padding (col == ncols / row == rows) is dropped."""
+        out = torch.zeros(
+            (self.rows + 1) * (self.ncols + 1),
+            dtype=self.values.dtype,
+            device=self.device,
+        )
+        erow = self.entry_rows().long()
+        col = self.col_ind.long().clamp(0, self.ncols)
+        out.index_add_(0, erow * (self.ncols + 1) + col, self.values)
+        return out.view(self.rows + 1, self.ncols + 1)[: self.rows, : self.ncols]
+
+    # ---- comparators (CSR.h:195-321) ------------------------------------
+    def _masked(self, fill_col: int):
+        valid = self.entry_valid()
+        col = torch.where(valid, self.col_ind, fill_col)
+        val = torch.where(valid, self.values, 0.0)
+        return col, val
+
+    def _same_structure(self, other: "CSR") -> bool:
+        if self.shape != other.shape:
+            return False
+        if not torch.equal(self.row_ptr, other.row_ptr.to(self.device)):
+            return False
+        ca, _ = self._masked(-1)
+        cb, _ = other._masked(-1)
+        cb = cb.to(self.device)
+        n = min(self.capacity, other.capacity)
+        return (
+            torch.equal(ca[:n], cb[:n])
+            and bool((ca[n:] == -1).all())
+            and bool((cb[n:] == -1).all())
+        )
+
+    def is_equal(self, other: "CSR", tol: float = ABS_TOL) -> bool:
+        """Exact structural equality + abs tolerance on values."""
+        if not self._same_structure(other):
+            return False
+        n = min(self.capacity, other.capacity)
+        _, da = self._masked(-1)
+        _, db = other._masked(-1)
+        return bool(((da[:n] - db.to(self.device)[:n]).abs() <= tol).all())
+
+    def _drop_explicit_zeros(self) -> "CSR":
+        """Compact away entries with value exactly 0 (isRawEqual semantics)."""
+        keep = self.entry_valid() & (self.values != 0)
+        counts = torch.bincount(
+            self.entry_rows()[keep].long(), minlength=self.rows
+        )[: self.rows]
+        row_ptr = exclusive_cumsum(counts.to(INDEX_DTYPE))
+        nkeep = int(keep.sum())
+        col = torch.full_like(self.col_ind, self.ncols)
+        val = torch.zeros_like(self.values)
+        col[:nkeep] = self.col_ind[keep]
+        val[:nkeep] = self.values[keep]
+        return CSR(row_ptr, col, val, self.ncols)
+
+    def is_raw_equal(self, other: "CSR", tol: float = ABS_TOL) -> bool:
+        """Equality ignoring explicitly stored zeros (CSR.h:249-282)."""
+        return self._drop_explicit_zeros().is_equal(
+            other._drop_explicit_zeros(), tol
+        )
+
+    def is_relative_equal(self, other: "CSR", rel: float) -> bool:
+        """Structure-equal + relative value tolerance (CSR.h:284-321)."""
+        if not self._same_structure(other):
+            return False
+        n = min(self.capacity, other.capacity)
+        _, da = self._masked(-1)
+        _, db = other._masked(-1)
+        da, db = da[:n], db.to(self.device)[:n]
+        denom = torch.maximum(da.abs(), db.abs()).clamp(min=1e-30)
+        return bool(((da - db).abs() <= rel * denom).all())

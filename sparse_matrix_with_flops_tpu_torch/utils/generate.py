@@ -1,0 +1,93 @@
+"""Synthetic matrix generators (the port of the JAX package's
+``utils/generate.py``).
+
+Each generator makes the same numpy RNG calls as the reference, so the
+host arrays, and therefore the matrices, are bit-identical; only the
+container differs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..formats.csr import CSR
+
+
+def rmat_csr(
+    scale: int,
+    edge_factor: int = 16,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+    seed: int = 0,
+    weights: str = "unit",
+    device: torch.device | str = "cpu",
+) -> CSR:
+    """R-MAT (Graph500-style) power-law adjacency matrix, 2^scale nodes.
+
+    Duplicate edges are summed; self loops kept.  ``weights``: 'unit'
+    (1.0) or 'random' (uniform (0,1])."""
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    m = n * edge_factor
+    rows = np.zeros(m, dtype=np.int64)
+    cols = np.zeros(m, dtype=np.int64)
+    pa, pb, pc = a, a + b, a + b + c
+    for bit in range(scale):
+        r = rng.random(m)
+        rbit = (r >= pb).astype(np.int64)
+        cbit = (((r >= pa) & (r < pb)) | (r >= pc)).astype(np.int64)
+        rows |= rbit << bit
+        cols |= cbit << bit
+    if weights == "unit":
+        vals = np.ones(m, dtype=np.float32)
+    else:
+        vals = rng.random(m).astype(np.float32) + np.float32(1e-6)
+    # dedup-sum (orderedAndDuplicatesRemoving semantics, COO.cc:237-265)
+    key = rows * n + cols
+    order = np.argsort(key, kind="stable")
+    key, rows, cols, vals = key[order], rows[order], cols[order], vals[order]
+    first = np.ones(m, dtype=bool)
+    first[1:] = key[1:] != key[:-1]
+    seg = np.cumsum(first) - 1
+    nseg = int(seg[-1]) + 1 if m else 0
+    sval = np.zeros(nseg, dtype=np.float64)
+    np.add.at(sval, seg, vals)
+    counts = np.bincount(rows[first], minlength=n)
+    row_ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=row_ptr[1:])
+    return CSR.from_numpy(
+        row_ptr.astype(np.int32),
+        cols[first].astype(np.int32),
+        sval.astype(np.float32),
+        n,
+        device,
+    )
+
+
+def banded_csr(
+    n: int,
+    bandwidth: int = 32,
+    seed: int = 0,
+    density: float = 1.0,
+    device: torch.device | str = "cpu",
+) -> CSR:
+    """Banded FEM-like matrix: every row has entries in a +/- bandwidth
+    window (the cant.mtx workload shape).  ``density < 1`` keeps each
+    in-band entry with that probability (the diagonal always kept)."""
+    rng = np.random.default_rng(seed)
+    offs = np.arange(-bandwidth, bandwidth + 1)
+    rows = np.repeat(np.arange(n, dtype=np.int64), offs.shape[0])
+    cols = rows + np.tile(offs, n)
+    keep = (cols >= 0) & (cols < n)
+    if density < 1.0:
+        keep &= (rng.random(rows.shape[0]) < density) | (cols == rows)
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    counts = np.bincount(rows, minlength=n)
+    row_ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=row_ptr[1:])
+    return CSR.from_numpy(
+        row_ptr.astype(np.int32), cols.astype(np.int32), vals, n, device
+    )
