@@ -11,7 +11,20 @@
    weights; routes ``ell``) and on the cant-class band
    ``banded_csr(62451, 32)`` (routes ``block``), checks both products
    against scipy on the host, checks that the kernels were launched by
-   that run, and times the warm multiply and the multiply with its plan.
+   that run, and times the warm multiply and the multiply with its plan;
+5. K1 at W = 32768 (the 2-CTA cluster kernel) against its twin on the
+   s14 ``max_w=32768`` plan's widest bin, then ``spgemm_ell`` with that
+   plan against scipy;
+6. K5 ``bcsr_spmm``: the cant-class band as BCSR(8, 128) times a dense
+   [62451, 512] B, and R-MAT s14 as BCSR(8, 128) times [16384, 128];
+   kernel and twin against scipy's f64 product, both timed;
+7. the format zoo on the card (plain torch): ``ELL.spmm``,
+   ``MCSR.spmm`` and ``csr_spmm_dense`` on the band, ``csr_spmv`` and
+   ``PCSR.striped_spgemm`` (4 stripes) on s14, each against scipy.
+
+Each main-path run starts with every launch count at 0 and reads the
+counts right after it; the kernel-versus-twin comparisons and timings
+are not counted.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the port beside it, the script exits non-zero before any
@@ -34,12 +47,14 @@ REPLACES = {
     "compact_nonzero_rows": "sparse_matrix_with_flops_tpu/ops/pallas_sort.py:300",
     "window_gather": "sparse_matrix_with_flops_tpu/ops/pallas_sort.py:244",
     "cumsum_i32": "sparse_matrix_with_flops_tpu/ops/pallas_scan.py:55",
+    "bcsr_spmm": "sparse_matrix_with_flops_tpu/ops/spmm.py:84",
 }
 SOURCES = {
     "sort_dedup_compact": f"{PKG}/csrc/sort_dedup_compact.cu",
     "compact_nonzero_rows": f"{PKG}/csrc/compact_nonzero_rows.cu",
     "window_gather": f"{PKG}/csrc/window_gather.cu",
     "cumsum_i32": f"{PKG}/csrc/cumsum_i32.cu",
+    "bcsr_spmm": f"{PKG}/csrc/bcsr_spmm.cu",
 }
 
 
@@ -91,7 +106,7 @@ def main() -> int:
 
     from sparse_matrix_with_flops_tpu_torch import _build
     from sparse_matrix_with_flops_tpu_torch.config import ABS_TOL, REL_TOL
-    from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR
+    from sparse_matrix_with_flops_tpu_torch.formats import BCSR, CSR, ELL, MCSR, PCSR
     from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
     from sparse_matrix_with_flops_tpu_torch.ops.block_spgemm import (
         block_spgemm,
@@ -113,6 +128,12 @@ def main() -> int:
         window_gather_plain,
     )
     from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.ops.spmm import (
+        bcsr_spmm,
+        bcsr_spmm_plain,
+        csr_spmm_dense,
+        csr_spmv,
+    )
     from sparse_matrix_with_flops_tpu_torch.utils.generate import (
         banded_csr,
         rmat_csr,
@@ -123,7 +144,9 @@ def main() -> int:
         "compact_nonzero_rows": compact_nonzero_rows,
         "window_gather": window_gather,
         "cumsum_i32": cumsum_i32,
+        "bcsr_spmm": bcsr_spmm,
     }
+    ell_kernels = ("sort_dedup_compact", "compact_nonzero_rows", "window_gather", "cumsum_i32")
 
     # ---- 1. card -------------------------------------------------------
     smi = subprocess.run(
@@ -290,41 +313,39 @@ def main() -> int:
             if not c.is_relative_equal(want, REL_TOL):
                 raise AssertionError(f"{what}: is_relative_equal fails")
 
-    def reset():
+    launches = {k: 0 for k in wrappers}
+
+    def drive(label, fn, must):
+        """One main-path run: every count set to 0 just before it, read
+        just after; each kernel in ``must`` has to have launched."""
         for w in wrappers.values():
             w.launches = 0
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        log(f"{label}: launches {counts}")
+        for k in must:
+            if counts[k] == 0:
+                raise AssertionError(f"{label} launched {k} no time")
+        for k, n in counts.items():
+            launches[k] += n
+        return out
 
-    launches = {k: 0 for k in wrappers}
     kind, fill = route(a, a)
     if kind != "ell":
         raise AssertionError(f"s14 routed {kind} (fill {fill})")
-    reset()
-    torch.cuda.synchronize()
-    c = spgemm_auto(a, a)
-    torch.cuda.synchronize()
-    s14_counts = {k: w.launches for k, w in wrappers.items()}
-    log(f"s14: routed ell (fill {fill:.4f}); launches {s14_counts}")
-    for k, n in s14_counts.items():
-        if n == 0:
-            raise AssertionError(f"s14 run launched {k} no time")
-        launches[k] += n
+    c = drive(f"s14 (routed ell, fill {fill:.4f})", lambda: spgemm_auto(a, a), ell_kernels)
     scipy_check(a, c, "s14", positive=True)
 
     ca = banded_csr(62451, bandwidth=32, device=dev)
     kind, cfill = route(ca, ca)
     if kind != "block":
         raise AssertionError(f"cant-class band routed {kind} (fill {cfill})")
-    reset()
-    torch.cuda.synchronize()
-    cc = spgemm_auto(ca, ca)
-    torch.cuda.synchronize()
-    band_counts = {k: w.launches for k, w in wrappers.items()}
-    log(f"band: routed block (fill {cfill:.4f}); launches {band_counts}")
-    for k in ("window_gather", "cumsum_i32"):
-        if band_counts[k] == 0:
-            raise AssertionError(f"band run launched {k} no time")
-    for k, n in band_counts.items():
-        launches[k] += n
+    cc = drive(
+        f"band (routed block, fill {cfill:.4f})", lambda: spgemm_auto(ca, ca),
+        ("window_gather", "cumsum_i32"),
+    )
     scipy_check(ca, cc, "band", positive=False)
     del c, cc
 
@@ -348,6 +369,148 @@ def main() -> int:
     )
     torch.cuda.synchronize()
 
+    # ---- 5. K1 at W = 32768 ----------------------------------------------
+    plan32 = plan_ell(a, a, max_w=32768)
+    w32 = [w for w, _, _, _ in plan32.bins]
+    log(
+        f"s14 max_w=32768: chunk {plan32.chunk} bins "
+        f"{[(w, int((r >= 0).sum())) for w, r, _, _ in plan32.bins]} "
+        f"hub groups {[g.rows.size for g in plan32.hub_groups]}"
+    )
+    if 32768 not in w32:
+        raise AssertionError("the s14 max_w=32768 plan has no W=32768 bin")
+    pt32 = E._plan_tensors(plan32, dev)
+    prod_c, prod_v = E._b_ell_chunks(a, plan32, pt32)
+    _, _, tile_src, tile_ent = pt32["bins"][w32.index(32768)]
+    tc, tv = E._bin_tiles(a, prod_c, prod_v, tile_src, tile_ent, 32768, plan32.chunk)
+    kk, kv = sort_dedup_compact(tc, tv, plan32.ncols, presorted=plan32.chunk)
+    pk, pv = sort_dedup_compact_plain(tc, tv, plan32.ncols)
+    torch.cuda.synchronize()
+    if not torch.equal(kk, pk):
+        raise AssertionError("K1 W=32768: cols differ from the twin")
+    record(
+        "sort_dedup_compact",
+        f"W=32768 R={tc.shape[0]} presorted={plan32.chunk}",
+        check_vals(kv, pv, "K1 W=32768"),
+        cuda_ms(torch, lambda: sort_dedup_compact(tc, tv, plan32.ncols, plan32.chunk)),
+        cuda_ms(torch, lambda: sort_dedup_compact_plain(tc, tv, plan32.ncols)),
+    )
+    del prod_c, prod_v, tc, tv, kk, kv, pk, pv
+    c32 = drive(
+        "s14 spgemm_ell max_w=32768", lambda: E.spgemm_ell(a, a, plan32),
+        ("sort_dedup_compact",),
+    )
+    scipy_check(a, c32, "s14 max_w=32768", positive=True)
+    del c32
+
+    # ---- 6. K5 bcsr_spmm -------------------------------------------------
+    def host_matrix(x: CSR):
+        rp, ci, v = x.to_numpy()
+        return sp.csr_matrix((v.astype(np.float64), ci, rp), shape=x.shape)
+
+    def dense_check(what, got, amat, bh):
+        """Elementwise |got - want| <= 1e-7 + 1e-4 (|A||B|) against
+        scipy's f64 product: a bound on f32 rounding in any order."""
+        want = amat @ bh
+        bound = 1e-7 + 1e-4 * (abs(amat) @ np.abs(bh))
+        g = got.cpu().numpy().astype(np.float64)
+        if g.shape != want.shape:
+            raise AssertionError(f"{what}: shape {g.shape} != {want.shape}")
+        if not np.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite values")
+        err = np.abs(g - want)
+        log(
+            f"{what}: shape {g.shape}; max |err| {err.max():.3e}, "
+            f"max |err| / bound {(err / bound).max():.3e}"
+        )
+        if not (err <= bound).all():
+            raise AssertionError(f"{what}: {int((err > bound).sum())} values off scipy")
+        return float(err.max())
+
+    for label, x, n in (("band", ca, 512), ("s14", a, 128)):
+        t0 = time.perf_counter()
+        ab = BCSR.from_csr(x, 8, 128)
+        nb = int(ab.nblocks)
+        counts = np.diff(ab.block_row_ptr.cpu().numpy())
+        log(
+            f"K5 {label}: BCSR(8, 128) in {(time.perf_counter() - t0) * 1e3:.1f} ms; "
+            f"{nb} blocks, per block row max {counts.max()} mean {counts.mean():.2f}, "
+            f"fill {float(ab.nonzero_density()):.4f}"
+        )
+        bh = np.random.default_rng(0).random((x.rows, n)).astype(np.float32)
+        bd = torch.from_numpy(bh).to(dev)
+        got = drive(f"K5 {label} bcsr_spmm", lambda: bcsr_spmm(ab, bd), ("bcsr_spmm",))
+        twin = bcsr_spmm_plain(ab, bd)
+        torch.cuda.synchronize()
+        err = float((got - twin).abs().max())
+        amat = host_matrix(x)
+        b64 = bh.astype(np.float64)
+        dense_check(f"K5 {label} kernel vs scipy", got, amat, b64)
+        dense_check(f"K5 {label} twin vs scipy", twin, amat, b64)
+        del got, twin
+        ms = cuda_ms(torch, lambda: bcsr_spmm(ab, bd))
+        plain_ms = cuda_ms(torch, lambda: bcsr_spmm_plain(ab, bd))
+        gf = 2.0 * nb * ab.br * ab.bc * n / 1e9
+        log(
+            f"K5 {label}: dense-block {gf:.3f} GFLOP; kernel {gf / ms * 1e3:.1f} "
+            f"GFLOP/s, twin {gf / plain_ms * 1e3:.1f} GFLOP/s [{card}]"
+        )
+        record("bcsr_spmm", f"{label} N={n} blocks={nb}", err, ms, plain_ms)
+        del ab, bd
+        torch.cuda.synchronize()
+
+    # ---- 7. format zoo on the card (plain torch, correctness only) -----
+    band_mat = host_matrix(ca)
+    b64h = np.random.default_rng(1).random((ca.rows, 64)).astype(np.float32)
+    b64d = torch.from_numpy(b64h).to(dev)
+    zoo = {
+        "ELL.spmm band N=64": lambda: ELL.from_csr(ca).spmm(b64d),
+        "MCSR(4096, 4096).spmm band N=64": lambda: MCSR.from_csr(ca, 4096, 4096).spmm(b64d),
+        "csr_spmm_dense band N=64": lambda: csr_spmm_dense(ca, b64d),
+    }
+    for what, fn in zoo.items():
+        out = fn()
+        torch.cuda.synchronize()
+        if out.device != dev:
+            raise AssertionError(f"{what}: result on {out.device}")
+        dense_check(what, out, band_mat, b64h.astype(np.float64))
+        del out
+    xh = np.random.default_rng(2).random(a.rows).astype(np.float32)
+    y = csr_spmv(a, torch.from_numpy(xh).to(dev))
+    torch.cuda.synchronize()
+    s14_mat = host_matrix(a)
+    dense_check("csr_spmv s14", y, s14_mat, xh.astype(np.float64))
+    c = spgemm_auto(a, a)
+    pc = PCSR.from_csr(a, 4).striped_spgemm(a)
+    torch.cuda.synchronize()
+    crp, cci, _ = c.to_numpy()
+    crow = np.repeat(np.arange(a.rows), np.diff(crp))
+    full = (s14_mat @ s14_mat).tocsr()
+    full.sort_indices()
+    for b, st in enumerate(pc.stripes):
+        lo = b * pc.stride
+        hi = lo + st.ncols
+        rp, ci, v = st.to_numpy()
+        sel = (cci >= lo) & (cci < hi)
+        want_rp = np.zeros(a.rows + 1, np.int64)
+        np.cumsum(np.bincount(crow[sel], minlength=a.rows), out=want_rp[1:])
+        if not np.array_equal(rp, want_rp) or not np.array_equal(ci, cci[sel] - lo):
+            raise AssertionError(f"PCSR stripe {b}: structure differs from spgemm_auto's")
+        ref = full[:, lo:hi].tocsr()
+        ref.sort_indices()
+        if not np.array_equal(ci, ref.indices):
+            raise AssertionError(f"PCSR stripe {b}: structure differs from scipy")
+        bound = 1e-7 + REL_TOL * ref.data  # positive weights: |A||A| = A A
+        err = np.abs(v - ref.data)
+        if not (err <= bound).all():
+            raise AssertionError(f"PCSR stripe {b}: values off scipy")
+        log(f"PCSR stripe {b} [{lo}, {hi}): nnz {ci.size} == spgemm_auto's; max |err| {err.max():.3e}")
+    del c, pc, y, b64d
+    torch.cuda.synchronize()
+
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"no main-path run launched {k}")
     kernels = [
         {
             "name": k,
@@ -370,7 +533,7 @@ def main() -> int:
                 "device": {
                     "platform": "gpu",
                     "kind": torch.cuda.get_device_name(0),
-                    "count": torch.cuda.device_count(),
+                    "count": 1,  # the run used one card
                 },
             }
         )

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "smf_window_gather": (_P, _P, _P, _P, _P, _L, _L, _I),
     # x, out, scratch, n
     "smf_cumsum_i32": (_P, _P, _P, _L),
+    # brp, bcol, blocks, b, c, nbrows, rows, cols, n, br, bc
+    "smf_bcsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
 }
 
 

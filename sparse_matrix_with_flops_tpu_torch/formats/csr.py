@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..config import ABS_TOL, INDEX_DTYPE
-from ..ops.segments import exclusive_cumsum
+from ..ops.segments import entry_rows, exclusive_cumsum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +39,10 @@ class CSR:
     @property
     def rows(self) -> int:
         return self.row_ptr.shape[0] - 1
+
+    @property
+    def cols(self) -> int:
+        return self.ncols
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -59,12 +63,14 @@ class CSR:
 
     def entry_rows(self) -> torch.Tensor:
         """Row id per slot; sentinel ``rows`` for padding slots."""
-        q = torch.arange(self.capacity, device=self.device, dtype=INDEX_DTYPE)
-        rid = torch.searchsorted(self.row_ptr[1:], q, right=True)
-        return torch.where(q < self.nnz, rid.to(INDEX_DTYPE), self.rows)
+        return entry_rows(self.row_ptr, self.capacity)
 
     def entry_valid(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.device) < self.nnz
+
+    def row_counts(self) -> torch.Tensor:
+        """nnz per row (int32)."""
+        return self.row_ptr[1:] - self.row_ptr[:-1]
 
     # ---- constructors and conversion -----------------------------------
     @staticmethod
@@ -135,6 +141,44 @@ class CSR:
         if cached is not None:
             object.__setattr__(out, "_host_rp_ci", cached)
         return out
+
+    def with_capacity(self, capacity: int) -> "CSR":
+        """Grow or shrink the padding (through the host; nnz must fit)."""
+        rp, ci, v = self.to_numpy()
+        return CSR.from_numpy(rp, ci, v, self.ncols, self.device, capacity)
+
+    def deep_copy(self) -> "CSR":
+        """A copy that shares no storage (CSR::deepCopy, CSR.cc:97-106)."""
+        return CSR(
+            self.row_ptr.clone(), self.col_ind.clone(), self.values.clone(),
+            self.ncols,
+        )
+
+    def to_abs(self) -> "CSR":
+        """values <- |values| (CSR::toAbs, CSR.h:152-157)."""
+        return CSR(self.row_ptr, self.col_ind, self.values.abs(), self.ncols)
+
+    def to_one_based(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Host ``(row_ptr + 1, col_ind + 1, values)``, tight, for 1-based
+        interop (CSR::toOneBasedCSR, CSR.h:170-180)."""
+        rp, ci, v = self.to_numpy()
+        return rp + 1, ci + 1, v
+
+    @staticmethod
+    def from_one_based(
+        row_ptr, col_ind, values, ncols: int, device: torch.device | str = "cpu"
+    ) -> "CSR":
+        """Inverse of :meth:`to_one_based` (CSR::toZeroBasedCSR)."""
+        return CSR.from_numpy(
+            np.asarray(row_ptr) - 1, np.asarray(col_ind) - 1, values, ncols, device
+        )
+
+    def make_ordered(self) -> "CSR":
+        """Sort columns within each row (CSR::makeOrdered, CSR.cc:73-86):
+        one stable sort by (entry row, col); padding sorts to the tail."""
+        key = self.entry_rows().long() * (self.ncols + 1) + self.col_ind.long()
+        order = torch.sort(key, stable=True).indices
+        return CSR(self.row_ptr, self.col_ind[order], self.values[order], self.ncols)
 
     def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Tight host arrays ``(row_ptr, col_ind[:nnz], values[:nnz])``."""

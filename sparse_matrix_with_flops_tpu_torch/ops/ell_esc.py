@@ -10,7 +10,9 @@ the device:
 2. **row tiles**: per width bin, one gather of each row's chunks, scaled
    by the owning A value; odd chunks are lane-reversed so the tile is a
    run of alternating sorted chunks;
-3. **sort / dedup / compact** (kernel K1) per bin;
+3. **sort / dedup / compact** per bin: kernel K1 up to ``MAX_SORT_W``
+   lanes (the reference's ``PALLAS_MAX_SORT_W``, 32768), the plain sort
+   above, chosen by width as the reference chooses its XLA branch;
 4. **dense hub** for rows too wide for any bin: densify A and B per
    group and column slab, one f32 matmul, compact each row (kernel K2);
 5. **assembly**: counts -> row_ptr; 128-lane windows of the flat tile
@@ -37,7 +39,13 @@ from ..utils.nphost import repeat_idx
 from .ell_plan import EllPlan, _flat_layout, plan_ell
 from .scan_kernels import cumsum_i32
 from .segments import exclusive_cumsum
-from .sort_kernels import compact_nonzero_rows, sort_dedup_compact, window_gather
+from .sort_kernels import (
+    MAX_SORT_W,
+    compact_nonzero_rows,
+    sort_dedup_compact,
+    sort_dedup_compact_plain,
+    window_gather,
+)
 
 _WA = 128  # assembly window width
 _HUB_ROW_CHUNK = 1024  # hub rows densified per matmul
@@ -225,7 +233,10 @@ def _tiles_impl(a: CSR, b: CSR, plan: EllPlan, fused_out_cap: int | None = None)
     cols_parts, vals_parts = [], []
     for w, rid, tile_src, tile_ent in dev["bins"]:
         tc, tv = _bin_tiles(a, prod_c, prod_v, tile_src, tile_ent, w, chunk)
-        key, val = sort_dedup_compact(tc, tv, ncols, presorted=chunk)
+        if w <= MAX_SORT_W:
+            key, val = sort_dedup_compact(tc, tv, ncols, presorted=chunk)
+        else:  # the reference's XLA branch (ell_esc.py:1247-1273)
+            key, val = sort_dedup_compact_plain(tc, tv, ncols)
         counts[rid] = (key < ncols).sum(1, dtype=INDEX_DTYPE)
         cols_parts.append(key.reshape(-1))
         vals_parts.append(val.reshape(-1))

@@ -20,9 +20,10 @@ import torch
 from .._build import check_tensor, launch, on_card
 
 # K1 holds a row of (int32, f32) pairs in shared memory: 8 bytes a lane.
-# 16384 lanes take 128 KB; 32768 would take 256 KB, above the 227 KB one
-# block can use on Hopper.
-MAX_SORT_W = 16384
+# Up to 16384 lanes (128 KB) a row runs on one block; 32768 lanes
+# (256 KB, above the 227 KB one block can use on Hopper) on a cluster of
+# two blocks, one half each.  Wider rows have no kernel.
+MAX_SORT_W = 32768
 
 
 def _is_pow2(x: int) -> bool:
@@ -80,10 +81,7 @@ def sort_dedup_compact(
     if not on_card("sort_dedup_compact", tc, tv):
         return sort_dedup_compact_plain(tc, tv, ncols)
     if w > MAX_SORT_W:
-        raise NotImplementedError(
-            f"sort_dedup_compact: W={w} > {MAX_SORT_W} does not fit one "
-            "block's shared memory"
-        )
+        raise ValueError(f"sort_dedup_compact: W={w} > {MAX_SORT_W} has no kernel")
     kout = torch.empty_like(tc)
     vout = torch.empty_like(tv)
     if r:

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from sparse_matrix_with_flops_tpu_torch.config import ABS_TOL, REL_TOL
+from sparse_matrix_with_flops_tpu_torch.formats.bcsr import BCSR
 from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR
 from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
 from sparse_matrix_with_flops_tpu_torch.ops.block_spgemm import block_spgemm
@@ -19,6 +20,7 @@ from sparse_matrix_with_flops_tpu_torch.ops.scan_kernels import (
     cumsum_i32,
     cumsum_i32_plain,
 )
+from sparse_matrix_with_flops_tpu_torch.ops.spmm import bcsr_spmm, bcsr_spmm_plain
 from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
     compact_nonzero_rows,
     compact_nonzero_rows_plain,
@@ -64,7 +66,10 @@ def _presorted_tiles(rng, r, w, ncols, presorted, dev):
 
 @pytest.mark.parametrize(
     "w,presorted,r",
-    [(32, 1, 5), (64, 64, 7), (1024, 1, 9), (1024, 64, 33), (16384, 64, 3)],
+    [
+        (32, 1, 5), (64, 64, 7), (1024, 1, 9), (1024, 64, 33), (16384, 64, 3),
+        (32768, 1, 3), (32768, 64, 4), (32768, 16384, 2),
+    ],
 )
 def test_sort_dedup_compact_kernel_matches_twin(dev, w, presorted, r):
     rng = np.random.default_rng(w + presorted)
@@ -78,10 +83,23 @@ def test_sort_dedup_compact_kernel_matches_twin(dev, w, presorted, r):
     _assert_vals(v, pv)
 
 
+@pytest.mark.parametrize("ncols", [7, 100, 40000])
+def test_sort_dedup_compact_w32768_runs_across_the_pair(dev, ncols):
+    # the 2-CTA kernel: few columns make runs that span the two halves;
+    # many columns leave more than 16384 survivors
+    rng = np.random.default_rng(ncols)
+    tc, tv = _presorted_tiles(rng, 3, 32768, ncols, 64, dev)
+    k, v = sort_dedup_compact(tc, tv, ncols, presorted=64)
+    pk, pv = sort_dedup_compact_plain(tc, tv, ncols)
+    torch.cuda.synchronize()
+    assert torch.equal(k, pk)
+    _assert_vals(v, pv)
+
+
 def test_sort_dedup_compact_refuses_too_wide(dev):
-    tc = torch.zeros((1, 32768), dtype=torch.int32, device=dev)
-    tv = torch.zeros((1, 32768), dtype=torch.float32, device=dev)
-    with pytest.raises(NotImplementedError):
+    tc = torch.zeros((1, 65536), dtype=torch.int32, device=dev)
+    tv = torch.zeros((1, 65536), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError):
         sort_dedup_compact(tc, tv, 5)
 
 
@@ -151,3 +169,55 @@ def test_spgemm_auto_band_on_card_matches_cpu_path(dev):
     band = banded_csr(3000, bandwidth=32)
     a = CSR(band.row_ptr, band.col_ind, band.values.abs(), band.ncols)
     _same_csr(spgemm_auto(a.to(dev), a.to(dev)), block_spgemm(a, a))
+
+
+def test_spgemm_ell_w32768_bin_on_card_matches_cpu_path(dev):
+    a = rmat_csr(10, edge_factor=16, seed=7, weights="random")
+    plan = plan_ell(a, a, max_w=32768)
+    assert 32768 in [w for w, _, _, _ in plan.bins]
+    want = E.spgemm_ell(a, a, plan)
+    ad = a.to(dev)
+    before = sort_dedup_compact.launches
+    got = E.spgemm_ell(ad, ad, plan_ell(ad, ad, max_w=32768))
+    assert sort_dedup_compact.launches > before
+    _same_csr(got, want)
+
+
+# ---- K5 bcsr_spmm ------------------------------------------------------------
+@pytest.mark.parametrize(
+    "rows,cols,density,br,bc,n",
+    [
+        (64, 64, 0.1, 8, 8, 1),
+        (64, 64, 0.1, 8, 16, 300),
+        (37, 45, 0.2, 8, 16, 129),
+        (37, 45, 0.2, 3, 5, 100),
+        (50, 70, 0.3, 1, 128, 128),
+        (50, 70, 0.3, 2, 7, 64),
+        (60, 300, 0.05, 12, 200, 257),  # two row passes, two column stages
+        (200, 500, 0.02, 8, 128, 513),
+    ],
+)
+def test_bcsr_spmm_kernel_matches_twin(dev, rows, cols, density, br, bc, n):
+    rng = np.random.default_rng(rows + n)
+    d = np.where(rng.random((rows, cols)) < density, rng.standard_normal((rows, cols)), 0.0)
+    d[rows // 4 : rows // 2] = 0.0  # empty block rows in the middle
+    a = BCSR.from_csr(CSR.from_dense(d.astype(np.float32)), br, bc).to(dev)
+    b = torch.from_numpy(rng.standard_normal((cols, n)).astype(np.float32)).to(dev)
+    junk = torch.full((rows, n), float("nan"), device=dev)
+    del junk  # the caching allocator hands this block to the output
+    before = bcsr_spmm.launches
+    got = bcsr_spmm(a, b)
+    want = bcsr_spmm_plain(a, b)
+    torch.cuda.synchronize()
+    assert bcsr_spmm.launches == before + 1
+    bound = 1e-7 + 1e-5 * (torch.from_numpy(np.abs(d)).to(dev).float() @ b.abs())
+    assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
+    assert not got[rows // 4 : rows // 2].any()  # NaN junk never leaks
+
+
+def test_bcsr_spmm_all_empty_launches_nothing(dev):
+    a = BCSR.from_csr(CSR.from_dense(np.zeros((20, 30), np.float32)), 8, 16).to(dev)
+    before = bcsr_spmm.launches
+    got = bcsr_spmm(a, torch.ones((30, 5), device=dev), kernel="pallas")
+    assert bcsr_spmm.launches == before
+    assert got.shape == (20, 5) and not got.any()

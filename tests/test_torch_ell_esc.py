@@ -226,3 +226,30 @@ def test_plan_tensors_uploaded_once(rng):
     tp = TP.plan_ell(ta, ta, chunk=8, max_w=64)
     first = T._plan_tensors(tp, torch.device("cpu"))
     assert T._plan_tensors(tp, torch.device("cpu")) is first
+
+
+def test_bins_wider_than_k1_take_the_plain_sort(monkeypatch):
+    # R-MAT s11 (edge factor 16) planned with max_w=65536 has bins up to
+    # W = 65536: K1's wrapper sorts bins up to MAX_SORT_W = 32768 (the
+    # reference's PALLAS_MAX_SORT_W), the wider one takes the plain sort,
+    # chosen by width as the reference chooses its XLA branch
+    # (ell_esc.py:1217)
+    a = tgen.rmat_csr(11, edge_factor=16, seed=7, weights="random")
+    plan = TP.plan_ell(a, a, max_w=65536)
+    widths = [w for w, _, _, _ in plan.bins]
+    assert 32768 in widths and 65536 in widths
+    assert T.MAX_SORT_W == J.PALLAS_MAX_SORT_W == 32768
+    seen = []
+    real = T.sort_dedup_compact
+
+    def spy(tc, tv, ncols, presorted=1):
+        seen.append(tc.shape[1])
+        return real(tc, tv, ncols, presorted)
+
+    monkeypatch.setattr(T, "sort_dedup_compact", spy)
+    c = T.spgemm_ell(a, a, plan)
+    assert sorted(seen) == sorted(w for w in widths if w <= 32768)
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_dense_oracle
+
+    # positive weights: no product cancels, so the oracle's structure is C's
+    assert_same_csr(spgemm_dense_oracle(a, a), c)
