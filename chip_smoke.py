@@ -20,11 +20,24 @@
    kernel and twin against scipy's f64 product, both timed;
 7. the format zoo on the card (plain torch): ``ELL.spmm``,
    ``MCSR.spmm`` and ``csr_spmm_dense`` on the band, ``csr_spmv`` and
-   ``PCSR.striped_spgemm`` (4 stripes) on s14, each against scipy.
+   ``PCSR.striped_spgemm`` (4 stripes) on s14, each against scipy;
+8. single-chip static-ELL R-MCL (``rmcl_ell``) on R-MAT s14 (edge
+   factor 8, seed 7, ``rmcl_init``), S = 128, ``max_tile`` 8192, 5
+   iterations: step 1 against a scipy f64 host oracle of the prune
+   semantics, the 5-iteration run against the port's own CPU run of the
+   same plan, and the warm iteration timed;
+9. sharded R-MCL with D = 4 shards stacked on the card, 3 iterations,
+   all four exchanges: ``pallas_ring`` (K6) bit-equal to
+   ``all_gather``, ``fused_ring`` (K8) against ``ring``, ``all_gather``
+   against single-chip ``rmcl_ell``; K6 at D = 2, 4, 8 and K7 / K8 at
+   D = 2, 4 against their twins on this run's blocks and hub operands.
 
 Each main-path run starts with every launch count at 0 and reads the
 counts right after it; the kernel-versus-twin comparisons and timings
-are not counted.
+are not counted.  K7 (``ring_matmul``) is on no path of the system, as
+its TPU kernel is on none in the reference: its launches come from one
+direct call, and its ``launched_by`` entry in the ``kernels`` line says
+so.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or
 without the port beside it, the script exits non-zero before any
@@ -48,6 +61,9 @@ REPLACES = {
     "window_gather": "sparse_matrix_with_flops_tpu/ops/pallas_sort.py:244",
     "cumsum_i32": "sparse_matrix_with_flops_tpu/ops/pallas_scan.py:55",
     "bcsr_spmm": "sparse_matrix_with_flops_tpu/ops/spmm.py:84",
+    "ring_all_gather": "sparse_matrix_with_flops_tpu/parallel/pallas_ring.py:64",
+    "ring_matmul": "sparse_matrix_with_flops_tpu/parallel/pallas_ring.py:136",
+    "ring_matmul_tiled": "sparse_matrix_with_flops_tpu/parallel/pallas_ring.py:254",
 }
 SOURCES = {
     "sort_dedup_compact": f"{PKG}/csrc/sort_dedup_compact.cu",
@@ -55,6 +71,9 @@ SOURCES = {
     "window_gather": f"{PKG}/csrc/window_gather.cu",
     "cumsum_i32": f"{PKG}/csrc/cumsum_i32.cu",
     "bcsr_spmm": f"{PKG}/csrc/bcsr_spmm.cu",
+    "ring_all_gather": f"{PKG}/csrc/ring.cu",
+    "ring_matmul": f"{PKG}/csrc/ring.cu",
+    "ring_matmul_tiled": f"{PKG}/csrc/ring.cu",
 }
 
 
@@ -89,6 +108,332 @@ def host_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+FLIP_REL = 1e-5  # a kept value this close (relative) to a prune boundary may flip
+MAX_FLIP_SHARE = 1e-3  # rows with a threshold flip, as a share of all rows
+MAX_TIE_SHARE = 1e-2  # rows with a tie chosen apart at the S cut, as a share
+
+
+def padded_rows(np, csr, n: int, S: int):
+    """A CSR with at most S entries a row as [n, S] (cols, vals), the
+    ELL iterate layout (sentinel n, value 0)."""
+    rp, ci, v = csr.to_numpy()
+    cols = np.full((n, S), n, np.int64)
+    vals = np.zeros((n, S), np.float64)
+    cnt = np.diff(rp)
+    if cnt.max(initial=0) > S:
+        raise AssertionError(f"a row holds {cnt.max()} > S = {S} entries")
+    row = np.repeat(np.arange(n), cnt)
+    lane = np.arange(ci.size) - rp[:-1][row]
+    cols[row, lane] = ci
+    vals[row, lane] = v
+    return cols, vals
+
+
+def oracle_step(np, sp, mgt, cols0, vals0, S: int):
+    """One R-MCL step on the host in f64: P = Mgt · Mt (scipy), then per
+    row inflate, threshold (util.cc:4-9), keep, top-S by value (ties to
+    the lower column) and renormalise.  Returns ([n, S] cols, vals, the
+    rows with a value within FLIP_REL of the threshold or of the S cut)."""
+    n = mgt.rows
+    rp, ci, v = mgt.to_numpy()
+    a = sp.csr_matrix((v.astype(np.float64), ci, rp), shape=(n, n))
+    keep0 = cols0 < n
+    b = sp.csr_matrix(
+        (vals0[keep0].astype(np.float64),
+         (np.repeat(np.arange(n), keep0.sum(1)), cols0[keep0])),
+        shape=(n, n),
+    )
+    p = (a @ b).tocsr()
+    p.sort_indices()
+    row = np.repeat(np.arange(n), np.diff(p.indptr))
+    w = p.data * p.data
+    cnt = np.bincount(row, minlength=n)
+    rsum = np.bincount(row, weights=w, minlength=n)
+    rmax = np.zeros(n)
+    np.maximum.at(rmax, row, w)
+    avg = rsum / np.maximum(cnt, 1)
+    t = np.minimum(np.maximum(0.9 * avg * (1.0 - 2.0 * (rmax - avg)), 1e-7), rmax)
+    keep = w >= t[row]
+    near = np.zeros(n, bool)
+    np.logical_or.at(near, row, np.abs(w - t[row]) <= FLIP_REL * t[row])
+    cols = np.full((n, S), n, np.int64)
+    vals = np.zeros((n, S), np.float64)
+    for r in np.nonzero(np.bincount(row[keep], minlength=n))[0]:
+        lo, hi = p.indptr[r], p.indptr[r + 1]
+        k = np.nonzero(keep[lo:hi])[0]
+        wk = w[lo:hi][k]
+        if k.size > S:  # top S, ties to the lower column (stable)
+            order = np.argsort(-wk, kind="stable")
+            cut = wk[order]
+            if abs(cut[S - 1] - cut[S]) <= FLIP_REL * cut[S - 1]:
+                near[r] = True
+            sel = np.sort(order[:S])
+            k, wk = k[sel], wk[sel]
+        cols[r, : k.size] = p.indices[lo:hi][k]
+        vals[r, : k.size] = wk / wk.sum()
+    return cols, vals, near
+
+
+def tie_rows(np, got_c, got_v, want_c, want_v, rows, n: int):
+    """Of ``rows`` (rows whose kept columns differ), those where the two
+    sides chose differently between entries of equal value at the S
+    cut: both keep as many entries, their sorted kept values agree
+    within 1e-3 relative, and every column kept by one side only
+    carries that side's smallest kept value to within FLIP_REL."""
+    out = []
+    for r in rows:
+        gk, wk = got_c[r] < n, want_c[r] < n
+        if gk.sum() != wk.sum():
+            continue
+        gv, wv = got_v[r][gk], want_v[r][wk]
+        if not np.allclose(np.sort(gv), np.sort(wv), rtol=1e-3, atol=1e-7):
+            continue
+        go = ~np.isin(got_c[r][gk], want_c[r][wk])
+        wo = ~np.isin(want_c[r][wk], got_c[r][gk])
+        if (np.abs(gv[go] - gv.min()) <= FLIP_REL * gv.min()).all() and (
+            np.abs(wv[wo] - wv.min()) <= FLIP_REL * wv.min()
+        ).all():
+            out.append(r)
+    return np.asarray(out, np.int64)
+
+
+def compare_iterates(np, what, got_c, got_v, want_c, want_v, near=None, tol=None):
+    """Two [n, S] iterates.  Rows whose kept columns differ are S-cut
+    ties (``tie_rows``) or threshold flips; with ``near`` (the oracle's
+    boundary rows) every differing row must be one of them.  Fails above
+    MAX_FLIP_SHARE flips or MAX_TIE_SHARE ties, or when the other rows'
+    values differ by more than ``tol`` absolute, or by default 1e-3
+    relative + 1e-7.  Returns the list of failures (empty if none)."""
+    n = got_c.shape[0]
+    diff = (got_c != want_c).any(axis=1)
+    rows = np.nonzero(diff)[0]
+    ties = tie_rows(np, got_c, got_v, want_c, want_v, rows, n)
+    flips = np.setdiff1d(rows, ties)
+    same = ~diff
+    err = np.abs(got_v[same] - want_v[same])
+    if tol is None:
+        bound = 1e-3 * np.maximum(np.abs(got_v[same]), np.abs(want_v[same])) + 1e-7
+    else:
+        bound = np.full(err.shape, tol)
+    log(
+        f"{what}: {rows.size} of {n} rows differ in their kept columns: "
+        f"{ties.size} ties at the S cut, {flips.size} threshold flips; max |err| "
+        f"on the {n - rows.size} equal rows {err.max(initial=0.0):.3e}"
+        + ("" if near is None else f"; {int(near.sum())} rows at a prune boundary")
+    )
+    if rows.size:
+        log(f"{what}: ties {ties[:12].tolist()} flips {flips[:12].tolist()}")
+    failed = []
+    if near is not None and (diff & ~near).any():
+        failed.append(f"{what}: rows differ away from any prune boundary: "
+                      f"{np.nonzero(diff & ~near)[0][:10].tolist()}")
+    if flips.size > MAX_FLIP_SHARE * n:
+        failed.append(f"{what}: {flips.size} flipped rows > {MAX_FLIP_SHARE:.1%}")
+    if ties.size > MAX_TIE_SHARE * n:
+        failed.append(f"{what}: {ties.size} tie rows > {MAX_TIE_SHARE:.0%}")
+    if not (err <= bound).all():
+        failed.append(f"{what}: values differ on equal rows "
+                      f"({int((err > bound).sum())} entries)")
+    for f in failed:
+        log(f"FAIL {f}")
+    return failed
+
+
+def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
+    """Phases 8 (single-chip R-MCL) and 9 (sharded R-MCL, K6-K8)."""
+    import importlib
+
+    from sparse_matrix_with_flops_tpu_torch.formats import COO
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
+    from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh
+    from sparse_matrix_with_flops_tpu_torch.parallel.ring_kernels import (
+        ring_all_gather,
+        ring_all_gather_plain,
+        ring_matmul,
+        ring_matmul_plain,
+        ring_matmul_tiled,
+        ring_matmul_tiled_plain,
+    )
+    from sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell import (
+        fused_hub_operands,
+        plan_sharded_rmcl_ell,
+        sharded_rmcl_ell,
+    )
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    # the module, not the function of the same name that models/ exports
+    RM = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl_ell")
+    S, MT = 128, 8192
+    # ---- 8. single-chip static-ELL R-MCL --------------------------------
+    g = rmat_csr(14, edge_factor=8, seed=7)  # unit weights, tools/bench_rmcl.py
+    grp, gci, gv = g.to_numpy()
+    n = g.rows
+    coo = COO.from_numpy(
+        np.repeat(np.arange(n), np.diff(grp)), gci, gv, n, n,
+        capacity=gci.size + n, device=dev,
+    )
+    mgt = rmcl_init(coo).make_ordered()
+    plan = RM.plan_rmcl_ell(mgt, S=S, max_tile=MT)
+    log(
+        f"R-MCL s14: rows {n} nnz {int(mgt.nnz)}; plan bins "
+        f"{[(d, int(r.size)) for d, r, _ in plan.bins]} hub rows "
+        f"{plan.huge_rows.size} hub_kh {plan.hub_kh}"
+    )
+    t0 = time.perf_counter()
+    out5, hist5 = drive(
+        "rmcl_ell s14 S=128 5 iterations",
+        lambda: RM.rmcl_ell(coo, max_iters=5, S=S, max_tile=MT),
+        ("sort_dedup_compact",),
+    )
+    log(f"rmcl_ell s14: 5 iterations with plan {time.perf_counter() - t0:.3f} s; "
+        f"nnz {hist5['nnz'].tolist()} truncated {hist5['truncated_rows'].tolist()} "
+        f"differs {hist5['differs'].tolist()}")
+    cols0, vals0 = RM.mt_to_ell(mgt, S)
+    a_d = RM._dense_huge(mgt, plan)
+    failed = []
+    # the same run one step at a time, keeping every iterate
+    its = [(cols0, vals0)]
+    for _ in range(5):
+        c, v, _ = RM.rmcl_ell_step(plan, mgt, a_d, *its[-1])
+        its.append((c, v))
+    torch.cuda.synchronize()
+    host = [(c.cpu().numpy().astype(np.int64), v.cpu().numpy().astype(np.float64))
+            for c, v in its]
+    if not all(np.isfinite(v).all() for _, v in host):
+        raise AssertionError("rmcl_ell: non-finite values")
+    oc, ov, near = oracle_step(np, sp, mgt, host[0][0], host[0][1], S)
+    failed += compare_iterates(
+        np, "rmcl_ell step 1 vs scipy f64 oracle", *host[1], oc, ov, near)
+    gc_, gv_ = padded_rows(np, out5, n, S)
+    same = np.array_equal(gc_, host[5][0]) and np.array_equal(gv_, host[5][1])
+    log(f"rmcl_ell s14: the stepped iterate 5 {'equals' if same else 'differs from'} "
+        f"the driven run's bit for bit")
+    if not same:
+        failed.append("rmcl_ell: stepping differs from the driven run")
+    # every step again on the CPU (every kernel's twin), from the card's
+    # own iterate, so that a tie chosen apart does not carry over; a row
+    # may differ only at a prune boundary of the f64 oracle's same step
+    mgt_h, a_h = mgt.to("cpu"), a_d.cpu()
+    for i in range(5):
+        hc, hv, _ = RM.rmcl_ell_step(plan, mgt_h, a_h, its[i][0].cpu(), its[i][1].cpu())
+        near_i = near if i == 0 else oracle_step(np, sp, mgt, *host[i], S)[2]
+        failed += compare_iterates(
+            np, f"rmcl_ell step {i + 1}: card vs CPU twins from the card's iterate {i}",
+            *host[i + 1], hc.numpy().astype(np.int64), hv.numpy().astype(np.float64),
+            near_i)
+    _, _, chist = RM.rmcl_ell_scan(plan, mgt_h, a_h, cols0.cpu(), vals0.cpu(), 5)
+    nnz_card, nnz_cpu = hist5["nnz"].astype(np.int64), chist["nnz"].numpy().astype(np.int64)
+    log(f"rmcl_ell s14 nnz history: card {nnz_card.tolist()} cpu {nnz_cpu.tolist()}")
+    if (np.abs(nnz_card - nnz_cpu) > MAX_FLIP_SHARE * nnz_cpu).any():
+        failed.append("rmcl_ell: the nnz history differs from the CPU run")
+    step = lambda: RM.rmcl_ell_step(plan, mgt, a_d, *its[1])  # noqa: E731
+    it_ms = cuda_ms(torch, step, reps=5)
+    it_host = host_ms(torch, step, 5)
+    log(f"rmcl_ell s14 warm iteration 2: {it_ms:.3f} ms device (CUDA events), "
+        f"{it_host:.3f} ms host clock [{card}]")
+    if failed:
+        raise AssertionError("phase 8: " + "; ".join(failed))
+    del out5, its, host
+    torch.cuda.synchronize()
+
+    # ---- 9. sharded R-MCL, D = 4 shards on the card ---------------------
+    mesh = make_mesh(4, dev)
+    must = {
+        "all_gather": ("sort_dedup_compact",),
+        "pallas_ring": ("ring_all_gather", "sort_dedup_compact"),
+        "ring": ("sort_dedup_compact",),
+        "fused_ring": ("ring_matmul_tiled", "sort_dedup_compact"),
+    }
+    runs = {}
+    for ex, kernels in must.items():
+        t0 = time.perf_counter()
+        runs[ex] = drive(
+            f"sharded_rmcl_ell s14 D=4 {ex} 3 iterations",
+            lambda ex=ex: sharded_rmcl_ell(coo, mesh, max_iters=3, S=S, max_tile=MT,
+                                           exchange=ex),
+            kernels,
+        )
+        h = runs[ex][1]
+        log(f"sharded {ex}: {time.perf_counter() - t0:.3f} s with plan; nnz "
+            f"{h['nnz'].tolist()} differs {h['differs'].tolist()}")
+    (ag, hag), (pr, hpr) = runs["all_gather"], runs["pallas_ring"]
+    same = (torch.equal(ag.row_ptr, pr.row_ptr) and torch.equal(ag.col_ind, pr.col_ind)
+            and torch.equal(ag.values, pr.values)
+            and all(np.array_equal(hag[k], hpr[k]) for k in hag))
+    log(f"sharded pallas_ring {'==' if same else '!='} all_gather bit for bit "
+        f"(iterate and stats)")
+    if not same:
+        failed.append("pallas_ring differs from all_gather")
+
+    def rows_of(x):
+        return padded_rows(np, x.make_ordered()._drop_explicit_zeros(), n, S)
+
+    failed += compare_iterates(
+        np, "sharded fused_ring vs ring (3 iterations)",
+        *rows_of(runs["fused_ring"][0]), *rows_of(runs["ring"][0]), tol=1e-6)
+    s3, h3 = RM.rmcl_ell(coo, max_iters=3, S=S, max_tile=MT)
+    failed += compare_iterates(
+        np, "sharded all_gather vs single-chip rmcl_ell (3 iterations)",
+        *rows_of(ag), *rows_of(s3), tol=1e-5)
+    log(f"differs: sharded all_gather {hag['differs'].tolist()}, single-chip "
+        f"{h3['differs'].tolist()}")
+    if not np.allclose(hag["differs"], h3["differs"], rtol=1e-3, atol=1e-5):
+        failed.append("sharded all_gather: differs history off the single-chip run")
+    if failed:
+        raise AssertionError("phase 9: " + "; ".join(failed))
+    del runs, ag, pr, s3
+    torch.cuda.synchronize()
+
+    # K6 on this run's [lr, 128] iterate blocks (the main path's D = 4 last)
+    for d in (2, 8, 4):
+        xc = cols0.reshape(d, n // d, S)
+        xv = vals0.reshape(d, n // d, S)
+        for x in (xc, xv):
+            k, p = ring_all_gather(x), ring_all_gather_plain(x)
+            torch.cuda.synchronize()
+            if not torch.equal(k, p):
+                raise AssertionError(f"K6 D={d} {x.dtype}: differs from the twin")
+        record(
+            "ring_all_gather", f"D={d} [{n // d}, {S}] int32 + f32", 0.0,
+            cuda_ms(torch, lambda: (ring_all_gather(xc), ring_all_gather(xv))),
+            cuda_ms(torch, lambda: (ring_all_gather_plain(xc), ring_all_gather_plain(xv))),
+        )
+    # K7 / K8 on this run's hub operands
+    for d in (2, 4):
+        sp_, arrays, _ = plan_sharded_rmcl_ell(mgt, d, S=S, max_tile=MT)
+        lc = torch.where(cols0 >= n, sp_.n, cols0).reshape(d, sp_.lr, S)
+        lv = vals0.reshape(d, sp_.lr, S)
+        a_cols, md_loc, nt = fused_hub_operands(sp_, arrays, lc, lv)
+        full = md_loc.reshape(-1, md_loc.shape[2]).abs()
+        bound = 1e-7 + 1e-4 * torch.stack([a_cols[r].abs() @ full for r in range(d)])
+        gf = 2.0 * d * a_cols.shape[1] * a_cols.shape[2] * md_loc.shape[2] / 1e9
+        for name, fk, fp in (
+            ("ring_matmul", lambda: ring_matmul(a_cols, md_loc),
+             lambda: ring_matmul_plain(a_cols, md_loc)),
+            ("ring_matmul_tiled", lambda: ring_matmul_tiled(a_cols, md_loc, nt),
+             lambda: ring_matmul_tiled_plain(a_cols, md_loc, nt)),
+        ):
+            k, p = fk(), fp()
+            torch.cuda.synchronize()
+            err = (k - p).abs()
+            if not bool(torch.isfinite(k).all()) or not bool((err <= bound).all()):
+                raise AssertionError(f"{name} D={d}: differs from the twin "
+                                     f"(max err {float(err.max()):.3e})")
+            ms, pms = cuda_ms(torch, fk), cuda_ms(torch, fp)
+            log(f"{name} D={d}: a {tuple(a_cols.shape)} b {tuple(md_loc.shape)} nt {nt}: "
+                f"{gf:.1f} GFLOP, kernel {gf / ms:.2f} TFLOP/s, twin {gf / pms:.2f} "
+                f"TFLOP/s [{card}]")
+            record(name, f"D={d} M={a_cols.shape[1]} lr={md_loc.shape[1]} "
+                   f"N={md_loc.shape[2]} nt={nt if 'tiled' in name else md_loc.shape[2]}",
+                   float(err.max()), ms, pms)
+            del k, p
+        if d == 4:  # B7 is on no path of the reference: a direct call
+            drive("ring_matmul on the D=4 hub operands",
+                  lambda: ring_matmul(a_cols, md_loc), ("ring_matmul",), path=False)
+        del a_cols, md_loc, full, bound
+        torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -138,6 +483,14 @@ def main() -> int:
         banded_csr,
         rmat_csr,
     )
+    from sparse_matrix_with_flops_tpu_torch.parallel.ring_kernels import (
+        ring_all_gather,
+        ring_all_gather_plain,
+        ring_matmul,
+        ring_matmul_plain,
+        ring_matmul_tiled,
+        ring_matmul_tiled_plain,
+    )
 
     wrappers = {
         "sort_dedup_compact": sort_dedup_compact,
@@ -145,6 +498,9 @@ def main() -> int:
         "window_gather": window_gather,
         "cumsum_i32": cumsum_i32,
         "bcsr_spmm": bcsr_spmm,
+        "ring_all_gather": ring_all_gather,
+        "ring_matmul": ring_matmul,
+        "ring_matmul_tiled": ring_matmul_tiled,
     }
     ell_kernels = ("sort_dedup_compact", "compact_nonzero_rows", "window_gather", "cumsum_i32")
 
@@ -314,10 +670,14 @@ def main() -> int:
                 raise AssertionError(f"{what}: is_relative_equal fails")
 
     launches = {k: 0 for k in wrappers}
+    launched_by = {k: [] for k in wrappers}
 
-    def drive(label, fn, must):
+    def drive(label, fn, must, path=True):
         """One main-path run: every count set to 0 just before it, read
-        just after; each kernel in ``must`` has to have launched."""
+        just after; each kernel in ``must`` has to have launched.  Each
+        launching run's label goes into the kernel's ``launched_by``;
+        ``path=False`` marks a run that is a direct wrapper call on no
+        path of the system (K7: the reference's B7 has no caller)."""
         for w in wrappers.values():
             w.launches = 0
         torch.cuda.synchronize()
@@ -330,6 +690,8 @@ def main() -> int:
                 raise AssertionError(f"{label} launched {k} no time")
         for k, n in counts.items():
             launches[k] += n
+            if n:
+                launched_by[k].append(label if path else f"{label} (direct call, no path)")
         return out
 
     kind, fill = route(a, a)
@@ -508,9 +870,11 @@ def main() -> int:
     del c, pc, y, b64d
     torch.cuda.synchronize()
 
+    rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms)
+
     for k, n in launches.items():
         if n == 0:
-            raise AssertionError(f"no main-path run launched {k}")
+            raise AssertionError(f"no run launched {k}")
     kernels = [
         {
             "name": k,
@@ -518,6 +882,7 @@ def main() -> int:
             "source": SOURCES[k],
             "replaces": REPLACES[k],
             "launches": launches[k],
+            "launched_by": launched_by[k],
             "max_abs_err": results[k]["max_abs_err"],
             "ms": results[k]["ms"],
             "plain_ms": results[k]["plain_ms"],

@@ -1,9 +1,10 @@
 """Build, load and launch the port's CUDA kernels.
 
 The kernels in ``csrc/*.cu`` have a plain C interface.  At first use
-they are compiled with ``nvcc`` for ``sm_90a`` into one shared library
-under ``build/`` at the repository root, and loaded with ctypes.  The
-library is rebuilt when a source is newer than it.  Nothing here runs at
+they are compiled with ``nvcc`` for ``sm_90a``, one compiler process per
+source, all started together, and linked into one shared library under
+``build/`` at the repository root, loaded with ctypes.  The library is
+rebuilt when a source is newer than it.  Nothing here runs at
 import: the CPU tests import every module on a machine with no nvcc.
 """
 
@@ -25,7 +26,7 @@ _LIB = os.path.join(BUILD_DIR, "libsmf_kernels.so")
 _LOG = os.path.join(BUILD_DIR, "build.log")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -43,6 +44,12 @@ _SIGNATURES = {
     "smf_cumsum_i32": (_P, _P, _P, _L),
     # brp, bcol, blocks, b, c, nbrows, rows, cols, n, br, bc
     "smf_bcsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
+    # in_ptrs, out_ptrs, flags, d, words
+    "smf_ring_all_gather": (_P, _P, _P, _I, _L),
+    # a_ptrs, b_ptrs, buf_ptrs, c_ptrs, flags, d, m, lr, n
+    "smf_ring_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I),
+    # a_ptrs, b_ptrs, buf_ptrs, c_ptrs, flags, d, m, lr, n, nt
+    "smf_ring_matmul_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
 }
 
 
@@ -69,15 +76,39 @@ def build() -> str:
     if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= newest:
         return _LIB
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, *sources]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [
+        os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        for src in sources
+    ]
+    cmds = [
+        [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-c", "-o", obj, src]
+        for src, obj in zip(sources, objs)
+    ]
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = f"{_LIB}.{tag}.tmp"
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
+    failed = [(c, o) for c, o, p in zip(cmds, outs, procs) if p.returncode != 0]
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        outs.append(res.stdout + res.stderr)
+        cmds.append(link)
+        if res.returncode != 0:
+            failed = [(link, res.stdout + res.stderr)]
     with open(_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{res.stderr[-4000:]}"
-        )
+        for c, o in zip(cmds, outs):
+            f.write(" ".join(c) + "\n" + o)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        cmd, out = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out[-4000:]}")
     os.replace(tmp, _LIB)
     return _LIB
 

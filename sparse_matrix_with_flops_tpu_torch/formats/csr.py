@@ -22,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..config import ABS_TOL, INDEX_DTYPE
+from ..config import ABS_TOL, INDEX_DTYPE, QVALUE_DTYPE
 from ..ops.segments import entry_rows, exclusive_cumsum
 
 
@@ -179,6 +179,46 @@ class CSR:
         key = self.entry_rows().long() * (self.ncols + 1) + self.col_ind.long()
         order = torch.sort(key, stable=True).indices
         return CSR(self.row_ptr, self.col_ind[order], self.values[order], self.ncols)
+
+    # ---- R-MCL init and permutations (CSR.cc:88-95, 431-494) ------------
+    def aver_and_norm_rows(self) -> "CSR":
+        """values[j] = 1 / rowCount(row(j)) (CSR::averAndNormRowQValue,
+        CSR.cc:88-95): the row-stochastic init of R-MCL."""
+        counts = self.row_counts()
+        own = self.entry_rows().long().clamp(0, max(self.rows - 1, 0))
+        cnt = torch.clamp(counts[own], min=1).to(QVALUE_DTYPE)
+        val = torch.where(self.entry_valid(), 1.0 / cnt, 0.0)
+        return CSR(self.row_ptr, self.col_ind, val, self.ncols)
+
+    def permute_rows(self, p) -> "CSR":
+        """P·M: out row i = in row p[i] (CSR::PM semantics)."""
+        p = torch.as_tensor(p, device=self.device).long()
+        cap = self.capacity
+        row_ptr = exclusive_cumsum(self.row_counts()[p].to(INDEX_DTYPE))
+        erow_out = entry_rows(row_ptr, cap)
+        safe_row = erow_out.long().clamp(0, max(self.rows - 1, 0))
+        offset = torch.arange(cap, device=self.device) - row_ptr[safe_row]
+        src = self.row_ptr[p[safe_row]] + offset
+        valid = erow_out < self.rows
+        src = torch.where(valid, src, cap - 1).long()
+        col = torch.where(valid, self.col_ind[src], self.ncols)
+        val = torch.where(valid, self.values[src], 0.0)
+        return CSR(row_ptr, col.to(INDEX_DTYPE), val, self.ncols)
+
+    def permute_cols(self, p_t) -> "CSR":
+        """M·P with column map: out col = p_t[in col] (CSR::MP semantics);
+        the result is re-ordered."""
+        p_t = torch.as_tensor(p_t, device=self.device)
+        safe = self.col_ind.long().clamp(0, self.ncols - 1)
+        col = torch.where(self.entry_valid(), p_t[safe].to(INDEX_DTYPE), self.ncols)
+        return CSR(self.row_ptr, col.to(INDEX_DTYPE), self.values, self.ncols).make_ordered()
+
+    def conjugate_permute(self, p) -> "CSR":
+        """P·M·Pᵗ (CSR::PMPt): rows by p, cols by the inverse of p."""
+        p = torch.as_tensor(p, device=self.device)
+        p_t = torch.zeros_like(p)
+        p_t[p.long()] = torch.arange(p.shape[0], dtype=p.dtype, device=self.device)
+        return self.permute_rows(p).permute_cols(p_t)
 
     def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Tight host arrays ``(row_ptr, col_ind[:nnz], values[:nnz])``."""

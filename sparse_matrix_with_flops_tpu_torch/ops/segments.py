@@ -77,3 +77,15 @@ def segment_sum(
     )
     out.index_add_(0, _dump_ids(segment_ids, num_segments), values)
     return out[:num_segments]
+
+
+def segment_max(
+    values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Per-segment maxima over a zero start (the reference's
+    ``zeros().at[seg].max(v, mode="drop")``), ids out of range dropped."""
+    out = torch.zeros(
+        (num_segments + 1, *values.shape[1:]), dtype=values.dtype, device=values.device
+    )
+    out.scatter_reduce_(0, _dump_ids(segment_ids, num_segments), values, reduce="amax")
+    return out[:num_segments]

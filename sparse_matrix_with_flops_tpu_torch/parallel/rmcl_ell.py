@@ -1,0 +1,523 @@
+"""Distributed static fused R-MCL (the port of the JAX package's
+``parallel/rmcl_ell.py``), with the D shards stacked on one device.
+
+The sharded counterpart of ``models/rmcl_ell.py``.  Mgt is row-sharded
+once; the per-shard degree-bin plans are unified to common shapes (the
+host planner is a numpy copy of the reference's, so the plans are equal
+field by field).  Per iteration each shard needs the iterate rows its
+entries reference, through one of four exchanges:
+
+* ``"ring"``: the iterate blocks ``[lr, S]`` rotate around the shards
+  (the reference's ``ppermute`` is a roll of the stacked shard axis);
+  at step k shard me fills the entries the planner assigned to step k,
+  and the hub accumulators rotate with the blocks;
+* ``"all_gather"``: every shard reads the whole ``[n, S]`` iterate (the
+  stacked shards are that all-gather);
+* ``"pallas_ring"``: the all-gather through kernel K6
+  (``ring_all_gather``) and ``unrotate``;
+* ``"fused_ring"``: the segments as in ``"ring"``, the hub contraction
+  through kernel K8 (``ring_matmul_tiled``).
+
+The per-shard body runs as a loop over shards; statistics are summed
+over the shard axis (the reference's ``psum``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config import INDEX_DTYPE, QVALUE_DTYPE
+from ..formats.coo import COO
+from ..formats.csr import CSR
+from ..models.rmcl_ell import (
+    _dedup_tile,
+    _ell_drift_sq,
+    _hub_dense_products,
+    _hub_rows,
+    _pow2ceil,
+    _prune_select_lanes,
+    ell_to_csr,
+    mt_to_ell,
+)
+from ..utils.nphost import concat_ranges, fast_repeat
+from .mesh import ShardMesh
+from .ring_kernels import ring_all_gather, ring_matmul_tiled, unrotate
+from .sharded import ShardedCSR, shard_csr
+
+EXCHANGES = ("ring", "all_gather", "pallas_ring", "fused_ring")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedRmclPlan:
+    n: int  # global (padded) rows = D * lr
+    lr: int  # local rows per shard
+    S: int
+    bin_shapes: tuple  # ((D_class, R_pad), ...) common across shards
+    hmax: int  # unified hub-row count per shard
+    num_shards: int = 0
+    step_widths: tuple = ()  # ring mode: per-rotation-step entry-group pad
+    # gather-mode hub union (global across shards; plan constants)
+    hub_krows: np.ndarray | None = None  # int32[hub_kh], -1 padded
+    hub_kh: int = 0
+    # fused-ring hub layout: per-owner union slices (plan constants)
+    hub_lrk: int = 0  # max union rows owned by one shard (padded)
+    hub_owner_cols: np.ndarray | None = None  # int32[D, lrk] khp positions
+    hub_owner_loc: np.ndarray | None = None  # int32[D, lrk] local rows
+
+    __hash__ = object.__hash__
+
+
+def _host_arrays(smgt: ShardedCSR) -> tuple:
+    return (
+        smgt.row_ptr.cpu().numpy().astype(np.int64),
+        smgt.col_ind.cpu().numpy(),
+        smgt.values.cpu().numpy(),
+    )
+
+
+def plan_sharded_rmcl_ell(mgt: CSR, num_shards: int, S: int = 128, max_tile: int = 8192):
+    """Shard Mgt + build the unified per-shard degree-bin arrays.
+
+    Returns (plan, arrays, smgt): ``arrays`` is a dict of stacked
+    [D, ...] tensors on Mgt's device (lists of them for the per-bin and
+    per-step arrays), the reference's keys and contents."""
+    smgt = shard_csr(mgt, num_shards)
+    lr = smgt.local_rows
+    rp_all, col_all, val_all = _host_arrays(smgt)
+    dmax = 1
+    while dmax * 2 <= max(max_tile // S, 1):
+        dmax *= 2
+    classes = []
+    d = 1
+    while d <= dmax:
+        classes.append(d)
+        d *= 2
+    per_shard = []
+    for sh in range(num_shards):
+        rp = rp_all[sh]
+        deg = np.diff(rp)
+        shard_bins = {}
+        for dc in classes:
+            lo = dc // 2 + 1 if dc > 1 else 1
+            shard_bins[dc] = np.nonzero((deg >= lo) & (deg <= dc))[0]
+        huge = np.nonzero(deg > dmax)[0]
+        per_shard.append((rp, deg, shard_bins, huge))
+    hmax = max(ps[3].size for ps in per_shard)
+
+    bin_shapes = []
+    arrays = {"row_ids": [], "ent_src": []}
+    for dc in classes:
+        rmax = max(ps[2][dc].size for ps in per_shard)
+        if rmax == 0:
+            continue
+        rpad = max(8, _pow2ceil(rmax))
+        bin_shapes.append((dc, rpad))
+        rid_stack = np.full((num_shards, rpad), -1, np.int32)
+        src_stack = np.full((num_shards, rpad * dc), -1, np.int32)
+        for sh, (rp, deg, shard_bins, _) in enumerate(per_shard):
+            sel = shard_bins[dc]
+            rid_stack[sh, : sel.size] = sel
+            es = np.full((sel.size, dc), -1, np.int64)
+            for k in range(dc):
+                has = deg[sel] > k
+                es[has, k] = rp[sel[has]] + k
+            src_stack[sh, : sel.size * dc] = es.reshape(-1)
+        arrays["row_ids"].append(rid_stack)
+        arrays["ent_src"].append(src_stack)
+
+    # unified hub rows, built sparsely: bulk scatters on hub entries only
+    n_pad = smgt.padded_rows
+    hrow_stack = np.full((num_shards, max(hmax, 1)), -1, np.int32)
+    hub_ent = []  # [(sh, slot_arr, col_arr, val_arr)]
+    for sh, (rp, deg, _, huge) in enumerate(per_shard):
+        hrow_stack[sh, : huge.size] = huge
+        if huge.size:
+            src = concat_ranges(rp[huge], rp[huge + 1])
+            slot = fast_repeat(
+                np.arange(huge.size, dtype=np.int64), rp[huge + 1] - rp[huge]
+            ).astype(np.int64)
+            hub_ent.append(
+                (sh, slot, np.clip(col_all[sh][src], 0, n_pad - 1), val_all[sh][src])
+            )
+    arrays["huge_rows"] = hrow_stack
+    # gather-mode hub: the dense contraction over the union of iterate
+    # rows any shard's hub rows reference
+    if hub_ent:
+        krows = np.unique(np.concatenate([c for _, _, c, _ in hub_ent]))
+        kh = int(krows.size)
+        khp = max(128, -(-kh // 128) * 128)
+        kr_pad = np.full(khp, -1, np.int32)
+        kr_pad[:kh] = krows
+        pos = np.zeros(n_pad, np.int64)  # global col -> union slot
+        pos[krows] = np.arange(kh)
+        a_dense_u = np.zeros((num_shards, max(hmax, 1), khp), np.float32)
+        for sh, slot, c, v in hub_ent:
+            np.add.at(a_dense_u[sh], (slot, pos[c]), v)
+        # fused-ring hub layout: the union partitioned by owner shard
+        owner_of_kr = krows // lr
+        lrk = max(int(np.bincount(owner_of_kr, minlength=num_shards).max()), 1)
+        lrk = max(8, _pow2ceil(lrk))
+        hoc = np.full((num_shards, lrk), -1, np.int32)
+        hol = np.full((num_shards, lrk), -1, np.int32)
+        for j in range(num_shards):
+            sel = np.nonzero(owner_of_kr == j)[0]
+            hoc[j, : sel.size] = sel
+            hol[j, : sel.size] = krows[sel] - j * lr
+    else:
+        khp = 128
+        kr_pad = np.full(khp, -1, np.int32)
+        a_dense_u = np.zeros((num_shards, max(hmax, 1), khp), np.float32)
+        lrk = 8
+        hoc = np.full((num_shards, lrk), -1, np.int32)
+        hol = np.full((num_shards, lrk), -1, np.int32)
+    arrays["a_dense_u"] = a_dense_u
+    # ring-mode hub layout: per (me, owner) pair, the owner's hub entries
+    # inside me's block as (slot, union-pos, val) triplets, densified per
+    # step on the device; pads carry slot -1 and drop out
+    pair_loc = [[None] * num_shards for _ in range(num_shards)]
+    khb, emax = 1, 1
+    for sh, slot, c, v in hub_ent:
+        owner_blk = c // lr
+        for me in range(num_shards):
+            inb = owner_blk == me
+            loc = np.unique(c[inb] - me * lr)
+            pair_loc[me][sh] = loc
+            khb = max(khb, int(loc.size))
+            emax = max(emax, int(inb.sum()))
+    khb = max(8, _pow2ceil(khb))
+    emax = max(8, _pow2ceil(emax))
+    kidx = np.full((num_shards, num_shards, khb), -1, np.int32)
+    h_slot = np.full((num_shards, num_shards, emax), -1, np.int32)
+    h_pos = np.zeros((num_shards, num_shards, emax), np.int32)
+    h_val = np.zeros((num_shards, num_shards, emax), np.float32)
+    for sh, slot, c, v in hub_ent:
+        owner_blk = c // lr
+        for me in range(num_shards):
+            loc = pair_loc[me][sh]
+            if loc is None or not loc.size:
+                continue
+            kidx[me, sh, : loc.size] = loc
+            lpos = np.zeros(lr, np.int64)
+            lpos[loc] = np.arange(loc.size)
+            inb = owner_blk == me
+            ne = int(inb.sum())
+            h_slot[me, sh, :ne] = slot[inb]
+            h_pos[me, sh, :ne] = lpos[c[inb] - me * lr]
+            h_val[me, sh, :ne] = v[inb]
+    arrays["hub_ent_slot"] = h_slot
+    arrays["hub_ent_pos"] = h_pos
+    arrays["hub_ent_val"] = h_val
+    arrays["hub_kidx"] = kidx
+
+    # ring-exchange entry groups: entry e of shard sh is served at the
+    # rotation step k where the resident block's owner (sh - k) mod D
+    # equals owner(col_e) = col_e // lr; each step's group is padded to
+    # the max across shards, -1 pads dropped by the scatter
+    step_groups = [[] for _ in range(num_shards)]
+    for sh in range(num_shards):
+        nnz_sh = int(rp_all[sh][-1])
+        owner = np.clip(col_all[sh][:nnz_sh], 0, n_pad - 1) // lr
+        k_of_e = (sh - owner) % num_shards
+        for k in range(num_shards):
+            step_groups[sh].append(np.nonzero(k_of_e == k)[0].astype(np.int32))
+    step_widths = []
+    arrays["step_ents"] = []
+    for k in range(num_shards):
+        emax = max(max(g[k].size for g in step_groups), 1)
+        emax = max(8, _pow2ceil(emax))
+        step_widths.append(emax)
+        stack = np.full((num_shards, emax), -1, np.int32)
+        for sh in range(num_shards):
+            g = step_groups[sh][k]
+            stack[sh, : g.size] = g
+        arrays["step_ents"].append(stack)
+
+    plan = ShardedRmclPlan(
+        n=n_pad,
+        lr=lr,
+        S=int(S),
+        bin_shapes=tuple(bin_shapes),
+        hmax=int(hmax),
+        num_shards=num_shards,
+        step_widths=tuple(step_widths),
+        hub_krows=kr_pad,
+        hub_kh=int(khp),
+        hub_lrk=int(lrk),
+        hub_owner_cols=hoc,
+        hub_owner_loc=hol,
+    )
+    dev = mgt.device
+    up = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    arrays = {k: [up(x) for x in v] if isinstance(v, list) else up(v) for k, v in arrays.items()}
+    return plan, arrays, smgt
+
+
+def _segments_gathered(plan, a_rp, a_ci, a_v, g_cols, g_vals):
+    """One shard's per-entry segments from a fully gathered [n, S]
+    iterate, plus a sentinel segment."""
+    n, S = plan.n, plan.S
+    cap = a_ci.shape[0]
+    safe_col = a_ci.long().clamp(0, n - 1)
+    valid = (torch.arange(cap, device=a_ci.device) < a_rp[-1])[:, None]
+    seg_c = torch.where(valid, g_cols[safe_col], n)
+    seg_v = torch.where(valid, g_vals[safe_col] * a_v[:, None], 0.0)
+    seg_c = torch.cat([seg_c, seg_c.new_full((1, S), n)])
+    seg_v = torch.cat([seg_v, seg_v.new_zeros((1, S))])
+    return seg_c, seg_v
+
+
+def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True):
+    """Per-entry segments of every shard (+ the hub products when
+    ``hub``) through the ring: the iterate blocks rotate rightwards, so
+    at step k shard me holds owner (me - k) mod D's block and fills the
+    entries the planner assigned to step k.
+
+    The hub rows rotate their accumulators instead: each shard densifies
+    its own block once, and at step k the accumulator on shard me (that
+    of shard v = (me - k) mod D) adds v's hub rows times me's columns;
+    after D rotations every accumulator is home."""
+    n, S, lr, d = plan.n, plan.S, plan.lr, plan.num_shards
+    cap = smgt.local_capacity
+    dev = lc.device
+    a_ci, a_v = smgt.col_ind, smgt.values
+    # rows cap + 1 take the -1 pads (the reference drops them)
+    seg_c = torch.full((d, cap + 2, S), n, dtype=INDEX_DTYPE, device=dev)
+    seg_v = torch.zeros((d, cap + 2, S), dtype=QVALUE_DTYPE, device=dev)
+    hmax = plan.hmax if hub else 0
+    c_h = md_me = None
+    if hmax:
+        rix = torch.arange(lr, device=dev)[:, None]
+        md_me = torch.zeros((d, lr, n + 1), dtype=QVALUE_DTYPE, device=dev)
+        for me in range(d):  # col n (the sentinel) is the dump
+            md_me[me].index_put_((rix, lc[me].long()), lv[me], accumulate=True)
+        md_me = md_me[:, :, :n]
+        c_h = torch.zeros((d, hmax, n), dtype=QVALUE_DTYPE, device=dev)
+    block_c, block_v = lc, lv
+    for k in range(d):
+        ids_k = arrays["step_ents"][k].long()
+        for me in range(d):
+            owner = (me - k) % d
+            ids = ids_k[me]
+            safe_ids = ids.clamp(0, cap - 1)
+            loc = (a_ci[me][safe_ids].long() - owner * lr).clamp(0, lr - 1)
+            tgt = torch.where(ids >= 0, ids, cap + 1)
+            seg_c[me][tgt] = block_c[me][loc]
+            seg_v[me][tgt] = block_v[me][loc] * a_v[me][safe_ids][:, None]
+            if hmax:
+                slot = arrays["hub_ent_slot"][me][owner].long()
+                pos = arrays["hub_ent_pos"][me][owner].long()
+                idx = arrays["hub_kidx"][me][owner].long()
+                ab = torch.zeros((hmax + 1, idx.shape[0]), dtype=QVALUE_DTYPE, device=dev)
+                ab.index_put_(
+                    (torch.where(slot >= 0, slot, hmax), pos),
+                    arrays["hub_ent_val"][me][owner], accumulate=True,
+                )
+                c_h[me] = c_h[me] + torch.matmul(ab[:hmax], md_me[me][idx.clamp(0, lr - 1)])
+        if hmax:
+            c_h = torch.roll(c_h, 1, 0)  # ppermute i -> i + 1
+        if k + 1 < d:
+            block_c = torch.roll(block_c, 1, 0)
+            block_v = torch.roll(block_v, 1, 0)
+    return seg_c[:, : cap + 1], seg_v[:, : cap + 1], c_h
+
+
+def fused_hub_operands(plan, arrays, lc, lv):
+    """The operands of the fused ring's hub contraction for every shard:
+    ``(a_cols [D, hmax, D*lrk], md_loc [D, lrk, npad], nt)``, the
+    owner-major A columns cut from the union-dense operand and each
+    shard's dense B block over its own union rows (N padded to a
+    multiple of the tile width ``nt``)."""
+    n, lr, d = plan.n, plan.lr, plan.num_shards
+    lrk, dev = plan.hub_lrk, lc.device
+    flat = torch.from_numpy(plan.hub_owner_cols.reshape(-1).astype(np.int64)).to(dev)
+    hol = torch.from_numpy(plan.hub_owner_loc.astype(np.int64)).to(dev)
+    a_u = arrays["a_dense_u"]
+    a_cols = torch.where(flat >= 0, a_u[:, :, flat.clamp(0, plan.hub_kh - 1)], 0.0)
+    ntile = min(2048, 1 << (n - 1).bit_length())
+    npad = -(-n // ntile) * ntile
+    # the dense B blocks go through one flat buffer whose last slot takes
+    # the sentinel lanes
+    okr = (hol >= 0)[:, :, None]
+    safe_r = hol.clamp(0, lr - 1)
+    shard = torch.arange(d, device=dev)[:, None]
+    bc = torch.where(okr, lc[shard, safe_r], n).long()  # [d, lrk, S]
+    bv = torch.where(okr, lv[shard, safe_r], 0.0)
+    base = (shard[:, :, None] * lrk + torch.arange(lrk, device=dev)[None, :, None]) * npad
+    flat_md = torch.zeros(d * lrk * npad + 1, dtype=QVALUE_DTYPE, device=dev)
+    flat_md[torch.where(bc < n, base + bc, d * lrk * npad)] = bv
+    return a_cols.contiguous(), flat_md[:-1].view(d, lrk, npad), ntile
+
+
+def _fused_hub(plan, arrays, lc, lv):
+    """The hub products of every shard through K8, contracted around the
+    leftward ring."""
+    a_cols, md_loc, ntile = fused_hub_operands(plan, arrays, lc, lv)
+    return ring_matmul_tiled(a_cols, md_loc, nt=ntile)[:, :, : plan.n]
+
+
+def _local_step(plan, a_rp, row_ids, ent_src, huge_rows, seg_c, seg_v, c_h=None):
+    """Fused step on one shard's rows given its per-entry segments (and
+    its hub products)."""
+    n, S, lr = plan.n, plan.S, plan.lr
+    dev = seg_c.device
+    sent = seg_c.shape[0] - 1
+    new_cols = torch.full((lr + 1, S), n, dtype=INDEX_DTYPE, device=dev)
+    new_vals = torch.zeros((lr + 1, S), dtype=QVALUE_DTYPE, device=dev)
+    nnz_out = torch.zeros((), dtype=torch.int64, device=dev)
+    trunc = torch.zeros((), dtype=torch.int64, device=dev)
+    for (dc, rpad), rid, src in zip(plan.bin_shapes, row_ids, ent_src):
+        s = torch.where(src >= 0, src, sent).long()
+        W = dc * S
+        tc = seg_c[s].reshape(rpad, W)
+        tv = seg_v[s].reshape(rpad, W)
+        key2, uval = _dedup_tile(tc, tv, n, run=S)
+        sc, sw, truncated = _prune_select_lanes(key2, uval, n, S)
+        ok = rid >= 0
+        tgt = torch.where(ok, rid, lr).long()  # row lr: the dump
+        new_cols[tgt] = sc
+        new_vals[tgt] = sw
+        nnz_out += (ok[:, None] & (sc < n)).sum()
+        trunc += (ok & truncated).sum()
+    if plan.hmax:
+        sc, sw, truncated = _hub_rows(c_h, n, S)
+        ok = huge_rows >= 0
+        tgt = torch.where(ok, huge_rows, lr).long()
+        new_cols[tgt] = sc
+        new_vals[tgt] = sw
+        nnz_out += (ok[:, None] & (sc < n)).sum()
+        trunc += (ok & truncated).sum()
+    return new_cols[:lr], new_vals[:lr], nnz_out, trunc
+
+
+def _sharded_step(plan, smgt, arrays, lc, lv, exchange: str):
+    """One iteration on the stacked [D, lr, S] iterate."""
+    n, S, d = plan.n, plan.S, plan.num_shards
+    a_rp = smgt.row_ptr
+    c_h = None
+    if exchange in ("ring", "fused_ring"):
+        seg_c, seg_v, c_h = _segments_ring(plan, smgt, arrays, lc, lv, hub=exchange == "ring")
+        if exchange == "fused_ring" and plan.hmax:
+            c_h = _fused_hub(plan, arrays, lc, lv)
+    else:
+        if exchange == "pallas_ring":
+            g_c = unrotate(ring_all_gather(lc))
+            g_v = unrotate(ring_all_gather(lv))
+            views = [(g_c[me], g_v[me]) for me in range(d)]
+        else:  # the stacked shards are the gathered iterate
+            views = [(lc.reshape(n, S), lv.reshape(n, S))] * d
+        segs = [
+            _segments_gathered(plan, a_rp[me], smgt.col_ind[me], smgt.values[me], gc, gv)
+            for me, (gc, gv) in enumerate(views)
+        ]
+        seg_c = [s[0] for s in segs]
+        seg_v = [s[1] for s in segs]
+        if plan.hmax:
+            c_h = [
+                _hub_dense_products(arrays["a_dense_u"][me], gc, gv, n,
+                                    krows=plan.hub_krows, khp=plan.hub_kh)
+                for me, (gc, gv) in enumerate(views)
+            ]
+    out_c, out_v, nnz, trunc, d2, n2 = [], [], [], [], [], []
+    for me in range(d):
+        nc, nv, nz, tr = _local_step(
+            plan, a_rp[me],
+            [r[me] for r in arrays["row_ids"]],
+            [s[me] for s in arrays["ent_src"]],
+            arrays["huge_rows"][me],
+            seg_c[me], seg_v[me],
+            None if c_h is None else c_h[me],
+        )
+        ld2, ln2 = _ell_drift_sq(lc[me], lv[me], nc, nv, n)
+        for acc, x in zip((out_c, out_v, nnz, trunc, d2, n2), (nc, nv, nz, tr, ld2, ln2)):
+            acc.append(x)
+    d2 = torch.stack(d2).sum()
+    n2 = torch.stack(n2).sum()
+    stats = {
+        "nnz": torch.stack(nnz).sum().to(INDEX_DTYPE),
+        "truncated_rows": torch.stack(trunc).sum().to(INDEX_DTYPE),
+        "differs": torch.sqrt(d2) / torch.clamp(torch.sqrt(n2), min=1e-30),
+    }
+    return torch.stack(out_c), torch.stack(out_v), stats
+
+
+def sharded_rmcl_ell_scan(
+    mesh: ShardMesh,
+    plan: ShardedRmclPlan,
+    smgt: ShardedCSR,
+    arrays,
+    mt_cols,
+    mt_vals,
+    max_iters: int,
+    exchange: str = "ring",
+):
+    """Device-resident multi-shard loop; ``mt_cols/vals`` are stacked
+    [D, lr, S].  Returns (cols, vals, stats history of tensors)."""
+    if exchange not in EXCHANGES:
+        raise ValueError(f"exchange must be one of {EXCHANGES}, got {exchange!r}")
+    if mt_cols.shape[0] != mesh.num_shards:
+        raise ValueError("iterate and mesh disagree on the shard count")
+    hist = []
+    cols, vals = mt_cols, mt_vals
+    for _ in range(max_iters):
+        cols, vals, stats = _sharded_step(plan, smgt, arrays, cols, vals, exchange)
+        hist.append(stats)
+    keys = ("nnz", "truncated_rows", "differs")
+    return cols, vals, {
+        k: torch.stack([h[k] for h in hist]) if hist else torch.zeros(0) for k in keys
+    }
+
+
+def sharded_rmcl_ell(
+    graph,
+    mesh: ShardMesh,
+    max_iters: int = 5,
+    S: int = 128,
+    max_tile: int = 8192,
+    balance: bool = False,
+    exchange: str = "ring",
+):
+    """End-to-end distributed static R-MCL on ``mesh``'s device.  Returns
+    (CSR, stats dict of numpy arrays).
+
+    ``balance=True`` relabels the graph with the footprint-balanced snake
+    permutation (``sharded.flops_balanced_permutation``) so every shard
+    carries near-equal first-iteration work; the result is relabelled
+    back before returning."""
+    from ..models.rmcl import rmcl_init
+    from ..ops.flops import footprint_row_costs
+    from .sharded import flops_balanced_permutation
+
+    mt0 = rmcl_init(graph) if isinstance(graph, COO) else graph
+    mt0 = mt0.to(mesh.device).make_ordered()
+    num_shards = mesh.num_shards
+    inv_perm = None
+    if balance:
+        rf = footprint_row_costs(mt0, mt0, chunk=S)
+        perm = flops_balanced_permutation(rf, num_shards)
+        inv_perm = np.zeros_like(perm)
+        inv_perm[perm] = np.arange(perm.size, dtype=perm.dtype)
+        # conjugate relabel (P M Pt): rows and cols, so the iteration is
+        # isomorphic
+        mt0 = mt0.conjugate_permute(torch.from_numpy(perm))
+    plan, arrays, smgt = plan_sharded_rmcl_ell(mt0, num_shards, S=S, max_tile=max_tile)
+    cols, vals = mt_to_ell(mt0, S)
+    # the ELL sentinel (ncols) becomes the padded global sentinel (n)
+    cols = torch.where(cols >= mt0.ncols, plan.n, cols)
+    pad = plan.n - mt0.rows
+    if pad:
+        cols = torch.cat([cols, cols.new_full((pad, S), plan.n)])
+        vals = torch.cat([vals, vals.new_zeros((pad, S))])
+    fc, fv, hist = sharded_rmcl_ell_scan(
+        mesh, plan, smgt, arrays,
+        cols.reshape(num_shards, plan.lr, S), vals.reshape(num_shards, plan.lr, S),
+        max_iters, exchange,
+    )
+    out = ell_to_csr(
+        fc.reshape(plan.n, S)[: mt0.rows], fv.reshape(plan.n, S)[: mt0.rows], mt0.ncols
+    )
+    if inv_perm is not None:
+        out = out.conjugate_permute(torch.from_numpy(inv_perm))
+    return out, {k: v.cpu().numpy() for k, v in hist.items()}

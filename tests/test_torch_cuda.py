@@ -5,6 +5,8 @@ every test skips.  On a machine with one:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +31,22 @@ from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
     window_gather,
     window_gather_plain,
 )
+from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, sharded_rmcl_ell
+from sparse_matrix_with_flops_tpu_torch.parallel.ring_kernels import (
+    ring_all_gather,
+    ring_all_gather_plain,
+    ring_matmul,
+    ring_matmul_plain,
+    ring_matmul_tiled,
+    ring_matmul_tiled_plain,
+    unrotate,
+)
+from sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell import (
+    plan_sharded_rmcl_ell as sharded_plan,
+)
 from sparse_matrix_with_flops_tpu_torch.utils.generate import banded_csr, rmat_csr
+
+RMCL = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl_ell")
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +238,149 @@ def test_bcsr_spmm_all_empty_launches_nothing(dev):
     got = bcsr_spmm(a, torch.ones((30, 5), device=dev), kernel="pallas")
     assert bcsr_spmm.launches == before
     assert got.shape == (20, 5) and not got.any()
+
+
+# ---- K6-K8: the ring kernels, and the R-MCL paths that launch them ----------------
+def _ring_operands(d, m, lr, n, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn((d, m, d * lr), generator=g).to(dev)
+    b = torch.randn((d, lr, n), generator=g).to(dev)
+    return a, b
+
+
+@pytest.mark.parametrize(
+    "d,lr,w,dtype",
+    [
+        (1, 7, 3, torch.int32),  # no hop: the kernel copies block 0
+        (2, 4096, 128, torch.float32),
+        (3, 1001, 1, torch.int32),  # 1001 words: not a multiple of a CTA's 256-lane slice
+        (4, 5, 3, torch.float32),  # 15 words: no 16-byte vector path
+        (8, 2048, 128, torch.int32),
+    ],
+)
+def test_ring_all_gather_kernel_matches_twin(dev, d, lr, w, dtype):
+    g = torch.Generator().manual_seed(d * lr)
+    x = torch.randint(-(2**20), 2**20, (d, lr, w), generator=g, dtype=torch.int32)
+    x = (x if dtype == torch.int32 else x.float() / 7).to(dev)
+    before = ring_all_gather.launches
+    got, want = ring_all_gather(x), ring_all_gather_plain(x)
+    torch.cuda.synchronize()
+    assert ring_all_gather.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(unrotate(got), x.reshape(1, d * lr, w).expand(d, -1, -1))
+
+
+@pytest.mark.parametrize(
+    "d,m,lr,n,nt",
+    [
+        (2, 1, 64, 256, 128),  # M = 1
+        (4, 1, 100, 300, 300),  # M = 1, N = nt, odd widths
+        (8, 5, 64, 256, 128),  # d = 8
+        (8, 33, 17, 96, 96),  # d = 8, N = nt
+        (1, 70, 200, 512, 256),  # d = 1: no hop
+        (4, 297, 512, 4096, 2048),
+    ],
+)
+def test_ring_matmul_kernels_match_twins(dev, d, m, lr, n, nt):
+    a, b = _ring_operands(d, m, lr, n, d + m + n, dev)
+    # |A||B| bounds the f32 rounding of any summation order
+    bound = 1e-7 + 1e-4 * torch.matmul(a.abs(), b.abs().reshape(d * lr, n))
+    for fn, twin, counter in (
+        (lambda: ring_matmul(a, b), lambda: ring_matmul_plain(a, b), ring_matmul),
+        (lambda: ring_matmul_tiled(a, b, nt), lambda: ring_matmul_tiled_plain(a, b, nt),
+         ring_matmul_tiled),
+    ):
+        before = counter.launches
+        got, want = fn(), twin()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
+
+
+def test_ring_matmul_tiled_refuses_n_not_a_multiple_of_nt(dev):
+    a, b = _ring_operands(2, 4, 8, 300, 0, dev)
+    with pytest.raises(ValueError):
+        ring_matmul_tiled(a, b, nt=256)
+
+
+@pytest.mark.parametrize("which", ["all_gather", "matmul", "tiled"])
+def test_ring_grid_too_large_for_co_residency_raises(dev, which):
+    # every CTA must be resident at once: with more ranks than the card
+    # holds CTAs (at most 2048 threads on each SM, 256 a CTA), not even
+    # one CTA a rank fits, the launch is refused, the wrapper raises and
+    # nothing hangs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    d = 8 * sms + 1
+    with pytest.raises(RuntimeError):
+        if which == "all_gather":
+            ring_all_gather(torch.zeros((d, 1, 1), dtype=torch.int32, device=dev))
+        else:
+            a, b = _ring_operands(d, 1, 1, 1, 1, dev)
+            if which == "matmul":
+                ring_matmul(a, b)
+            else:
+                ring_matmul_tiled(a, b, nt=1)
+    torch.cuda.synchronize()  # the device is still usable
+
+
+def _rmcl_graph(n, p, hubs, seed):
+    rng = np.random.default_rng(seed)
+    mask = rng.random((n, n)) < p
+    np.fill_diagonal(mask, True)
+    for r in hubs:
+        mask[r, :] = True
+    return CSR.from_dense(np.where(mask, 1.0, 0.0).astype(np.float32)).aver_and_norm_rows()
+
+
+def _ell_same(got, want):
+    g, w = got.make_ordered()._drop_explicit_zeros(), want.make_ordered()._drop_explicit_zeros()
+    assert g.to("cpu").is_raw_equal(w.to("cpu"), tol=1e-5)
+
+
+def test_rmcl_ell_on_card_matches_cpu_path(dev):
+    # W = 128 ... 1024 bins take K1; the hub row takes the dense product
+    t = _rmcl_graph(300, 0.02, (7,), 0)
+    want, wh = RMCL.rmcl_ell(t, max_iters=3, S=128, max_tile=1024)
+    before = sort_dedup_compact.launches
+    got, gh = RMCL.rmcl_ell(t.to(dev), max_iters=3, S=128, max_tile=1024)
+    assert sort_dedup_compact.launches > before
+    _ell_same(got, want)
+    np.testing.assert_array_equal(gh["nnz"], wh["nnz"])
+
+
+@pytest.mark.parametrize("exchange", ["all_gather", "pallas_ring", "ring", "fused_ring"])
+def test_sharded_rmcl_on_card_matches_cpu_path(dev, exchange):
+    t = _rmcl_graph(256, 0.03, (5, 130), 1)
+    want, _ = sharded_rmcl_ell(t, make_mesh(4), max_iters=2, S=128, max_tile=1024,
+                               exchange=exchange)
+    counts = [w.launches for w in (ring_all_gather, ring_matmul_tiled)]
+    got, _ = sharded_rmcl_ell(t.to(dev), make_mesh(4, dev), max_iters=2, S=128,
+                              max_tile=1024, exchange=exchange)
+    after = [w.launches for w in (ring_all_gather, ring_matmul_tiled)]
+    assert (after[0] > counts[0]) == (exchange == "pallas_ring")
+    assert (after[1] > counts[1]) == (exchange == "fused_ring")
+    _ell_same(got, want)
+
+
+def test_fused_ring_without_hub_rows_launches_no_k8(dev):
+    t = _rmcl_graph(256, 0.02, (), 2)
+    plan = sharded_plan(t, 4, S=128, max_tile=8192)[0]
+    assert plan.hmax == 0
+    before = ring_matmul_tiled.launches
+    sharded_rmcl_ell(t.to(dev), make_mesh(4, dev), max_iters=2, S=128, max_tile=8192,
+                     exchange="fused_ring")
+    assert ring_matmul_tiled.launches == before
+
+
+def test_pallas_ring_equals_all_gather_on_card(dev):
+    t = _rmcl_graph(512, 0.02, (9,), 3).to(dev)
+    mesh = make_mesh(4, dev)
+    ag, hag = sharded_rmcl_ell(t, mesh, max_iters=3, S=128, max_tile=1024,
+                               exchange="all_gather")
+    pr, hpr = sharded_rmcl_ell(t, mesh, max_iters=3, S=128, max_tile=1024,
+                               exchange="pallas_ring")
+    assert torch.equal(ag.row_ptr, pr.row_ptr) and torch.equal(ag.col_ind, pr.col_ind)
+    assert torch.equal(ag.values, pr.values)
+    for k in hag:
+        np.testing.assert_array_equal(hpr[k], hag[k])

@@ -1,0 +1,206 @@
+"""Sharded static R-MCL: the port's shard layout, planner and loop, with
+the D shards stacked on one device, vs the JAX package's on the 8-device
+CPU mesh (D in {1, 2, 4}).
+
+The reference's dedup runs through its Pallas kernel in interpret mode
+(``use_pallas_dedup``, ROADMAP C5), so the structure is held exactly and
+the values within the comparators."""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from sparse_matrix_with_flops_tpu.formats.csr import CSR as JCSR
+from sparse_matrix_with_flops_tpu.ops.flops import footprint_row_costs as j_footprint
+from sparse_matrix_with_flops_tpu.parallel import make_mesh as j_make_mesh
+from sparse_matrix_with_flops_tpu.parallel import sharded as JSH
+from sparse_matrix_with_flops_tpu_torch.ops.flops import footprint_row_costs as t_footprint
+from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh
+from sparse_matrix_with_flops_tpu_torch.parallel import sharded as TSH
+from sparse_matrix_with_flops_tpu_torch.parallel.mesh import ROW_AXIS, ShardMesh
+
+from torch_port_util import (
+    assert_close_values,
+    assert_same_csr,
+    assert_same_plan,
+    port_csr,
+    trimmed,
+    use_pallas_dedup,
+)
+
+JP = importlib.import_module("sparse_matrix_with_flops_tpu.parallel.rmcl_ell")
+TP = importlib.import_module("sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell")
+TR = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl_ell")
+EXCHANGES = ["ring", "all_gather", "pallas_ring", "fused_ring"]
+
+
+def _graph(kind: str, seed: int = 0) -> JCSR:
+    """Row-stochastic R-MCL inits: ``hub`` 32 rows with two hub rows at
+    ``max_tile`` 256, S 32; ``plain`` 32 rows, no hub; ``odd`` 30 rows
+    (padding rows on the last shard) with one hub row."""
+    rng = np.random.default_rng(seed)
+    n = 30 if kind == "odd" else 32
+    mask = rng.random((n, n)) < (0.25 if kind == "plain" else 0.12)
+    np.fill_diagonal(mask, True)
+    if kind != "plain":
+        mask[5, :] = True
+        if kind == "hub":
+            mask[20, 4:] = True
+    dense = np.where(mask, 1.0, 0.0).astype(np.float32)
+    return JCSR.from_dense(dense).aver_and_norm_rows()
+
+
+def _same_sharded(js, ts):
+    for f in ("row_ptr", "col_ind", "values"):
+        want = np.asarray(getattr(js, f))
+        got = getattr(ts, f).numpy()
+        assert got.dtype == want.dtype, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    assert (ts.ncols, ts.global_rows) == (js.ncols, js.global_rows)
+
+
+def _compare(a, b, tol=1e-5) -> bool:
+    return a.make_ordered()._drop_explicit_zeros().is_raw_equal(
+        b.make_ordered()._drop_explicit_zeros(), tol=tol
+    )
+
+
+# ---- layout and planner -----------------------------------------------------------
+def test_make_mesh():
+    m = make_mesh(4)
+    assert isinstance(m, ShardMesh) and m.num_shards == 4
+    assert m.device == torch.device("cpu") and ROW_AXIS == "x"
+    with pytest.raises(ValueError):
+        make_mesh(0)
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["hub", "odd"])
+def test_shard_csr_and_unshard_match_reference(d, kind):
+    j = _graph(kind)
+    t = port_csr(j)
+    js, ts = JSH.shard_csr(j, d), TSH.shard_csr(t, d)
+    _same_sharded(js, ts)
+    assert ts.padded_rows == d * -(-t.rows // d) and int(ts.nnz) == int(t.nnz)
+    assert_same_csr(JSH.unshard_csr(js), TSH.unshard_csr(ts))
+    assert_same_csr(j, TSH.unshard_csr(ts))
+    blk = ts.local_block(d - 1)
+    assert blk.rows == ts.local_rows
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_balanced_permutation_matches_reference(d):
+    j = _graph("odd")
+    t = port_csr(j)
+    for chunk in (8, 32):
+        rj = np.asarray(j_footprint(j, j, chunk=chunk))
+        rt = t_footprint(t, t, chunk=chunk)
+        np.testing.assert_array_equal(rt, rj)
+    pj = JSH.flops_balanced_permutation(rj, d)
+    pt = TSH.flops_balanced_permutation(rt, d)
+    np.testing.assert_array_equal(pt, pj)
+    assert sorted(pt.tolist()) == list(range(t.rows))
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("kind,S,max_tile", [("hub", 32, 256), ("plain", 16, 256),
+                                             ("odd", 8, 64)])
+def test_plan_sharded_rmcl_ell_matches_reference(d, kind, S, max_tile):
+    j = _graph(kind)
+    jplan, jarr, js = JP.plan_sharded_rmcl_ell(j, d, S=S, max_tile=max_tile)
+    tplan, tarr, ts = TP.plan_sharded_rmcl_ell(port_csr(j), d, S=S, max_tile=max_tile)
+    assert_same_plan(jplan, jarr, tplan, tarr)
+    _same_sharded(js, ts)
+    assert (tplan.hmax > 0) == (kind != "plain")
+
+
+# ---- the loop against the reference -----------------------------------------------
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("exchange", EXCHANGES)
+def test_sharded_rmcl_ell_matches_reference(monkeypatch, d, exchange):
+    use_pallas_dedup(monkeypatch)
+    j = _graph("hub")
+    want, jh = JP.sharded_rmcl_ell(j, j_make_mesh(d), max_iters=2, S=32, max_tile=256,
+                                   exchange=exchange)
+    got, th = TP.sharded_rmcl_ell(port_csr(j), make_mesh(d), max_iters=2, S=32,
+                                  max_tile=256, exchange=exchange)
+    assert_same_csr(want, got)
+    np.testing.assert_array_equal(th["nnz"], jh["nnz"])
+    np.testing.assert_array_equal(th["truncated_rows"], jh["truncated_rows"])
+    assert_close_values(th["differs"], jh["differs"])
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_sharded_balanced_matches_reference(monkeypatch, d):
+    use_pallas_dedup(monkeypatch)
+    j = _graph("odd")
+    want, jh = JP.sharded_rmcl_ell(j, j_make_mesh(d), max_iters=2, S=16, max_tile=64,
+                                   balance=True)
+    got, th = TP.sharded_rmcl_ell(port_csr(j), make_mesh(d), max_iters=2, S=16,
+                                  max_tile=64, balance=True)
+    assert_same_csr(want, got)
+    np.testing.assert_array_equal(th["nnz"], jh["nnz"])
+    assert_close_values(th["differs"], jh["differs"])
+
+
+# ---- the exchanges against each other and against one device ---------------------------
+@pytest.mark.parametrize("d", [2, 4])
+def test_pallas_ring_equals_all_gather_exactly(d):
+    t = port_csr(_graph("hub"))
+    mesh = make_mesh(d)
+    ag, hag = TP.sharded_rmcl_ell(t, mesh, max_iters=3, S=32, max_tile=256,
+                                  exchange="all_gather")
+    pr, hpr = TP.sharded_rmcl_ell(t, mesh, max_iters=3, S=32, max_tile=256,
+                                  exchange="pallas_ring")
+    for x, y in zip(trimmed(ag), trimmed(pr)):
+        np.testing.assert_array_equal(y, x)
+    for k in hag:
+        np.testing.assert_array_equal(hpr[k], hag[k])
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_fused_ring_matches_ring(d):
+    t = port_csr(_graph("hub"))
+    mesh = make_mesh(d)
+    rg, _ = TP.sharded_rmcl_ell(t, mesh, max_iters=3, S=32, max_tile=256, exchange="ring")
+    fr, _ = TP.sharded_rmcl_ell(t, mesh, max_iters=3, S=32, max_tile=256,
+                                exchange="fused_ring")
+    assert _compare(fr, rg, tol=1e-6)
+
+
+@pytest.mark.parametrize("exchange", EXCHANGES)
+def test_sharded_matches_single_device(exchange):
+    t = port_csr(_graph("odd"))
+    one, h1 = TR.rmcl_ell(t, max_iters=3, S=32, max_tile=256)
+    got, hd = TP.sharded_rmcl_ell(t, make_mesh(4), max_iters=3, S=32, max_tile=256,
+                                  exchange=exchange)
+    assert _compare(got, one)
+    np.testing.assert_allclose(hd["differs"], h1["differs"], rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,calls", [("plain", 0), ("hub", 2)])
+def test_fused_ring_calls_k8_only_with_hub_rows(monkeypatch, kind, calls):
+    seen = []
+    real = TP.ring_matmul_tiled
+
+    def counted(a, b, nt=2048):
+        seen.append((tuple(a.shape), tuple(b.shape), nt))
+        return real(a, b, nt=nt)
+
+    monkeypatch.setattr(TP, "ring_matmul_tiled", counted)
+    t = port_csr(_graph(kind))
+    plan = TP.plan_sharded_rmcl_ell(t, 2, S=16, max_tile=256)[0]
+    assert (plan.hmax > 0) == bool(calls)
+    TP.sharded_rmcl_ell(t, make_mesh(2), max_iters=2, S=16, max_tile=256,
+                        exchange="fused_ring")
+    assert len(seen) == calls
+    for a_shape, b_shape, nt in seen:
+        assert a_shape[0] == b_shape[0] == 2 and b_shape[2] % nt == 0
+
+
+def test_sharded_rejects_unknown_exchange():
+    t = port_csr(_graph("plain"))
+    with pytest.raises(ValueError):
+        TP.sharded_rmcl_ell(t, make_mesh(2), max_iters=1, S=16, exchange="tree")
