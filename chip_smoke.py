@@ -26,11 +26,20 @@
    iterations: step 1 against a scipy f64 host oracle of the prune
    semantics, the 5-iteration run against the port's own CPU run of the
    same plan, and the warm iteration timed;
-9. sharded R-MCL with D = 4 shards stacked on the card, 3 iterations,
-   all four exchanges: ``pallas_ring`` (K6) bit-equal to
-   ``all_gather``, ``fused_ring`` (K8) against ``ring``, ``all_gather``
-   against single-chip ``rmcl_ell``; K6 at D = 2, 4, 8 and K7 / K8 at
-   D = 2, 4 against their twins on this run's blocks and hub operands.
+9. sharded R-MCL with D = 4 shards stacked on the card (``make_mesh``'s
+   default device), 3 iterations, all four exchanges: ``pallas_ring``
+   (K6) bit-equal to ``all_gather``, ``fused_ring`` (K8) against
+   ``ring``, ``all_gather`` against single-chip ``rmcl_ell``; the warm
+   iteration 2 of each exchange timed with CUDA events; K6 at D = 2, 4, 8
+   and K7 / K8 at D = 2, 4 against their twins on this run's blocks and
+   hub operands.
+
+Every kernel's record carries, beside its time and its twin's, its bound
+(the larger of the bytes it must move, each input read once and each
+output written once, over 3.35 TB/s, and its operations over the card's
+peak: an f32 product counted as three TF32 passes at 495 TFLOP/s) and,
+where one PyTorch call computes the same function, that call's time
+(``library_ms``; the port never calls it), else null with the reason.
 
 Each main-path run starts with every launch count at 0 and reads the
 counts right after it; the kernel-versus-twin comparisons and timings
@@ -77,8 +86,21 @@ SOURCES = {
 }
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor cores
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, f32_flops: float = 0.0) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` once and do ``f32_flops`` f32 product operations
+    f32-accurately (three TF32 tensor-core passes)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3.0 * f32_flops / TF32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def cuda_ms(torch, fn, reps: int = 15, warm: int = 2) -> float:
@@ -241,6 +263,42 @@ def compare_iterates(np, what, got_c, got_v, want_c, want_v, near=None, tol=None
     return failed
 
 
+# K1-K3 have no one PyTorch call that computes the same function
+NO_CALL = {
+    "sort_dedup_compact": "none: a per-row sort by column, a sum of equal columns "
+                          "and a left compaction take several torch calls",
+    "compact_nonzero_rows": "none: torch.nonzero gives coordinates, not each row's "
+                            "(cols, vals) packed left with sentinel padding",
+    "window_gather": "none: a gather of W-lane windows at data-dependent offsets "
+                     "needs its index tensor built by other calls first",
+}
+
+
+def bsr_library(torch, ab, b, want, cuda_ms):
+    """The time of one torch sparse-BSR x dense product of ``ab`` and
+    ``b`` on the card, or why there is none: torch refuses the blocks,
+    or its product is not the kernel's (``want``) within 1e-4 of
+    |A||B|."""
+    nb = int(ab.nblocks)
+    try:
+        a = torch.sparse_bsr_tensor(
+            ab.block_row_ptr.long(), ab.block_col[:nb].long(), ab.blocks[:nb],
+            size=(ab.nbrows * ab.br, ab.nbcols * ab.bc))
+        bp = torch.zeros((ab.nbcols * ab.bc, b.shape[1]), dtype=b.dtype, device=b.device)
+        bp[: b.shape[0]] = b
+        got = (a @ bp)[: want.shape[0]]
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError, ValueError) as e:
+        return f"none: torch refuses a sparse BSR ({ab.br}, {ab.bc}) f32 x dense product " \
+               f"on CUDA ({type(e).__name__}: {str(e).splitlines()[0][:160]})"
+    ref = torch.sparse_bsr_tensor(
+        ab.block_row_ptr.long(), ab.block_col[:nb].long(), ab.blocks[:nb].abs(),
+        size=a.shape) @ bp.abs()
+    if not bool(((got - want).abs() <= 1e-4 * ref[: want.shape[0]] + 1e-7).all()):
+        return "none: torch's sparse BSR product disagrees with the kernel's"
+    return cuda_ms(torch, lambda: a @ bp)
+
+
 def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
     """Phases 8 (single-chip R-MCL) and 9 (sharded R-MCL, K6-K8)."""
     import importlib
@@ -248,6 +306,7 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
     from sparse_matrix_with_flops_tpu_torch.formats import COO
     from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
     from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh
+    from sparse_matrix_with_flops_tpu_torch.parallel import ring_kernels as RK
     from sparse_matrix_with_flops_tpu_torch.parallel.ring_kernels import (
         ring_all_gather,
         ring_all_gather_plain,
@@ -339,7 +398,9 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
     torch.cuda.synchronize()
 
     # ---- 9. sharded R-MCL, D = 4 shards on the card ---------------------
-    mesh = make_mesh(4, dev)
+    mesh = make_mesh(4)  # the card, by default
+    if mesh.device != dev:
+        raise AssertionError(f"make_mesh(4) is on {mesh.device}, not {dev}")
     must = {
         "all_gather": ("sort_dedup_compact",),
         "pallas_ring": ("ring_all_gather", "sort_dedup_compact"),
@@ -386,6 +447,21 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
     del runs, ag, pr, s3
     torch.cuda.synchronize()
 
+    # the warm D = 4 iteration 2 of each exchange, from the iterate of step 1
+    PS = importlib.import_module("sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell")
+    plan4, arrays4, smgt4 = plan_sharded_rmcl_ell(mgt, 4, S=S, max_tile=MT)
+    lc1, lv1, _ = PS._sharded_step(
+        plan4, smgt4, arrays4,
+        torch.where(cols0 >= n, plan4.n, cols0).reshape(4, plan4.lr, S),
+        vals0.reshape(4, plan4.lr, S), "fused_ring")
+    for ex in must:
+        ms = cuda_ms(torch, lambda ex=ex: PS._sharded_step(plan4, smgt4, arrays4, lc1, lv1, ex),
+                     reps=5, warm=1)
+        log(f"sharded_rmcl_ell s14 D=4 {ex} warm iteration 2: {ms:.3f} ms device "
+            f"(CUDA events) [{card}]")
+    del plan4, arrays4, smgt4, lc1, lv1
+    torch.cuda.synchronize()
+
     # K6 on this run's [lr, 128] iterate blocks (the main path's D = 4 last)
     for d in (2, 8, 4):
         xc = cols0.reshape(d, n // d, S)
@@ -395,10 +471,13 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
             torch.cuda.synchronize()
             if not torch.equal(k, p):
                 raise AssertionError(f"K6 D={d} {x.dtype}: differs from the twin")
+        idx = RK._owners(d, RK.RIGHT, dev)  # the rotation, as one index gather
         record(
             "ring_all_gather", f"D={d} [{n // d}, {S}] int32 + f32", 0.0,
             cuda_ms(torch, lambda: (ring_all_gather(xc), ring_all_gather(xv))),
             cuda_ms(torch, lambda: (ring_all_gather_plain(xc), ring_all_gather_plain(xv))),
+            bound((d + 1) * (xc.numel() + xv.numel()) * 4),
+            cuda_ms(torch, lambda: (xc[idx], xv[idx])),
         )
     # K7 / K8 on this run's hub operands
     for d in (2, 4):
@@ -407,8 +486,14 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
         lv = vals0.reshape(d, sp_.lr, S)
         a_cols, md_loc, nt = fused_hub_operands(sp_, arrays, lc, lv)
         full = md_loc.reshape(-1, md_loc.shape[2]).abs()
-        bound = 1e-7 + 1e-4 * torch.stack([a_cols[r].abs() @ full for r in range(d)])
+        tol = 1e-7 + 1e-4 * torch.stack([a_cols[r].abs() @ full for r in range(d)])
         gf = 2.0 * d * a_cols.shape[1] * a_cols.shape[2] * md_loc.shape[2] / 1e9
+        kb = bound(4.0 * (a_cols.numel() + md_loc.numel()
+                          + d * a_cols.shape[1] * md_loc.shape[2]), gf * 1e9)
+        full_b = md_loc.reshape(-1, md_loc.shape[2])
+        lib_ms = cuda_ms(torch, lambda: torch.matmul(a_cols, full_b))  # TF32 off
+        log(f"torch.matmul D={d}: {lib_ms:.4f} ms, {gf / lib_ms:.2f} TFLOP/s; bound "
+            f"{kb[0]:.4f} ms ({kb[1]}) [{card}]")
         for name, fk, fp in (
             ("ring_matmul", lambda: ring_matmul(a_cols, md_loc),
              lambda: ring_matmul_plain(a_cols, md_loc)),
@@ -418,21 +503,21 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
             k, p = fk(), fp()
             torch.cuda.synchronize()
             err = (k - p).abs()
-            if not bool(torch.isfinite(k).all()) or not bool((err <= bound).all()):
+            if not bool(torch.isfinite(k).all()) or not bool((err <= tol).all()):
                 raise AssertionError(f"{name} D={d}: differs from the twin "
                                      f"(max err {float(err.max()):.3e})")
             ms, pms = cuda_ms(torch, fk), cuda_ms(torch, fp)
             log(f"{name} D={d}: a {tuple(a_cols.shape)} b {tuple(md_loc.shape)} nt {nt}: "
-                f"{gf:.1f} GFLOP, kernel {gf / ms:.2f} TFLOP/s, twin {gf / pms:.2f} "
-                f"TFLOP/s [{card}]")
+                f"{gf:.1f} GFLOP, kernel {gf / ms:.2f} TFLOP/s ({kb[0] / ms:.1%} of the "
+                f"bound), twin {gf / pms:.2f} TFLOP/s [{card}]")
             record(name, f"D={d} M={a_cols.shape[1]} lr={md_loc.shape[1]} "
                    f"N={md_loc.shape[2]} nt={nt if 'tiled' in name else md_loc.shape[2]}",
-                   float(err.max()), ms, pms)
+                   float(err.max()), ms, pms, kb, lib_ms)
             del k, p
         if d == 4:  # B7 is on no path of the reference: a direct call
             drive("ring_matmul on the D=4 hub operands",
                   lambda: ring_matmul(a_cols, md_loc), ("ring_matmul",), path=False)
-        del a_cols, md_loc, full, bound
+        del a_cols, md_loc, full, full_b
         torch.cuda.synchronize()
 
 
@@ -543,17 +628,28 @@ def main() -> int:
     prod_c, prod_v = E._b_ell_chunks(a, plan, pt)
     results = {}
 
-    def record(name, case, err, ms, plain_ms):
+    def record(name, case, err, ms, plain_ms, kbound, library):
+        """One case of a kernel: ``kbound`` (ms, what bounds it);
+        ``library`` the time of the one PyTorch call that computes the
+        same function, or the reason there is none."""
+        lib_ms = library if isinstance(library, float) else None
         log(
             f"{name} [{case}]: max_abs_err {err:.3e} kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms"
+            f"plain {plain_ms:.4f} ms bound {kbound[0]:.4f} ms ({kbound[1]}, "
+            f"{kbound[0] / ms:.1%}) library "
+            + (f"{lib_ms:.4f} ms" if lib_ms is not None else f"none: {library}")
         )
-        r = results.setdefault(
-            name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "cases": {}}
-        )
+        r = results.setdefault(name, {"max_abs_err": 0.0, "cases": {}})
+        case_rec = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": kbound[0], "bound_by": kbound[1], "library_ms": lib_ms,
+        }
+        if lib_ms is None:
+            case_rec["library_none"] = library
+        r.pop("library_none", None)
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"], r["plain_ms"] = ms, plain_ms  # the last (widest) case
-        r["cases"][case] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        r.update({k: v for k, v in case_rec.items() if k != "max_abs_err"})  # the last case
+        r["cases"][case] = case_rec
 
     def check_vals(got, want, what):
         err = (got - want).abs()
@@ -578,6 +674,7 @@ def main() -> int:
             "sort_dedup_compact", f"W={w_sel} R={tc.shape[0]} presorted={plan.chunk}", err,
             cuda_ms(torch, lambda: sort_dedup_compact(tc, tv, plan.ncols, plan.chunk)),
             cuda_ms(torch, lambda: sort_dedup_compact_plain(tc, tv, plan.ncols)),
+            bound(16.0 * tc.numel()), NO_CALL["sort_dedup_compact"],
         )
     if not plan.hub_groups:
         raise AssertionError("the s14 plan has no hub group: K2 has no input")
@@ -591,6 +688,7 @@ def main() -> int:
         "compact_nonzero_rows", f"R={part.shape[0]} N={part.shape[1]} ncols={vw}", 0.0,
         cuda_ms(torch, lambda: compact_nonzero_rows(part, vw)),
         cuda_ms(torch, lambda: compact_nonzero_rows_plain(part, vw)),
+        bound(12.0 * part.numel()), NO_CALL["compact_nonzero_rows"],
     )
     flat_c, flat_v, counts, flat_base = E._tiles_impl(a, a, plan)
     ocap = -(-E._nnz_bucket(int(counts.sum())) // 128) * 128
@@ -606,6 +704,8 @@ def main() -> int:
         "window_gather", f"Q={p0.shape[0]} W=128 src={fc.shape[0]}", 0.0,
         cuda_ms(torch, lambda: window_gather(fc, fvb, p0)),
         cuda_ms(torch, lambda: window_gather_plain(fc, fvb, p0, 128)),
+        bound(4.0 * (fc.numel() + fvb.numel() + p0.numel()) + 8.0 * p0.shape[0] * 128),
+        NO_CALL["window_gather"],
     )
     dds = E._row_start_deltas(counts, starts, ocap)
     ks, ps = cumsum_i32(dds), cumsum_i32_plain(dds)
@@ -616,6 +716,8 @@ def main() -> int:
         "cumsum_i32", f"n={ocap}", 0.0,
         cuda_ms(torch, lambda: cumsum_i32(dds)),
         cuda_ms(torch, lambda: cumsum_i32_plain(dds)),
+        bound(8.0 * dds.numel()),
+        cuda_ms(torch, lambda: torch.cumsum(dds, 0, dtype=torch.int32)),
     )
     del prod_c, prod_v, flat_c, flat_v, fc, fvb, part
     torch.cuda.synchronize()
@@ -756,6 +858,7 @@ def main() -> int:
         check_vals(kv, pv, "K1 W=32768"),
         cuda_ms(torch, lambda: sort_dedup_compact(tc, tv, plan32.ncols, plan32.chunk)),
         cuda_ms(torch, lambda: sort_dedup_compact_plain(tc, tv, plan32.ncols)),
+        bound(16.0 * tc.numel()), NO_CALL["sort_dedup_compact"],
     )
     del prod_c, prod_v, tc, tv, kk, kv, pk, pv
     c32 = drive(
@@ -809,6 +912,7 @@ def main() -> int:
         b64 = bh.astype(np.float64)
         dense_check(f"K5 {label} kernel vs scipy", got, amat, b64)
         dense_check(f"K5 {label} twin vs scipy", twin, amat, b64)
+        lib = bsr_library(torch, ab, bd, got, cuda_ms)
         del got, twin
         ms = cuda_ms(torch, lambda: bcsr_spmm(ab, bd))
         plain_ms = cuda_ms(torch, lambda: bcsr_spmm_plain(ab, bd))
@@ -817,7 +921,9 @@ def main() -> int:
             f"K5 {label}: dense-block {gf:.3f} GFLOP; kernel {gf / ms * 1e3:.1f} "
             f"GFLOP/s, twin {gf / plain_ms * 1e3:.1f} GFLOP/s [{card}]"
         )
-        record("bcsr_spmm", f"{label} N={n} blocks={nb}", err, ms, plain_ms)
+        # the stored blocks and their indices, B and C, each once
+        kb = bound(4.0 * (nb * ab.br * ab.bc + nb + ab.nbrows + 1 + 2 * x.rows * n), gf * 1e9)
+        record("bcsr_spmm", f"{label} N={n} blocks={nb}", err, ms, plain_ms, kb, lib)
         del ab, bd
         torch.cuda.synchronize()
 
@@ -862,9 +968,9 @@ def main() -> int:
         ref.sort_indices()
         if not np.array_equal(ci, ref.indices):
             raise AssertionError(f"PCSR stripe {b}: structure differs from scipy")
-        bound = 1e-7 + REL_TOL * ref.data  # positive weights: |A||A| = A A
+        tol = 1e-7 + REL_TOL * ref.data  # positive weights: |A||A| = A A
         err = np.abs(v - ref.data)
-        if not (err <= bound).all():
+        if not (err <= tol).all():
             raise AssertionError(f"PCSR stripe {b}: values off scipy")
         log(f"PCSR stripe {b} [{lo}, {hi}): nnz {ci.size} == spgemm_auto's; max |err| {err.max():.3e}")
     del c, pc, y, b64d
@@ -886,6 +992,11 @@ def main() -> int:
             "max_abs_err": results[k]["max_abs_err"],
             "ms": results[k]["ms"],
             "plain_ms": results[k]["plain_ms"],
+            "bound_ms": results[k]["bound_ms"],
+            "bound_by": results[k]["bound_by"],
+            "library_ms": results[k]["library_ms"],
+            **({"library_none": results[k]["library_none"]}
+               if "library_none" in results[k] else {}),
             "cases": results[k]["cases"],
         }
         for k in wrappers

@@ -3,9 +3,11 @@
 //
 // Replace the Pallas kernels of sparse_matrix_with_flops_tpu/parallel/
 // pallas_ring.py:
-//   K6 smf_ring_all_gather   <- `ring_all_gather`   (body `_ring_ag_kernel`)
-//   K7 smf_ring_matmul       <- `ring_matmul`       (body `_ring_mm_kernel`)
-//   K8 smf_ring_matmul_tiled <- `ring_matmul_tiled` (body
+//   K6 smf_ring_all_gather   <- `ring_all_gather`   (:64, body
+//                               `_ring_ag_kernel`)
+//   K7 smf_ring_matmul       <- `ring_matmul`       (:136, body
+//                               `_ring_mm_kernel`)
+//   K8 smf_ring_matmul_tiled <- `ring_matmul_tiled` (:254, body
 //                               `_ring_mm_tiled_kernel`)
 //
 // There each chip ran one program and forwarded blocks to its neighbour
@@ -14,54 +16,101 @@
 // one rank's region, and every rank's buffers are reached only through
 // its own base pointer (a device array of D pointers per operand), as a
 // peer pointer on another card would be.  The protocol is the reference's
-// write-once, one-flag-per-region ring: at hop k each CTA copies its
-// slice of block k into the neighbour's block k + 1, then one thread
-// fences and adds 1 to the neighbour's flag for that block; the
-// neighbour's CTAs read the block after the flag reaches gridDim.x.
-// Fences and atomics are system-scope and blocks written in this launch
-// are read with __ldcg (L2, not the incoherent L1), so the same code is
+// write-once, one-flag-per-region ring: a rank reads only its own
+// buffers; its upstream neighbour writes into them and then one thread
+// fences and adds 1 to the flag of the region.  Fences and atomics are
+// system-scope and blocks written in this launch are read through L2
+// (__ldcg, cp.async.cg), never the incoherent L1, so the same code is
 // right when the pointers are peer pointers on other cards.  Ranks spin
 // on each other's flags, so every CTA of the grid must be resident at
-// once: the launch is cooperative, and a grid larger than what fits is
-// refused by cudaLaunchCooperativeKernel (the wrapper raises) instead of
-// deadlocking.  The caller zeroes the flags before every launch.
+// once: the launch is cooperative and sized from occupancy, and a grid
+// larger than what fits is refused by cudaLaunchCooperativeKernel (the
+// wrapper raises) instead of deadlocking.  The caller zeroes the flags
+// before every launch.
 //
-// K7 and K8 contract the resident block in their own bodies, C[me] +=
-// A_rot[me][:, block k] . block k, with true f32 FFMA (no TF32, no
-// library product): each CTA owns 64 x 128 output tiles, 4 x 8 register
-// accumulators a thread, 16-deep k steps staged in shared memory.  The
-// output tile lives in C between hops (each tile has one owner CTA, so no
-// atomics, and the sum order is fixed: block 0, 1, ..., d - 1).  K7's
-// blocks flow right (block k is owner (me - k) mod d), K8's left (owner
-// (me + k) mod d), so K8's sums follow the unfused ring chain's owner
-// order.  K8 runs over N tiles of nt columns and reuses its rotating
-// buffer across tiles, so a rank that enters tile t first signals both
-// neighbours and waits for both: a neighbour that has entered tile t has
-// finished reading tile t - 1, so overwriting its buffer is safe (the
-// reference's entry barrier, pallas_ring.py:196-223).  Block 0 is read
-// from the rank's own B in place and never copied, so a rank never
-// writes its own rotating buffer.
+// K6: at hop k each CTA copies its slice of block k into the neighbour's
+// block k + 1 and raises the neighbour's flag for that block; the
+// neighbour's CTAs read it once the flag reaches gridDim.x.  It moves
+// d - 1 blocks a rank in d - 1 serial hops (at D = 4 on R-MAT s14,
+// [4096, 128] 4-byte blocks): each hop is a copy of a few MB plus a flag
+// round trip, so it is latency-bound by the serial chain.
 //
-// What bounds them on the H100.  K6 moves d - 1 blocks a rank in d - 1
-// serial hops (at D = 4 on R-MAT s14, [4096, 128] 4-byte blocks: 64 MB
-// in all): each hop is a copy of a few MB plus a flag round trip, so it
-// is latency-bound by the serial chain.  K8 at D = 4 on s14 contracts
-// [297, 4 x 4096] x [4096, 16384] a rank, 638 GFLOP an iteration over
-// the four ranks, most of it the planner's zero padding: FFMA-bound.
-// This first version does each hop's copy and then the contraction, one
-// after the other; overlapping them (a producer warp with cp.async/TMA)
-// and wgmma on 3xTF32 splits are later work.
+// K7 / K8: C[me] = A_rot[me] . concat(B), block k of B contracted at hop
+// k.  K7's blocks flow right (block k is owner (me - k) mod d), K8's left
+// (owner (me + k) mod d), so K8's sums follow the unfused ring chain's
+// owner order; K8 runs over N tiles of nt columns.  Block 0 is read from
+// the rank's own B in place, so a rank never writes its own buffer.
+//
+// Their bound on the H100.  At D = 4 on R-MAT s14 a rank contracts
+// [297, 4 x 4096] . [4 x 4096, 16384]: 637.8 GFLOP over the four ranks,
+// most of it the planner's zero padding, against 1.23 GB of operands and
+// result (0.37 ms at 3.35 TB/s): operation-bound.  Done f32-accurately as
+// three TF32 tensor-core passes it takes 3 x 637.8 / 495 = 3.87 ms at the
+// card's peak (9.52 ms on f32 FFMA); D = 2 (401.6 GFLOP) 2.43 ms.  The
+// design, item by item:
+// 1. Tensor cores on 3xTF32 splits.  x = hi + lo, hi = cvt.rna.tf32(x),
+//    lo = cvt.rna.tf32(x - hi); wgmma m64n64k8 adds lo.hi, hi.lo and
+//    hi.hi (the dropped lo.lo term is ~2^-22 relative).  A comes from
+//    registers: each thread loads its fragment of the loaded A tile and
+//    splits it there (raw_k orders a stage's depth so that a fragment is
+//    one float4 a row).  tf32 wgmma reads B K-major only and B arrives
+//    N-major, so each consumer warpgroup splits the stage's B tile into
+//    its own K-major core matrices in shared memory.  The tensor cores
+//    add into their accumulator by truncation, so a sum over all of K
+//    drifts low (on the s14 hub operands by up to 2e-5 of |A||B|, enough
+//    to move R-MCL iterates by 1e-4): each stage's 16-deep sum goes to a
+//    fresh accumulator that is then added into f32 registers with
+//    round-to-nearest.  The two register sets cap a CTA at 64 columns
+//    and, with the producer, at 3 warpgroups of two m64 tiles (M up to
+//    384; tiles wholly past M are skipped) or 4 of one.
+// 2. The hop overlaps the contraction.  A CTA owns every row of a strip
+//    of kBN = 64 columns, so each strip of a B block is read by exactly
+//    one CTA.  A producer warpgroup keeps up to 8 stages in flight (A's
+//    tile by TMA from a map of the rank's A_rot, built once a launch, B's
+//    by cp.async) and, a few stages behind, copies each landed B tile from
+//    shared memory into the neighbour's buffer; the consumer warpgroups
+//    run their products meanwhile, each at its own pace (mbarriers, no
+//    block-wide barrier in the loop).  Rows of M past one chunk loop over
+//    further chunks, which re-read the blocks (already resident, nothing
+//    forwarded).  At D = 4, nt = 2048: 32 strips a tile, 256 a rank, on 33
+//    resident CTAs a rank.
+// 3. Point-to-point sync.  One flag per (rank, strip, hop), raised by the
+//    producer of the one upstream CTA that forwarded that strip, so a CTA
+//    waits only for its own strip's upstream.  The sums of all d hops stay
+//    in registers (block 0, 1, ..., d - 1 in order, k ascending within a
+//    block) and C is written once.  K8's buffer holds `slots` N tiles in
+//    turn, as many as one round of the grid has strips in flight plus one
+//    (smf_ring_matmul_tiled_slots): a CTA about to overwrite the
+//    neighbour's slot for strip s first waits for the neighbour's flag
+//    that it has read the strip that used it last, in place of a
+//    whole-rank entry barrier per tile.  Every CTA walks its strips in
+//    increasing order on every rank, each wait is for an earlier strip or
+//    an earlier hop of the same strip, and a producer publishes every
+//    stage it holds before it waits for a flag, so no cycle of waits can
+//    form among resident CTAs.
+// 4. Co-residency.  A CTA takes up to 227 KB of dynamic shared memory:
+//    the attribute is set and the occupancy query is given that size
+//    before the grid is sized.
+// 5. Memory order.  The system-scope release/acquire of the flags stays.
+//    A forwarded tile is written by ordinary stores and read downstream
+//    by cp.async.cg, both generic-proxy operations, so no proxy fence is
+//    needed there; A, read by TMA, is never written in the launch.  The
+//    split B parts are written by the generic proxy and read by wgmma
+//    through the async proxy: fence.proxy.async precedes the barrier of
+//    the warpgroup that publishes them.
+// What bounds it (a clock64 probe of the two roles): the consumers, whose
+// split of B, waits and promotions leave the tensor cores idle about
+// half the time; see PERF.md.
+#include <cuda.h>
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <vector>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64;   // output rows per tile
-constexpr int kBN = 128;  // output columns per tile
-constexpr int kBK = 16;   // contraction depth per shared-memory stage
+constexpr int kThreads = 256;  // K6
 
 using Flag = cuda::atomic_ref<int, cuda::thread_scope_system>;
 
@@ -149,145 +198,575 @@ __global__ void __launch_bounds__(kThreads)
 struct RingMatmul {
   const float* const* a;  // [d] -> A_rot [M, d * lr], block k at cols k*lr
   const float* const* b;  // [d] -> B [lr, N]
-  float* const* buf;      // [d] -> rotating buffer [d - 1, lr, nt]
+  float* const* buf;      // [d] -> rotating buffer [slots, d - 1, lr, nt]
   float* const* c;        // [d] -> C [M, N]
-  int* flags;             // [d, T, d] arrivals, then [d, T] entry barrier
+  int* flags;             // [d, strips, d] arrivals, then [d, strips] done
+  const CUtensorMap* amaps;  // [d] TMA maps of the ranks' A_rot, or null
   int d, m, lr, n, nt;
+  int slots;  // N tiles the buffer holds; tile t uses slot t % slots
   int dir;  // +1: blocks flow to rank me + 1 (K7); -1: to me - 1 (K8)
 };
 
-// C[0:m, 0:ncols] (+)= A[0:m, 0:kdim] . B[0:kdim, 0:ncols] for the tiles
-// this CTA owns (tile i belongs to CTA i mod gridDim.x, for every hop).
-__device__ void contract(const float* a, long long lda, const float* b,
-                         long long ldb, bool fresh, float* c, long long ldc,
-                         int m, int kdim, int ncols, bool first) {
-  __shared__ __align__(16) float as[kBK][kBM];
-  __shared__ __align__(16) float bs[kBK][kBN];
-  const int tiles_n = (ncols + kBN - 1) / kBN;
-  const int tiles = ((m + kBM - 1) / kBM) * tiles_n;
-  const int tx = threadIdx.x % 16;  // 8 output columns each
-  const int ty = threadIdx.x / 16;  // 4 output rows each
-  const int ar = threadIdx.x / 4, ak = (threadIdx.x % 4) * 4;
-  const int br = threadIdx.x / 16, bcol = (threadIdx.x % 16) * 8;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile / tiles_n) * kBM;
-    const int n0 = (tile % tiles_n) * kBN;
-    float acc[4][8];
+constexpr int kBN = 64;   // columns of a strip: the wgmma N
+constexpr int kBK = 16;   // contraction depth of a stage: two k8 steps
+constexpr int kCore = 32;      // floats of an 8 x 4 core matrix (128 bytes)
+constexpr int kAcc = kBN / 2;  // accumulators a thread holds for an m64 tile
+constexpr int kSmemMax = 232448;  // dynamic shared memory a CTA may take
+
+// A CTA of W consumer warpgroups, each owning TP m64 tiles of a chunk of
+// 64 W TP rows, and one producer warpgroup.  Shared memory: a ring of
+// kStages stages, each A's [BM, kBK] tile and B's [kBK, kBN] tile as
+// loaded (row-major); each consumer warpgroup's two buffers of B's TF32
+// hi and lo parts (K-major core matrices); a full and an empty mbarrier
+// a stage.
+template <int W, int TP>
+struct Tiling {
+  static constexpr int kConsumers = 128 * W;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kBM = 64 * W * TP;
+  static constexpr int kTileA = kBM * kBK;
+  static constexpr int kTileB = kBN * kBK;
+  static constexpr int kStage = kTileA + kTileB;  // floats
+  static constexpr int kSplit = W * 2 * 2 * kTileB;
+  static constexpr int kFit = (kSmemMax - 1024 - kSplit * 4) / (kStage * 4);
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  // stages the producer has in flight behind the one it publishes
+  static constexpr int kLag = kStages - 2 < 3 ? kStages - 2 : 3;
+  static constexpr int kSmem = (kStages * kStage + kSplit) * 4 + kStages * 16;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// One arrival that also expects ``bytes`` of TMA transactions.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Returns once the phase of ``bar`` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The [kBK, 64] box of ``map`` at (k0, row, block) into shared memory as
+// 64 rows of kBK floats, its bytes reported to ``bar``; rows past M and
+// depths past lr read as zeros.
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
+                                         int k0, int row, int block,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(k0), "r"(row),
+      "r"(block), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// x = hi + lo + O(2^-22 |x|), hi and lo TF32 (round to nearest, ties away)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// Offset (floats) of element (row, k) of a [rows, kBK] K-major operand
+// tile in 8 x 4 core matrices, no swizzle: the next 4 k at +128 bytes
+// (the descriptor's LBO), the next 8 rows at +kBK / 4 x 128 bytes (SBO).
+__device__ __forceinline__ int core_off(int row, int k) {
+  return ((row / 8) * (kBK / 4) + k / 4) * kCore + (row % 8) * 4 + k % 4;
+}
+
+// The depth order of a stage as the tensor cores see it.  A thread's A
+// fragment of k8 step ks holds fragment columns q and q + 4; taking them
+// as the stage's columns 4q + 2ks and 4q + 2ks + 1 gives each thread one
+// float4 of each of its rows for both steps.  B is split into the same
+// order: row kap = 8 ks + j of the split stage is loaded row 4 (j % 4) +
+// 2 ks + j / 4.
+__device__ __forceinline__ int raw_k(int kap) {
+  const int ks = kap / 8, j = kap % 8;
+  return 4 * (j % 4) + 2 * ks + j / 4;
+}
+
+__device__ __forceinline__ unsigned long long desc(const void* tile) {
+  return static_cast<unsigned long long>((smem_u32(tile) & 0x3FFFF) >> 4) |
+         (static_cast<unsigned long long>(128 >> 4) << 16) |
+         (static_cast<unsigned long long>((kBK / 4) * 128 >> 4) << 32);
+}
+
+// d[64 x kBN] = a[64 x 8] . b[8 x kBN] (+ d if ``add``) for the
+// warpgroup, TF32 products: a from registers (the m64k8 fragment: rows
+// g and g + 8 of the warp's 16, fragment columns q and q + 4), b K-major
+// in shared memory; d and a are in use until a wgmma wait covers the
+// group.  The tensor cores add into d by truncation, so a long sum
+// drifts low: d is a stage's partial sum only (see consume).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[kAcc],
+                                           const unsigned (&a)[4],
+                                           unsigned long long b, int add) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep registers in place across the asynchronous window.
+template <int N>
+__device__ __forceinline__ void pin(float (&x)[N]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty * 4 + i;
+  for (int e = 0; e < N; ++e) asm volatile("" : "+f"(x[e])::"memory");
+}
+__device__ __forceinline__ void pin(unsigned (&x)[2][4]) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + tx * 8 + j;
-        acc[i][j] = (!first && row < m && col < ncols)
-                        ? c[static_cast<long long>(row) * ldc + col]
-                        : 0.0f;
-      }
-    }
-    for (int k0 = 0; k0 < kdim; k0 += kBK) {
-      {
-        const int row = m0 + ar;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int kk = k0 + ak + q;
-          as[ak + q][ar] = (row < m && kk < kdim)
-                               ? a[static_cast<long long>(row) * lda + kk]
-                               : 0.0f;
-        }
-      }
-      {
-        const int kk = k0 + br;
-        const float* brow = b + static_cast<long long>(kk) * ldb;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int col = n0 + bcol + q;
-          bs[br][bcol + q] =
-              (kk < kdim && col < ncols) ? load(brow + col, fresh) : 0.0f;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 8]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&bs[kk][tx * 8 + 4]);
-        const float ra[4] = {av.x, av.y, av.z, av.w};
-        const float rb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + tx * 8 + j;
-        if (row < m && col < ncols)
-          c[static_cast<long long>(row) * ldc + col] = acc[i][j];
-      }
-    }
+  for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(x[i / 4][i % 4])::"memory");
+}
+
+// A barrier of the producer warpgroup alone (named barrier 1).
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// The producer warpgroup's side of the flags (its first thread spins on
+// or raises them).
+__device__ __forceinline__ void producer_wait_for(int* flag, int target,
+                                                  int pt) {
+  if (pt == 0) {
+    Flag f(*flag);
+    while (f.load(cuda::std::memory_order_acquire) < target) __nanosleep(64);
+    __threadfence_system();
+  }
+  producer_sync();
+}
+
+__device__ __forceinline__ void producer_signal(int* flag, int pt) {
+  producer_sync();
+  if (pt == 0) {
+    __threadfence_system();
+    Flag(*flag).fetch_add(1, cuda::std::memory_order_release);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) ring_matmul_kernel(RingMatmul p) {
-  const int d = p.d;
-  const int me = blockIdx.y;
-  const int dst = ((me + p.dir) % d + d) % d;
-  const int tiles = p.n / p.nt;
-  int* arrive = p.flags;
-  int* entry = p.flags + static_cast<long long>(d) * tiles * d;
-  const long long lda = static_cast<long long>(d) * p.lr;
-  const long long blk = static_cast<long long>(p.lr) * p.nt;
-  for (int t = 0; t < tiles; ++t) {
-    if (t > 0 && d > 1) {
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        __threadfence_system();
-        Flag(entry[((me + 1) % d) * tiles + t])
-            .fetch_add(1, cuda::std::memory_order_release);
-        Flag(entry[((me + d - 1) % d) * tiles + t])
-            .fetch_add(1, cuda::std::memory_order_release);
+// The loaded [kBK, kBN] B tile (N-major) -> its TF32 hi and lo parts,
+// K-major in core matrices (core_off with n as the row) in raw_k's depth
+// order, by the 128 threads of a warpgroup (t: 0 .. 127).  A warp takes
+// 32 columns n at 4 split rows kap: it reads one loaded row (32 banks)
+// and writes each bank once.
+__device__ __forceinline__ void split_b(const float* bs, unsigned* hi,
+                                        unsigned* lo, int t) {
+#pragma unroll
+  for (int e = t; e < kBN * kBK; e += 128) {
+    const int w = e / 32, lane = e % 32;
+    const int n = (w / 16) * 32 + lane;
+    const int kap = ((w / 4) % 4) * 4 + (lane / 8 + w) % 4;
+    const int o = core_off(n, kap);
+    split_tf32(bs[raw_k(kap) * kBN + n], hi[o], lo[o]);
+  }
+}
+
+// Where the stages of one hop of one strip come from and go to.
+struct Hop {
+  int m0;            // the chunk's first row
+  int rows;          // valid rows of the chunk
+  int k;             // the hop: block k of A_rot
+  const float* b;    // block k at the strip's first column
+  long long ldb;
+  int width;         // valid columns of the strip
+  float* fwd;        // the neighbour's block k + 1 at the strip, or null
+  long long ldf;
+};
+
+// The walk every role of a CTA makes, in one order: the CTA's strips,
+// each strip's row chunks, each chunk's d hops, each hop's depth in
+// stages of kBK.  A running stage count names each stage's ring slot.
+struct Walk {
+  int tiles, spt, strips, steps;
+  __device__ Walk(const RingMatmul& p)
+      : tiles(p.n / p.nt),
+        spt((p.nt + kBN - 1) / kBN),
+        strips(tiles * spt),
+        steps((p.lr + kBK - 1) / kBK) {}
+};
+
+template <int W, int TP>
+struct Ring {
+  float* smem;
+  unsigned* split;            // the consumer warpgroups' split buffers of B
+  unsigned long long* full;   // [kStages]: the stage's A and B landed
+  unsigned long long* empty;  // [kStages]: the consumers are done with it
+  __device__ float* stage(int it) const {
+    return smem + (it % Tiling<W, TP>::kStages) * Tiling<W, TP>::kStage;
+  }
+};
+
+// The producer warpgroup: loads stage after stage into the ring (A by
+// TMA when p.amaps is set, B by cp.async), and kLag stages behind, once
+// a stage has landed, forwards its loaded B tile into the neighbour's
+// buffer and marks the stage full.  It waits for the ring flags; at the
+// end of a hop every loaded stage is published before the hop's flag is
+// raised, so it never waits for a flag while it holds stages back.
+template <int W, int TP>
+struct Producer {
+  using Tl = Tiling<W, TP>;
+  const RingMatmul& p;
+  Ring<W, TP> ring;
+  bool vec;
+  int pt;  // 0 .. 127
+  int it = 0, pub = 0, hop0 = 0;  // stages issued; published; hop's first
+  Hop h;
+
+  __device__ void issue() {
+    constexpr int S = Tl::kStages;
+    if (it >= S) mbar_wait(&ring.empty[it % S], ((it / S) + 1) & 1);
+    float* st = ring.stage(it);
+    float* bs = st + Tl::kTileA;
+    const int k0 = (it - hop0) * kBK;
+    const int depth = p.lr;
+    const int me = blockIdx.y;
+    if (p.amaps != nullptr) {
+      if (pt == 0) {  // the m64 tiles that hold rows of A
+        const int boxes = min(W * TP, (h.rows + 63) / 64);
+        mbar_expect(&ring.full[it % S], boxes * 64 * kBK * 4);
+#pragma unroll 1
+        for (int j = 0; j < boxes; ++j)
+          tma_load(st + j * 64 * kBK, p.amaps + me, k0, h.m0 + j * 64, h.k,
+                   &ring.full[it % S]);
       }
-      wait_for(&entry[me * tiles + t], 2 * gridDim.x);
+    } else {
+      const float* a = p.a[me] + static_cast<long long>(h.m0) * p.d * p.lr +
+                       static_cast<long long>(h.k) * p.lr;
+      const long long lda = static_cast<long long>(p.d) * p.lr;
+#pragma unroll 1
+      for (int i = pt; i < Tl::kTileA; i += 128) {
+        const int r = i / kBK, c = i % kBK;
+        st[i] = (r < h.rows && k0 + c < depth) ? a[r * lda + k0 + c] : 0.0f;
+      }
+      producer_sync();
+      if (pt == 0) mbar_arrive(&ring.full[it % S]);
     }
-    const long long col0 = static_cast<long long>(t) * p.nt;
-    for (int k = 0; k < d; ++k) {
-      const float* src;
-      long long lds;
-      if (k == 0) {
-        src = p.b[me] + col0;
-        lds = p.n;
+    if (vec) {
+      for (int i = pt; i < kBK * (kBN / 4); i += 128) {
+        const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
+        const bool ok = k0 + r < depth && c < h.width;
+        cp_async16(bs + 4 * i, ok ? h.b + (k0 + r) * h.ldb + c : h.b, ok);
+      }
+    } else {
+#pragma unroll 1
+      for (int i = pt; i < kBK * kBN; i += 128) {
+        const int r = i / kBN, c = i % kBN;
+        bs[i] = (k0 + r < depth && c < h.width)
+                    ? __ldcg(h.b + (k0 + r) * h.ldb + c)
+                    : 0.0f;
+      }
+    }
+    cp_async_commit();
+    ++it;
+  }
+
+  // Stage ``pub``, whose B tile has landed: forward it, mark the stage
+  // full.
+  __device__ void publish() {
+    const float* bs = ring.stage(pub) + Tl::kTileA;
+    producer_sync();  // every thread's copies of the tile are visible
+    if (h.fwd != nullptr) {
+      const int k0 = (pub - hop0) * kBK;
+      const int rows = min(kBK, p.lr - k0);
+      float* dst = h.fwd + k0 * h.ldf;
+      if (vec) {
+        for (int i = pt; i < kBK * (kBN / 4); i += 128) {
+          const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
+          if (r < rows && c < h.width)
+            *reinterpret_cast<float4*>(dst + r * h.ldf + c) =
+                *reinterpret_cast<const float4*>(bs + r * kBN + c);
+        }
       } else {
-        wait_for(&arrive[(me * tiles + t) * d + k], gridDim.x);
-        src = p.buf[me] + (k - 1) * blk;
-        lds = p.nt;
+#pragma unroll 1
+        for (int i = pt; i < kBK * kBN; i += 128) {
+          const int r = i / kBN, c = i % kBN;
+          if (r < rows && c < h.width) dst[r * h.ldf + c] = bs[r * kBN + c];
+        }
       }
-      if (k + 1 < d) {
-        copy_words(src, lds, p.buf[dst] + k * blk, p.nt, p.lr, p.nt, k > 0);
-        signal(&arrive[(dst * tiles + t) * d + k + 1]);
+    }
+    __syncwarp();
+    if (pt % 32 == 0) mbar_arrive(&ring.full[pub % Tl::kStages]);
+    ++pub;
+  }
+
+  __device__ void flush() {
+    cp_async_wait<0>();
+    while (pub < it) publish();
+  }
+
+  __device__ void run() {
+    const int d = p.d, me = blockIdx.y;
+    const int dst = ((me + p.dir) % d + d) % d;
+    const Walk wk(p);
+    int* arrive = p.flags;
+    int* done = arrive + static_cast<long long>(d) * wk.strips * d;
+    const long long blk = static_cast<long long>(p.lr) * p.nt;
+    const float* own = d > 1 ? p.buf[me] : nullptr;
+    float* next = d > 1 ? p.buf[dst] : nullptr;
+    for (int s = blockIdx.x; s < wk.strips; s += gridDim.x) {
+      const int t = s / wk.spt;
+      const int c0 = (s % wk.spt) * kBN;  // first column within the N tile
+      const long long col0 = static_cast<long long>(t) * p.nt + c0;
+      const long long slot = static_cast<long long>(t % p.slots) * (d - 1) * blk;
+      // the neighbour's slot holds strip s - slots * spt until it is done
+      if (d > 1 && s >= p.slots * wk.spt)
+        producer_wait_for(&done[static_cast<long long>(dst) * wk.strips + s -
+                                p.slots * wk.spt],
+                          1, pt);
+      h.width = min(kBN, p.nt - c0);
+      for (h.m0 = 0; h.m0 < p.m; h.m0 += Tl::kBM) {
+        h.rows = min(Tl::kBM, p.m - h.m0);
+        for (h.k = 0; h.k < d; ++h.k) {
+          if (h.k == 0) {
+            h.b = p.b[me] + col0;
+            h.ldb = p.n;
+          } else {
+            // the first chunk waits for the block; later chunks find it
+            if (h.m0 == 0) {
+              flush();
+              producer_wait_for(
+                  &arrive[(static_cast<long long>(me) * wk.strips + s) * d + h.k],
+                  1, pt);
+            }
+            h.b = own + slot + (h.k - 1) * blk + c0;
+            h.ldb = p.nt;
+          }
+          const bool fwd = h.m0 == 0 && h.k + 1 < d;
+          h.fwd = fwd ? next + slot + h.k * blk + c0 : nullptr;
+          h.ldf = p.nt;
+          hop0 = it;
+          for (int step = 0; step < wk.steps; ++step) {
+            issue();
+            if (it - pub > Tl::kLag) {
+              cp_async_wait<Tl::kLag>();
+              publish();
+            }
+          }
+          flush();
+          if (fwd)
+            producer_signal(
+                &arrive[(static_cast<long long>(dst) * wk.strips + s) * d + h.k + 1],
+                pt);
+        }
       }
-      contract(p.a[me] + static_cast<long long>(k) * p.lr, lda, src, lds,
-               k > 0, p.c[me] + col0, p.n, p.m, p.lr, p.nt, k == 0);
+      // every read of this rank's buffer for strip s has landed
+      if (d > 1) producer_signal(&done[static_cast<long long>(me) * wk.strips + s], pt);
+    }
+  }
+};
+
+// A consumer warpgroup: for every stage, B's TF32 parts split into its
+// own buffer; its A fragments from the loaded A tile split into TF32
+// parts in registers, and for each of its m64 tiles lo.hi, hi.lo and
+// hi.hi into a fresh partial sum, which is then added into acc in f32
+// (round to nearest), so the tensor cores' truncation acts on one
+// stage's 16-deep sum only.  The sums of all d hops stay in registers
+// (block 0, 1, ..., d - 1, k ascending within a block) and C is written
+// once.
+template <int W, int TP>
+__device__ void consume(const RingMatmul& p, const Ring<W, TP>& ring) {
+  using Tl = Tiling<W, TP>;
+  constexpr int S = Tl::kStages;
+  const int me = blockIdx.y;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4, q = threadIdx.x % 4;
+  const Walk wk(p);
+  int it = 0;
+  for (int s = blockIdx.x; s < wk.strips; s += gridDim.x) {
+    const int t = s / wk.spt;
+    const int c0 = (s % wk.spt) * kBN;
+    const int width = min(kBN, p.nt - c0);
+    float* c = p.c[me] + static_cast<long long>(t) * p.nt + c0;
+    for (int m0 = 0; m0 < p.m; m0 += Tl::kBM) {
+      float acc[TP][kAcc];
+#pragma unroll
+      for (int tp = 0; tp < TP; ++tp)
+#pragma unroll
+        for (int e = 0; e < kAcc; ++e) acc[tp][e] = 0.0f;
+      for (int step = 0; step < p.d * wk.steps; ++step, ++it) {
+        mbar_wait(&ring.full[it % S], (it / S) & 1);
+        const float* st = ring.stage(it);
+        // this warpgroup's split buffer it % 2: its wgmma group of stage
+        // it - 2 has completed on every warp (they all passed the barrier
+        // of stage it - 1 after it)
+        unsigned* bhi = ring.split + (wg * 2 + it % 2) * 2 * Tl::kTileB;
+        unsigned* blo = bhi + Tl::kTileB;
+        split_b(st + Tl::kTileA, bhi, blo, threadIdx.x % 128);
+        // the split was written through the generic proxy, wgmma reads it
+        // through the async proxy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+#pragma unroll
+        for (int tp = 0; tp < TP; ++tp) {
+          if (m0 + (wg * TP + tp) * 64 >= p.m) break;  // a tile of padding rows
+          const float* ar = st + ((wg * TP + tp) * 64 + warp * 16 + g) * kBK + 4 * q;
+          const float4 u = *reinterpret_cast<const float4*>(ar);
+          const float4 v = *reinterpret_cast<const float4*>(ar + 8 * kBK);
+          const float x[8] = {u.x, v.x, u.y, v.y, u.z, v.z, u.w, v.w};
+          unsigned ah[2][4], al[2][4];  // the two k8 steps
+#pragma unroll
+          for (int i = 0; i < 8; ++i) split_tf32(x[i], ah[i / 4][i % 4], al[i / 4][i % 4]);
+          float part[kAcc];
+          pin(part);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kBK / 8; ++ks) {  // small terms first
+            const int o = ks * 2 * kCore;
+            const unsigned long long bh = desc(bhi + o), bl = desc(blo + o);
+            wgmma_tf32(part, al[ks], bh, ks);  // the stage's first product starts the sum
+            wgmma_tf32(part, ah[ks], bl, 1);
+            wgmma_tf32(part, ah[ks], bh, 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          pin(part);
+          pin(ah);
+          pin(al);
+#pragma unroll
+          for (int e = 0; e < kAcc; ++e) acc[tp][e] += part[e];
+        }
+        __syncwarp();
+        if (threadIdx.x % 32 == 0) mbar_arrive(&ring.empty[it % S]);
+      }
+      // acc[tp][4 j + 2 half + e] is row g + 8 half, column 8 j + 2 q + e
+      // of this warp's 16 rows of m64 tile wg TP + tp
+#pragma unroll
+      for (int tp = 0; tp < TP; ++tp) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = m0 + (wg * TP + tp) * 64 + warp * 16 + g + half * 8;
+          if (row >= p.m) continue;
+          float* crow = c + static_cast<long long>(row) * p.n;
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j) {
+            const int col = j * 8 + 2 * q;
+            if (col < width) crow[col] = acc[tp][4 * j + 2 * half];
+            if (col + 1 < width) crow[col + 1] = acc[tp][4 * j + 2 * half + 1];
+          }
+        }
+      }
     }
   }
 }
 
-// CTAs per rank: as many as are resident at once over the d ranks, at
-// most ``useful``; cudaErrorCooperativeLaunchTooLarge when not even one
-// CTA a rank fits.
-int grid_x(const void* kernel, int d, long long useful, int& gx) {
+template <int W, int TP>
+__global__ void __launch_bounds__(Tiling<W, TP>::kThreads, 1)
+    ring_matmul_kernel(RingMatmul p) {
+  using Tl = Tiling<W, TP>;
+  extern __shared__ __align__(1024) float smem[];
+  Ring<W, TP> ring;
+  ring.smem = smem;
+  ring.split = reinterpret_cast<unsigned*>(smem + Tl::kStages * Tl::kStage);
+  ring.full = reinterpret_cast<unsigned long long*>(ring.split + Tl::kSplit);
+  ring.empty = ring.full + Tl::kStages;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < Tl::kStages; ++i) {
+      mbar_init(&ring.full[i], 5);  // the A load's arrival, 4 warps' publication
+      mbar_init(&ring.empty[i], Tl::kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= Tl::kConsumers) {
+    const int me = blockIdx.y, d = p.d;
+    const int dst = ((me + p.dir) % d + d) % d;
+    const bool vec =
+        ((p.nt | p.n) & 3) == 0 &&
+        ((reinterpret_cast<uintptr_t>(p.b[me]) |
+          reinterpret_cast<uintptr_t>(d > 1 ? p.buf[me] : nullptr) |
+          reinterpret_cast<uintptr_t>(d > 1 ? p.buf[dst] : nullptr)) &
+         15) == 0;
+    Producer<W, TP> pr{p, ring, vec, static_cast<int>(threadIdx.x) - Tl::kConsumers};
+    pr.run();
+  } else {
+    consume<W, TP>(p, ring);
+  }
+}
+
+// CTAs per rank: as many as are resident at once over the d ranks (with
+// ``smem`` bytes of dynamic shared memory each), at most ``useful``;
+// cudaErrorCooperativeLaunchTooLarge when not even one CTA a rank fits.
+int grid_x(const void* kernel, int threads, int smem, int d, long long useful,
+           int& gx) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
+                                                        threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   long long fit = static_cast<long long>(per_sm) * sms / d;
   if (fit > useful) fit = useful;
@@ -296,18 +775,110 @@ int grid_x(const void* kernel, int d, long long useful, int& gx) {
   return 0;
 }
 
-int launch_matmul(RingMatmul p, cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(ring_matmul_kernel);
-  const long long tiles = static_cast<long long>((p.m + kBM - 1) / kBM) *
-                          ((p.nt + kBN - 1) / kBN);
-  const long long copy = (static_cast<long long>(p.lr) * p.nt + kThreads - 1) /
-                         kThreads;
-  int gx = 0;
-  const int err = grid_x(kernel, p.d, tiles > copy ? tiles : copy, gx);
-  if (err != 0) return err;
-  void* args[] = {&p};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      kernel, dim3(gx, p.d), dim3(kThreads), args, 0, stream));
+template <int W, int TP>
+struct Chunk {
+  static constexpr int kW = W, kTP = TP;
+};
+
+// f(Chunk<W, TP>{}) for the row chunk of M: the fewest m64 tiles that
+// hold M, one consumer warpgroup each, up to 4; above 256 rows chunks of
+// 384 on 3 warpgroups of two tiles, tiles wholly past M skipped (five
+// warpgroups and the producer would leave a thread too few registers
+// for two sets of partial sums).
+template <class F>
+int by_chunk(int m, F f) {
+  switch ((m + 63) / 64) {
+    case 1: return f(Chunk<1, 1>{});
+    case 2: return f(Chunk<2, 1>{});
+    case 3: return f(Chunk<3, 1>{});
+    case 4: return f(Chunk<4, 1>{});
+    default: return f(Chunk<3, 2>{});
+  }
+}
+
+// The kernel for p's row chunk, with its shared memory granted, and its
+// CTAs per rank.
+template <int W, int TP>
+int matmul_grid(const RingMatmul& p, const void*& kernel, int& gx) {
+  using Tl = Tiling<W, TP>;
+  kernel = reinterpret_cast<const void*>(ring_matmul_kernel<W, TP>);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long strips =
+      static_cast<long long>(p.n / p.nt) * ((p.nt + kBN - 1) / kBN);
+  return grid_x(kernel, Tl::kThreads, Tl::kSmem, p.d, strips, gx);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// TMA maps of each rank's A_rot [M, d lr] viewed as [d blocks, M, lr]
+// (box {kBK, 64, 1}: one m64 tile of one stage), written to ``maps`` on
+// ``stream``.  False (and no maps) when a rank's A is not 16-byte
+// aligned or lr is not a multiple of 4: the kernel then loads A itself.
+int encode_amaps(const long long* a_host, int d, int m, int lr,
+                 CUtensorMap* maps, cudaStream_t stream, bool& ok) {
+  ok = lr % 4 == 0;
+  for (int r = 0; r < d && ok; ++r) ok = a_host[r] % 16 == 0;
+  if (!ok) return 0;
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  std::vector<CUtensorMap> host(d);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(lr),
+                              static_cast<cuuint64_t>(m),
+                              static_cast<cuuint64_t>(d)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * lr * 4,
+                                 static_cast<cuuint64_t>(lr) * 4};
+  const cuuint32_t box[3] = {kBK, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  for (int r = 0; r < d; ++r) {
+    if (encode(&host[r], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+               reinterpret_cast<void*>(a_host[r]), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // from pageable memory: the call returns once ``host`` has been read
+  return static_cast<int>(cudaMemcpyAsync(maps, host.data(),
+                                          host.size() * sizeof(CUtensorMap),
+                                          cudaMemcpyHostToDevice, stream));
+}
+
+int launch_matmul(RingMatmul p, const long long* a_host, void* maps,
+                  cudaStream_t stream) {
+  bool tma = false;
+  if (p.lr > 0) {
+    const int err = encode_amaps(a_host, p.d, p.m, p.lr,
+                                 static_cast<CUtensorMap*>(maps), stream, tma);
+    if (err != 0) return err;
+  }
+  p.amaps = tma ? static_cast<const CUtensorMap*>(maps) : nullptr;
+  return by_chunk(p.m, [&](auto c) {
+    using C = decltype(c);
+    using Tl = Tiling<C::kW, C::kTP>;
+    const void* kernel = nullptr;
+    int gx = 0;
+    const int e = matmul_grid<C::kW, C::kTP>(p, kernel, gx);
+    if (e != 0) return e;
+    void* args[] = {&p};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        kernel, dim3(gx, p.d), dim3(Tl::kThreads), args, Tl::kSmem, stream));
+  });
 }
 
 }  // namespace
@@ -320,7 +891,8 @@ extern "C" int smf_ring_all_gather(const float* const* in, float* const* out,
                                    cudaStream_t stream) {
   const void* kernel = reinterpret_cast<const void*>(ring_all_gather_kernel);
   int gx = 0;
-  const int err = grid_x(kernel, d, (words + kThreads - 1) / kThreads, gx);
+  const int err =
+      grid_x(kernel, kThreads, 0, d, (words + kThreads - 1) / kThreads, gx);
   if (err != 0) return err;
   void* args[] = {&in, &out, &flags, &d, &words};
   return static_cast<int>(cudaLaunchCooperativeKernel(
@@ -329,26 +901,56 @@ extern "C" int smf_ring_all_gather(const float* const* in, float* const* out,
 
 // a, b, buf, c: device arrays of d pointers (A_rot [m, d * lr] with block
 // k = owner (me - k) mod d, B [lr, n], a [(d - 1) * lr * n] scratch
-// buffer, C [m, n]); flags: zeroed int32[d * d + d].  K7: one N tile,
-// blocks flow right.
-extern "C" int smf_ring_matmul(const float* const* a, const float* const* b,
-                               float* const* buf, float* const* c,
-                               int* flags, int d, int m, int lr, int n,
-                               cudaStream_t stream) {
-  return launch_matmul(RingMatmul{a, b, buf, c, flags, d, m, lr, n, n, 1},
-                       stream);
+// buffer, C [m, n]); a_host: the same d pointers of A_rot in host memory;
+// maps: device scratch of d * 128 bytes (64-byte aligned) for the TMA
+// maps; flags: zeroed int32[d * strips * (d + 1)], strips = ceil(n / 64).
+// K7: one N tile, blocks flow right.
+extern "C" int smf_ring_matmul(const float* const* a, const long long* a_host,
+                               const float* const* b, float* const* buf,
+                               float* const* c, int* flags, void* maps, int d,
+                               int m, int lr, int n, cudaStream_t stream) {
+  return launch_matmul(
+      RingMatmul{a, b, buf, c, flags, nullptr, d, m, lr, n, n, 1, 1}, a_host,
+      maps, stream);
 }
 
 // As smf_ring_matmul over n / nt column tiles (n % nt == 0), blocks
-// flowing left (A_rot block k = owner (me + k) mod d); buf: [(d - 1) *
-// lr * nt] a rank; flags: zeroed int32[d * (n / nt) * (d + 1)].  K8.
+// flowing left (A_rot block k = owner (me + k) mod d); buf: [slots *
+// (d - 1) * lr * nt] a rank, slots = smf_ring_matmul_tiled_slots(...);
+// flags: zeroed int32[d * strips * (d + 1)], strips = (n / nt) *
+// ceil(nt / 64).  K8.
 extern "C" int smf_ring_matmul_tiled(const float* const* a,
+                                     const long long* a_host,
                                      const float* const* b, float* const* buf,
-                                     float* const* c, int* flags, int d, int m,
-                                     int lr, int n, int nt,
-                                     cudaStream_t stream) {
-  if (nt <= 0 || n % nt != 0)
+                                     float* const* c, int* flags, void* maps,
+                                     int d, int m, int lr, int n, int nt,
+                                     int slots, cudaStream_t stream) {
+  if (nt <= 0 || n % nt != 0 || slots < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_matmul(RingMatmul{a, b, buf, c, flags, d, m, lr, n, nt, -1},
-                       stream);
+  return launch_matmul(
+      RingMatmul{a, b, buf, c, flags, nullptr, d, m, lr, n, nt, slots, -1},
+      a_host, maps, stream);
+}
+
+// The N tiles K8's buffer must hold for (d, m, n, nt) on this card: the
+// strips one round of the grid has in flight, plus one tile, so that a
+// CTA seldom waits for the neighbour to free a slot (at most n / nt).
+// Returns -(cudaError_t) when the launch would be refused.
+extern "C" int smf_ring_matmul_tiled_slots(int d, int m, int n, int nt) {
+  if (nt <= 0 || n % nt != 0) return -static_cast<int>(cudaErrorInvalidValue);
+  RingMatmul p{};
+  p.d = d;
+  p.m = m;
+  p.n = n;
+  p.nt = nt;
+  int gx = 0;
+  const int e = by_chunk(m, [&](auto c) {
+    using C = decltype(c);
+    const void* kernel = nullptr;
+    return matmul_grid<C::kW, C::kTP>(p, kernel, gx);
+  });
+  if (e != 0) return -e;
+  const int tiles = n / nt, spt = (nt + kBN - 1) / kBN;
+  const int slots = (gx + spt - 1) / spt + 1;
+  return slots < tiles ? slots : tiles;
 }

@@ -30,9 +30,17 @@ class ShardMesh:
     device: torch.device
 
 
-def make_mesh(n_shards: int = 1, device: torch.device | str = "cpu") -> ShardMesh:
+def make_mesh(n_shards: int = 1, device: torch.device | str | None = None) -> ShardMesh:
     """A 1-D mesh of ``n_shards`` shards along :data:`ROW_AXIS`, all on
-    ``device``."""
+    ``device``: by default the current CUDA card, as the reference's mesh
+    is built over the accelerator's devices.  Without a card the default
+    raises; a CPU mesh is only made when ``device="cpu"`` is asked for."""
     if n_shards < 1:
         raise ValueError(f"need at least one shard, got {n_shards}")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh: no CUDA device; pass device='cpu' for a mesh on the CPU"
+            )
+        device = torch.device("cuda", torch.cuda.current_device())
     return ShardMesh(int(n_shards), torch.device(device))

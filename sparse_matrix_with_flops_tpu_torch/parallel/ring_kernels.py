@@ -20,17 +20,23 @@ plain twin instead.  ``<wrapper>.launches`` counts kernel launches.
 
 Each launch is cooperative, with as many CTAs a rank as are resident
 at once; when not even one a rank fits (d above the card's resident
-CTAs), the launch is refused and the wrapper raises.
+CTAs), the launch is refused and the wrapper raises.  K7 and K8 run on
+the tensor cores in three TF32 passes (x = hi + lo, hi.hi + hi.lo +
+lo.hi), each 16-deep stage's sum added into f32 with round-to-nearest,
+as accurate as their twins, true-f32 ``torch.matmul`` calls (TF32 off,
+config.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .._build import check_tensor, launch, on_card
+from .._build import check_tensor, launch, on_card, query
 from ..config import QVALUE_DTYPE
 
 RIGHT, LEFT = 1, -1  # direction the blocks flow: to rank me + 1 or me - 1
+STRIP_COLS = 64  # columns a CTA of K7 / K8 owns (kBN in csrc/ring.cu): one flag set a strip
+TMA_MAP_BYTES = 128  # sizeof(CUtensorMap): K7 / K8 load each rank's A through one
 
 
 def _owners(d: int, direction: int, device) -> torch.Tensor:
@@ -140,21 +146,28 @@ def _ring_matmul_launch(name, a_rot, b, d, m, lr, n, nt):
     c = torch.empty((d, m, n), dtype=QVALUE_DTYPE, device=b.device)
     if not (m and n):
         return c
+    dev = b.device
+    tiles = n // nt
+    tiled = name == "smf_ring_matmul_tiled"
+    # K8's buffer holds as many N tiles as one round of its grid has in flight
+    slots = query("smf_ring_matmul_tiled_slots", dev, d, m, n, nt) if tiled else 1
     if d == 1:
         bufs = []
     else:  # each rank's rotating buffer is its own allocation
-        bufs = [torch.empty((d - 1) * lr * nt, dtype=QVALUE_DTYPE, device=b.device)
+        bufs = [torch.empty(slots * (d - 1) * lr * nt, dtype=QVALUE_DTYPE, device=dev)
                 for _ in range(d)]
-    tiles = n // nt
-    flags = torch.zeros(d * tiles * (d + 1), dtype=torch.int32, device=b.device)
-    dev = b.device
+    strips = tiles * -(-nt // STRIP_COLS)
+    flags = torch.zeros(d * strips * (d + 1), dtype=torch.int32, device=dev)
     ptrs = [_ptrs(t, dev) for t in (a_rot, b, bufs, c)]  # alive past the launch
+    a_host = _ptrs(a_rot, "cpu")  # the kernel's TMA maps of A are made from these
+    maps = torch.empty((d, TMA_MAP_BYTES), dtype=torch.uint8, device=dev)
     args = [
-        ptrs[0].data_ptr(), ptrs[1].data_ptr(), ptrs[2].data_ptr() if bufs else 0,
-        ptrs[3].data_ptr(), flags.data_ptr(), d, m, lr, n,
+        ptrs[0].data_ptr(), a_host.data_ptr(), ptrs[1].data_ptr(),
+        ptrs[2].data_ptr() if bufs else 0, ptrs[3].data_ptr(), flags.data_ptr(),
+        maps.data_ptr(), d, m, lr, n,
     ]
-    if name == "smf_ring_matmul_tiled":
-        args.append(nt)
+    if tiled:
+        args += [nt, slots]
     launch(name, dev, *args)
     return c
 

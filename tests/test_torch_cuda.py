@@ -279,6 +279,15 @@ def test_ring_all_gather_kernel_matches_twin(dev, d, lr, w, dtype):
         (8, 33, 17, 96, 96),  # d = 8, N = nt
         (1, 70, 200, 512, 256),  # d = 1: no hop
         (4, 297, 512, 4096, 2048),
+        (3, 37, 50, 200, 100),  # odd d; lr not a multiple of 4: A loaded without TMA
+        (2, 400, 64, 256, 128),  # M above one CTA's 384 rows: two row chunks
+        (2, 200, 48, 384, 384),  # 193-256 rows: four warpgroups of one m64 tile
+        (2, 10, 12, 90, 90),  # N not a multiple of 4: B staged by 4-byte loads
+        (4, 400, 96, 768, 128),  # two row chunks, six N tiles over two buffer slots
+        (3, 8, 40, 640, 64),  # lr not a multiple of the 16-deep stage; ten N tiles
+        (2, 20, 36, 200, 100),  # N tile not a multiple of the 64-column strip
+        (2, 64, 4096, 4096, 4096),  # K7's strips without N tiles at full depth
+        (4, 297, 4096, 4096, 2048),  # the D = 4 main path's M, lr and nt
     ],
 )
 def test_ring_matmul_kernels_match_twins(dev, d, m, lr, n, nt):
@@ -296,6 +305,39 @@ def test_ring_matmul_kernels_match_twins(dev, d, m, lr, n, nt):
         assert counter.launches == before + 1
         assert bool(torch.isfinite(got).all())
         assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("d,lr", [(2, 16), (4, 8), (1, 32)])
+def test_ring_matmul_kernels_keep_the_bits_below_tf32(dev, d, lr):
+    # every entry 1 + 2^-12: its low part lies below TF32's 10-bit mantissa,
+    # so one TF32 pass gives K instead of K (1 + 2^-11 + 2^-24), an error of
+    # 4.9e-4 of |A||B|, and a dropped cross term (hi.lo or lo.hi) one of
+    # 2.4e-4; three passes leave the lo.lo term, 6e-8.  K = d * lr = 32.
+    m, n, nt = 5, 192, 64
+    x = 1.0 + 2.0**-12
+    a = torch.full((d, m, d * lr), x, device=dev)
+    b = torch.full((d, lr, n), x, device=dev)
+    exact = torch.full((d, m, n), d * lr * x * x, dtype=torch.float64, device=dev)
+    bound = 1e-5 * d * lr * x * x  # |A||B|
+    for fn in (lambda: ring_matmul(a, b), lambda: ring_matmul_tiled(a, b, nt)):
+        err = (fn().double() - exact).abs()
+        torch.cuda.synchronize()
+        assert bool((err <= bound).all()), float(err.max())
+
+
+def test_default_mesh_runs_sharded_rmcl_on_the_card(dev):
+    # make_mesh() with no device is the card, so a host graph runs there
+    t = _rmcl_graph(256, 0.03, (5, 130), 1)
+    mesh = make_mesh(4)
+    assert mesh.device.type == "cuda"
+    before = ring_matmul_tiled.launches
+    got, _ = sharded_rmcl_ell(t, mesh, max_iters=2, S=128, max_tile=1024,
+                              exchange="fused_ring")
+    assert ring_matmul_tiled.launches > before
+    assert got.row_ptr.device.type == "cuda"
+    want, _ = sharded_rmcl_ell(t, make_mesh(4, "cpu"), max_iters=2, S=128,
+                               max_tile=1024, exchange="fused_ring")
+    _ell_same(got, want)
 
 
 def test_ring_matmul_tiled_refuses_n_not_a_multiple_of_nt(dev):
@@ -352,11 +394,12 @@ def test_rmcl_ell_on_card_matches_cpu_path(dev):
 @pytest.mark.parametrize("exchange", ["all_gather", "pallas_ring", "ring", "fused_ring"])
 def test_sharded_rmcl_on_card_matches_cpu_path(dev, exchange):
     t = _rmcl_graph(256, 0.03, (5, 130), 1)
-    want, _ = sharded_rmcl_ell(t, make_mesh(4), max_iters=2, S=128, max_tile=1024,
+    want, _ = sharded_rmcl_ell(t, make_mesh(4, "cpu"), max_iters=2, S=128, max_tile=1024,
                                exchange=exchange)
     counts = [w.launches for w in (ring_all_gather, ring_matmul_tiled)]
     got, _ = sharded_rmcl_ell(t.to(dev), make_mesh(4, dev), max_iters=2, S=128,
                               max_tile=1024, exchange=exchange)
+    assert got.row_ptr.device.type == "cuda"
     after = [w.launches for w in (ring_all_gather, ring_matmul_tiled)]
     assert (after[0] > counts[0]) == (exchange == "pallas_ring")
     assert (after[1] > counts[1]) == (exchange == "fused_ring")

@@ -166,6 +166,99 @@ def test_ring_matmul_tiled_rejects_n_not_a_multiple_of_nt():
         RK.ring_matmul_tiled_plain(torch.from_numpy(a), torch.from_numpy(b), nt=0)
 
 
+# ---- the kernels' 3xTF32 arithmetic, emulated -------------------------------------
+TERMS = {"lo_hi": (1, 0), "hi_lo": (0, 1), "hi_hi": (0, 0)}  # (a part, b part)
+THREE_PASS = ("lo_hi", "hi_lo", "hi_hi")
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 as ``cvt.rna.tf32.f32``: to nearest, ties away from zero
+    (add half a TF32 ulp to the magnitude, clear the 13 low bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _ring_matmul_tf32(a, b, direction, terms=THREE_PASS) -> np.ndarray:
+    """K7 / K8 on the tensor cores, emulated: every block product as the
+    sum of ``terms`` over the TF32 parts (exact in f64), blocks in the
+    ring's order, rounded to f32 at the end."""
+    d, m, _ = a.shape
+    lr, n = b.shape[1:]
+    a_rot = RK._rotate_cols(torch.from_numpy(a), lr, direction)
+    own = RK._owners(d, direction, "cpu").tolist()
+    out = torch.zeros((d, m, n), dtype=torch.float64)
+    for me in range(d):
+        for k in range(d):
+            pa = _split(a_rot[me, :, k * lr:(k + 1) * lr])
+            pb = _split(torch.from_numpy(b[own[me][k]]))
+            for t in terms:
+                i, j = TERMS[t]
+                out[me] += pa[i].double() @ pb[j].double()
+    return out.float().numpy()
+
+
+def _abs_product(a, b) -> np.ndarray:
+    """|A||B| of every rank in f64 (owner-major columns of ``a``)."""
+    d, lr, n = b.shape
+    return np.abs(a).astype(np.float64) @ np.abs(b).reshape(d * lr, n).astype(np.float64)
+
+
+def _crafted(d: int, lr: int, m: int = 4, n: int = 256):
+    """Every entry 1 + 2^-12: its low part lies below TF32's mantissa."""
+    x = np.float32(1.0 + 2.0**-12)
+    return np.full((d, m, d * lr), x, np.float32), np.full((d, lr, n), x, np.float32)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    ulp = 2.0**-10  # TF32's at 1
+    x = torch.tensor([1.0, 1 + ulp / 4, 1 + ulp / 2, 1 + 3 * ulp / 4, -(1 + ulp / 2),
+                      2.0**-12 + 2.0**-24, 0.0], dtype=torch.float32)
+    want = [1.0, 1.0, 1 + ulp, 1 + ulp, -(1 + ulp), 2.0**-12, 0.0]
+    assert _tf32(x).tolist() == want
+    hi, lo = _split(torch.tensor([1.0 + 2.0**-12]))
+    assert (hi.item(), lo.item()) == (1.0, 2.0**-12)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("kind,m,lr,n", [("random", 16, 8, 512), ("random", 3, 5, 256),
+                                         ("crafted", 4, 0, 256)])
+def test_3xtf32_emulation_matches_pallas(d, kind, m, lr, n):
+    """The kernels' arithmetic (three TF32 passes, emulated) against the
+    reference's K8 in interpret mode, within the kernels' bound of
+    1e-5 of |A||B|."""
+    if kind == "crafted":
+        a, b = _crafted(d, 32 // d, m, n)  # K = d * lr = 32
+    else:
+        a, b = _operands(d, m, lr, n, seed=7 * d + m)
+    want = _ref_matmul(a, b, nt=256)
+    got = _ring_matmul_tf32(a, b, RK.LEFT)
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= 1e-5 * _abs_product(a, b)).all(), float(err.max())
+
+
+@pytest.mark.parametrize("terms,holds", [
+    (THREE_PASS, True),
+    (("hi_hi",), False),  # one TF32 pass
+    (("hi_lo", "hi_hi"), False),  # lo.hi dropped
+    (("lo_hi", "hi_hi"), False),  # hi.lo dropped
+])
+def test_crafted_operands_catch_a_dropped_tf32_term(terms, holds):
+    """The card test's operands (every entry 1 + 2^-12, K = 32): three
+    passes hold 1e-5 of |A||B| against the exact product, one pass or a
+    missing cross term do not."""
+    d, lr = 2, 16
+    a, b = _crafted(d, lr)
+    exact = np.full((d, 4, 256), d * lr * (1.0 + 2.0**-12) ** 2)
+    got = _ring_matmul_tf32(a, b, RK.RIGHT, terms).astype(np.float64)
+    ok = (np.abs(got - exact) <= 1e-5 * _abs_product(a, b)).all()
+    assert ok == holds
+
+
 def test_ring_matmul_rejects_mismatched_shapes():
     a, b = _operands(2, 4, 4, 8, seed=0)
     with pytest.raises(ValueError):

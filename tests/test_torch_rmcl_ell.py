@@ -373,6 +373,6 @@ def test_hub_matmul_is_true_f32(monkeypatch):
     assert (np.abs(c_h.numpy() - a64 @ md) <= bound).all()
     before = len(calls)
     for ex in ("ring", "all_gather", "pallas_ring", "fused_ring"):
-        sharded_rmcl_ell(t, make_mesh(2), max_iters=1, S=32, max_tile=256, exchange=ex)
+        sharded_rmcl_ell(t, make_mesh(2, "cpu"), max_iters=1, S=32, max_tile=256, exchange=ex)
     RK.ring_matmul(torch.ones(2, 3, 8), torch.ones(2, 4, 5))
     assert len(calls) > before + 4

@@ -69,11 +69,17 @@ def _compare(a, b, tol=1e-5) -> bool:
 
 # ---- layout and planner -----------------------------------------------------------
 def test_make_mesh():
-    m = make_mesh(4)
+    m = make_mesh(4, "cpu")
     assert isinstance(m, ShardMesh) and m.num_shards == 4
     assert m.device == torch.device("cpu") and ROW_AXIS == "x"
     with pytest.raises(ValueError):
-        make_mesh(0)
+        make_mesh(0, "cpu")
+    # the default is the card, with no fallback to the CPU
+    if torch.cuda.is_available():
+        assert make_mesh(4).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh(4)
 
 
 @pytest.mark.parametrize("d", [1, 2, 4])
@@ -124,7 +130,7 @@ def test_sharded_rmcl_ell_matches_reference(monkeypatch, d, exchange):
     j = _graph("hub")
     want, jh = JP.sharded_rmcl_ell(j, j_make_mesh(d), max_iters=2, S=32, max_tile=256,
                                    exchange=exchange)
-    got, th = TP.sharded_rmcl_ell(port_csr(j), make_mesh(d), max_iters=2, S=32,
+    got, th = TP.sharded_rmcl_ell(port_csr(j), make_mesh(d, "cpu"), max_iters=2, S=32,
                                   max_tile=256, exchange=exchange)
     assert_same_csr(want, got)
     np.testing.assert_array_equal(th["nnz"], jh["nnz"])
@@ -138,7 +144,7 @@ def test_sharded_balanced_matches_reference(monkeypatch, d):
     j = _graph("odd")
     want, jh = JP.sharded_rmcl_ell(j, j_make_mesh(d), max_iters=2, S=16, max_tile=64,
                                    balance=True)
-    got, th = TP.sharded_rmcl_ell(port_csr(j), make_mesh(d), max_iters=2, S=16,
+    got, th = TP.sharded_rmcl_ell(port_csr(j), make_mesh(d, "cpu"), max_iters=2, S=16,
                                   max_tile=64, balance=True)
     assert_same_csr(want, got)
     np.testing.assert_array_equal(th["nnz"], jh["nnz"])
@@ -149,7 +155,7 @@ def test_sharded_balanced_matches_reference(monkeypatch, d):
 @pytest.mark.parametrize("d", [2, 4])
 def test_pallas_ring_equals_all_gather_exactly(d):
     t = port_csr(_graph("hub"))
-    mesh = make_mesh(d)
+    mesh = make_mesh(d, "cpu")
     ag, hag = TP.sharded_rmcl_ell(t, mesh, max_iters=3, S=32, max_tile=256,
                                   exchange="all_gather")
     pr, hpr = TP.sharded_rmcl_ell(t, mesh, max_iters=3, S=32, max_tile=256,
@@ -163,7 +169,7 @@ def test_pallas_ring_equals_all_gather_exactly(d):
 @pytest.mark.parametrize("d", [2, 4])
 def test_fused_ring_matches_ring(d):
     t = port_csr(_graph("hub"))
-    mesh = make_mesh(d)
+    mesh = make_mesh(d, "cpu")
     rg, _ = TP.sharded_rmcl_ell(t, mesh, max_iters=3, S=32, max_tile=256, exchange="ring")
     fr, _ = TP.sharded_rmcl_ell(t, mesh, max_iters=3, S=32, max_tile=256,
                                 exchange="fused_ring")
@@ -174,7 +180,7 @@ def test_fused_ring_matches_ring(d):
 def test_sharded_matches_single_device(exchange):
     t = port_csr(_graph("odd"))
     one, h1 = TR.rmcl_ell(t, max_iters=3, S=32, max_tile=256)
-    got, hd = TP.sharded_rmcl_ell(t, make_mesh(4), max_iters=3, S=32, max_tile=256,
+    got, hd = TP.sharded_rmcl_ell(t, make_mesh(4, "cpu"), max_iters=3, S=32, max_tile=256,
                                   exchange=exchange)
     assert _compare(got, one)
     np.testing.assert_allclose(hd["differs"], h1["differs"], rtol=1e-3, atol=1e-5)
@@ -193,7 +199,7 @@ def test_fused_ring_calls_k8_only_with_hub_rows(monkeypatch, kind, calls):
     t = port_csr(_graph(kind))
     plan = TP.plan_sharded_rmcl_ell(t, 2, S=16, max_tile=256)[0]
     assert (plan.hmax > 0) == bool(calls)
-    TP.sharded_rmcl_ell(t, make_mesh(2), max_iters=2, S=16, max_tile=256,
+    TP.sharded_rmcl_ell(t, make_mesh(2, "cpu"), max_iters=2, S=16, max_tile=256,
                         exchange="fused_ring")
     assert len(seen) == calls
     for a_shape, b_shape, nt in seen:
@@ -203,4 +209,4 @@ def test_fused_ring_calls_k8_only_with_hub_rows(monkeypatch, kind, calls):
 def test_sharded_rejects_unknown_exchange():
     t = port_csr(_graph("plain"))
     with pytest.raises(ValueError):
-        TP.sharded_rmcl_ell(t, make_mesh(2), max_iters=1, S=16, exchange="tree")
+        TP.sharded_rmcl_ell(t, make_mesh(2, "cpu"), max_iters=1, S=16, exchange="tree")
