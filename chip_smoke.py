@@ -550,6 +550,7 @@ def main() -> int:
     )
     from sparse_matrix_with_flops_tpu_torch.ops.segments import exclusive_cumsum
     from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
+        _window_starts,
         compact_nonzero_rows,
         compact_nonzero_rows_plain,
         sort_dedup_compact,
@@ -700,11 +701,14 @@ def main() -> int:
     torch.cuda.synchronize()
     if not torch.equal(kc, pc) or not torch.equal(kvb, pvb):
         raise AssertionError("K3: output differs from the twin")
+    # the source lanes the windows cover (each read once), not the whole source
+    st = torch.sort(_window_starts(p0, fc.shape[0] // 128, 128)).values
+    covered = int(torch.clamp(st[1:] - st[:-1], max=128).sum()) + 128 * (st.numel() > 0)
     record(
-        "window_gather", f"Q={p0.shape[0]} W=128 src={fc.shape[0]}", 0.0,
+        "window_gather", f"Q={p0.shape[0]} W=128 src={fc.shape[0]} covered={covered}", 0.0,
         cuda_ms(torch, lambda: window_gather(fc, fvb, p0)),
         cuda_ms(torch, lambda: window_gather_plain(fc, fvb, p0, 128)),
-        bound(4.0 * (fc.numel() + fvb.numel() + p0.numel()) + 8.0 * p0.shape[0] * 128),
+        bound(4.0 * p0.numel() + 8.0 * covered + 8.0 * p0.shape[0] * 128),
         NO_CALL["window_gather"],
     )
     dds = E._row_start_deltas(counts, starts, ocap)

@@ -52,12 +52,6 @@ _SIGNATURES = {
     # ... as smf_ring_matmul, then nt, slots
     "smf_ring_matmul_tiled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
 }
-# C entry point -> argument types of a query that launches nothing; each
-# returns an int (negative: minus a cudaError_t)
-_QUERIES = {
-    # d, m, n, nt -> the N tiles K8's rotating buffer holds
-    "smf_ring_matmul_tiled_slots": (_I, _I, _I, _I),
-}
 
 
 def _nvcc() -> str:
@@ -132,10 +126,6 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = (*argtypes, _P)
         fn.restype = ctypes.c_int
-    for name, argtypes in _QUERIES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
     lib.smf_error_string.argtypes = (ctypes.c_int,)
     lib.smf_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,18 +141,6 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = lib.smf_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
-
-
-def query(name: str, device: torch.device, *args) -> int:
-    """Call the C query ``name`` with ``device`` current; raise if it
-    reports an error."""
-    lib = library()
-    with torch.cuda.device(device):
-        out = getattr(lib, name)(*args)
-    if out < 0:
-        msg = lib.smf_error_string(-out).decode()
-        raise RuntimeError(f"{name}: CUDA error {-out} ({msg})")
-    return out
 
 
 def on_card(name: str, *tensors: torch.Tensor) -> bool:

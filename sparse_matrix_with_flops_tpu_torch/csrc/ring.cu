@@ -79,8 +79,7 @@
 //    waits only for its own strip's upstream.  The sums of all d hops stay
 //    in registers (block 0, 1, ..., d - 1 in order, k ascending within a
 //    block) and C is written once.  K8's buffer holds `slots` N tiles in
-//    turn, as many as one round of the grid has strips in flight plus one
-//    (smf_ring_matmul_tiled_slots): a CTA about to overwrite the
+//    turn (two, from the wrapper): a CTA about to overwrite the
 //    neighbour's slot for strip s first waits for the neighbour's flag
 //    that it has read the strip that used it last, in place of a
 //    whole-rank entry barrier per tile.  Every CTA walks its strips in
@@ -98,9 +97,11 @@
 //    split B parts are written by the generic proxy and read by wgmma
 //    through the async proxy: fence.proxy.async precedes the barrier of
 //    the warpgroup that publishes them.
-// What bounds it (a clock64 probe of the two roles): the consumers, whose
-// split of B, waits and promotions leave the tensor cores idle about
-// half the time; see PERF.md.
+// What bounds it (variants timed against it on the card; PERF.md): the
+// consumers' own loop.  With no loads and no B split, each warpgroup's
+// chains of small dependent wgmmas and its f32 promotions still leave
+// the tensor cores idle about half the time; the loads, the forwards and
+// the split add about a third on top.
 #include <cuda.h>
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -418,18 +419,25 @@ __device__ __forceinline__ void producer_signal(int* flag, int pt) {
 
 // The loaded [kBK, kBN] B tile (N-major) -> its TF32 hi and lo parts,
 // K-major in core matrices (core_off with n as the row) in raw_k's depth
-// order, by the 128 threads of a warpgroup (t: 0 .. 127).  A warp takes
-// 32 columns n at 4 split rows kap: it reads one loaded row (32 banks)
-// and writes each bank once.
+// order, by the 128 threads of a warpgroup (t: 0 .. 127).  A thread takes
+// one column n at four split rows 4 k4 .. 4 k4 + 3, which raw_k puts at
+// loaded rows k4, k4 + 4, k4 + 8, k4 + 12, and stores each part as one
+// 16-byte vector: a warp reads 32 banks a row and writes 512 contiguous
+// bytes in four conflict-free wavefronts.
 __device__ __forceinline__ void split_b(const float* bs, unsigned* hi,
                                         unsigned* lo, int t) {
+  static_assert(kBK == 16, "raw_k(4 k4 + j) = 4 j + k4 holds for kBK = 16");
 #pragma unroll
-  for (int e = t; e < kBN * kBK; e += 128) {
-    const int w = e / 32, lane = e % 32;
-    const int n = (w / 16) * 32 + lane;
-    const int kap = ((w / 4) % 4) * 4 + (lane / 8 + w) % 4;
-    const int o = core_off(n, kap);
-    split_tf32(bs[raw_k(kap) * kBN + n], hi[o], lo[o]);
+  for (int u = t; u < kBN * (kBK / 4); u += 128) {
+    const int n = u % kBN, k4 = u / kBN;
+    uint4 h, l;
+    split_tf32(bs[k4 * kBN + n], h.x, l.x);
+    split_tf32(bs[(4 + k4) * kBN + n], h.y, l.y);
+    split_tf32(bs[(8 + k4) * kBN + n], h.z, l.z);
+    split_tf32(bs[(12 + k4) * kBN + n], h.w, l.w);
+    const int o = core_off(n, 4 * k4);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
   }
 }
 
@@ -916,7 +924,7 @@ extern "C" int smf_ring_matmul(const float* const* a, const long long* a_host,
 
 // As smf_ring_matmul over n / nt column tiles (n % nt == 0), blocks
 // flowing left (A_rot block k = owner (me + k) mod d); buf: [slots *
-// (d - 1) * lr * nt] a rank, slots = smf_ring_matmul_tiled_slots(...);
+// (d - 1) * lr * nt] a rank, tile t in slot t % slots (slots >= 1);
 // flags: zeroed int32[d * strips * (d + 1)], strips = (n / nt) *
 // ceil(nt / 64).  K8.
 extern "C" int smf_ring_matmul_tiled(const float* const* a,
@@ -932,25 +940,3 @@ extern "C" int smf_ring_matmul_tiled(const float* const* a,
       a_host, maps, stream);
 }
 
-// The N tiles K8's buffer must hold for (d, m, n, nt) on this card: the
-// strips one round of the grid has in flight, plus one tile, so that a
-// CTA seldom waits for the neighbour to free a slot (at most n / nt).
-// Returns -(cudaError_t) when the launch would be refused.
-extern "C" int smf_ring_matmul_tiled_slots(int d, int m, int n, int nt) {
-  if (nt <= 0 || n % nt != 0) return -static_cast<int>(cudaErrorInvalidValue);
-  RingMatmul p{};
-  p.d = d;
-  p.m = m;
-  p.n = n;
-  p.nt = nt;
-  int gx = 0;
-  const int e = by_chunk(m, [&](auto c) {
-    using C = decltype(c);
-    const void* kernel = nullptr;
-    return matmul_grid<C::kW, C::kTP>(p, kernel, gx);
-  });
-  if (e != 0) return -e;
-  const int tiles = n / nt, spt = (nt + kBN - 1) / kBN;
-  const int slots = (gx + spt - 1) / spt + 1;
-  return slots < tiles ? slots : tiles;
-}

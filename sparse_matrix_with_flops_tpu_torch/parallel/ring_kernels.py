@@ -31,12 +31,15 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check_tensor, launch, on_card, query
+from .._build import check_tensor, launch, on_card
 from ..config import QVALUE_DTYPE
 
 RIGHT, LEFT = 1, -1  # direction the blocks flow: to rank me + 1 or me - 1
 STRIP_COLS = 64  # columns a CTA of K7 / K8 owns (kBN in csrc/ring.cu): one flag set a strip
 TMA_MAP_BYTES = 128  # sizeof(CUtensorMap): K7 / K8 load each rank's A through one
+# N tiles K8's rotating buffer holds, in turn: a CTA waits for the
+# neighbour to have read tile t - 2 before it writes tile t there
+RING_SLOTS = 2
 
 
 def _owners(d: int, direction: int, device) -> torch.Tensor:
@@ -149,8 +152,7 @@ def _ring_matmul_launch(name, a_rot, b, d, m, lr, n, nt):
     dev = b.device
     tiles = n // nt
     tiled = name == "smf_ring_matmul_tiled"
-    # K8's buffer holds as many N tiles as one round of its grid has in flight
-    slots = query("smf_ring_matmul_tiled_slots", dev, d, m, n, nt) if tiled else 1
+    slots = min(RING_SLOTS, tiles) if tiled else 1
     if d == 1:
         bufs = []
     else:  # each rank's rotating buffer is its own allocation
