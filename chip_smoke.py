@@ -6,7 +6,9 @@
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``sparse_matrix_with_flops_tpu_torch/csrc``;
 3. holds each kernel (K1-K4) against its plain PyTorch twin on the card,
-   on inputs cut from the R-MAT s14 plan, and times both;
+   on inputs cut from the R-MAT s14 plan, and times both; K4 also on
+   2^25 + 3 words off the 16-byte grid (4097 tiles, more than the card
+   holds resident CTAs);
 4. runs ``spgemm_auto`` on R-MAT s14 (edge factor 8, seed 7, random
    weights; routes ``ell``) and on the cant-class band
    ``banded_csr(62451, 32)`` (routes ``block``), checks both products
@@ -32,7 +34,17 @@
    ``ring``, ``all_gather`` against single-chip ``rmcl_ell``; the warm
    iteration 2 of each exchange timed with CUDA events; K6 at D = 2, 4, 8
    and K7 / K8 at D = 2, 4 against their twins on this run's blocks and
-   hub operands.
+   hub operands.  K6 is timed as the ``pallas_ring`` exchange calls it,
+   once for the cols and the vals together, so its launches on the main
+   path are one a step (three in the 3-iteration run), half of what two
+   calls a step made.
+
+The s14 matrix of phases 3-5 is built with the constructors' default
+device, and the script checks that it lands on the card.  Before each
+kernel's timed loop, 20 calls with no synchronize between them are held
+against the twin, which would show a stale flag or status word of an
+earlier launch (K4's and K6's scratch is kept across calls: K4 zeroes
+its own before each launch, K6 tags its flags with the launch's epoch).
 
 Every kernel's record carries, beside its time and its twin's, its bound
 (the larger of the bytes it must move, each input read once and each
@@ -299,7 +311,7 @@ def bsr_library(torch, ab, b, want, cuda_ms):
     return cuda_ms(torch, lambda: a @ bp)
 
 
-def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
+def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms):
     """Phases 8 (single-chip R-MCL) and 9 (sharded R-MCL, K6-K8)."""
     import importlib
 
@@ -462,23 +474,28 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
     del plan4, arrays4, smgt4, lc1, lv1
     torch.cuda.synchronize()
 
-    # K6 on this run's [lr, 128] iterate blocks (the main path's D = 4 last)
+    # K6 on this run's [lr, 128] iterate blocks, cols and vals in one call
+    # as the pallas_ring exchange makes it (the main path's D = 4 last)
     for d in (2, 8, 4):
         xc = cols0.reshape(d, n // d, S)
         xv = vals0.reshape(d, n // d, S)
-        for x in (xc, xv):
-            k, p = ring_all_gather(x), ring_all_gather_plain(x)
-            torch.cuda.synchronize()
-            if not torch.equal(k, p):
-                raise AssertionError(f"K6 D={d} {x.dtype}: differs from the twin")
+        want = (ring_all_gather_plain(xc), ring_all_gather_plain(xv))
+
+        def same(got, d=d, want=want):
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"K6 D={d}: differs from the twin")
+
+        same(ring_all_gather(xc, xv))
+        burst(f"K6 D={d}", lambda: ring_all_gather(xc, xv), same)
         idx = RK._owners(d, RK.RIGHT, dev)  # the rotation, as one index gather
         record(
-            "ring_all_gather", f"D={d} [{n // d}, {S}] int32 + f32", 0.0,
-            cuda_ms(torch, lambda: (ring_all_gather(xc), ring_all_gather(xv))),
+            "ring_all_gather", f"D={d} [{n // d}, {S}] int32 + f32 in one call", 0.0,
+            cuda_ms(torch, lambda: ring_all_gather(xc, xv)),
             cuda_ms(torch, lambda: (ring_all_gather_plain(xc), ring_all_gather_plain(xv))),
             bound((d + 1) * (xc.numel() + xv.numel()) * 4),
             cuda_ms(torch, lambda: (xc[idx], xv[idx])),
         )
+        del want
     # K7 / K8 on this run's hub operands
     for d in (2, 4):
         sp_, arrays, _ = plan_sharded_rmcl_ell(mgt, d, S=S, max_tile=MT)
@@ -503,9 +520,15 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms):
             k, p = fk(), fp()
             torch.cuda.synchronize()
             err = (k - p).abs()
-            if not bool(torch.isfinite(k).all()) or not bool((err <= tol).all()):
-                raise AssertionError(f"{name} D={d}: differs from the twin "
-                                     f"(max err {float(err.max()):.3e})")
+
+            def close(got, name=name, d=d, p=p):
+                e = (got - p).abs()
+                if not bool(torch.isfinite(got).all()) or not bool((e <= tol).all()):
+                    raise AssertionError(f"{name} D={d}: differs from the twin "
+                                         f"(max err {float(e.max()):.3e})")
+
+            close(k)
+            burst(f"{name} D={d}", fk, close)
             ms, pms = cuda_ms(torch, fk), cuda_ms(torch, fp)
             log(f"{name} D={d}: a {tuple(a_cols.shape)} b {tuple(md_loc.shape)} nt {nt}: "
                 f"{gf:.1f} GFLOP, kernel {gf / ms:.2f} TFLOP/s ({kb[0] / ms:.1%} of the "
@@ -614,7 +637,10 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     # ---- 3. kernels vs twins on the s14 plan's inputs ------------------
-    a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random")  # the default device
+    if not (a.device == dev and a.col_ind.device == dev and a.values.device == dev):
+        raise AssertionError(f"rmat_csr with no device is on {a.device}, not {dev}")
+    log(f"s14 built with the default device: {a.device}")
     flops, _ = spgemm_upper_bounds(a, a)
     t0 = time.perf_counter()
     plan = plan_ell(a, a)
@@ -661,6 +687,16 @@ def main() -> int:
             raise AssertionError(f"{what}: non-finite values")
         return float(err.max()) if err.numel() else 0.0
 
+    def burst(what, fn, check, calls=20):
+        """``calls`` calls of ``fn`` with no synchronize between them, each
+        result held to ``check`` after one synchronize: a flag or status
+        word that a launch left behind would corrupt a later one."""
+        outs = [fn() for _ in range(calls)]
+        torch.cuda.synchronize()
+        for out in outs:
+            check(out)
+        log(f"{what}: {calls} back-to-back calls pass the check")
+
     widths = [w for w, _, _, _ in pt["bins"]]
     for w_sel in (64, 8192):
         _, _, tile_src, tile_ent = pt["bins"][widths.index(w_sel)]
@@ -668,9 +704,15 @@ def main() -> int:
         kk, kv = sort_dedup_compact(tc, tv, plan.ncols, presorted=plan.chunk)
         pk, pv = sort_dedup_compact_plain(tc, tv, plan.ncols)
         torch.cuda.synchronize()
-        if not torch.equal(kk, pk):
-            raise AssertionError(f"K1 W={w_sel}: cols differ from the twin")
-        err = check_vals(kv, pv, f"K1 W={w_sel}")
+
+        def k1_same(got, w_sel=w_sel, pk=pk, pv=pv):
+            if not torch.equal(got[0], pk):
+                raise AssertionError(f"K1 W={w_sel}: cols differ from the twin")
+            return check_vals(got[1], pv, f"K1 W={w_sel}")
+
+        err = k1_same((kk, kv))
+        burst(f"K1 W={w_sel}", lambda: sort_dedup_compact(tc, tv, plan.ncols, plan.chunk),
+              k1_same)
         record(
             "sort_dedup_compact", f"W={w_sel} R={tc.shape[0]} presorted={plan.chunk}", err,
             cuda_ms(torch, lambda: sort_dedup_compact(tc, tv, plan.ncols, plan.chunk)),
@@ -683,8 +725,13 @@ def main() -> int:
     kk, kv = compact_nonzero_rows(part, vw)
     pk, pv = compact_nonzero_rows_plain(part, vw)
     torch.cuda.synchronize()
-    if not torch.equal(kk, pk) or not torch.equal(kv, pv):
-        raise AssertionError("K2: output differs from the twin")
+
+    def k2_same(got):
+        if not torch.equal(got[0], pk) or not torch.equal(got[1], pv):
+            raise AssertionError("K2: output differs from the twin")
+
+    k2_same((kk, kv))
+    burst("K2", lambda: compact_nonzero_rows(part, vw), k2_same)
     record(
         "compact_nonzero_rows", f"R={part.shape[0]} N={part.shape[1]} ncols={vw}", 0.0,
         cuda_ms(torch, lambda: compact_nonzero_rows(part, vw)),
@@ -699,8 +746,13 @@ def main() -> int:
     kc, kvb = window_gather(fc, fvb, p0)
     pc, pvb = window_gather_plain(fc, fvb, p0, 128)
     torch.cuda.synchronize()
-    if not torch.equal(kc, pc) or not torch.equal(kvb, pvb):
-        raise AssertionError("K3: output differs from the twin")
+
+    def k3_same(got):
+        if not torch.equal(got[0], pc) or not torch.equal(got[1], pvb):
+            raise AssertionError("K3: output differs from the twin")
+
+    k3_same((kc, kvb))
+    burst("K3", lambda: window_gather(fc, fvb, p0), k3_same)
     # the source lanes the windows cover (each read once), not the whole source
     st = torch.sort(_window_starts(p0, fc.shape[0] // 128, 128)).values
     covered = int(torch.clamp(st[1:] - st[:-1], max=128).sum()) + 128 * (st.numel() > 0)
@@ -711,18 +763,30 @@ def main() -> int:
         bound(4.0 * p0.numel() + 8.0 * covered + 8.0 * p0.shape[0] * 128),
         NO_CALL["window_gather"],
     )
+    # K4: first 2^25 + 3 words off the 16-byte grid (4097 tiles, more than
+    # the card holds resident CTAs; int32 sums that wrap), then phase 3's
+    # own input, whose numbers stand for the kernel
+    big = torch.randint(-(2**30), 2**30, (2**25 + 4,), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(3)).to(dev)[1:]
     dds = E._row_start_deltas(counts, starts, ocap)
-    ks, ps = cumsum_i32(dds), cumsum_i32_plain(dds)
-    torch.cuda.synchronize()
-    if not torch.equal(ks, ps):
-        raise AssertionError("K4: output differs from the twin")
-    record(
-        "cumsum_i32", f"n={ocap}", 0.0,
-        cuda_ms(torch, lambda: cumsum_i32(dds)),
-        cuda_ms(torch, lambda: cumsum_i32_plain(dds)),
-        bound(8.0 * dds.numel()),
-        cuda_ms(torch, lambda: torch.cumsum(dds, 0, dtype=torch.int32)),
-    )
+    for label, xs in (("2^25+3 words off the 16-byte grid", big), (f"n={ocap}", dds)):
+        want = cumsum_i32_plain(xs)
+
+        def k4_same(got, label=label, want=want):
+            if not torch.equal(got, want):
+                raise AssertionError(f"K4 {label}: output differs from the twin")
+
+        k4_same(cumsum_i32(xs))
+        burst(f"K4 {label}", lambda: cumsum_i32(xs), k4_same)
+        record(
+            "cumsum_i32", label, 0.0,
+            cuda_ms(torch, lambda: cumsum_i32(xs)),
+            cuda_ms(torch, lambda: cumsum_i32_plain(xs)),
+            bound(8.0 * xs.numel()),
+            cuda_ms(torch, lambda: torch.cumsum(xs, 0, dtype=torch.int32)),
+        )
+        del want
+    del big
     del prod_c, prod_v, flat_c, flat_v, fc, fvb, part
     torch.cuda.synchronize()
 
@@ -854,12 +918,19 @@ def main() -> int:
     kk, kv = sort_dedup_compact(tc, tv, plan32.ncols, presorted=plan32.chunk)
     pk, pv = sort_dedup_compact_plain(tc, tv, plan32.ncols)
     torch.cuda.synchronize()
-    if not torch.equal(kk, pk):
-        raise AssertionError("K1 W=32768: cols differ from the twin")
+
+    def k1w_same(got):
+        if not torch.equal(got[0], pk):
+            raise AssertionError("K1 W=32768: cols differ from the twin")
+        return check_vals(got[1], pv, "K1 W=32768")
+
+    err = k1w_same((kk, kv))
+    burst("K1 W=32768", lambda: sort_dedup_compact(tc, tv, plan32.ncols, plan32.chunk),
+          k1w_same)
     record(
         "sort_dedup_compact",
         f"W=32768 R={tc.shape[0]} presorted={plan32.chunk}",
-        check_vals(kv, pv, "K1 W=32768"),
+        err,
         cuda_ms(torch, lambda: sort_dedup_compact(tc, tv, plan32.ncols, plan32.chunk)),
         cuda_ms(torch, lambda: sort_dedup_compact_plain(tc, tv, plan32.ncols)),
         bound(16.0 * tc.numel()), NO_CALL["sort_dedup_compact"],
@@ -917,6 +988,12 @@ def main() -> int:
         dense_check(f"K5 {label} kernel vs scipy", got, amat, b64)
         dense_check(f"K5 {label} twin vs scipy", twin, amat, b64)
         lib = bsr_library(torch, ab, bd, got, cuda_ms)
+
+        def k5_same(out, label=label, got=got):  # no atomics: bit for bit
+            if not torch.equal(out, got):
+                raise AssertionError(f"K5 {label}: differs from the checked call")
+
+        burst(f"K5 {label}", lambda: bcsr_spmm(ab, bd), k5_same)
         del got, twin
         ms = cuda_ms(torch, lambda: bcsr_spmm(ab, bd))
         plain_ms = cuda_ms(torch, lambda: bcsr_spmm_plain(ab, bd))
@@ -980,7 +1057,7 @@ def main() -> int:
     del c, pc, y, b64d
     torch.cuda.synchronize()
 
-    rmcl_phases(torch, np, sp, dev, card, drive, record, cuda_ms, host_ms)
+    rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms)
 
     for k, n in launches.items():
         if n == 0:

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Probes of the port's K7 / K8 ring matmul kernels on one CUDA card.
+"""Probes of the port's ring kernels K6-K8 on one CUDA card.
 
     python3 ring_probe.py accuracy [--unpromoted]
     python3 ring_probe.py step ROOT [ROOT ...]
+    python3 ring_probe.py launch
+    python3 ring_probe.py variants [NAME ...]
 
 ``accuracy``: K8 and its plain twin on the D = 2 and D = 4 hub operands
 of the sharded R-MCL loop on R-MAT s14 (the operands ``chip_smoke.py``
@@ -17,8 +19,18 @@ the source no longer matches), into ``build/ring_probe/``.
 in the order A B B A to compare them on one card), a fresh process
 imports the port from that ROOT, builds its kernels there and times, as
 ``chip_smoke.py`` phase 9 does, the warm D = 4 iteration 2 of every
-exchange with CUDA events, and K8 alone on that iteration's hub
-operands: median, min and max of 7 calls each.
+exchange with CUDA events, K8 alone on that iteration's hub operands,
+and K6 alone on its cols and vals as that tree's ``pallas_ring``
+exchange calls it: median, min and max of 7 calls each.
+
+``launch``: K4 and K6 at their main-path sizes beside the library calls
+that compute the same functions, timed one call at a time (as
+``chip_smoke.py``), back to back, on the host, and by ``torch.profiler``
+on the device; then the host cost of each step of a kernel wrapper.
+
+``variants``: text-edited builds of ``csrc/ring.cu`` (K6) and
+``csrc/cumsum_i32.cu`` (K4), each entry of ``VARIANTS`` or those named,
+timed in turn on the main path's inputs.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib
+import inspect
 import json
 import os
 import statistics
@@ -39,7 +52,7 @@ EXCHANGES = ("fused_ring", "ring", "all_gather", "pallas_ring")
 
 def _edit(src: str, old: str, new: str) -> str:
     if src.count(old) != 1:
-        raise SystemExit(f"csrc/ring.cu changed; cannot find:\n{old}")
+        raise SystemExit(f"the source changed; cannot find once:\n{old}")
     return src.replace(old, new)
 
 
@@ -171,6 +184,13 @@ def step_one(dev) -> dict:
            for ex in EXCHANGES}
     a, b, nt = fused_hub_operands(plan, arrays, lc1, lv1)
     out["K8 alone"] = _times(torch, lambda: RK.ring_matmul_tiled(a, b, nt))
+    # K6 as this tree's pallas_ring exchange calls it: one call for the
+    # cols and vals where the wrapper takes several operands, else two
+    if "xs" in inspect.signature(RK.ring_all_gather).parameters:
+        out["K6 alone"] = _times(torch, lambda: RK.ring_all_gather(lc1, lv1))
+    else:
+        out["K6 alone"] = _times(
+            torch, lambda: (RK.ring_all_gather(lc1), RK.ring_all_gather(lv1)))
     return out
 
 
@@ -192,9 +212,221 @@ def step(roots) -> None:
     print(json.dumps({"step_ms": rows}))
 
 
+def _enter_device(torch, dev) -> None:
+    with torch.cuda.device(dev):
+        pass
+
+
+def launch_costs(dev) -> None:
+    """K4 and K6 at their main-path sizes against the library calls that
+    compute the same functions: the one-call CUDA-event time that
+    ``chip_smoke.py`` reports, the per-call time of 200 back-to-back
+    calls (device-bound once the host keeps ahead), the host time a call
+    takes to enqueue, and the device time of each kernel from
+    ``torch.profiler``; then the host cost of the steps of a wrapper."""
+    import time
+
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.ops.scan_kernels import cumsum_i32
+    from sparse_matrix_with_flops_tpu_torch.parallel import ring_kernels as RK
+
+    _build.library()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(-(2**30), 2**30, (10_597_376,), generator=g, dtype=torch.int32).to(dev)
+    xc = torch.randint(0, 2**14, (4, 4096, 128), generator=g, dtype=torch.int32).to(dev)
+    xv = torch.rand((4, 4096, 128), generator=g).to(dev)
+    idx = RK._owners(4, RK.RIGHT, dev)
+    cases = {
+        "K4 cumsum_i32 n=10597376": lambda: cumsum_i32(x),
+        "torch.cumsum int32": lambda: torch.cumsum(x, 0, dtype=torch.int32),
+        "K6 D=4 cols+vals one call": lambda: RK.ring_all_gather(xc, xv),
+        "index gather cols+vals": lambda: (xc[idx], xv[idx]),
+    }
+    for name, fn in cases.items():
+        one = statistics.median(_times(torch, fn, 15))
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        fn()
+        torch.cuda.synchronize()
+        s.record()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host = (time.perf_counter() - t0) / 200 * 1e3
+        e.record()
+        e.synchronize()
+        burst = s.elapsed_time(e) / 200
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        kern = [(k.key, k.self_device_time_total / k.count, k.count // 20)
+                for k in prof.key_averages() if k.self_device_time_total > 0]
+        print(f"{name}: one call {one:.4f} ms; 200 back to back {burst:.4f} ms a call; "
+              f"host enqueue {host:.4f} ms a call; device "
+              + ", ".join(f"{k[:60]} x{c} {t / 1e3:.4f} ms" for k, t, c in kern), flush=True)
+    steps = {
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(0)": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "with torch.cuda.device(dev)": lambda: _enter_device(torch, dev),
+        "torch.empty_like(x)": lambda: torch.empty_like(x),
+        "torch.empty([4, 16384, 128], int32)":
+            lambda: torch.empty((4, 16384, 128), dtype=torch.int32, device=dev),
+        "x.data_ptr()": x.data_ptr,
+        "ctypes call smf_error_string(0)": lambda: _build.library().smf_error_string(0),
+        "_build.stream_scratch": lambda: _build.stream_scratch("probe", dev, 0, 8),
+    }
+    # the C entries alone, with the arguments the wrappers build (300
+    # launches each, well inside the launch queue)
+    lib, stream = _build.library(), _build.current_stream(dev)
+    words = xc[0].numel()
+    outs = [torch.empty((4, 4 * 4096, 128), dtype=t.dtype, device=dev) for t in (xc, xv)]
+    ctas, slice_, _ = RK._gather_grid(dev, 4, words)
+    host = (ctypes.c_longlong * 4)(*[t.data_ptr() for t in (xc, xv, *outs)])
+    flags = torch.zeros(4 * 3 * ctas, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(4096, dtype=torch.int64, device=dev)
+    y = torch.empty_like(x)
+    epoch = iter(range(1, 1 << 20))
+    steps["C entry smf_ring_all_gather (cooperative launch)"] = lambda: lib.smf_ring_all_gather(
+        ctypes.addressof(host), 2, 4, words, slice_, ctas, flags.data_ptr(), next(epoch), stream)
+    steps["C entry smf_cumsum_i32 (memset and launch)"] = lambda: lib.smf_cumsum_i32(
+        x.data_ptr(), y.data_ptr(), x.numel(), scratch.data_ptr(), stream)
+    for name, fn in steps.items():
+        reps = 300 if name.startswith("C entry") else 2000
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        print(f"host {name}: {(time.perf_counter() - t0) / reps * 1e6:.2f} us", flush=True)
+    torch.cuda.synchronize()
+
+
+K6_SYNC = """      Flag(theirs[k * stride]).store(p.epoch, cuda::std::memory_order_release);
+      Flag f(mine[k * stride]);"""
+K6_WAIT = "!= p.epoch) __nanosleep(32);"
+K4_VECS = "constexpr int kVecs = 8; "
+VARIANTS = {  # name -> (source, [(old, new), ...], checked): exact text edits
+    "K6 as is": ("ring.cu", [], True),
+    "K6 device scope": ("ring.cu", [
+        (K6_SYNC, K6_SYNC.replace("Flag(", "DevFlag(").replace("Flag f(", "DevFlag f(")),
+        ("using Flag = cuda::atomic_ref<int, cuda::thread_scope_system>;",
+         "using Flag = cuda::atomic_ref<int, cuda::thread_scope_system>;\n"
+         "using DevFlag = cuda::atomic_ref<int, cuda::thread_scope_device>;")], True),
+    "K6 with system fences around the flags": ("ring.cu", [
+        (K6_SYNC, "      __threadfence_system();\n" + K6_SYNC),
+        (K6_WAIT, K6_WAIT + "\n      __threadfence_system();")], True),
+    # timing only, wrong results: what the waits and the forwarding hops cost
+    "K6 no waits": ("ring.cu", [(K6_WAIT, "!= p.epoch && false) {}")], False),
+    "K6 hop 0 only": ("ring.cu", [("for (int k = 1; k + 1 < d; ++k) {",
+                                   "for (int k = 1; k + 1 < 1; ++k) {")], False),
+    # every launch through the instance whose parameters hold 2040 pointers
+    "K6 large instance only": ("ring.cu", [(
+        "if (n <= kPtrsSmall) return run(std::integral_constant<int, kPtrsSmall>{});", "")],
+        True),
+    "K4 as is": ("cumsum_i32.cu", [], True),
+    "K4 4 vectors a lane": ("cumsum_i32.cu", [(K4_VECS, "constexpr int kVecs = 4; ")], True),
+    "K4 6 vectors a lane": ("cumsum_i32.cu", [(K4_VECS, "constexpr int kVecs = 6; ")], True),
+    "K4 plain stores": ("cumsum_i32.cu", [(
+        "__stcs(reinterpret_cast<uint4*>(out + wbase + j * 128), v[j]);",
+        "*reinterpret_cast<uint4*>(out + wbase + j * 128) = v[j];")], True),
+    # timing only, wrong results: what the look-back costs
+    "K4 no look-back": ("cumsum_i32.cu", [(
+        "excl = look_back(tiles, tile, lane);", "excl = 0;")], False),
+}
+
+
+def build_variant(name: str, source: str, edits) -> ctypes.CDLL:
+    """``csrc/<source>`` with exact text edits, and errors.cu, as one
+    library under build/ring_probe/, its entry points typed as
+    ``_build.library()``'s."""
+    from sparse_matrix_with_flops_tpu_torch import _build
+
+    csrc = os.path.join(HERE, PKG, "csrc")
+    out = os.path.join(HERE, "build", "ring_probe")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(csrc, source)) as f:
+        src = f.read()
+    for old, new in edits:
+        src = _edit(src, old, new)
+    tag = "".join(c if c.isalnum() else "_" for c in name)
+    cu, so = os.path.join(out, f"{tag}.cu"), os.path.join(out, f"{tag}.so")
+    with open(cu, "w") as f:
+        f.write(src)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-shared", "-o", so, cu,
+                    os.path.join(csrc, "errors.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    for table, extra in ((_build._SIGNATURES, (ctypes.c_void_p,)), (_build._QUERIES, ())):
+        for fn, argtypes in table.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = (*argtypes, *extra)
+                getattr(lib, fn).restype = ctypes.c_int
+    lib.smf_error_string.argtypes = (ctypes.c_int,)
+    lib.smf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Device time of ``fn``'s kernels a call, from torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(k.self_device_time_total for k in prof.key_averages()) / calls / 1e3
+
+
+def variants(dev, names) -> None:
+    """Each entry of VARIANTS (those named, when names are given) built
+    and timed in turn (those marked checked held against the twin first),
+    in the order given and then again in reverse (device time by torch.profiler, and
+    one call by CUDA events as chip_smoke.py times it), on the main
+    path's K6 (D = 4) and K4 inputs, and K4 also on 2^25 words."""
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.ops.scan_kernels import cumsum_i32
+    from sparse_matrix_with_flops_tpu_torch.parallel import ring_kernels as RK
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(-(2**30), 2**30, (10_597_376,), generator=g, dtype=torch.int32).to(dev)
+    xl = torch.randint(-(2**30), 2**30, (2**25,), generator=g, dtype=torch.int32).to(dev)
+    xc = torch.randint(0, 2**14, (4, 4096, 128), generator=g, dtype=torch.int32).to(dev)
+    xv = torch.rand((4, 4096, 128), generator=g).to(dev)
+    want = (RK.ring_all_gather_plain(xc), RK.ring_all_gather_plain(xv),
+            torch.cumsum(x, 0, dtype=torch.int32), torch.cumsum(xl, 0, dtype=torch.int32))
+    chosen = [n for n in VARIANTS if not names or n in names]
+    if names and len(chosen) != len(set(names)):
+        raise SystemExit(f"ring_probe variants: unknown among {names}; have {list(VARIANTS)}")
+    libs = {name: build_variant(name, *VARIANTS[name][:2]) for name in chosen}
+    res = {name: [] for name in chosen}
+    for name in [*chosen, *reversed(chosen)]:
+        _build.library = lambda lib=libs[name]: lib
+        RK._GRIDS.clear()
+        if name.startswith("K6"):
+            fn = lambda: RK.ring_all_gather(xc, xv)  # noqa: E731
+            gc, gv = fn()
+            ok = torch.equal(gc, want[0]) and torch.equal(gv, want[1])
+        else:
+            fn = lambda: cumsum_i32(x)  # noqa: E731
+            ok = torch.equal(fn(), want[2]) and torch.equal(cumsum_i32(xl), want[3])
+        if VARIANTS[name][2] and not ok:
+            raise SystemExit(f"{name}: differs from the twin")
+        big = device_ms(torch, lambda: cumsum_i32(xl)) if name.startswith("K4") else 0.0
+        res[name].append((device_ms(torch, fn), statistics.median(_times(torch, fn, 15)), big))
+    for name, r in res.items():
+        print(f"{name}: device " + " / ".join(f"{d:.4f}" for d, _, _ in r) + " ms; one call "
+              + " / ".join(f"{o:.4f}" for _, o, _ in r) + " ms"
+              + ("; device at 2^25 words " + " / ".join(f"{b:.4f}" for _, _, b in r) + " ms"
+                 if name.startswith("K4") else ""), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("accuracy", "step", "step-one"))
+    ap.add_argument("what", choices=("accuracy", "step", "step-one", "launch", "variants"))
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--unpromoted", action="store_true")
     args = ap.parse_args()
@@ -213,6 +445,12 @@ def main() -> int:
     print(smi, flush=True)
     if args.what == "step":
         step(args.roots)
+    elif args.what == "launch":
+        sys.path.insert(0, HERE)
+        launch_costs(dev)
+    elif args.what == "variants":
+        sys.path.insert(0, HERE)
+        variants(dev, args.roots)
     else:
         sys.path.insert(0, HERE)
         accuracy(dev, not args.unpromoted)

@@ -40,17 +40,22 @@ _SIGNATURES = {
     "smf_compact_nonzero_rows": (_P, _P, _P, _I, _I, _I),
     # src_c, src_v, p0, out_c, out_v, Q, nr, W
     "smf_window_gather": (_P, _P, _P, _P, _P, _L, _L, _I),
-    # x, out, scratch, n
-    "smf_cumsum_i32": (_P, _P, _P, _L),
+    # x, out, n, scratch
+    "smf_cumsum_i32": (_P, _P, _L, _P),
     # brp, bcol, blocks, b, c, nbrows, rows, cols, n, br, bc
     "smf_bcsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
-    # in_ptrs, out_ptrs, flags, d, words
-    "smf_ring_all_gather": (_P, _P, _P, _I, _L),
+    # host array of the operands' base addresses, ops, d, words, slice,
+    # ctas, flags, epoch
+    "smf_ring_all_gather": (_P, _I, _I, _L, _L, _I, _P, _I),
     # a_ptrs, a_ptrs on the host, b_ptrs, buf_ptrs, c_ptrs, flags, TMA map
     # scratch, d, m, lr, n
     "smf_ring_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     # ... as smf_ring_matmul, then nt, slots
     "smf_ring_matmul_tiled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
+}
+# C entries with no stream that write one int result through a pointer
+_QUERIES = {
+    "smf_ring_all_gather_ctas": (_I, _P),  # d -> CTAs a rank of K6
 }
 
 
@@ -126,21 +131,74 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = (*argtypes, _P)
         fn.restype = ctypes.c_int
+    for name, argtypes in _QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.smf_error_string.argtypes = (ctypes.c_int,)
     lib.smf_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call the C entry ``name`` on ``device``'s current stream; raise if
-    the launch reports an error."""
-    lib = library()
+def current_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current stream (the raw handle: building
+    a ``torch.cuda.Stream`` costs a launch's worth of host time)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def launch(name: str, device: torch.device, *args, stream: int | None = None) -> None:
+    """Call the C entry ``name`` on ``stream`` (by default ``device``'s
+    current stream) with ``device`` current; raise if the launch reports
+    an error."""
+    if stream is None:
+        stream = current_stream(device)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, name)(*args, stream)
+        err = getattr(library(), name)(*args, stream)
     if err != 0:
-        msg = lib.smf_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+        raise_error(name, err)
+
+
+def query(name: str, device: torch.device, *args) -> int:
+    """The int that the C entry ``name`` computes for ``device``."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = getattr(library(), name)(*args, ctypes.byref(out))
+    if err != 0:
+        raise_error(name, err)
+    return out.value
+
+
+def raise_error(name: str, err: int) -> None:
+    msg = library().smf_error_string(err).decode()
+    raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+# (kernel, device index, stream) -> [zeroed int64 scratch, last epoch]
+_SCRATCH: dict = {}
+EPOCHS = (1 << 30) - 1  # epochs run 1 .. EPOCHS, then start again at 1
+
+
+def stream_scratch(name: str, device: torch.device, stream: int, numel: int):
+    """The scratch that kernel ``name`` keeps across its launches on one
+    (device, stream), at least ``numel`` int64 words, zeroed when it is
+    allocated or grown, and the epoch of the next launch.  A kernel that
+    tags what it publishes there with its epoch needs nothing cleared
+    between launches: consecutive launches on one stream never share an
+    epoch.
+
+    A launch being captured into a CUDA graph gets a scratch of its own,
+    zeroed by a node of the graph, and epoch 1: every replay reruns the
+    zeroing, so a replay never meets the tags of an earlier one (it would
+    with a kept scratch, since a replay reuses the captured epoch)."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(numel, dtype=torch.int64, device=device), 1
+    key = (name, device.index, stream)
+    st = _SCRATCH.get(key)
+    if st is None or st[0].numel() < numel:
+        size = max(numel, 2 * st[0].numel()) if st else numel
+        st = _SCRATCH[key] = [torch.zeros(size, dtype=torch.int64, device=device), 0]
+    st[1] = st[1] % EPOCHS + 1
+    return st[0], st[1]
 
 
 def on_card(name: str, *tensors: torch.Tensor) -> bool:

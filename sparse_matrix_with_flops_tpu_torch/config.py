@@ -35,3 +35,14 @@ FLOPS_BIN_BOUNDS = (0, 1, 4, 16, 64, 512)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: torch.device | str | None, who: str) -> torch.device:
+    """``device``, or by default the current CUDA card, as the reference's
+    arrays land on the accelerator.  Without a card the default raises:
+    a CPU tensor is only made when ``device="cpu"`` is asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(f'{who}: no CUDA device; pass device="cpu" to work on the CPU')
+    return torch.device("cuda", torch.cuda.current_device())

@@ -14,26 +14,40 @@
 // with remote DMAs, one semaphore pair per region.  Here one cooperative
 // launch runs all D ranks: blockIdx.y is the rank, gridDim.x CTAs work on
 // one rank's region, and every rank's buffers are reached only through
-// its own base pointer (a device array of D pointers per operand), as a
-// peer pointer on another card would be.  The protocol is the reference's
-// write-once, one-flag-per-region ring: a rank reads only its own
-// buffers; its upstream neighbour writes into them and then one thread
-// fences and adds 1 to the flag of the region.  Fences and atomics are
-// system-scope and blocks written in this launch are read through L2
-// (__ldcg, cp.async.cg), never the incoherent L1, so the same code is
-// right when the pointers are peer pointers on other cards.  Ranks spin
-// on each other's flags, so every CTA of the grid must be resident at
-// once: the launch is cooperative and sized from occupancy, and a grid
-// larger than what fits is refused by cudaLaunchCooperativeKernel (the
-// wrapper raises) instead of deadlocking.  The caller zeroes the flags
-// before every launch.
+// its own base pointer (K6: in the launch's parameters; K7 / K8: a device
+// array of D pointers per operand), as a peer pointer on another card
+// would be.  The protocol is the reference's write-once, one-writer-per-
+// region ring: a rank reads only its own buffers; its upstream neighbour
+// writes into them and then one thread fences and raises the flag of the
+// region.  Fences and atomics are system-scope and blocks written in this
+// launch are read through L2 (__ldcg, cp.async.cg), never the incoherent
+// L1, so the same code is right when the pointers are peer pointers on
+// other cards.  Ranks spin on each other's flags, so every CTA of the
+// grid must be resident at once: the launch is cooperative and sized from
+// occupancy, and a grid larger than what fits is refused by
+// cudaLaunchCooperativeKernel (the wrapper raises) instead of
+// deadlocking.  K7 / K8's caller zeroes their flags before every launch;
+// K6's flags carry the launch's epoch and are never cleared (a launch
+// captured into a CUDA graph gets flags of its own that the graph zeroes:
+// `_build.stream_scratch`).
 //
-// K6: at hop k each CTA copies its slice of block k into the neighbour's
-// block k + 1 and raises the neighbour's flag for that block; the
-// neighbour's CTAs read it once the flag reaches gridDim.x.  It moves
-// d - 1 blocks a rank in d - 1 serial hops (at D = 4 on R-MAT s14,
-// [4096, 128] 4-byte blocks): each hop is a copy of a few MB plus a flag
-// round trip, so it is latency-bound by the serial chain.
+// K6 moves d blocks a rank (at D = 4 on R-MAT s14, [4096, 128] 4-byte
+// blocks of cols and vals: 16.8 MB in, 67 MB out), so it is bound by
+// device-memory bandwidth once the hops overlap; its design:
+// 1. One launch for every operand (cols and vals together), the ranks'
+//    pointers in a __grid_constant__ parameter struct: no pointer array
+//    and no flag memset before the launch.
+// 2. Per-slice flags: CTA i of every rank owns the same slice of every
+//    block, and waits only for CTA i of the upstream rank, so the d - 1
+//    hops pipeline slice by slice instead of in whole-grid steps.
+// 3. Hop 0 reads the input once and writes both the rank's own block 0
+//    and the neighbour's block 1; later hops read the block that the
+//    upstream CTA has just written, from L2.  Copies are 16-byte with
+//    scalar heads and tails, the CTA's warps split over the operands.
+// What bounds it (variants timed on the card, `ring_probe.py variants`;
+// PERF.md): the traffic.  Besides the inputs and outputs, each rank reads
+// back the d - 2 blocks it forwards, since only its upstream neighbour
+// writes them; the flag waits cost next to nothing.
 //
 // K7 / K8: C[me] = A_rot[me] . concat(B), block k of B contracted at hop
 // k.  K7's blocks flow right (block k is owner (me - k) mod d), K8's left
@@ -107,91 +121,127 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 #include <vector>
 
 namespace {
 
-constexpr int kThreads = 256;  // K6
-
 using Flag = cuda::atomic_ref<int, cuda::thread_scope_system>;
 
-// Every thread of the CTA calls it after its stores into a region; one
-// thread publishes them and adds 1 to ``flag``.
-__device__ __forceinline__ void signal(int* flag) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    Flag(*flag).fetch_add(1, cuda::std::memory_order_release);
-  }
-}
-
-// Every thread of the CTA calls it; returns once ``flag`` >= target.
-__device__ __forceinline__ void wait_for(int* flag, int target) {
-  if (threadIdx.x == 0) {
-    Flag f(*flag);
-    while (f.load(cuda::std::memory_order_acquire) < target) __nanosleep(64);
-    __threadfence_system();
-  }
-  __syncthreads();
-}
-
-template <typename V>
-__device__ __forceinline__ V load(const V* p, bool fresh) {
-  return fresh ? __ldcg(p) : *p;
-}
-
-// This CTA's share of a rows x cols copy (row strides lds / ldd, in V
-// units) in a grid-stride loop over the rank's gridDim.x CTAs.  ``fresh``:
-// the source was written in this launch, read it from L2.
-template <typename V>
-__device__ void copy_2d(const V* src, long long lds, V* dst, long long ldd,
-                        long long rows, long long cols, bool fresh) {
-  const long long total = rows * cols;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       e < total; e += step) {
-    const long long r = e / cols;
-    const long long c = e - r * cols;
-    dst[r * ldd + c] = load(src + r * lds + c, fresh);
-  }
-}
-
-// copy_2d on 4-byte words, as uint4 when every row start is 16-byte
-// aligned; the choice is uniform across the grid.
-__device__ void copy_words(const float* src, long long lds, float* dst,
-                           long long ldd, long long rows, long long cols,
-                           bool fresh) {
-  const bool vec = ((reinterpret_cast<uintptr_t>(src) |
-                     reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
-                   (lds & 3) == 0 && (ldd & 3) == 0 && (cols & 3) == 0;
-  if (vec) {
-    copy_2d(reinterpret_cast<const uint4*>(src), lds / 4,
-            reinterpret_cast<uint4*>(dst), ldd / 4, rows, cols / 4, fresh);
-  } else {
-    copy_2d(reinterpret_cast<const unsigned*>(src), lds,
-            reinterpret_cast<unsigned*>(dst), ldd, rows, cols, fresh);
-  }
-}
-
 // ---- K6 ---------------------------------------------------------------
-// in[r]: rank r's block of ``words`` 4-byte words; out[r]: d blocks, block
-// k = rank (r - k) mod d's.  flags: [d, d], flags[r][k] counts the CTAs
-// that have delivered their slice of rank r's block k.
-__global__ void __launch_bounds__(kThreads)
-    ring_all_gather_kernel(const float* const* in, float* const* out,
-                           int* flags, int d, long long words) {
-  const int me = blockIdx.y;
-  const int dst = (me + 1) % d;
-  float* mine = out[me];
-  copy_words(in[me], words, mine, words, 1, words, false);  // block 0
-  for (int k = 0; k + 1 < d; ++k) {
-    // hop 0 forwards from the input itself, so it waits for nothing
-    if (k > 0) wait_for(&flags[me * d + k], gridDim.x);
-    const float* src = k == 0 ? in[me] : mine + k * words;
-    copy_words(src, words, out[dst] + (k + 1) * words, words, 1, words,
-               k > 0);
-    signal(&flags[dst * d + k + 1]);
+constexpr int kGatherThreads = 256;
+// rank pointers an operand list of the launch's parameters holds (ops * d):
+// the usual call takes the small instance, whose 296 bytes of parameters
+// launch ~8 us sooner than the large one's 32,760 (device time the same;
+// `ring_probe.py variants`, PERF.md)
+constexpr int kPtrsSmall = 16;
+constexpr int kPtrsLarge = 2040;  // CUDA >= 12.1 allows 32,764 bytes of parameters
+#if CUDART_VERSION < 12010
+#error "K6 needs CUDA 12.1 or newer: its launch parameters hold 2040 rank pointers"
+#endif
+
+// The launch's parameters, a __grid_constant__: no pointer array to copy
+// to the device before the launch.
+template <int P>
+struct Gather {
+  const unsigned* in[P];  // [op * d + r]: rank r's block of operand op
+  unsigned* out[P];       // [op * d + r]: rank r's d blocks of operand op
+  int* flags;             // [d, d - 1, gridDim.x]; see the kernel
+  long long words;        // 4-byte words of a block
+  long long slice;        // words of each block a CTA owns, a multiple of 4
+  int d, ops, epoch;
+};
+
+// Threads t < T of a group copy ``len`` words from ``src`` to ``dst`` (and
+// to ``dst2`` when it is not null): 16-byte where the addresses agree
+// modulo 16 bytes, after a scalar head that brings them to the 16-byte
+// grid, with a scalar tail.  Each thread has up to four 16-byte loads in
+// flight before it stores.  ``fresh``: the source was written in this
+// launch, read it from L2 (__ldcg), never the incoherent L1.
+__device__ void copy_slice(const unsigned* src, unsigned* dst, unsigned* dst2,
+                           long long len, bool fresh, int t, int T) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(dst);
+  const uintptr_t c = dst2 ? reinterpret_cast<uintptr_t>(dst2) : b;
+  long long head = len, nvec = 0;
+  if ((((a ^ b) | (a ^ c)) & 15) == 0) {
+    head = static_cast<long long>((16 - (a & 15)) & 15) / 4;
+    if (head > len) head = len;
+    nvec = (len - head) / 4;
+  }
+  for (long long i = t; i < head; i += T) {
+    const unsigned w = fresh ? __ldcg(src + i) : __ldg(src + i);
+    dst[i] = w;
+    if (dst2) dst2[i] = w;
+  }
+  const uint4* vs = reinterpret_cast<const uint4*>(src + head);
+  uint4* vd = reinterpret_cast<uint4*>(dst + head);
+  uint4* vd2 = dst2 ? reinterpret_cast<uint4*>(dst2 + head) : nullptr;
+  for (long long i = t; i < nvec; i += 4 * T) {
+    uint4 w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (i + j * T < nvec) w[j] = fresh ? __ldcg(vs + i + j * T) : __ldg(vs + i + j * T);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i + j * T < nvec) {
+        vd[i + j * T] = w[j];
+        if (vd2) vd2[i + j * T] = w[j];
+      }
+    }
+  }
+  for (long long e = head + nvec * 4 + t; e < len; e += T) {
+    const unsigned w = fresh ? __ldcg(src + e) : __ldg(src + e);
+    dst[e] = w;
+    if (dst2) dst2[e] = w;
+  }
+}
+
+// CTA i of rank me owns words [i * slice, (i + 1) * slice) of every block
+// of every operand, at every hop.  Hop 0 copies the slice of its input
+// into its own block 0 and the downstream rank's block 1 in one read.  At
+// hop k >= 1 it raises the downstream rank's flag (dst, k, i) for what it
+// stored at hop k - 1, waits for CTA i of the upstream rank to have
+// raised its own flag (me, k, i), and forwards the slice of its block k
+// into the downstream rank's block k + 1 (the last block, d - 1, is read
+// by no hop, so no flag announces it).  A flag holds the epoch of the
+// launch that last raised it, so flags are never cleared.
+template <int P>
+__global__ void __launch_bounds__(kGatherThreads)
+    ring_all_gather_kernel(const __grid_constant__ Gather<P> p) {
+  const int me = blockIdx.y, d = p.d;
+  const int dst = me + 1 == d ? 0 : me + 1;
+  const long long lo = blockIdx.x * p.slice;
+  const long long len = lo < p.words ? min(p.slice, p.words - lo) : 0;
+  // flag (rank, k) of CTA i: flags[(rank * (d - 1) + k - 1) * gridDim.x + i]
+  const long long stride = gridDim.x;
+  int* const mine = p.flags + (me * (d - 1LL) - 1) * stride + blockIdx.x;
+  int* const theirs = p.flags + (dst * (d - 1LL) - 1) * stride + blockIdx.x;
+  // the CTA's warps split evenly over the operands, so that each thread
+  // copies one operand's units with all its loads in flight at once
+  const int groups = min(p.ops, kGatherThreads / 32);
+  const int gsize = kGatherThreads / 32 / groups * 32;
+  const int g = threadIdx.x / gsize, t = threadIdx.x % gsize;
+  for (int op = g; op < p.ops && g < groups; op += groups) {
+    const int r = op * d;
+    copy_slice(p.in[r + me] + lo, p.out[r + me] + lo,
+               d > 1 ? p.out[r + dst] + p.words + lo : nullptr, len, false, t, gsize);
+  }
+  for (int k = 1; k + 1 < d; ++k) {
+    __syncthreads();  // the slice of hop k - 1 is stored
+    // the barrier orders the CTA's stores before thread 0's system-scope
+    // release, and its acquire before the CTA's loads of the next hop
+    if (threadIdx.x == 0) {
+      Flag(theirs[k * stride]).store(p.epoch, cuda::std::memory_order_release);
+      Flag f(mine[k * stride]);
+      while (f.load(cuda::std::memory_order_acquire) != p.epoch) __nanosleep(32);
+    }
+    __syncthreads();
+    for (int op = g; op < p.ops && g < groups; op += groups) {
+      const int r = op * d;
+      copy_slice(p.out[r + me] + k * p.words + lo,
+                 p.out[r + dst] + (k + 1) * p.words + lo, nullptr, len, true, t, gsize);
+    }
   }
 }
 
@@ -891,20 +941,54 @@ int launch_matmul(RingMatmul p, const long long* a_host, void* maps,
 
 }  // namespace
 
-// in, out: device arrays of d pointers to each rank's input block (words
-// 4-byte words) and its [d, words] output; flags: zeroed int32[d * d].
-// d >= 1, words >= 1.  Returns the cudaError_t of the launch.
-extern "C" int smf_ring_all_gather(const float* const* in, float* const* out,
-                                   int* flags, int d, long long words,
-                                   cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(ring_all_gather_kernel);
-  int gx = 0;
-  const int err =
-      grid_x(kernel, kThreads, 0, d, (words + kThreads - 1) / kThreads, gx);
-  if (err != 0) return err;
-  void* args[] = {&in, &out, &flags, &d, &words};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      kernel, dim3(gx, d), dim3(kThreads), args, 0, stream));
+// CTAs a rank of K6 may take with d ranks: as many as are resident at
+// once (the whole grid must be, since ranks wait on each other);
+// cudaErrorCooperativeLaunchTooLarge when not even one a rank fits.
+extern "C" int smf_ring_all_gather_ctas(int d, int* ctas) {
+  return grid_x(reinterpret_cast<const void*>(ring_all_gather_kernel<kPtrsSmall>),
+                kGatherThreads, 0, d, 1LL << 30, *ctas);
+}
+
+// bases: host array of 2 * ops addresses: operand op's input [d, words]
+// at [op] (rank r's block at word r * words) and its output [d, d, words]
+// at [ops + op] (rank r's blocks at word r * d * words); ctas: CTAs a rank,
+// at most smf_ring_all_gather_ctas(d); slice: words a CTA owns of a block,
+// a multiple of 4 with ctas * slice >= words; flags: int32[d * (d - 1) *
+// ctas], kept across launches on one stream; epoch >= 1, not the epoch of
+// the stream's previous launch on ``flags``.  Returns the cudaError_t of
+// the launch.
+extern "C" int smf_ring_all_gather(const long long* bases, int ops, int d,
+                                   long long words, long long slice, int ctas,
+                                   int* flags, int epoch, cudaStream_t stream) {
+  const int n = ops * d;
+  if (ops < 1 || d < 1 || words < 1 || slice < 1 || slice % 4 != 0 || ctas < 1 ||
+      epoch < 1 || static_cast<long long>(ctas) * slice < words)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto tag) {
+    constexpr int P = decltype(tag)::value;
+    Gather<P> p{};
+    for (int op = 0; op < ops; ++op) {
+      const unsigned* in = reinterpret_cast<const unsigned*>(bases[op]);
+      unsigned* out = reinterpret_cast<unsigned*>(bases[ops + op]);
+      for (int r = 0; r < d; ++r) {  // each rank's own base pointers
+        p.in[op * d + r] = in + r * words;
+        p.out[op * d + r] = out + static_cast<long long>(r) * d * words;
+      }
+    }
+    p.flags = flags;
+    p.words = words;
+    p.slice = slice;
+    p.d = d;
+    p.ops = ops;
+    p.epoch = epoch;
+    void* args[] = {&p};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(ring_all_gather_kernel<P>), dim3(ctas, d),
+        dim3(kGatherThreads), args, 0, stream));
+  };
+  if (n <= kPtrsSmall) return run(std::integral_constant<int, kPtrsSmall>{});
+  if (n <= kPtrsLarge) return run(std::integral_constant<int, kPtrsLarge>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // a, b, buf, c: device arrays of d pointers (A_rot [m, d * lr] with block

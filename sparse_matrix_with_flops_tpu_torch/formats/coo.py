@@ -19,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import INDEX_DTYPE, QVALUE_DTYPE
+from ..config import INDEX_DTYPE, QVALUE_DTYPE, resolve_device
 from ..ops.segments import exclusive_cumsum, segment_boundaries, segment_sum
 from .csr import CSR
 
@@ -61,8 +61,11 @@ class COO:
         nrows: int,
         ncols: int,
         capacity: int | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> "COO":
+        """Build from host triplets on ``device`` (by default the card:
+        ``config.resolve_device``), padding out to ``capacity``."""
+        device = resolve_device(device, "COO")
         row = np.asarray(row, dtype=np.int32)
         col = np.asarray(col, dtype=np.int32)
         val = np.asarray(val, dtype=np.float32)

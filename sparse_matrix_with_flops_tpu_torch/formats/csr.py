@@ -22,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..config import ABS_TOL, INDEX_DTYPE, QVALUE_DTYPE
+from ..config import ABS_TOL, INDEX_DTYPE, QVALUE_DTYPE, resolve_device
 from ..ops.segments import entry_rows, exclusive_cumsum
 
 
@@ -79,12 +79,14 @@ class CSR:
         col_ind,
         values,
         ncols: int,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         capacity: int | None = None,
     ) -> "CSR":
-        """Build from tight host arrays on ``device``, padding out to
+        """Build from tight host arrays on ``device`` (by default the
+        card: ``config.resolve_device``), padding out to
         ``capacity``.  The counterpart of the JAX ``CSR.from_arrays``:
         the same numpy arrays give the same matrix in both packages."""
+        device = resolve_device(device, "CSR")
         row_ptr = np.asarray(row_ptr, dtype=np.int32)
         col_ind = np.asarray(col_ind, dtype=np.int32)
         values = np.asarray(values, dtype=np.float32)
@@ -114,13 +116,13 @@ class CSR:
         values,
         ncols: int,
         capacity: int | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> "CSR":
         """``from_numpy`` with the JAX ``CSR.from_arrays`` argument order."""
         return CSR.from_numpy(row_ptr, col_ind, values, ncols, device, capacity)
 
     @staticmethod
-    def from_dense(dense, device: torch.device | str = "cpu") -> "CSR":
+    def from_dense(dense, device: torch.device | str | None = None) -> "CSR":
         """Dense (host) matrix -> CSR; parity with CSR.h:54-82."""
         dense = np.asarray(dense)
         rows, cols = dense.shape
@@ -166,7 +168,7 @@ class CSR:
 
     @staticmethod
     def from_one_based(
-        row_ptr, col_ind, values, ncols: int, device: torch.device | str = "cpu"
+        row_ptr, col_ind, values, ncols: int, device: torch.device | str | None = None
     ) -> "CSR":
         """Inverse of :meth:`to_one_based` (CSR::toZeroBasedCSR)."""
         return CSR.from_numpy(

@@ -19,6 +19,8 @@ import dataclasses
 
 import torch
 
+from ..config import resolve_device
+
 ROW_AXIS = "x"
 
 
@@ -37,10 +39,4 @@ def make_mesh(n_shards: int = 1, device: torch.device | str | None = None) -> Sh
     raises; a CPU mesh is only made when ``device="cpu"`` is asked for."""
     if n_shards < 1:
         raise ValueError(f"need at least one shard, got {n_shards}")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "make_mesh: no CUDA device; pass device='cpu' for a mesh on the CPU"
-            )
-        device = torch.device("cuda", torch.cuda.current_device())
-    return ShardMesh(int(n_shards), torch.device(device))
+    return ShardMesh(int(n_shards), resolve_device(device, "make_mesh"))

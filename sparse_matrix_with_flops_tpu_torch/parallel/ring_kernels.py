@@ -10,8 +10,9 @@ and raising a flag per region.  Tensors on the CPU run each kernel's
 plain twin instead.  ``<wrapper>.launches`` counts kernel launches.
 
 * ``ring_all_gather`` (K6): ``[d, lr, ...] -> [d, d*lr, ...]``, block k
-  of rank me being rank ``(me - k) mod d``'s (rotation order);
-  :func:`unrotate` reorders it to owner-major;
+  of rank me being rank ``(me - k) mod d``'s (rotation order), for one
+  or more operands in one launch; :func:`unrotate` reorders it to
+  owner-major;
 * ``ring_matmul`` (K7): ``C[me] = A[me] . concat(B)`` with B row-sharded,
   blocks flowing right (block k is owner ``(me - k) mod d``);
 * ``ring_matmul_tiled`` (K8): K7 over N tiles of ``nt`` columns, blocks
@@ -29,9 +30,12 @@ config.py).
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
-from .._build import check_tensor, launch, on_card
+from .._build import check_tensor, current_stream, launch, on_card, query, stream_scratch
 from ..config import QVALUE_DTYPE
 
 RIGHT, LEFT = 1, -1  # direction the blocks flow: to rank me + 1 or me - 1
@@ -76,31 +80,82 @@ def _check_ranks(x: torch.Tensor, name: str) -> None:
 # ---------------------------------------------------------------------------
 # K6: ring all-gather
 # ---------------------------------------------------------------------------
+GATHER_THREADS = 256  # threads of a K6 CTA (kGatherThreads in csrc/ring.cu)
+MIN_SLICE = 4 * GATHER_THREADS  # words of a block a CTA owns at least
+MAX_RANK_POINTERS = 2040  # ops * d the launch's parameters hold (kPtrsLarge)
+_GRIDS: dict = {}  # (device index, d, words) -> K6's (CTAs a rank, slice, flag words)
+
+
 def ring_all_gather_plain(x: torch.Tensor) -> torch.Tensor:
     """K6's twin: ``out[me, k] = x[(me - k) mod d]``, an index gather."""
     d, lr = x.shape[:2]
     return x[_owners(d, RIGHT, x.device)].reshape(d, d * lr, *x.shape[2:])
 
 
-def ring_all_gather(x: torch.Tensor) -> torch.Tensor:
+def _gather_grid(dev: torch.device, d: int, words: int) -> tuple:
+    """(CTAs a rank, words of a block each owns, int64 words of flags):
+    at most as many CTAs as are resident at once (the occupancy query
+    runs once per device and shape), each owning a slice of at least
+    MIN_SLICE words, a multiple of 4."""
+    key = (dev.index, d, words)
+    if key not in _GRIDS:
+        ctas = query("smf_ring_all_gather_ctas", dev, d)
+        slice_ = max(-(-words // ctas), MIN_SLICE)
+        slice_ += -slice_ % 4
+        ctas = -(-words // slice_)
+        _GRIDS[key] = (ctas, slice_, max(1, -(-d * (d - 1) * ctas // 2)))
+    return _GRIDS[key]
+
+
+def ring_all_gather(*xs: torch.Tensor):
     """All-gather the ranks' ``[lr, ...]`` blocks around the ring:
-    ``[d, lr, ...] -> [d, d*lr, ...]`` in rotation order.  4-byte dtypes
-    (int32 cols, f32 vals); the copy is bitwise."""
-    _check_ranks(x, "ring_all_gather")
-    if not on_card("ring_all_gather", x):
-        return ring_all_gather_plain(x)
+    ``[d, lr, ...] -> [d, d*lr, ...]`` in rotation order, for one or more
+    same-shaped operands of 4-byte dtypes (int32 cols, f32 vals) in one
+    launch; the copy is bitwise.  Returns one output per operand (the
+    output itself for one operand); on the card the outputs of one call
+    are views into one allocation."""
+    if not xs:
+        raise ValueError("ring_all_gather: need at least one operand")
+    for x in xs:
+        _check_ranks(x, "ring_all_gather")
+        if x.shape != xs[0].shape:
+            raise ValueError(
+                f"ring_all_gather: operands of shapes {tuple(xs[0].shape)} and "
+                f"{tuple(x.shape)}"
+            )
+    if on_card("ring_all_gather", *xs):
+        outs = _ring_all_gather_launch(xs)
+    else:
+        outs = [ring_all_gather_plain(x) for x in xs]
+    return outs[0] if len(xs) == 1 else tuple(outs)
+
+
+def _ring_all_gather_launch(xs) -> list:
+    x = xs[0]
+    dev, ops = x.device, len(xs)
     d, lr = x.shape[:2]
-    out = torch.empty((d, d * lr, *x.shape[2:]), dtype=x.dtype, device=x.device)
-    words = x[0].numel()
-    if words:
-        flags = torch.zeros(d * d, dtype=torch.int32, device=x.device)
-        ptrs = [_ptrs(x, x.device), _ptrs(out, x.device)]  # alive past the launch
-        launch(
-            "smf_ring_all_gather", x.device,
-            ptrs[0].data_ptr(), ptrs[1].data_ptr(), flags.data_ptr(), d, words,
+    if ops * d > MAX_RANK_POINTERS:
+        raise ValueError(
+            f"ring_all_gather: {ops} operands x {d} ranks exceed the "
+            f"{MAX_RANK_POINTERS} rank pointers a launch's parameters hold"
         )
-        ring_all_gather.launches += 1
-    return out
+    buf = torch.empty((ops, d, d * lr, *x.shape[2:]), dtype=torch.int32, device=dev)
+    outs = [buf[i] if t.dtype == torch.int32 else buf[i].view(t.dtype)
+            for i, t in enumerate(xs)]
+    words = math.prod(x.shape[1:])
+    if not words:
+        return outs
+    ctas, slice_, flag_words = _gather_grid(dev, d, words)
+    bases = (ctypes.c_longlong * (2 * ops))(
+        *[t.data_ptr() for t in xs], *[t.data_ptr() for t in outs])
+    stream = current_stream(dev)
+    flags, epoch = stream_scratch("ring_all_gather", dev, stream, flag_words)
+    launch(
+        "smf_ring_all_gather", dev, ctypes.addressof(bases), ops, d, words, slice_,
+        ctas, flags.data_ptr(), epoch, stream=stream,
+    )
+    ring_all_gather.launches += 1
+    return outs
 
 
 ring_all_gather.launches = 0

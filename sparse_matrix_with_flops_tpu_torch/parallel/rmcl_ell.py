@@ -14,7 +14,8 @@ entries reference, through one of four exchanges:
 * ``"all_gather"``: every shard reads the whole ``[n, S]`` iterate (the
   stacked shards are that all-gather);
 * ``"pallas_ring"``: the all-gather through kernel K6
-  (``ring_all_gather``) and ``unrotate``;
+  (``ring_all_gather``, one launch for the cols and the vals) and
+  ``unrotate``;
 * ``"fused_ring"``: the segments as in ``"ring"``, the hub contraction
   through kernel K8 (``ring_matmul_tiled``).
 
@@ -403,8 +404,7 @@ def _sharded_step(plan, smgt, arrays, lc, lv, exchange: str):
             c_h = _fused_hub(plan, arrays, lc, lv)
     else:
         if exchange == "pallas_ring":
-            g_c = unrotate(ring_all_gather(lc))
-            g_v = unrotate(ring_all_gather(lv))
+            g_c, g_v = (unrotate(g) for g in ring_all_gather(lc, lv))  # one launch
             views = [(g_c[me], g_v[me]) for me in range(d)]
         else:  # the stacked shards are the gathered iterate
             views = [(lc.reshape(n, S), lv.reshape(n, S))] * d

@@ -3,7 +3,8 @@
 
 Each generator makes the same numpy RNG calls as the reference, so the
 host arrays, and therefore the matrices, are bit-identical; only the
-container differs.
+container differs.  The matrices land on the card unless ``device`` says
+otherwise (``CSR.from_numpy``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ def rmat_csr(
     c: float = 0.19,
     seed: int = 0,
     weights: str = "unit",
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> CSR:
     """R-MAT (Graph500-style) power-law adjacency matrix, 2^scale nodes.
 
@@ -71,7 +72,7 @@ def banded_csr(
     bandwidth: int = 32,
     seed: int = 0,
     density: float = 1.0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> CSR:
     """Banded FEM-like matrix: every row has entries in a +/- bandwidth
     window (the cant.mtx workload shape).  ``density < 1`` keeps each

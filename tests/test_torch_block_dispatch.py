@@ -29,7 +29,7 @@ _PLAN_FIELDS = (
 )
 def test_block_spgemm_matches_reference(n, bw, density, bs):
     j = jgen.banded_csr(n, bandwidth=bw, seed=2, density=density)
-    t = tgen.banded_csr(n, bandwidth=bw, seed=2, density=density)
+    t = tgen.banded_csr(n, bandwidth=bw, seed=2, density=density, device="cpu")
     jp, tp = JB.plan_block(j, j, bs=bs), TB.plan_block(t, t, bs=bs)
     for f in _PLAN_FIELDS:
         np.testing.assert_array_equal(getattr(tp, f), getattr(jp, f), err_msg=f)
@@ -55,7 +55,7 @@ def test_block_path_counts_structure():
 
     ad = np.array([[1.0, 1.0], [0.0, 1.0]], np.float32)
     bd = np.array([[1.0, 2.0], [-1.0, 1.0]], np.float32)
-    got = TB.block_spgemm(CSR.from_dense(ad), CSR.from_dense(bd), bs=8)
+    got = TB.block_spgemm(CSR.from_dense(ad, device="cpu"), CSR.from_dense(bd, device="cpu"), bs=8)
     assert int(got.nnz) == 4
     assert trimmed(got)[2].tolist()[0] == 0.0
 
@@ -63,9 +63,9 @@ def test_block_path_counts_structure():
 def _dispatch_cases():
     # a cant-class band (block fill ~0.17) and a power-law R-MAT
     j = jgen.banded_csr(1000, bandwidth=32, seed=2)
-    t = tgen.banded_csr(1000, bandwidth=32, seed=2)
+    t = tgen.banded_csr(1000, bandwidth=32, seed=2, device="cpu")
     jr = jgen.rmat_csr(8, edge_factor=8, seed=7, weights="random")
-    tr = tgen.rmat_csr(8, edge_factor=8, seed=7, weights="random")
+    tr = tgen.rmat_csr(8, edge_factor=8, seed=7, weights="random", device="cpu")
     return [("block", j, t), ("ell", jr, tr)]
 
 
@@ -86,7 +86,7 @@ def test_upper_bounds_and_dense_oracle():
     )
 
     j = jgen.rmat_csr(7, edge_factor=6, seed=3, weights="random")
-    t = tgen.rmat_csr(7, edge_factor=6, seed=3, weights="random")
+    t = tgen.rmat_csr(7, edge_factor=6, seed=3, weights="random", device="cpu")
     assert spgemm_upper_bounds(t, t) == j_bounds(j, j)
     want = j_oracle(j, j)
     got = spgemm_dense_oracle(t, t)

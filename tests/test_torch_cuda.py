@@ -11,16 +11,20 @@ import numpy as np
 import pytest
 import torch
 
+from sparse_matrix_with_flops_tpu_torch import _build
 from sparse_matrix_with_flops_tpu_torch.config import ABS_TOL, REL_TOL
 from sparse_matrix_with_flops_tpu_torch.formats.bcsr import BCSR
+from sparse_matrix_with_flops_tpu_torch.formats.coo import COO
 from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR
 from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
 from sparse_matrix_with_flops_tpu_torch.ops.block_spgemm import block_spgemm
 from sparse_matrix_with_flops_tpu_torch.ops.dispatch import spgemm_auto
 from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
 from sparse_matrix_with_flops_tpu_torch.ops.scan_kernels import (
+    TILE,
     cumsum_i32,
     cumsum_i32_plain,
+    scratch_words,
 )
 from sparse_matrix_with_flops_tpu_torch.ops.spmm import bcsr_spmm, bcsr_spmm_plain
 from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
@@ -144,13 +148,115 @@ def test_window_gather_kernel_matches_twin(dev):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
-@pytest.mark.parametrize("n", [1, 8191, 8192, 8193, 3_000_001])
+@pytest.mark.parametrize(
+    "n",
+    [
+        1,
+        TILE - 1,
+        TILE,
+        TILE + 1,
+        2 * TILE + 3,
+        3_000_001,
+        20_000_003,  # 2442 tiles: more than the card holds resident CTAs
+    ],
+)
 def test_cumsum_i32_kernel_matches_twin(dev, n):
     g = torch.Generator().manual_seed(n)
     x = torch.randint(-(2**30), 2**30, (n,), generator=g, dtype=torch.int32).to(dev)
     got, want = cumsum_i32(x), cumsum_i32_plain(x)
     torch.cuda.synchronize()
     assert torch.equal(got, want)  # int32 wrap-around on both
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+@pytest.mark.parametrize("n", [5, TILE + 7, 1_000_003])
+def test_cumsum_i32_kernel_on_an_unaligned_view(dev, shift, n):
+    g = torch.Generator().manual_seed(shift * n)
+    base = torch.randint(-(2**30), 2**30, (n + shift,), generator=g, dtype=torch.int32)
+    x = base.to(dev)[shift:]  # contiguous, 4 * shift bytes off the 16-byte grid
+    got = cumsum_i32(x)
+    assert got.data_ptr() % 16 == x.data_ptr() % 16
+    # an output off the input's alignment takes the scalar path
+    other = torch.empty(n, dtype=torch.int32, device=dev)
+    stream = _build.current_stream(dev)
+    scratch, _ = _build.stream_scratch("cumsum_i32", dev, stream, scratch_words(n))
+    _build.launch("smf_cumsum_i32", dev, x.data_ptr(), other.data_ptr(), n,
+                  scratch.data_ptr(), stream=stream)
+    want = cumsum_i32_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(other, want)
+
+
+def test_kernels_back_to_back_without_a_synchronize(dev):
+    # no synchronize between calls: a stale flag or status word of an
+    # earlier launch on the stream would show as a wrong result
+    g = torch.Generator().manual_seed(5)
+    scans, gathers = [], []
+    for i, n in enumerate([TILE * 300 + 1, 17, TILE * 40, 5_000_000, 3, TILE * 300 + 1]):
+        x = torch.randint(-(2**30), 2**30, (n,), generator=g, dtype=torch.int32).to(dev)
+        scans.append((x, cumsum_i32(x)))
+        d = (2, 8, 4, 3, 1, 4)[i]
+        xc = torch.randint(0, 2**30, (d, 4096 // d + i, 128), generator=g,
+                           dtype=torch.int32).to(dev)
+        xv = torch.rand((d, 4096 // d + i, 128), generator=g).to(dev)
+        gathers.append((xc, xv, ring_all_gather(xc, xv)))
+    for _ in range(20):
+        scans.append((scans[0][0], cumsum_i32(scans[0][0])))
+        gathers.append((*gathers[0][:2], ring_all_gather(*gathers[0][:2])))
+    torch.cuda.synchronize()
+    for x, got in scans:
+        assert torch.equal(got, cumsum_i32_plain(x))
+    for xc, xv, (gc, gv) in gathers:
+        assert torch.equal(gc, ring_all_gather_plain(xc))
+        assert torch.equal(gv, ring_all_gather_plain(xv))
+
+
+def test_kernels_replay_in_a_cuda_graph_with_new_inputs(dev):
+    # a captured launch reuses its captured arguments at every replay: K4
+    # and K6 must not carry a status word or flag of one replay into the
+    # next, nor read the scratch of the eager calls around the graph
+    g = torch.Generator().manual_seed(9)
+    x = torch.empty(TILE * 40 + 5, dtype=torch.int32, device=dev)
+    xc = torch.empty((4, 1000, 128), dtype=torch.int32, device=dev)
+    xv = torch.empty((4, 1000, 128), dtype=torch.float32, device=dev)
+
+    def refill():
+        x.copy_(torch.randint(-(2**30), 2**30, x.shape, generator=g, dtype=torch.int32))
+        xc.copy_(torch.randint(-(2**30), 2**30, xc.shape, generator=g, dtype=torch.int32))
+        xv.copy_(torch.randn(xv.shape, generator=g))
+
+    refill()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # build, size the grids, warm the allocator
+        cumsum_i32(x), ring_all_gather(xc, xv)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (cumsum_i32.launches, ring_all_gather.launches)
+    with torch.cuda.graph(graph):
+        scan = cumsum_i32(x)
+        gc, gv = ring_all_gather(xc, xv)
+    assert (cumsum_i32.launches, ring_all_gather.launches) == (before[0] + 1, before[1] + 1)
+    for _ in range(3):
+        refill()
+        graph.replay()
+        eager = (cumsum_i32(x), ring_all_gather(xc, xv))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(scan, cumsum_i32_plain(x)) and torch.equal(eager[0], scan)
+        assert torch.equal(gc, ring_all_gather_plain(xc))
+        assert torch.equal(gv, ring_all_gather_plain(xv))
+        assert torch.equal(eager[1][0], gc) and torch.equal(eager[1][1], gv)
+
+
+def test_constructors_default_to_the_card(dev):
+    a = rmat_csr(8, edge_factor=4, seed=1)
+    assert a.device == dev and a.col_ind.device == dev and a.values.device == dev
+    c = COO.from_numpy([0, 1], [1, 0], [1.0, 2.0], 2, 2)
+    assert c.device == dev and c.nnz.device == dev
+    assert banded_csr(64, bandwidth=2).device == dev
+    assert CSR.from_dense(np.eye(3, dtype=np.float32)).device == dev
+    _same_csr(a, rmat_csr(8, edge_factor=4, seed=1, device="cpu"))
 
 
 def test_wrappers_refuse_mixed_devices(dev):
@@ -170,7 +276,7 @@ def _same_csr(got, want):
 
 
 def test_spgemm_ell_on_card_matches_cpu_path(dev):
-    a = rmat_csr(10, edge_factor=8, seed=7, weights="random")
+    a = rmat_csr(10, edge_factor=8, seed=7, weights="random", device="cpu")
     plan = plan_ell(a, a, max_w=512)
     assert plan.hub_groups and plan.vstart is not None
     want = E.spgemm_ell(a, a, plan)
@@ -183,13 +289,13 @@ def test_spgemm_ell_on_card_matches_cpu_path(dev):
 def test_spgemm_auto_band_on_card_matches_cpu_path(dev):
     # positive values: no entry cancels, so a relative bound holds
     # whatever the summation order
-    band = banded_csr(3000, bandwidth=32)
+    band = banded_csr(3000, bandwidth=32, device="cpu")
     a = CSR(band.row_ptr, band.col_ind, band.values.abs(), band.ncols)
     _same_csr(spgemm_auto(a.to(dev), a.to(dev)), block_spgemm(a, a))
 
 
 def test_spgemm_ell_w32768_bin_on_card_matches_cpu_path(dev):
-    a = rmat_csr(10, edge_factor=16, seed=7, weights="random")
+    a = rmat_csr(10, edge_factor=16, seed=7, weights="random", device="cpu")
     plan = plan_ell(a, a, max_w=32768)
     assert 32768 in [w for w, _, _, _ in plan.bins]
     want = E.spgemm_ell(a, a, plan)
@@ -218,7 +324,7 @@ def test_bcsr_spmm_kernel_matches_twin(dev, rows, cols, density, br, bc, n):
     rng = np.random.default_rng(rows + n)
     d = np.where(rng.random((rows, cols)) < density, rng.standard_normal((rows, cols)), 0.0)
     d[rows // 4 : rows // 2] = 0.0  # empty block rows in the middle
-    a = BCSR.from_csr(CSR.from_dense(d.astype(np.float32)), br, bc).to(dev)
+    a = BCSR.from_csr(CSR.from_dense(d.astype(np.float32), device="cpu"), br, bc).to(dev)
     b = torch.from_numpy(rng.standard_normal((cols, n)).astype(np.float32)).to(dev)
     junk = torch.full((rows, n), float("nan"), device=dev)
     del junk  # the caching allocator hands this block to the output
@@ -233,7 +339,8 @@ def test_bcsr_spmm_kernel_matches_twin(dev, rows, cols, density, br, bc, n):
 
 
 def test_bcsr_spmm_all_empty_launches_nothing(dev):
-    a = BCSR.from_csr(CSR.from_dense(np.zeros((20, 30), np.float32)), 8, 16).to(dev)
+    zeros = CSR.from_dense(np.zeros((20, 30), np.float32), device="cpu")
+    a = BCSR.from_csr(zeros, 8, 16).to(dev)
     before = bcsr_spmm.launches
     got = bcsr_spmm(a, torch.ones((30, 5), device=dev), kernel="pallas")
     assert bcsr_spmm.launches == before
@@ -256,6 +363,7 @@ def _ring_operands(d, m, lr, n, seed, dev):
         (3, 1001, 1, torch.int32),  # 1001 words: not a multiple of a CTA's 256-lane slice
         (4, 5, 3, torch.float32),  # 15 words: no 16-byte vector path
         (8, 2048, 128, torch.int32),
+        (17, 64, 5, torch.float32),  # 17 rank pointers an operand list
     ],
 )
 def test_ring_all_gather_kernel_matches_twin(dev, d, lr, w, dtype):
@@ -268,6 +376,23 @@ def test_ring_all_gather_kernel_matches_twin(dev, d, lr, w, dtype):
     assert ring_all_gather.launches == before + 1
     assert torch.equal(got, want)
     assert torch.equal(unrotate(got), x.reshape(1, d * lr, w).expand(d, -1, -1))
+
+
+@pytest.mark.parametrize(
+    "d,lr,w",
+    [(1, 7, 3), (2, 4096, 128), (3, 1001, 1), (4, 5, 3), (8, 2048, 128), (8, 3, 5),
+     (9, 100, 3)],  # 18 rank pointers an operand list
+)
+def test_ring_all_gather_kernel_two_operands_in_one_launch(dev, d, lr, w):
+    g = torch.Generator().manual_seed(d + lr)
+    xc = torch.randint(-(2**30), 2**30, (d, lr, w), generator=g, dtype=torch.int32).to(dev)
+    xv = torch.randn((d, lr, w), generator=g).to(dev)
+    before = ring_all_gather.launches
+    gc, gv = ring_all_gather(xc, xv)
+    torch.cuda.synchronize()
+    assert ring_all_gather.launches == before + 1
+    assert torch.equal(gc, ring_all_gather_plain(xc))
+    assert torch.equal(gv, ring_all_gather_plain(xv))
 
 
 @pytest.mark.parametrize(
@@ -372,7 +497,8 @@ def _rmcl_graph(n, p, hubs, seed):
     np.fill_diagonal(mask, True)
     for r in hubs:
         mask[r, :] = True
-    return CSR.from_dense(np.where(mask, 1.0, 0.0).astype(np.float32)).aver_and_norm_rows()
+    dense = np.where(mask, 1.0, 0.0).astype(np.float32)
+    return CSR.from_dense(dense, device="cpu").aver_and_norm_rows()
 
 
 def _ell_same(got, want):

@@ -59,13 +59,13 @@ def _plan_cases():
     cases.append(("random-quantize", (ja, jb), (ta, tb),
                   dict(chunk=8, max_w=64, quantize=True)))
     j = jgen.rmat_csr(9, edge_factor=8, seed=7, weights="random")
-    t = tgen.rmat_csr(9, edge_factor=8, seed=7, weights="random")
+    t = tgen.rmat_csr(9, edge_factor=8, seed=7, weights="random", device="cpu")
     cases.append(("rmat-auto", (j, j), (t, t), dict()))
     cases.append(("rmat-hub", (j, j), (t, t), dict(max_w=256)))
     cases.append(("rmat-hub-unsplit", (j, j), (t, t),
                   dict(max_w=256, split_hub=False)))
     j = jgen.banded_csr(600, bandwidth=16, seed=2)
-    t = tgen.banded_csr(600, bandwidth=16, seed=2)
+    t = tgen.banded_csr(600, bandwidth=16, seed=2, device="cpu")
     cases.append(("band-split", (j, j), (t, t), dict(chunk=16, max_w=128)))
     cases.append(("band-auto", (j, j), (t, t), dict()))
     return cases
@@ -95,7 +95,7 @@ def test_spgemm_ell_matches_reference(rng, chunk, max_w, density):
 
 def test_spgemm_ell_rmat_hub_matches_reference():
     j = jgen.rmat_csr(9, edge_factor=8, seed=7, weights="random")
-    t = tgen.rmat_csr(9, edge_factor=8, seed=7, weights="random")
+    t = tgen.rmat_csr(9, edge_factor=8, seed=7, weights="random", device="cpu")
     jp, tp = J.plan_ell(j, j, max_w=256), TP.plan_ell(t, t, max_w=256)
     assert tp.hub_groups and tp.vstart is not None
     want = J.spgemm_ell(j, j, jp)
@@ -108,7 +108,7 @@ def test_spgemm_ell_rmat_hub_matches_reference():
 
 def test_spgemm_ell_band_split_matches_reference():
     j = jgen.banded_csr(300, bandwidth=8, seed=2)
-    t = tgen.banded_csr(300, bandwidth=8, seed=2)
+    t = tgen.banded_csr(300, bandwidth=8, seed=2, device="cpu")
     jp = J.plan_ell(j, j, chunk=16, max_w=64)
     tp = TP.plan_ell(t, t, chunk=16, max_w=64)
     assert tp.vstart is not None
@@ -141,12 +141,12 @@ def test_empty_rows_and_single_entry():
     from sparse_matrix_with_flops_tpu.formats.csr import CSR as JCSR
     from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR as TCSR
 
-    j, t = JCSR.from_dense(dense), TCSR.from_dense(dense)
+    j, t = JCSR.from_dense(dense), TCSR.from_dense(dense, device="cpu")
     want = J.spgemm_ell(j, j, J.plan_ell(j, j, chunk=4, max_w=32))
     assert_same_csr(want, T.spgemm_ell(t, t, TP.plan_ell(t, t, chunk=4, max_w=32)))
     one = np.zeros((8, 8), np.float32)
     one[2, 2] = 3.0
-    j, t = JCSR.from_dense(one), TCSR.from_dense(one)
+    j, t = JCSR.from_dense(one), TCSR.from_dense(one, device="cpu")
     got = T.spgemm_ell(t, t, TP.plan_ell(t, t, chunk=4, max_w=16))
     assert_same_csr(J.spgemm_ell(j, j, J.plan_ell(j, j, chunk=4, max_w=16)), got)
     assert trimmed(got)[2].tolist() == [9.0]
@@ -199,7 +199,7 @@ def test_c1_unreferenced_longest_b_row():
     )
     from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR as TCSR
 
-    a, b = TCSR.from_dense(ad), TCSR.from_dense(bd)
+    a, b = TCSR.from_dense(ad, device="cpu"), TCSR.from_dense(bd, device="cpu")
     got = T.spgemm_ell(a, b, TP.plan_ell(a, b))
     np.testing.assert_array_equal(got.to_dense().numpy(), ad @ bd)
     assert int(got.nnz) == int(np.count_nonzero(ad @ bd))
@@ -214,7 +214,7 @@ def test_tile_path_keeps_exact_zero_cancellation():
     from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR as TCSR
 
     ja, jb = JCSR.from_dense(ad), JCSR.from_dense(bd)
-    ta, tb = TCSR.from_dense(ad), TCSR.from_dense(bd)
+    ta, tb = TCSR.from_dense(ad, device="cpu"), TCSR.from_dense(bd, device="cpu")
     want = J.spgemm_ell(ja, jb, J.plan_ell(ja, jb, chunk=4, max_w=16))
     got = T.spgemm_ell(ta, tb, TP.plan_ell(ta, tb, chunk=4, max_w=16))
     assert_same_csr(want, got)
@@ -234,7 +234,7 @@ def test_bins_wider_than_k1_take_the_plain_sort(monkeypatch):
     # reference's PALLAS_MAX_SORT_W), the wider one takes the plain sort,
     # chosen by width as the reference chooses its XLA branch
     # (ell_esc.py:1217)
-    a = tgen.rmat_csr(11, edge_factor=16, seed=7, weights="random")
+    a = tgen.rmat_csr(11, edge_factor=16, seed=7, weights="random", device="cpu")
     plan = TP.plan_ell(a, a, max_w=65536)
     widths = [w for w, _, _, _ in plan.bins]
     assert 32768 in widths and 65536 in widths

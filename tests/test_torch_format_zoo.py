@@ -76,7 +76,7 @@ def test_bcsr_duplicates_summed_and_is_equal_detects_change(rng):
     jb, tb = both_bcsr(ja, 2, 4)
     assert_same_bcsr(jb, tb)
     assert float(tb.to_dense()[0, 1]) == 3.0
-    other = T.CSR.from_numpy(rp, c, np.array([1.0, 2.0, 3.5, 4.0], np.float32), 6)
+    other = T.CSR.from_numpy(rp, c, np.array([1.0, 2.0, 3.5, 4.0], np.float32), 6, device="cpu")
     assert not tb.is_equal(other)
 
 
@@ -84,7 +84,7 @@ def test_bcsr_duplicates_summed_and_is_equal_detects_change(rng):
 def _both_coo(row, col, val, nrows, ncols, capacity=None):
     return (
         J.COO.from_numpy(row, col, val, nrows, ncols, capacity=capacity),
-        T.COO.from_numpy(row, col, val, nrows, ncols, capacity=capacity),
+        T.COO.from_numpy(row, col, val, nrows, ncols, capacity=capacity, device="cpu"),
     )
 
 
@@ -132,7 +132,7 @@ def test_csr_methods_match_reference(rng):
     rp, c, v = random_csr_np(rng, 9, 11, 0.4)
     perm = np.concatenate([rng.permutation(np.arange(s, e)) for s, e in zip(rp[:-1], rp[1:])])
     ja = J.CSR.from_arrays(rp, c[perm], -v[perm], ncols=11, capacity=int(rp[-1]) + 5)
-    ta = T.CSR.from_numpy(rp, c[perm], -v[perm], 11, capacity=int(rp[-1]) + 5)
+    ta = T.CSR.from_numpy(rp, c[perm], -v[perm], 11, capacity=int(rp[-1]) + 5, device="cpu")
     np.testing.assert_array_equal(ta.row_counts().numpy(), np.asarray(ja.row_counts()))
     assert ta.cols == ja.cols == 11
     assert_same_csr(ja.make_ordered(), ta.make_ordered())
@@ -146,7 +146,7 @@ def test_csr_methods_match_reference(rng):
     assert float(ta.values[0]) != 99.0
     for x, y in zip(ja.to_one_based(), ta.to_one_based()):
         np.testing.assert_array_equal(np.asarray(x), y)
-    back = T.CSR.from_one_based(*ta.to_one_based(), 11)
+    back = T.CSR.from_one_based(*ta.to_one_based(), 11, device="cpu")
     assert_same_csr(J.CSR.from_one_based(*ja.to_one_based(), 11), back)
 
 

@@ -11,8 +11,11 @@ from sparse_matrix_with_flops_tpu.ops.segments import (
 )
 from sparse_matrix_with_flops_tpu.utils import generate as jgen
 from sparse_matrix_with_flops_tpu_torch import config as tconfig
+from sparse_matrix_with_flops_tpu_torch.config import resolve_device
+from sparse_matrix_with_flops_tpu_torch.formats.coo import COO as TCOO
 from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR as TCSR
 from sparse_matrix_with_flops_tpu_torch.ops.segments import exclusive_cumsum
+from sparse_matrix_with_flops_tpu_torch.parallel.mesh import make_mesh
 from sparse_matrix_with_flops_tpu_torch.utils import generate as tgen
 from sparse_matrix_with_flops_tpu_torch.utils import nphost as tnph
 
@@ -36,7 +39,7 @@ def test_config_constants_and_precision():
 @pytest.mark.parametrize("capacity", [None, 64])
 def test_from_numpy_round_trip(rng, capacity):
     rp, c, v = random_csr_np(rng, 9, 7, 0.3)
-    t = TCSR.from_numpy(rp, c, v, 7, capacity=capacity)
+    t = TCSR.from_numpy(rp, c, v, 7, capacity=capacity, device="cpu")
     j = JCSR.from_arrays(rp, c, v, ncols=7, capacity=capacity)
     assert t.shape == j.shape and t.capacity == j.capacity
     assert t.row_ptr.dtype == torch.int32 and t.values.dtype == torch.float32
@@ -47,17 +50,17 @@ def test_from_numpy_round_trip(rng, capacity):
     np.testing.assert_array_equal(grp, rp)
     np.testing.assert_array_equal(gc, c)
     np.testing.assert_array_equal(gv, v)
-    t2 = TCSR.from_arrays(rp, c, v, 7, capacity=capacity)  # JAX argument order
+    t2 = TCSR.from_arrays(rp, c, v, 7, capacity=capacity, device="cpu")  # JAX argument order
     assert t2.is_equal(t) and t2.capacity == t.capacity
     with pytest.raises(ValueError):
-        TCSR.from_numpy(rp, c, v, 7, capacity=int(rp[-1]) - 1)
+        TCSR.from_numpy(rp, c, v, 7, capacity=int(rp[-1]) - 1, device="cpu")
 
 
 def test_from_dense_and_to_dense_match_reference(rng):
     dense = np.where(
         rng.random((11, 13)) < 0.3, rng.standard_normal((11, 13)), 0.0
     ).astype(np.float32)
-    t = TCSR.from_dense(dense)
+    t = TCSR.from_dense(dense, device="cpu")
     j = JCSR.from_dense(dense)
     for x, y in zip(trimmed(t), trimmed(j)):
         np.testing.assert_array_equal(x, y)
@@ -92,7 +95,8 @@ def _pairs(rng):
 def test_comparators_agree_with_reference(rng, case):
     (ra, ca, va), (rb, cb, vb) = _pairs(rng)[case]
     ja, jb = JCSR.from_arrays(ra, ca, va, 8), JCSR.from_arrays(rb, cb, vb, 8)
-    ta, tb = TCSR.from_numpy(ra, ca, va, 8), TCSR.from_numpy(rb, cb, vb, 8, capacity=40)
+    ta = TCSR.from_numpy(ra, ca, va, 8, device="cpu")
+    tb = TCSR.from_numpy(rb, cb, vb, 8, capacity=40, device="cpu")
     assert ta.is_equal(tb) == bool(ja.is_equal(jb))
     assert ta.is_raw_equal(tb) == bool(ja.is_raw_equal(jb))
     assert ta.is_relative_equal(tb, 1e-3) == bool(ja.is_relative_equal(jb, 1e-3))
@@ -106,7 +110,7 @@ def test_comparators_agree_with_reference(rng, case):
 )
 def test_rmat_bit_identical(scale, ef, seed, weights):
     j = jgen.rmat_csr(scale, edge_factor=ef, seed=seed, weights=weights)
-    t = tgen.rmat_csr(scale, edge_factor=ef, seed=seed, weights=weights)
+    t = tgen.rmat_csr(scale, edge_factor=ef, seed=seed, weights=weights, device="cpu")
     assert t.shape == j.shape
     for x, y in zip(trimmed(t), trimmed(j)):
         np.testing.assert_array_equal(x, y)
@@ -117,7 +121,7 @@ def test_rmat_bit_identical(scale, ef, seed, weights):
 )
 def test_banded_bit_identical(n, bw, density):
     j = jgen.banded_csr(n, bandwidth=bw, seed=2, density=density)
-    t = tgen.banded_csr(n, bandwidth=bw, seed=2, density=density)
+    t = tgen.banded_csr(n, bandwidth=bw, seed=2, density=density, device="cpu")
     for x, y in zip(trimmed(t), trimmed(j)):
         np.testing.assert_array_equal(x, y)
 
@@ -169,3 +173,36 @@ def test_csr_host_is_cached_and_exact(rng):
     np.testing.assert_array_equal(hrp, rp)
     np.testing.assert_array_equal(hci, c)
     assert tnph.csr_host(t)[0] is hrp
+
+
+_DEFAULT_DEVICE_CALLS = {
+    "CSR.from_numpy": lambda: TCSR.from_numpy([0, 1], [0], [1.0], 1),
+    "CSR.from_arrays": lambda: TCSR.from_arrays([0, 1], [0], [1.0], 1),
+    "CSR.from_dense": lambda: TCSR.from_dense(np.eye(2, dtype=np.float32)),
+    "CSR.from_one_based": lambda: TCSR.from_one_based([1, 2], [1], [1.0], 1),
+    "COO.from_numpy": lambda: TCOO.from_numpy([0], [0], [1.0], 1, 1),
+    "rmat_csr": lambda: tgen.rmat_csr(4, edge_factor=2),
+    "banded_csr": lambda: tgen.banded_csr(8, bandwidth=1),
+}
+
+
+@pytest.mark.parametrize("name", list(_DEFAULT_DEVICE_CALLS))
+def test_constructors_default_to_the_card(name):
+    # with no device the matrix lands on the card, as the reference's
+    # arrays land on the accelerator; without a card that raises, and
+    # only device="cpu" builds on the CPU
+    make = _DEFAULT_DEVICE_CALLS[name]
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device; pass device="cpu"'):
+            make()
+
+
+def test_make_mesh_and_the_constructors_share_the_device_rule():
+    assert resolve_device("cpu", "x") == torch.device("cpu")
+    assert make_mesh(2, "cpu").device == TCSR.from_numpy([0], [], [], 3, "cpu").device
+    if not torch.cuda.is_available():
+        for make in (lambda: make_mesh(2), lambda: resolve_device(None, "x")):
+            with pytest.raises(RuntimeError, match='no CUDA device; pass device="cpu"'):
+                make()

@@ -94,6 +94,32 @@ def test_ring_all_gather_int32_rotation_order(d):
     assert torch.equal(RK.unrotate(got), x.reshape(1, d * lr, 2).expand(d, -1, -1))
 
 
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
+def test_ring_all_gather_two_operands_match_single_calls_and_pallas(d):
+    # the pallas_ring exchange's call: cols (int32) and vals (f32) at once
+    lr, s = 3, 5
+    rng = np.random.default_rng(d)
+    xc = rng.integers(-(2**20), 2**20, (d, lr, s)).astype(np.int32)
+    xv = rng.standard_normal((d, lr, s)).astype(np.float32)
+    gc, gv = RK.ring_all_gather(torch.from_numpy(xc), torch.from_numpy(xv))
+    assert gc.dtype == torch.int32 and gv.dtype == torch.float32
+    assert torch.equal(gc, RK.ring_all_gather(torch.from_numpy(xc)))
+    assert torch.equal(gv, RK.ring_all_gather(torch.from_numpy(xv)))
+    rot_v, owner_v = _ref_all_gather(xv)
+    np.testing.assert_array_equal(gv.numpy(), rot_v)
+    np.testing.assert_array_equal(RK.unrotate(gv).numpy(), owner_v)
+    # the reference gathers the cols' bits as f32 words: the copy is bitwise
+    rot_c, _ = _ref_all_gather(xc.view(np.float32))
+    np.testing.assert_array_equal(gc.numpy(), rot_c.view(np.int32))
+
+
+def test_ring_all_gather_refuses_operands_of_other_shapes():
+    with pytest.raises(ValueError):
+        RK.ring_all_gather(torch.zeros((2, 4, 3), dtype=torch.int32), torch.zeros((2, 4, 2)))
+    with pytest.raises(ValueError):
+        RK.ring_all_gather()
+
+
 def test_ring_all_gather_rejects_bad_input():
     with pytest.raises(TypeError):
         RK.ring_all_gather(torch.zeros((2, 4), dtype=torch.int64))

@@ -112,7 +112,7 @@ def test_mt_to_ell_sums_duplicates_and_truncates():
     ci = np.array([2, 0, 2, 1, 1], np.int32)
     v = np.array([0.25, 0.25, 0.25, 0.25, 1.0], np.float32)
     j = JCSR.from_arrays(rp, ci, v, ncols=3)
-    t = TCSR.from_numpy(rp, ci, v, 3)
+    t = TCSR.from_numpy(rp, ci, v, 3, device="cpu")
     jc, jv = JR.mt_to_ell(j, 2)
     tc, tv = TR.mt_to_ell(t, 2)
     assert tc.tolist() == [[0, 1], [1, 3]]

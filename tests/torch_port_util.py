@@ -13,7 +13,7 @@ def both_csr(row_ptr, col_ind, values, ncols):
     """(JAX CSR, port CSR) built from the same host arrays."""
     return (
         JCSR.from_arrays(row_ptr, col_ind, values, ncols=ncols),
-        TCSR.from_numpy(row_ptr, col_ind, values, ncols),
+        TCSR.from_numpy(row_ptr, col_ind, values, ncols, device="cpu"),
     )
 
 
@@ -61,7 +61,7 @@ def jax_random_csr(rng, rows, cols, density, empty_rows=()):
 def port_csr(jcsr):
     """The port's CSR of a JAX-package CSR, from its tight host arrays."""
     rp, ci, v = trimmed(jcsr)
-    return TCSR.from_numpy(rp, ci, v, jcsr.ncols)
+    return TCSR.from_numpy(rp, ci, v, jcsr.ncols, device="cpu")
 
 
 def both_bcsr(jcsr, br, bc):
@@ -92,6 +92,7 @@ def port_coo(jcoo):
     return TCOO.from_numpy(
         np.asarray(jcoo.row)[:nnz], np.asarray(jcoo.col)[:nnz],
         np.asarray(jcoo.val)[:nnz], jcoo.nrows, jcoo.ncols, capacity=jcoo.capacity,
+        device="cpu",
     )
 
 
