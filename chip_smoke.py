@@ -19,7 +19,9 @@
    plan against scipy;
 6. K5 ``bcsr_spmm``: the cant-class band as BCSR(8, 128) times a dense
    [62451, 512] B, and R-MAT s14 as BCSR(8, 128) times [16384, 128];
-   kernel and twin against scipy's f64 product, both timed;
+   kernel and twin against scipy's f64 product, both timed, beside
+   ``torch.sparse.mm`` on the CSR form of the same matrix (cuSPARSE
+   SpMM, true f32) as the library yardstick;
 7. the format zoo on the card (plain torch): ``ELL.spmm``,
    ``MCSR.spmm`` and ``csr_spmm_dense`` on the band, ``csr_spmv`` and
    ``PCSR.striped_spgemm`` (4 stripes) on s14, each against scipy;
@@ -37,7 +39,16 @@
    hub operands.  K6 is timed as the ``pallas_ring`` exchange calls it,
    once for the cols and the vals together, so its launches on the main
    path are one a step (three in the 3-iteration run), half of what two
-   calls a step made.
+   calls a step made;
+10. a caller that turned TF32 on (ROADMAP C7): with the legacy switches
+   set to TF32, ``spgemm_auto`` on both routes (held to scipy as in
+   phase 4), ``rmcl_ell`` and ``bcsr_spmm`` (each bit-equal to the same
+   call with the switches as the script found them), then the caller's
+   switches read back unchanged; a bare ``torch.matmul`` under the same
+   switches must differ from true f32, or the phase would prove nothing.
+
+K1's tiles log their longest run of one column (what a run sum costs):
+at s14 (phases 3 and 5) and in one R-MCL step (phase 8).
 
 The s14 matrix of phases 3-5 is built with the constructors' default
 device, and the script checks that it lands on the card.  Before each
@@ -286,33 +297,46 @@ NO_CALL = {
 }
 
 
-def bsr_library(torch, ab, b, want, cuda_ms):
-    """The time of one torch sparse-BSR x dense product of ``ab`` and
-    ``b`` on the card, or why there is none: torch refuses the blocks,
-    or its product is not the kernel's (``want``) within 1e-4 of
-    |A||B|."""
-    nb = int(ab.nblocks)
-    try:
-        a = torch.sparse_bsr_tensor(
-            ab.block_row_ptr.long(), ab.block_col[:nb].long(), ab.blocks[:nb],
-            size=(ab.nbrows * ab.br, ab.nbcols * ab.bc))
-        bp = torch.zeros((ab.nbcols * ab.bc, b.shape[1]), dtype=b.dtype, device=b.device)
-        bp[: b.shape[0]] = b
-        got = (a @ bp)[: want.shape[0]]
-        torch.cuda.synchronize()
-    except (RuntimeError, NotImplementedError, TypeError, ValueError) as e:
-        return f"none: torch refuses a sparse BSR ({ab.br}, {ab.bc}) f32 x dense product " \
-               f"on CUDA ({type(e).__name__}: {str(e).splitlines()[0][:160]})"
-    ref = torch.sparse_bsr_tensor(
-        ab.block_row_ptr.long(), ab.block_col[:nb].long(), ab.blocks[:nb].abs(),
-        size=a.shape) @ bp.abs()
-    if not bool(((got - want).abs() <= 1e-4 * ref[: want.shape[0]] + 1e-7).all()):
-        return "none: torch's sparse BSR product disagrees with the kernel's"
-    return cuda_ms(torch, lambda: a @ bp)
+def longest_run(torch, tc, ncols: int) -> int:
+    """The longest run of one real column (< ncols) in any row of a K1
+    tile: the lanes one output lane sums."""
+    r, w = tc.shape
+    key = torch.arange(r, device=tc.device, dtype=torch.int64)[:, None] * (ncols + 1) \
+        + torch.clamp(tc.long(), max=ncols)
+    vals, counts = torch.unique_consecutive(torch.sort(key.ravel()).values,
+                                            return_counts=True)
+    real = (vals % (ncols + 1)) < ncols
+    return int(counts[real].max()) if bool(real.any()) else 0
+
+
+def csr_library(torch, x, b, want, cuda_ms):
+    """The time of ``torch.sparse.mm`` on the CSR form of ``x`` (cuSPARSE
+    SpMM) times ``b`` in true f32, after its product is held to the
+    kernel's (``want``) within 1e-7 + 1e-4 |A||B|."""
+    from sparse_matrix_with_flops_tpu_torch.config import true_f32
+
+    nnz = int(x.row_ptr[-1])
+    a = torch.sparse_csr_tensor(x.row_ptr, x.col_ind[:nnz], x.values[:nnz],
+                                size=(x.rows, x.ncols))
+    absa = torch.sparse_csr_tensor(x.row_ptr, x.col_ind[:nnz], x.values[:nnz].abs(),
+                                   size=(x.rows, x.ncols))
+    with true_f32():
+        got = torch.sparse.mm(a, b)
+        bound = 1e-7 + 1e-4 * torch.sparse.mm(absa, b.abs())
+    torch.cuda.synchronize()
+    if not bool(((got - want).abs() <= bound).all()):
+        raise AssertionError("torch.sparse.mm on the CSR form disagrees with K5")
+
+    def call():
+        with true_f32():
+            return torch.sparse.mm(a, b)
+
+    return cuda_ms(torch, call)
 
 
 def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms):
-    """Phases 8 (single-chip R-MCL) and 9 (sharded R-MCL, K6-K8)."""
+    """Phases 8 (single-chip R-MCL) and 9 (sharded R-MCL, K6-K8); returns
+    the R-MCL input (the COO graph) for phase 10."""
     import importlib
 
     from sparse_matrix_with_flops_tpu_torch.formats import COO
@@ -363,6 +387,22 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
         f"differs {hist5['differs'].tolist()}")
     cols0, vals0 = RM.mt_to_ell(mgt, S)
     a_d = RM._dense_huge(mgt, plan)
+    # K1's tiles in one step: widths and the longest run of one column
+    seen = []
+    k1 = RM.sort_dedup_compact
+
+    def k1_spy(tc, tv, ncols, presorted=1):
+        seen.append((tc.shape[1], tc.shape[0], longest_run(torch, tc, ncols)))
+        return k1(tc, tv, ncols, presorted)
+
+    RM.sort_dedup_compact = k1_spy
+    try:
+        RM.rmcl_ell_step(plan, mgt, a_d, cols0, vals0)
+        torch.cuda.synchronize()
+    finally:
+        RM.sort_dedup_compact = k1
+    log(f"R-MCL s14 step 1: K1 tiles (W, R, longest run) {seen}; longest run "
+        f"{max((r for _, _, r in seen), default=0)} lanes")
     failed = []
     # the same run one step at a time, keeping every iterate
     its = [(cols0, vals0)]
@@ -542,6 +582,7 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
                   lambda: ring_matmul(a_cols, md_loc), ("ring_matmul",), path=False)
         del a_cols, md_loc, full, full_b
         torch.cuda.synchronize()
+    return coo
 
 
 def main() -> int:
@@ -624,8 +665,6 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}"
     )
-    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        raise AssertionError("TF32 is on: the port needs true f32 matmuls")
     dev = torch.device("cuda", 0)
 
     # ---- 2. build --------------------------------------------------------
@@ -655,10 +694,11 @@ def main() -> int:
     prod_c, prod_v = E._b_ell_chunks(a, plan, pt)
     results = {}
 
-    def record(name, case, err, ms, plain_ms, kbound, library):
+    def record(name, case, err, ms, plain_ms, kbound, library, library_call=None):
         """One case of a kernel: ``kbound`` (ms, what bounds it);
         ``library`` the time of the one PyTorch call that computes the
-        same function, or the reason there is none."""
+        same function (``library_call`` names it), or the reason there is
+        none."""
         lib_ms = library if isinstance(library, float) else None
         log(
             f"{name} [{case}]: max_abs_err {err:.3e} kernel {ms:.4f} ms "
@@ -673,7 +713,10 @@ def main() -> int:
         }
         if lib_ms is None:
             case_rec["library_none"] = library
+        if library_call is not None:
+            case_rec["library_call"] = library_call
         r.pop("library_none", None)
+        r.pop("library_call", None)
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r.update({k: v for k, v in case_rec.items() if k != "max_abs_err"})  # the last case
         r["cases"][case] = case_rec
@@ -704,10 +747,14 @@ def main() -> int:
         kk, kv = sort_dedup_compact(tc, tv, plan.ncols, presorted=plan.chunk)
         pk, pv = sort_dedup_compact_plain(tc, tv, plan.ncols)
         torch.cuda.synchronize()
+        log(f"K1 W={w_sel} R={tc.shape[0]}: longest run of one column "
+            f"{longest_run(torch, tc, plan.ncols)} lanes")
 
-        def k1_same(got, w_sel=w_sel, pk=pk, pv=pv):
+        def k1_same(got, w_sel=w_sel, pk=pk, pv=pv, kv=kv):
             if not torch.equal(got[0], pk):
                 raise AssertionError(f"K1 W={w_sel}: cols differ from the twin")
+            if not torch.equal(got[1], kv):  # the sums' order is fixed
+                raise AssertionError(f"K1 W={w_sel}: differs from the first call")
             return check_vals(got[1], pv, f"K1 W={w_sel}")
 
         err = k1_same((kk, kv))
@@ -918,10 +965,14 @@ def main() -> int:
     kk, kv = sort_dedup_compact(tc, tv, plan32.ncols, presorted=plan32.chunk)
     pk, pv = sort_dedup_compact_plain(tc, tv, plan32.ncols)
     torch.cuda.synchronize()
+    log(f"K1 W=32768 R={tc.shape[0]}: longest run of one column "
+        f"{longest_run(torch, tc, plan32.ncols)} lanes")
 
     def k1w_same(got):
         if not torch.equal(got[0], pk):
             raise AssertionError("K1 W=32768: cols differ from the twin")
+        if not torch.equal(got[1], kv):  # the sums' order is fixed
+            raise AssertionError("K1 W=32768: differs from the first call")
         return check_vals(got[1], pv, "K1 W=32768")
 
     err = k1w_same((kk, kv))
@@ -987,7 +1038,7 @@ def main() -> int:
         b64 = bh.astype(np.float64)
         dense_check(f"K5 {label} kernel vs scipy", got, amat, b64)
         dense_check(f"K5 {label} twin vs scipy", twin, amat, b64)
-        lib = bsr_library(torch, ab, bd, got, cuda_ms)
+        lib = csr_library(torch, x, bd, got, cuda_ms)
 
         def k5_same(out, label=label, got=got):  # no atomics: bit for bit
             if not torch.equal(out, got):
@@ -1004,7 +1055,8 @@ def main() -> int:
         )
         # the stored blocks and their indices, B and C, each once
         kb = bound(4.0 * (nb * ab.br * ab.bc + nb + ab.nbrows + 1 + 2 * x.rows * n), gf * 1e9)
-        record("bcsr_spmm", f"{label} N={n} blocks={nb}", err, ms, plain_ms, kb, lib)
+        record("bcsr_spmm", f"{label} N={n} blocks={nb}", err, ms, plain_ms, kb, lib,
+               "torch.sparse.mm on the CSR form of the same matrix (cuSPARSE SpMM, true f32)")
         del ab, bd
         torch.cuda.synchronize()
 
@@ -1057,7 +1109,60 @@ def main() -> int:
     del c, pc, y, b64d
     torch.cuda.synchronize()
 
-    rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms)
+    coo = rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms)
+
+    # ---- 10. a caller that turned TF32 on (ROADMAP C7) -------------------
+    from sparse_matrix_with_flops_tpu_torch.config import _f32_switches, true_f32
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl_ell import rmcl_ell
+
+    ab14 = BCSR.from_csr(a, 8, 128)
+    bh14 = np.random.default_rng(0).random((a.rows, 128)).astype(np.float32)
+    b14 = torch.from_numpy(bh14).to(dev)
+    pinned = {
+        "rmcl_ell s14 S=128 5 iterations":
+            lambda: rmcl_ell(coo, max_iters=5, S=128, max_tile=8192)[0],
+        "bcsr_spmm s14 N=128": lambda: bcsr_spmm(ab14, b14),
+    }
+    found = {k: f() for k, f in pinned.items()}  # the switches as the script found them
+    caller = _f32_switches()
+    g = torch.Generator().manual_seed(5)
+    xm = torch.rand((1024, 1024), generator=g).to(dev)
+    with true_f32():
+        exact = torch.matmul(xm, xm)
+    with true_f32():  # gives the switches back on leaving
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        bare = float((torch.matmul(xm, xm) - exact).abs().max())
+        c = spgemm_auto(a, a)
+        cc = spgemm_auto(ca, ca)
+        on = {k: f() for k, f in pinned.items()}
+        torch.cuda.synchronize()
+        tf32_still_on = (torch.backends.cuda.matmul.allow_tf32
+                         and torch.get_float32_matmul_precision() == "high")
+    log(f"TF32 on: a bare torch.matmul [1024, 1024] differs from true f32 by {bare:.3e}")
+    if bare == 0.0:
+        raise AssertionError("TF32 on changed no bare matmul: the phase would prove nothing")
+    if not tf32_still_on:
+        raise AssertionError("the port turned the caller's TF32 off")
+    if _f32_switches() != caller:
+        raise AssertionError(f"the caller's switches came back as {_f32_switches()}, "
+                             f"not {caller}")
+    scipy_check(a, c, "TF32 on: s14 spgemm_auto (ell)", positive=True)
+    scipy_check(ca, cc, "TF32 on: band spgemm_auto (block)", positive=False)
+    dense_check("TF32 on: bcsr_spmm s14", on["bcsr_spmm s14 N=128"], host_matrix(a),
+                bh14.astype(np.float64))
+    for k in pinned:
+        x, y = found[k], on[k]
+        same = (torch.equal(x, y) if isinstance(x, torch.Tensor) else
+                torch.equal(x.row_ptr, y.row_ptr) and torch.equal(x.col_ind, y.col_ind)
+                and torch.equal(x.values, y.values))
+        log(f"TF32 on: {k} {'==' if same else '!='} the call with the found switches, "
+            f"bit for bit")
+        if not same:
+            raise AssertionError(f"TF32 on: {k} differs")
+    del c, cc, on, found, ab14, b14, xm, exact
+    torch.cuda.synchronize()
 
     for k, n in launches.items():
         if n == 0:
@@ -1076,8 +1181,8 @@ def main() -> int:
             "bound_ms": results[k]["bound_ms"],
             "bound_by": results[k]["bound_by"],
             "library_ms": results[k]["library_ms"],
-            **({"library_none": results[k]["library_none"]}
-               if "library_none" in results[k] else {}),
+            **({key: results[k][key] for key in ("library_none", "library_call")
+                if key in results[k]}),
             "cases": results[k]["cases"],
         }
         for k in wrappers

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Probes of the port's ring kernels K6-K8 on one CUDA card.
+"""Probes of the port's kernels on one CUDA card (the ring kernels
+K6-K8; K1 and K5 in ``kernels``).
 
     python3 ring_probe.py accuracy [--unpromoted]
     python3 ring_probe.py step ROOT [ROOT ...]
+    python3 ring_probe.py kernels ROOT [ROOT ...]
     python3 ring_probe.py launch
     python3 ring_probe.py variants [NAME ...]
 
@@ -23,14 +25,23 @@ exchange with CUDA events, K8 alone on that iteration's hub operands,
 and K6 alone on its cols and vals as that tree's ``pallas_ring``
 exchange calls it: median, min and max of 7 calls each.
 
+``kernels``: as ``step``, one fresh process a ROOT (give two in the
+order A B B A), K1 and K5 at the shapes ``chip_smoke.py`` times them:
+K1 on the R-MAT s14 plan's W = 64 and W = 8192 tiles and the
+``max_w=32768`` plan's W = 32768 tile, K5 on the cant-class band
+(BCSR(8, 128), N = 512) and on s14 (N = 128).  Each one call at a time
+(CUDA events around the call, host enqueue included: median, min and
+max of 15) and back to back (20 calls between two events, per call).
+
 ``launch``: K4 and K6 at their main-path sizes beside the library calls
 that compute the same functions, timed one call at a time (as
 ``chip_smoke.py``), back to back, on the host, and by ``torch.profiler``
 on the device; then the host cost of each step of a kernel wrapper.
 
-``variants``: text-edited builds of ``csrc/ring.cu`` (K6) and
-``csrc/cumsum_i32.cu`` (K4), each entry of ``VARIANTS`` or those named,
-timed in turn on the main path's inputs.
+``variants``: text-edited builds of ``csrc/ring.cu`` (K6),
+``csrc/cumsum_i32.cu`` (K4), ``csrc/sort_dedup_compact.cu`` (K1, on the
+s14 plan's W = 8192 tile) and ``csrc/bcsr_spmm.cu`` (K5), each entry of
+``VARIANTS`` or those named, timed in turn on the main path's inputs.
 """
 
 from __future__ import annotations
@@ -194,22 +205,80 @@ def step_one(dev) -> dict:
     return out
 
 
-def step(roots) -> None:
+def _back_to_back(torch, fn, calls: int = 20, reps: int = 5) -> list:
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / calls)
+    return out
+
+
+def kernels_one(dev) -> dict:
+    """This process's port (imported from sys.path[0]): K1 and K5 at the
+    shapes of ``chip_smoke.py`` phases 3, 5 and 6, in ms."""
+    import numpy as np
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.formats import BCSR
+    from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import sort_dedup_compact
+    from sparse_matrix_with_flops_tpu_torch.ops.spmm import bcsr_spmm
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import banded_csr, rmat_csr
+
+    _build.library()
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)
+    out = {}
+    for kw, widths in (({}, (64, 8192)), ({"max_w": 32768}, (32768,))):
+        plan = plan_ell(a, a, **kw)
+        pt = E._plan_tensors(plan, dev)
+        pc, pv = E._b_ell_chunks(a, plan, pt)
+        ws = [w for w, _, _, _ in pt["bins"]]
+        for w in widths:
+            _, _, src, ent = pt["bins"][ws.index(w)]
+            tc, tv = E._bin_tiles(a, pc, pv, src, ent, w, plan.chunk)
+
+            def k1(tc=tc, tv=tv, plan=plan):
+                return sort_dedup_compact(tc, tv, plan.ncols, plan.chunk)
+
+            out[f"K1 W={w} R={tc.shape[0]}"] = _times(torch, k1, 15)
+            out[f"K1 W={w} back to back"] = _back_to_back(torch, k1)
+        del pc, pv
+    band = banded_csr(62451, bandwidth=32, device=dev)
+    for label, x, n in (("band", band, 512), ("s14", a, 128)):
+        ab = BCSR.from_csr(x, 8, 128)
+        b = torch.from_numpy(
+            np.random.default_rng(0).random((x.rows, n)).astype(np.float32)).to(dev)
+        out[f"K5 {label} N={n}"] = _times(torch, lambda: bcsr_spmm(ab, b), 15)
+        out[f"K5 {label} back to back"] = _back_to_back(torch, lambda: bcsr_spmm(ab, b))
+    return out
+
+
+def step(roots, mode: str = "step") -> None:
     rows = []
     for root in roots:
         root = os.path.abspath(root)
         if not os.path.isdir(os.path.join(root, PKG)):
             raise SystemExit(f"ring_probe: no {PKG}/ in {root}")
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "step-one", root],
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), f"{mode}-one", root],
                              capture_output=True, text=True, timeout=900)
         if res.returncode:
             print(res.stdout[-2000:], res.stderr[-4000:], file=sys.stderr)
-            raise SystemExit(f"ring_probe step: {root} failed")
+            raise SystemExit(f"ring_probe {mode}: {root} failed")
         rows.append((root, json.loads(res.stdout.strip().splitlines()[-1])))
         print(f"{root}: " + "; ".join(
             f"{k} {statistics.median(v):.3f} [{min(v):.3f}, {max(v):.3f}]"
             for k, v in rows[-1][1].items()) + " ms", flush=True)
-    print(json.dumps({"step_ms": rows}))
+    print(json.dumps({f"{mode}_ms": rows}))
 
 
 def _enter_device(torch, dev) -> None:
@@ -308,6 +377,13 @@ K6_SYNC = """      Flag(theirs[k * stride]).store(p.epoch, cuda::std::memory_ord
       Flag f(mine[k * stride]);"""
 K6_WAIT = "!= p.epoch) __nanosleep(32);"
 K4_VECS = "constexpr int kVecs = 8; "
+K5_STAGES = "constexpr int kStages = 2;"
+K5_COMPUTE = "compute<G>(st, atile"
+K5_MMA = """        mma_tf32(d, al, bh0, bh1);
+        mma_tf32(d, ah, bl0, bl1);
+        mma_tf32(d, ah, bh0, bh1);
+"""
+
 VARIANTS = {  # name -> (source, [(old, new), ...], checked): exact text edits
     "K6 as is": ("ring.cu", [], True),
     "K6 device scope": ("ring.cu", [
@@ -335,6 +411,24 @@ VARIANTS = {  # name -> (source, [(old, new), ...], checked): exact text edits
     # timing only, wrong results: what the look-back costs
     "K4 no look-back": ("cumsum_i32.cu", [(
         "excl = look_back(tiles, tile, lane);", "excl = 0;")], False),
+    "K1 as is": ("sort_dedup_compact.cu", [], True),
+    # timing only, wrong results: what each kind of stage costs at W = 8192
+    "K1 no shuffle stages": ("sort_dedup_compact.cu", [(
+        "    shfl_stages<E, C::SW>(x, rt, lane0, k);\n", "")], False),
+    "K1 no register stages": ("sort_dedup_compact.cu", [(
+        "    reg_stages<E>(x, lane0, k);\n", "")], False),
+    "K1 no shared-memory stages": ("sort_dedup_compact.cu", [(
+        "      smem_stages<C>(buf, j, k, g0);\n", "")], False),
+    "K1 no network": ("sort_dedup_compact.cu", [(
+        "    network<C, false>(x, buf, kstart, rt, 0);\n", "")], False),
+    "K5 as is": ("bcsr_spmm.cu", [], True),
+    "K5 3 stages": ("bcsr_spmm.cu", [(K5_STAGES, "constexpr int kStages = 3;")], True),
+    "K5 4 stages": ("bcsr_spmm.cu", [(K5_STAGES, "constexpr int kStages = 4;")], True),
+    # timing only, wrong results: the products, the B slabs, the splits
+    "K5 no compute": ("bcsr_spmm.cu", [(K5_COMPUTE, "if (false) " + K5_COMPUTE)], False),
+    "K5 no B slabs": ("bcsr_spmm.cu", [("  if ((st.flags & 1) == 0) return;", "  return;")],
+                      False),
+    "K5 no mma": ("bcsr_spmm.cu", [(K5_MMA, "")], False),
 }
 
 
@@ -384,7 +478,9 @@ def variants(dev, names) -> None:
     and timed in turn (those marked checked held against the twin first),
     in the order given and then again in reverse (device time by torch.profiler, and
     one call by CUDA events as chip_smoke.py times it), on the main
-    path's K6 (D = 4) and K4 inputs, and K4 also on 2^25 words."""
+    path's K6 (D = 4) and K4 inputs, and K4 also on 2^25 words; K5 on
+    the cant-class band (BCSR(8, 128), N = 512) and on s14 (N = 128)."""
+    import numpy as np
     import torch
 
     from sparse_matrix_with_flops_tpu_torch import _build
@@ -401,12 +497,55 @@ def variants(dev, names) -> None:
     chosen = [n for n in VARIANTS if not names or n in names]
     if names and len(chosen) != len(set(names)):
         raise SystemExit(f"ring_probe variants: unknown among {names}; have {list(VARIANTS)}")
+    k1 = None
+    if any(n.startswith("K1") for n in chosen):
+        from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
+        from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+        from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
+            sort_dedup_compact,
+            sort_dedup_compact_plain,
+        )
+        from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+        a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)
+        plan = plan_ell(a, a)
+        pt = E._plan_tensors(plan, dev)
+        pc, pv = E._b_ell_chunks(a, plan, pt)
+        _, _, src, ent = pt["bins"][[w for w, _, _, _ in pt["bins"]].index(8192)]
+        tc, tv = E._bin_tiles(a, pc, pv, src, ent, 8192, plan.chunk)
+        k1 = (lambda: sort_dedup_compact(tc, tv, plan.ncols, plan.chunk),
+              sort_dedup_compact_plain(tc, tv, plan.ncols))
+    k5 = {}
+    if any(n.startswith("K5") for n in chosen):
+        from sparse_matrix_with_flops_tpu_torch.formats import BCSR
+        from sparse_matrix_with_flops_tpu_torch.ops.spmm import bcsr_spmm, bcsr_spmm_plain
+        from sparse_matrix_with_flops_tpu_torch.utils.generate import banded_csr, rmat_csr
+
+        for label, mat, n in (("band", banded_csr(62451, bandwidth=32, device=dev), 512),
+                              ("s14", rmat_csr(14, edge_factor=8, seed=7, weights="random",
+                                               device=dev), 128)):
+            ab = BCSR.from_csr(mat, 8, 128)
+            b = torch.from_numpy(
+                np.random.default_rng(0).random((mat.rows, n)).astype(np.float32)).to(dev)
+            nnz = int(mat.row_ptr[-1])
+            absa = torch.sparse_csr_tensor(mat.row_ptr, mat.col_ind[:nnz],
+                                           mat.values[:nnz].abs(), size=(mat.rows, mat.ncols))
+            tol = 1e-7 + 1e-4 * torch.sparse.mm(absa, b.abs())
+            k5[label] = (lambda ab=ab, b=b: bcsr_spmm(ab, b), bcsr_spmm_plain(ab, b), tol)
     libs = {name: build_variant(name, *VARIANTS[name][:2]) for name in chosen}
     res = {name: [] for name in chosen}
     for name in [*chosen, *reversed(chosen)]:
         _build.library = lambda lib=libs[name]: lib
         RK._GRIDS.clear()
-        if name.startswith("K6"):
+        if name.startswith("K1"):
+            fn = k1[0]
+            got = fn()
+            ok = torch.equal(got[0], k1[1][0]) and bool(
+                ((got[1] - k1[1][1]).abs() <= 1e-3 * k1[1][1].abs() + 1e-7).all())
+        elif name.startswith("K5"):
+            fn, s14 = k5["band"][0], k5["s14"][0]
+            ok = all(bool(((f() - p).abs() <= t).all()) for f, p, t in k5.values())
+        elif name.startswith("K6"):
             fn = lambda: RK.ring_all_gather(xc, xv)  # noqa: E731
             gc, gv = fn()
             ok = torch.equal(gc, want[0]) and torch.equal(gv, want[1])
@@ -415,18 +554,22 @@ def variants(dev, names) -> None:
             ok = torch.equal(fn(), want[2]) and torch.equal(cumsum_i32(xl), want[3])
         if VARIANTS[name][2] and not ok:
             raise SystemExit(f"{name}: differs from the twin")
-        big = device_ms(torch, lambda: cumsum_i32(xl)) if name.startswith("K4") else 0.0
+        big = (device_ms(torch, lambda: cumsum_i32(xl)) if name.startswith("K4") else
+               device_ms(torch, s14) if name.startswith("K5") else 0.0)
         res[name].append((device_ms(torch, fn), statistics.median(_times(torch, fn, 15)), big))
     for name, r in res.items():
         print(f"{name}: device " + " / ".join(f"{d:.4f}" for d, _, _ in r) + " ms; one call "
               + " / ".join(f"{o:.4f}" for _, o, _ in r) + " ms"
               + ("; device at 2^25 words " + " / ".join(f"{b:.4f}" for _, _, b in r) + " ms"
-                 if name.startswith("K4") else ""), flush=True)
+                 if name.startswith("K4") else "")
+              + ("; device on s14 " + " / ".join(f"{b:.4f}" for _, _, b in r) + " ms"
+                 if name.startswith("K5") else ""), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("accuracy", "step", "step-one", "launch", "variants"))
+    ap.add_argument("what", choices=("accuracy", "step", "step-one", "kernels", "kernels-one",
+                                     "launch", "variants"))
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--unpromoted", action="store_true")
     args = ap.parse_args()
@@ -436,15 +579,15 @@ def main() -> int:
         print("ring_probe: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    if args.what == "step-one":
+    if args.what in ("step-one", "kernels-one"):
         sys.path.insert(0, args.roots[0])
-        print(json.dumps(step_one(dev)))
+        print(json.dumps((step_one if args.what == "step-one" else kernels_one)(dev)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    if args.what == "step":
-        step(args.roots)
+    if args.what in ("step", "kernels"):
+        step(args.roots, args.what)
     elif args.what == "launch":
         sys.path.insert(0, HERE)
         launch_costs(dev)

@@ -42,8 +42,9 @@ _SIGNATURES = {
     "smf_window_gather": (_P, _P, _P, _P, _P, _L, _L, _I),
     # x, out, n, scratch
     "smf_cumsum_i32": (_P, _P, _L, _P),
-    # brp, bcol, blocks, b, c, nbrows, rows, cols, n, br, bc
-    "smf_bcsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
+    # items, n_items, stages, group, splits, n_splits, partial, blocks, b,
+    # c, rows, cols, n, br, bc
+    "smf_bcsr_spmm": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     # host array of the operands' base addresses, ops, d, words, slice,
     # ctas, flags, epoch
     "smf_ring_all_gather": (_P, _I, _I, _L, _L, _I, _P, _I),

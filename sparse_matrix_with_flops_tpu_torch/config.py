@@ -5,11 +5,16 @@ torch dtypes.  Indices are int32 on the device path, values float32.
 
 Float32 matmuls run in true float32: TF32 keeps about three decimal
 digits, and bf16-class rounding of the hub products broke the 1e-3
-comparison bar on the reference (docs/ROUND5_NOTES.md §4).  Both TF32
-switches are therefore turned off when the package is imported.
+comparison bar on the reference (docs/ROUND5_NOTES.md §4).  The
+reference pins ``Precision.HIGHEST`` at each product; the port wraps
+each matmul-class call in :func:`true_f32`, which forces true f32 for
+the call and then restores the caller's switches.  Importing the
+package changes no global setting.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -33,8 +38,64 @@ DEFAULT_STRIDE = 512
 # GPU-reference flops bins (mindex2-cuda/flops.cu:39-47).
 FLOPS_BIN_BOUNDS = (0, 1, 4, 16, 64, 512)
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+# The per-backend switches of torch's newer precision API (torch >= 2.9:
+# "none" inherits, "ieee" is true f32, "tf32").  Reading a legacy switch
+# raises once the newer API has set a different state, so each is read
+# and set on its own.
+_FP32_BACKENDS = {
+    "cuda.matmul.fp32_precision": lambda: torch.backends.cuda.matmul,
+    "cudnn.fp32_precision": lambda: torch.backends.cudnn,
+    "cudnn.conv.fp32_precision": lambda: torch.backends.cudnn.conv,
+    "cudnn.rnn.fp32_precision": lambda: torch.backends.cudnn.rnn,
+}
+
+
+def _f32_switches() -> dict:
+    """Every f32-precision switch that reads without raising."""
+    state = {}
+    getters = {
+        "cuda.matmul.allow_tf32": lambda: torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": lambda: torch.backends.cudnn.allow_tf32,
+        "float32_matmul_precision": torch.get_float32_matmul_precision,
+    }
+    for key, backend in _FP32_BACKENDS.items():
+        getters[key] = lambda b=backend: b().fp32_precision
+    for key, get in getters.items():
+        try:
+            state[key] = get()
+        except (AttributeError, RuntimeError):  # absent, or a mixed legacy read
+            pass
+    return state
+
+
+@contextlib.contextmanager
+def true_f32():
+    """Run the block's f32 matmuls in true f32 (TF32 off, precision
+    "highest"), whatever the caller set; on leaving, also by an
+    exception, restore every switch the caller had.  The legacy switches
+    are restored before the newer API's, which is the order that gives
+    back the same reads on torch 2.9 and later."""
+    saved = _f32_switches()
+    for backend in _FP32_BACKENDS.values():
+        try:
+            backend().fp32_precision = "ieee"
+        except AttributeError:  # torch before the newer API
+            break
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if "cuda.matmul.allow_tf32" in saved:
+            torch.backends.cuda.matmul.allow_tf32 = saved["cuda.matmul.allow_tf32"]
+        if "cudnn.allow_tf32" in saved:
+            torch.backends.cudnn.allow_tf32 = saved["cudnn.allow_tf32"]
+        if "float32_matmul_precision" in saved:
+            torch.set_float32_matmul_precision(saved["float32_matmul_precision"])
+        for key, backend in _FP32_BACKENDS.items():
+            if key in saved:
+                backend().fp32_precision = saved[key]
 
 
 def resolve_device(device: torch.device | str | None, who: str) -> torch.device:

@@ -124,7 +124,20 @@
 #include <type_traits>
 #include <vector>
 
+#include "hopper.cuh"
+
 namespace {
+
+using smf::cp_async16;
+using smf::cp_async_commit;
+using smf::cp_async_wait;
+using smf::mbar_arrive;
+using smf::mbar_expect;
+using smf::mbar_init;
+using smf::mbar_wait;
+using smf::smem_u32;
+using smf::split_tf32;
+using smf::tma_load;
 
 using Flag = cuda::atomic_ref<int, cuda::thread_scope_system>;
 
@@ -285,85 +298,6 @@ struct Tiling {
   static constexpr int kLag = kStages - 2 < 3 ? kStages - 2 : 3;
   static constexpr int kSmem = (kStages * kStage + kSplit) * 4 + kStages * 16;
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// One arrival that also expects ``bytes`` of TMA transactions.
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Returns once the phase of ``bar`` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@!P1 bra WAIT_%=;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// The [kBK, 64] box of ``map`` at (k0, row, block) into shared memory as
-// 64 rows of kBK floats, its bytes reported to ``bar``; rows past M and
-// depths past lr read as zeros.
-__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
-                                         int k0, int row, int block,
-                                         unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(k0), "r"(row),
-      "r"(block), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// x = hi + lo + O(2^-22 |x|), hi and lo TF32 (round to nearest, ties away)
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
 
 // Offset (floats) of element (row, k) of a [rows, kBK] K-major operand
 // tile in 8 x 4 core matrices, no swizzle: the next 4 k at +128 bytes

@@ -10,7 +10,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import QVALUE_DTYPE
+from ..config import QVALUE_DTYPE, true_f32
 from .csr import CSR
 
 
@@ -56,14 +56,18 @@ class MCSR:
         from ..ops.spmm import csr_spmv
 
         y = csr_spmv(self.rest, x)
-        y[: self.block_rows] += torch.mv(self.dense, x[: self.block_cols])
+        with true_f32():
+            part = torch.mv(self.dense, x[: self.block_cols])
+        y[: self.block_rows] += part
         return y
 
     def spmm(self, b: torch.Tensor) -> torch.Tensor:
-        """C = A·B; the corner product is one f32 matmul with TF32 off
-        (``config``; reference site ``mcsr.py:85``)."""
+        """C = A·B; the corner product is one matmul in true f32
+        (``config.true_f32``; reference site ``mcsr.py:85``)."""
         from ..ops.spmm import csr_spmm_dense
 
         c = csr_spmm_dense(self.rest, b)
-        c[: self.block_rows] += torch.matmul(self.dense, b[: self.block_cols])
+        with true_f32():
+            part = torch.matmul(self.dense, b[: self.block_cols])
+        c[: self.block_rows] += part
         return c.to(QVALUE_DTYPE)

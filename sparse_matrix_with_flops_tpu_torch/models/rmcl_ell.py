@@ -29,7 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import INDEX_DTYPE, QVALUE_DTYPE
+from ..config import INDEX_DTYPE, QVALUE_DTYPE, true_f32
 from ..formats.coo import COO
 from ..formats.csr import CSR
 from ..ops.prune import compute_threshold
@@ -240,7 +240,7 @@ def _hub_dense_products(
     With ``krows/khp``, ``a_dense`` is [H, khp] over the union of iterate
     rows the hub rows reference, and only those rows are densified.  The
     dense slab stays under 512 MB (the reference's budget); each slab is
-    one ``torch.matmul`` in true f32 (TF32 off, config.py).
+    one ``torch.matmul`` in true f32 (``config.true_f32``).
 
     ``precision="bf16"``: the iterate is densified in bf16 and A rounded
     to bf16; the product of two bf16 values is exact in f32 and the sums
@@ -274,7 +274,8 @@ def _hub_dense_products(
         tgt = torch.where((loc >= 0) & (loc < slab), loc, slab + lane_s)
         md = torch.zeros((rows, slab + S), dtype=dt, device=dev)
         md[rix, tgt] = vd
-        parts.append(torch.matmul(a_op, md[:, :slab].to(QVALUE_DTYPE)))
+        with true_f32():
+            parts.append(torch.matmul(a_op, md[:, :slab].to(QVALUE_DTYPE)))
     out = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     return out[:, :n]
 

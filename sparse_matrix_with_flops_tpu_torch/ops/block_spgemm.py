@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import INDEX_DTYPE, QVALUE_DTYPE
+from ..config import INDEX_DTYPE, QVALUE_DTYPE, true_f32
 from ..formats.csr import CSR
 from ..formats.tiled import TiledCSR
 from ..utils.nphost import (
@@ -275,8 +275,8 @@ def _densify(lin: torch.Tensor, vals: torch.Tensor, n_blocks: int, bs: int):
 
 
 def block_spgemm_tiled(a: CSR, b: CSR, plan: BlockPlan) -> TiledCSR:
-    """C = A·B in tile form via batched dense block matmuls (f32, TF32
-    off).
+    """C = A·B in tile form via batched dense block matmuls (true f32,
+    ``config.true_f32``).
 
     Exact structural nnz(C): the same pair matmul runs over 0/1
     structure blocks, and extraction keeps exactly the positions with a
@@ -289,7 +289,8 @@ def block_spgemm_tiled(a: CSR, b: CSR, plan: BlockPlan) -> TiledCSR:
     def pairs(lin_a, va, lin_b, vb):
         xa = _densify(lin_a, va, plan.n_ablk, bs)
         xb = _densify(lin_b, vb, plan.n_bblk, bs)
-        prod = torch.bmm(xa[d["pair_a"]], xb[d["pair_b"]])
+        with true_f32():
+            prod = torch.bmm(xa[d["pair_a"]], xb[d["pair_b"]])
         out = torch.zeros(
             (plan.n_cblk, bs, bs), dtype=QVALUE_DTYPE, device=a.device
         )

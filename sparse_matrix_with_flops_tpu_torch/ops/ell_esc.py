@@ -33,7 +33,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..config import INDEX_DTYPE, QVALUE_DTYPE
+from ..config import INDEX_DTYPE, QVALUE_DTYPE, true_f32
 from ..formats.csr import CSR
 from ..utils.nphost import repeat_idx
 from .ell_plan import EllPlan, _flat_layout, plan_ell
@@ -217,7 +217,9 @@ def _hub_products(a: CSR, b: CSR, plan: EllPlan, dev: dict):
             bd = bd.view(g.khp, g.slab)
             vw = int(min(g.slab, plan.ncols - sl * g.slab))
             for ci, a_d in enumerate(a_ds):
-                yield g, gi, sl, ci, vw, a_d @ bd
+                with true_f32():
+                    part = a_d @ bd
+                yield g, gi, sl, ci, vw, part
 
 
 def _tiles_impl(a: CSR, b: CSR, plan: EllPlan, fused_out_cap: int | None = None):

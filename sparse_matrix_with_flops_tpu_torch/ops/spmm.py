@@ -2,8 +2,9 @@
 JAX package's ``ops/spmm.py``).
 
 * :func:`bcsr_spmm` (kernel K5, ``csrc/bcsr_spmm.cu``): BCSR × dense.
-  On the card it launches the CUDA kernel; on the CPU it runs the plain
-  twin :func:`bcsr_spmm_plain`.  ``bcsr_spmm.launches`` counts launches.
+  On the card it launches the CUDA kernel over the matrix's work items
+  (``BCSR.schedule``); on the CPU it runs the plain twin
+  :func:`bcsr_spmm_plain`.  ``bcsr_spmm.launches`` counts launches.
 * :func:`bcsr_spmm_plain`: gather of B's block rows, one batched f32
   matmul, a sum into block rows (the reference's ``bcsr_spmm_xla``).
 * :func:`csr_spmv`, :func:`csr_spmm_dense`: a gather and a sum into
@@ -15,14 +16,14 @@ from __future__ import annotations
 import torch
 
 from .._build import check_tensor, launch, on_card
-from ..config import QVALUE_DTYPE
-from ..formats.bcsr import BCSR
+from ..config import QVALUE_DTYPE, true_f32
+from ..formats.bcsr import BCSR, SPMM_ROWS
 from ..formats.csr import CSR
 
 
 def bcsr_spmm_plain(a: BCSR, b: torch.Tensor) -> torch.Tensor:
     """K5's twin: gather B's block rows for every stored block, one
-    ``torch.bmm`` (true f32, TF32 off), sum into block rows.  Padding
+    ``torch.bmm`` (true f32, ``config.true_f32``), sum into block rows.  Padding
     blocks are masked; B is zero-padded to whole block columns."""
     n = b.shape[1]
     kpad = a.nbcols * a.bc
@@ -30,7 +31,8 @@ def bcsr_spmm_plain(a: BCSR, b: torch.Tensor) -> torch.Tensor:
     bp[: b.shape[0]] = b
     safe = a.block_col.long().clamp(0, max(a.nbcols - 1, 0))
     gathered = bp.view(a.nbcols, a.bc, n)[safe]  # [bcap, bc, n]
-    prods = torch.bmm(a.blocks, gathered)
+    with true_f32():
+        prods = torch.bmm(a.blocks, gathered)
     prods = torch.where((a.block_col < a.nbcols)[:, None, None], prods, 0.0)
     out = torch.zeros((a.nbrows + 1, a.br, n), dtype=QVALUE_DTYPE, device=b.device)
     out.index_add_(0, a.block_rows(), prods)  # slot nbrows: the dump
@@ -46,10 +48,11 @@ def bcsr_spmm(
     for either ``kernel`` value ("xla" or "pallas": there is no XLA on
     the card, and the reference's "xla" default rests on a TPU
     measurement), and raises if the kernel fails to build or launch.  K5
-    tiles N by 128 columns itself; ``n_tile`` is accepted for the
+    tiles N by 64 columns itself; ``n_tile`` is accepted for the
     reference's signature and not used.  With no stored block the
     result is zeros and nothing is launched.  On a CPU tensor the plain
-    twin runs."""
+    twin runs.  A BCSR from ``BCSR.from_csr`` carries K5's schedule, so
+    the call reads nothing back from the card."""
     if kernel not in ("xla", "pallas"):
         raise ValueError(f"bcsr_spmm: unknown kernel {kernel!r}")
     check_tensor(b, "bcsr_spmm b", QVALUE_DTYPE, 2)
@@ -70,15 +73,25 @@ def bcsr_spmm(
     if not on_card("bcsr_spmm", a.block_row_ptr, a.block_col, a.blocks, b):
         return bcsr_spmm_plain(a, b)
     n = b.shape[1]
-    if n > 65535 * 128:
+    if n > 65535 * 64:
         raise ValueError(f"bcsr_spmm: N={n} exceeds the kernel's grid")
-    if a.rows == 0 or n == 0 or int(a.nblocks) == 0:
+    if a.br > 8 * SPMM_ROWS:
+        raise ValueError(f"bcsr_spmm: br={a.br} > {8 * SPMM_ROWS} has no kernel")
+    sched = a.spmm_schedule()
+    if a.rows == 0 or n == 0 or sched.nblocks == 0:
         return torch.zeros((a.rows, n), dtype=QVALUE_DTYPE, device=b.device)
+    if sched.items.device != b.device:
+        raise ValueError(f"bcsr_spmm: schedule on {sched.items.device}, B on {b.device}")
     c = torch.empty((a.rows, n), dtype=QVALUE_DTYPE, device=b.device)
+    nsplit = sched.splits.shape[0]
+    partial = (torch.empty((sched.slots, a.br, n), dtype=QVALUE_DTYPE, device=b.device)
+               if nsplit else c)
     launch(
         "smf_bcsr_spmm", b.device,
-        a.block_row_ptr.data_ptr(), a.block_col.data_ptr(), a.blocks.data_ptr(),
-        b.data_ptr(), c.data_ptr(), a.nbrows, a.rows, a.cols, n, a.br, a.bc,
+        sched.items.data_ptr(), sched.items.shape[0], sched.stages.data_ptr(), sched.group,
+        sched.splits.data_ptr(), nsplit, partial.data_ptr(),
+        a.blocks.data_ptr(), b.data_ptr(), c.data_ptr(),
+        a.rows, a.cols, n, a.br, a.bc,
     )
     bcsr_spmm.launches += 1
     return c

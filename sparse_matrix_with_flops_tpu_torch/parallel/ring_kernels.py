@@ -24,8 +24,8 @@ at once; when not even one a rank fits (d above the card's resident
 CTAs), the launch is refused and the wrapper raises.  K7 and K8 run on
 the tensor cores in three TF32 passes (x = hi + lo, hi.hi + hi.lo +
 lo.hi), each 16-deep stage's sum added into f32 with round-to-nearest,
-as accurate as their twins, true-f32 ``torch.matmul`` calls (TF32 off,
-config.py).
+as accurate as their twins, true-f32 ``torch.matmul`` calls
+(``config.true_f32``).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ import math
 import torch
 
 from .._build import check_tensor, current_stream, launch, on_card, query, stream_scratch
-from ..config import QVALUE_DTYPE
+from ..config import QVALUE_DTYPE, true_f32
 
 RIGHT, LEFT = 1, -1  # direction the blocks flow: to rank me + 1 or me - 1
 STRIP_COLS = 64  # columns a CTA of K7 / K8 owns (kBN in csrc/ring.cu): one flag set a strip
@@ -189,14 +189,16 @@ def _check_matmul(a: torch.Tensor, b: torch.Tensor, name: str) -> tuple:
 
 def _ring_matmul_twin(a_rot, b, direction: int) -> torch.Tensor:
     """Rank me adds ``a_rot[me][:, block k] @ b[owner]`` over k in the
-    ring's order (true f32: TF32 is off, config.py)."""
+    ring's order (true f32: ``config.true_f32``)."""
     d, m, _ = a_rot.shape
     lr, n = b.shape[1:]
     own = _owners(d, direction, b.device).tolist()
     out = torch.zeros((d, m, n), dtype=QVALUE_DTYPE, device=b.device)
     for me in range(d):
         for k in range(d):
-            out[me] += torch.matmul(a_rot[me, :, k * lr:(k + 1) * lr], b[own[me][k]])
+            with true_f32():
+                part = torch.matmul(a_rot[me, :, k * lr:(k + 1) * lr], b[own[me][k]])
+            out[me] += part
     return out
 
 

@@ -30,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import INDEX_DTYPE, QVALUE_DTYPE
+from ..config import INDEX_DTYPE, QVALUE_DTYPE, true_f32
 from ..formats.coo import COO
 from ..formats.csr import CSR
 from ..models.rmcl_ell import (
@@ -316,7 +316,9 @@ def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True):
                     (torch.where(slot >= 0, slot, hmax), pos),
                     arrays["hub_ent_val"][me][owner], accumulate=True,
                 )
-                c_h[me] = c_h[me] + torch.matmul(ab[:hmax], md_me[me][idx.clamp(0, lr - 1)])
+                with true_f32():
+                    part = torch.matmul(ab[:hmax], md_me[me][idx.clamp(0, lr - 1)])
+                c_h[me] = c_h[me] + part
         if hmax:
             c_h = torch.roll(c_h, 1, 0)  # ppermute i -> i + 1
         if k + 1 < d:

@@ -70,6 +70,16 @@ def _assert_vals(got, want):
     assert bool((err <= bound).all()), float(err.max())
 
 
+def _assert_run_sums(got, tc, tv, ncols):
+    """K1's sums against the twin's within 1e-7 + 1e-5 of the sum of
+    the run's |values|: a bound on f32 rounding in any order, which a
+    sum that cancels to near zero still meets."""
+    _, want = sort_dedup_compact_plain(tc, tv, ncols)
+    _, mag = sort_dedup_compact_plain(tc, tv.abs(), ncols)
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= 1e-7 + 1e-5 * mag.double()).all()), float(err.max())
+
+
 def _presorted_tiles(rng, r, w, ncols, presorted, dev):
     tc = rng.integers(0, ncols + 1, size=(r, w)).astype(np.int32)
     tv = np.where(tc < ncols, rng.random((r, w)) + 0.5, 0.0).astype(np.float32)
@@ -249,6 +259,58 @@ def test_kernels_replay_in_a_cuda_graph_with_new_inputs(dev):
         assert torch.equal(eager[1][0], gc) and torch.equal(eager[1][1], gv)
 
 
+def test_k1_and_k5_replay_in_a_cuda_graph_with_new_inputs(dev):
+    # K1 (one-CTA rows and the W = 32768 cluster) and K5 (a split hub row:
+    # its second kernel and the scratch slots) captured once, replayed on
+    # refilled inputs, each replay equal to an eager call bit for bit
+    g = torch.Generator().manual_seed(10)
+    tiles = {w: (torch.empty((r, w), dtype=torch.int32, device=dev),
+                 torch.empty((r, w), dtype=torch.float32, device=dev))
+             for w, r in ((64, 37), (8192, 5), (32768, 2))}
+    rng = np.random.default_rng(10)
+    d = np.where(rng.random((40, 3000)) < 0.02, 1.0, 0.0)
+    d[5, ::3] = 1.0  # 125 blocks of 8 columns: four pieces
+    a = BCSR.from_csr(CSR.from_dense(d.astype(np.float32), device="cpu"), 8, 8).to(dev)
+    assert a.schedule.splits.shape[0] >= 1
+    b = torch.empty((3000, 70), device=dev)
+
+    def refill():
+        for w, (tc, tv) in tiles.items():
+            tc.copy_(torch.randint(0, w // 4 + 1, tc.shape, generator=g, dtype=torch.int32))
+            tv.copy_(torch.randn(tv.shape, generator=g))
+        a.blocks.copy_(torch.randn(a.blocks.shape, generator=g).to(dev) * (a.blocks != 0))
+        b.copy_(torch.randn(b.shape, generator=g))
+
+    def calls():
+        out = [sort_dedup_compact(tc, tv, w // 4) for w, (tc, tv) in tiles.items()]
+        return out + [bcsr_spmm(a, b)]
+
+    refill()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # build, size the grids, warm the allocator
+        calls()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (sort_dedup_compact.launches, bcsr_spmm.launches)
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert (sort_dedup_compact.launches, bcsr_spmm.launches) == (before[0] + 3, before[1] + 1)
+    for _ in range(3):
+        refill()
+        graph.replay()
+        eager = calls()
+        torch.cuda.synchronize()
+        for (w, (tc, tv)), got, again in zip(tiles.items(), captured, eager):
+            pk, _ = sort_dedup_compact_plain(tc, tv, w // 4)
+            assert torch.equal(got[0], pk) and torch.equal(again[0], got[0])
+            _assert_run_sums(got[1], tc, tv, w // 4)
+            assert torch.equal(again[1], got[1])
+        bound = 1e-7 + 1e-4 * (a.to_dense().abs() @ b.abs())
+        assert bool(((captured[3] - bcsr_spmm_plain(a, b)).abs() <= bound).all())
+        assert torch.equal(eager[3], captured[3])
+
+
 def test_constructors_default_to_the_card(dev):
     a = rmat_csr(8, edge_factor=4, seed=1)
     assert a.device == dev and a.col_ind.device == dev and a.values.device == dev
@@ -336,6 +398,96 @@ def test_bcsr_spmm_kernel_matches_twin(dev, rows, cols, density, br, bc, n):
     bound = 1e-7 + 1e-5 * (torch.from_numpy(np.abs(d)).to(dev).float() @ b.abs())
     assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
     assert not got[rows // 4 : rows // 2].any()  # NaN junk never leaks
+
+
+# every power-of-two width, every presorted hint below it, and the tiles
+# that stress K1's design: one column (the longest run), all sentinel,
+# runs of 33 lanes (across threads, warps and the cluster's halves), and
+# a row count that leaves a partial CTA of rows
+K1_WIDTHS = [2 ** p for p in range(1, 16)]
+
+
+def _k1_edge_tiles(rng, case, w, presorted, dev):
+    ncols = max(w // 3, 4)
+    r = 37 if case == "ragged_rows" else 3
+    if case == "one_column":
+        tc = np.full((r, w), 2, np.int32)
+    elif case == "all_sentinel":
+        tc = np.full((r, w), ncols, np.int32)
+    elif case == "runs_of_33":
+        tc = np.minimum(np.arange(w) // 33, ncols).astype(np.int32)[None].repeat(r, 0)
+        tc = np.take_along_axis(tc, rng.permuted(np.tile(np.arange(w), (r, 1)), axis=1), 1)
+    else:
+        tc = rng.integers(0, ncols + 1, size=(r, w)).astype(np.int32)
+    tv = np.where(tc < ncols, rng.standard_normal((r, w)), 0.0).astype(np.float32)
+    tv[:, ::5] = 1.0  # exact duplicates of values inside runs
+    if presorted > 1:
+        sh = (r, -1, presorted)
+        order = np.argsort(tc.reshape(sh), axis=2, kind="stable")
+        tc = np.take_along_axis(tc.reshape(sh), order, axis=2)
+        tv = np.take_along_axis(tv.reshape(sh), order, axis=2)
+        tc[:, 1::2] = tc[:, 1::2, ::-1]
+        tv[:, 1::2] = tv[:, 1::2, ::-1]
+    return (ncols, torch.from_numpy(np.ascontiguousarray(tc.reshape(r, w))).to(dev),
+            torch.from_numpy(np.ascontiguousarray(tv.reshape(r, w))).to(dev))
+
+
+@pytest.mark.parametrize("case", ["one_column", "all_sentinel", "runs_of_33", "ragged_rows"])
+@pytest.mark.parametrize("w", K1_WIDTHS)
+def test_sort_dedup_compact_edge_tiles_at_every_width(dev, w, case):
+    rng = np.random.default_rng(w)
+    presorted = 1
+    while presorted <= max(w // 2, 1):
+        ncols, tc, tv = _k1_edge_tiles(rng, case, w, presorted, dev)
+        k, v = sort_dedup_compact(tc, tv, ncols, presorted=presorted)
+        k2, v2 = sort_dedup_compact(tc, tv, ncols, presorted=presorted)
+        pk, _ = sort_dedup_compact_plain(tc, tv, ncols)
+        torch.cuda.synchronize()
+        assert torch.equal(k, pk), (presorted, case)
+        _assert_run_sums(v, tc, tv, ncols)
+        assert torch.equal(k2, k) and torch.equal(v2, v)  # bit for bit
+        presorted *= 2
+
+
+@pytest.mark.parametrize("br", [1, 2, 4, 8])
+@pytest.mark.parametrize("bc,n", [(13, 70), (100, 130), (128, 1)])
+def test_bcsr_spmm_hub_and_edge_shapes(dev, br, bc, n):
+    # a hub block row of several 32-block pieces, empty block rows, and B
+    # rows past cols (cols not a multiple of bc)
+    rng = np.random.default_rng(br * 1000 + bc)
+    rows, cols = 70, 40 * bc + bc // 2
+    d = np.where(rng.random((rows, cols)) < 0.01, rng.standard_normal((rows, cols)), 0.0)
+    d[3, ::max(bc // 2, 1)] = rng.standard_normal(d[3, ::max(bc // 2, 1)].shape)  # ~80 blocks
+    d[20:40] = 0.0
+    a = BCSR.from_csr(CSR.from_dense(d.astype(np.float32), device="cpu"), br, bc).to(dev)
+    assert a.schedule.splits.shape[0] >= 1 and int(a.schedule.splits[:, 2].max()) >= 2
+    b = torch.from_numpy(rng.standard_normal((cols, n)).astype(np.float32)).to(dev)
+    got = bcsr_spmm(a, b)
+    again = bcsr_spmm(a, b)
+    want = bcsr_spmm_plain(a, b)
+    torch.cuda.synchronize()
+    bound = 1e-7 + 1e-4 * (torch.from_numpy(np.abs(d)).to(dev).float() @ b.abs())
+    assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
+    assert torch.equal(again, got)  # no atomics
+    assert not got[20:40].any()
+
+
+@pytest.mark.parametrize("kind,group", [("band", 4), ("rmat", 1)])
+def test_bcsr_spmm_both_stage_widths(dev, kind, group):
+    # K5's instances of four blocks a stage (a band: its block rows share
+    # block columns) and of one (a power law)
+    x = (banded_csr(3000, bandwidth=20, seed=4, device="cpu") if kind == "band"
+         else rmat_csr(12, edge_factor=8, seed=4, weights="random", device="cpu"))
+    a = BCSR.from_csr(x, 8, 128).to(dev)
+    assert a.schedule.group == group
+    b = torch.randn((x.rows, 200), generator=torch.Generator().manual_seed(4)).to(dev)
+    got = bcsr_spmm(a, b)
+    again = bcsr_spmm(a, b)
+    want = bcsr_spmm_plain(a, b)
+    torch.cuda.synchronize()
+    bound = 1e-7 + 1e-4 * (a.to_dense().abs() @ b.abs())
+    assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
+    assert torch.equal(again, got)
 
 
 def test_bcsr_spmm_all_empty_launches_nothing(dev):

@@ -32,8 +32,11 @@ def test_config_constants_and_precision():
         assert getattr(tconfig, name) == getattr(jconfig, name), name
     assert tconfig.QVALUE_DTYPE == torch.float32
     assert tconfig.INDEX_DTYPE == torch.int32
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
+    # true f32 is pinned per call (config.true_f32), not at import
+    with tconfig.true_f32():
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        assert torch.get_float32_matmul_precision() == "highest"
 
 
 @pytest.mark.parametrize("capacity", [None, 64])

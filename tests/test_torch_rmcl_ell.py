@@ -335,15 +335,26 @@ def test_rmcl_ell_stays_row_stochastic():
 # ---- C2: the matmuls of the slice run in true f32 ----------------------------------
 def test_hub_matmul_is_true_f32(monkeypatch):
     """Every ``torch.matmul`` of the slice runs with TF32 off and f32
-    matmul precision "highest" (ROADMAP C2): a spy checks the switches
-    at each call, on the single-chip hub, every sharded exchange and the
-    ring twins; and the hub product agrees with an f64 product within
+    matmul precision "highest" (ROADMAP C2), even for a caller that
+    turned TF32 on (C7: ``config.true_f32`` pins it per call and gives
+    the caller's switches back): a spy checks the switches at each
+    call, on the single-chip hub, every sharded exchange and the ring
+    twins; and the hub product agrees with an f64 product within
     1e-5·(|A||B|), which a TF32 or bf16 rounding of f32 operands breaks."""
+    from sparse_matrix_with_flops_tpu_torch.config import _f32_switches, true_f32
+
+    with true_f32():  # the caller's switches come back after the test
+        torch.backends.cuda.matmul.allow_tf32 = True  # a caller that wants TF32
+        torch.set_float32_matmul_precision("high")
+        caller = _f32_switches()
+        _hub_matmul_checks(monkeypatch)
+        assert _f32_switches() == caller
+
+
+def _hub_matmul_checks(monkeypatch):
     from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, sharded_rmcl_ell
     from sparse_matrix_with_flops_tpu_torch.parallel import ring_kernels as RK
 
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
     calls = []
     real = torch.matmul
 
