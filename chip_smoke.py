@@ -8,7 +8,10 @@
 3. holds each kernel (K1-K4) against its plain PyTorch twin on the card,
    on inputs cut from the R-MAT s14 plan, and times both; K4 also on
    2^25 + 3 words off the 16-byte grid (4097 tiles, more than the card
-   holds resident CTAs);
+   holds resident CTAs); K3 both as the assembly calls it (its windows
+   and its row heads in one launch) and on the windows alone, beside
+   an index of an unfolded view a stream; K2 and K3 also on the device
+   alone (torch.profiler);
 4. runs ``spgemm_auto`` on R-MAT s14 (edge factor 8, seed 7, random
    weights; routes ``ell``) and on the cant-class band
    ``banded_csr(62451, 32)`` (routes ``block``), checks both products
@@ -57,7 +60,9 @@ against the twin, which would show a stale flag or status word of an
 earlier launch (K4's and K6's scratch is kept across calls: K4 zeroes
 its own before each launch, K6 tags its flags with the launch's epoch).
 
-Every kernel's record carries, beside its time and its twin's, its bound
+Every kernel's record carries, beside its time and its twin's, its
+device time alone (every device activity of the wrapper's call, by
+torch.profiler: no host enqueue in it), its bound
 (the larger of the bytes it must move, each input read once and each
 output written once, over 3.35 TB/s, and its operations over the card's
 peak: an f32 product counted as three TF32 passes at 495 TFLOP/s) and,
@@ -141,6 +146,18 @@ def cuda_ms(torch, fn, reps: int = 15, warm: int = 2) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Device time of ``fn``'s kernels a call, in ms, from torch.profiler
+    (no host enqueue in it)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(k.self_device_time_total for k in prof.key_averages()) / calls / 1e3
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -286,14 +303,12 @@ def compare_iterates(np, what, got_c, got_v, want_c, want_v, near=None, tol=None
     return failed
 
 
-# K1-K3 have no one PyTorch call that computes the same function
+# K1 and K2 have no one PyTorch call that computes the same function
 NO_CALL = {
     "sort_dedup_compact": "none: a per-row sort by column, a sum of equal columns "
                           "and a left compaction take several torch calls",
     "compact_nonzero_rows": "none: torch.nonzero gives coordinates, not each row's "
                             "(cols, vals) packed left with sentinel padding",
-    "window_gather": "none: a gather of W-lane windows at data-dependent offsets "
-                     "needs its index tensor built by other calls first",
 }
 
 
@@ -534,6 +549,7 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
             cuda_ms(torch, lambda: (ring_all_gather_plain(xc), ring_all_gather_plain(xv))),
             bound((d + 1) * (xc.numel() + xv.numel()) * 4),
             cuda_ms(torch, lambda: (xc[idx], xv[idx])),
+            dev_ms=device_ms(torch, lambda: ring_all_gather(xc, xv)),
         )
         del want
     # K7 / K8 on this run's hub operands
@@ -575,7 +591,7 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
                 f"bound), twin {gf / pms:.2f} TFLOP/s [{card}]")
             record(name, f"D={d} M={a_cols.shape[1]} lr={md_loc.shape[1]} "
                    f"N={md_loc.shape[2]} nt={nt if 'tiled' in name else md_loc.shape[2]}",
-                   float(err.max()), ms, pms, kb, lib_ms)
+                   float(err.max()), ms, pms, kb, lib_ms, dev_ms=device_ms(torch, fk, 5))
             del k, p
         if d == 4:  # B7 is on no path of the reference: a direct call
             drive("ring_matmul on the D=4 hub operands",
@@ -694,29 +710,35 @@ def main() -> int:
     prod_c, prod_v = E._b_ell_chunks(a, plan, pt)
     results = {}
 
-    def record(name, case, err, ms, plain_ms, kbound, library, library_call=None):
+    def record(name, case, err, ms, plain_ms, kbound, library, library_call=None,
+               dev_ms=None):
         """One case of a kernel: ``kbound`` (ms, what bounds it);
         ``library`` the time of the one PyTorch call that computes the
         same function (``library_call`` names it), or the reason there is
-        none."""
+        none; ``dev_ms`` the kernel's device time alone, where measured."""
         lib_ms = library if isinstance(library, float) else None
         log(
             f"{name} [{case}]: max_abs_err {err:.3e} kernel {ms:.4f} ms "
             f"plain {plain_ms:.4f} ms bound {kbound[0]:.4f} ms ({kbound[1]}, "
             f"{kbound[0] / ms:.1%}) library "
             + (f"{lib_ms:.4f} ms" if lib_ms is not None else f"none: {library}")
+            + ("" if dev_ms is None else
+               f"; device {dev_ms:.4f} ms ({kbound[0] / dev_ms:.1%} of the bound)")
         )
         r = results.setdefault(name, {"max_abs_err": 0.0, "cases": {}})
         case_rec = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": kbound[0], "bound_by": kbound[1], "library_ms": lib_ms,
         }
+        if dev_ms is not None:
+            case_rec["device_ms"] = dev_ms
         if lib_ms is None:
             case_rec["library_none"] = library
         if library_call is not None:
             case_rec["library_call"] = library_call
         r.pop("library_none", None)
         r.pop("library_call", None)
+        r.pop("device_ms", None)
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r.update({k: v for k, v in case_rec.items() if k != "max_abs_err"})  # the last case
         r["cases"][case] = case_rec
@@ -765,6 +787,7 @@ def main() -> int:
             cuda_ms(torch, lambda: sort_dedup_compact(tc, tv, plan.ncols, plan.chunk)),
             cuda_ms(torch, lambda: sort_dedup_compact_plain(tc, tv, plan.ncols)),
             bound(16.0 * tc.numel()), NO_CALL["sort_dedup_compact"],
+            dev_ms=device_ms(torch, lambda: sort_dedup_compact(tc, tv, plan.ncols, plan.chunk)),
         )
     if not plan.hub_groups:
         raise AssertionError("the s14 plan has no hub group: K2 has no input")
@@ -784,32 +807,54 @@ def main() -> int:
         cuda_ms(torch, lambda: compact_nonzero_rows(part, vw)),
         cuda_ms(torch, lambda: compact_nonzero_rows_plain(part, vw)),
         bound(12.0 * part.numel()), NO_CALL["compact_nonzero_rows"],
+        dev_ms=device_ms(torch, lambda: compact_nonzero_rows(part, vw)),
     )
     flat_c, flat_v, counts, flat_base = E._tiles_impl(a, a, plan)
     ocap = -(-E._nnz_bucket(int(counts.sum())) // 128) * 128
     starts = exclusive_cumsum(counts)[:-1]
     fc, fvb = E._window_source(flat_c, flat_v, plan.ncols)
     p0 = E._window_positions(counts, flat_base, starts, ocap // 128)
-    kc, kvb = window_gather(fc, fvb, p0)
-    pc, pvb = window_gather_plain(fc, fvb, p0, 128)
-    torch.cuda.synchronize()
+    # the assembly's second list: one window at the head of each row
+    heads = torch.where(counts > 0, flat_base, 0).to(torch.int32)
+    nr = fc.shape[0] // 128
+    for lists in ((p0, heads), (p0,)):  # the main path's call, then the windows alone
+        k3 = lambda lists=lists: window_gather(fc, fvb, lists[0], 128, *lists[1:])  # noqa: E731
+        k3_plain = lambda lists=lists: window_gather_plain(  # noqa: E731
+            fc, fvb, lists[0], 128, *lists[1:])
+        want3 = k3_plain()
 
-    def k3_same(got):
-        if not torch.equal(got[0], pc) or not torch.equal(got[1], pvb):
-            raise AssertionError("K3: output differs from the twin")
+        def k3_same(got, want3=want3, n=len(lists)):
+            if len(got) != 2 * n or not all(torch.equal(a, b) for a, b in zip(got, want3)):
+                raise AssertionError(f"K3 ({n} list(s)): output differs from the twin")
 
-    k3_same((kc, kvb))
-    burst("K3", lambda: window_gather(fc, fvb, p0), k3_same)
-    # the source lanes the windows cover (each read once), not the whole source
-    st = torch.sort(_window_starts(p0, fc.shape[0] // 128, 128)).values
-    covered = int(torch.clamp(st[1:] - st[:-1], max=128).sum()) + 128 * (st.numel() > 0)
-    record(
-        "window_gather", f"Q={p0.shape[0]} W=128 src={fc.shape[0]} covered={covered}", 0.0,
-        cuda_ms(torch, lambda: window_gather(fc, fvb, p0)),
-        cuda_ms(torch, lambda: window_gather_plain(fc, fvb, p0, 128)),
-        bound(4.0 * p0.numel() + 8.0 * covered + 8.0 * p0.shape[0] * 128),
-        NO_CALL["window_gather"],
-    )
+        k3_same(k3())
+        burst(f"K3 {len(lists)} list(s)", k3, k3_same)
+        # the source lanes the windows cover (each read once), not the
+        # whole source
+        st = torch.sort(torch.cat([_window_starts(p, nr, 128) for p in lists])).values
+        covered = int(torch.clamp(st[1:] - st[:-1], max=128).sum()) + 128 * (st.numel() > 0)
+        nq = sum(p.shape[0] for p in lists)
+        if len(lists) == 1:
+            # yardstick: one index of an unfolded view a stream, the clipped
+            # starts built beforehand (the clip is left out of its time)
+            s0 = _window_starts(p0, nr, 128)
+            lib = lambda: (fc.unfold(0, 128, 1)[s0], fvb.unfold(0, 128, 1)[s0])  # noqa: E731
+            k3_same(lib())
+            library = cuda_ms(torch, lib)
+            call = ("fc.unfold(0, 128, 1)[starts] and the same of the value bits: one index "
+                    "kernel a stream; the clipped starts are built beforehand, untimed")
+            case = f"Q={nq} W=128 src={fc.shape[0]} covered={covered}"
+        else:
+            library, call = ("none: the windows and the row heads in one call; the "
+                             "windows alone have the yardstick"), None
+            case = (f"two lists in one launch: Q={p0.shape[0]} windows + {heads.shape[0]} row "
+                    f"heads, W=128 src={fc.shape[0]} covered={covered}")
+        record(
+            "window_gather", case, 0.0, cuda_ms(torch, k3), cuda_ms(torch, k3_plain),
+            bound(4.0 * nq + 8.0 * covered + 8.0 * nq * 128), library, call,
+            dev_ms=device_ms(torch, k3),
+        )
+        del want3
     # K4: first 2^25 + 3 words off the 16-byte grid (4097 tiles, more than
     # the card holds resident CTAs; int32 sums that wrap), then phase 3's
     # own input, whose numbers stand for the kernel
@@ -831,6 +876,7 @@ def main() -> int:
             cuda_ms(torch, lambda: cumsum_i32_plain(xs)),
             bound(8.0 * xs.numel()),
             cuda_ms(torch, lambda: torch.cumsum(xs, 0, dtype=torch.int32)),
+            dev_ms=device_ms(torch, lambda: cumsum_i32(xs)),
         )
         del want
     del big
@@ -985,6 +1031,7 @@ def main() -> int:
         cuda_ms(torch, lambda: sort_dedup_compact(tc, tv, plan32.ncols, plan32.chunk)),
         cuda_ms(torch, lambda: sort_dedup_compact_plain(tc, tv, plan32.ncols)),
         bound(16.0 * tc.numel()), NO_CALL["sort_dedup_compact"],
+        dev_ms=device_ms(torch, lambda: sort_dedup_compact(tc, tv, plan32.ncols, plan32.chunk)),
     )
     del prod_c, prod_v, tc, tv, kk, kv, pk, pv
     c32 = drive(
@@ -1056,7 +1103,8 @@ def main() -> int:
         # the stored blocks and their indices, B and C, each once
         kb = bound(4.0 * (nb * ab.br * ab.bc + nb + ab.nbrows + 1 + 2 * x.rows * n), gf * 1e9)
         record("bcsr_spmm", f"{label} N={n} blocks={nb}", err, ms, plain_ms, kb, lib,
-               "torch.sparse.mm on the CSR form of the same matrix (cuSPARSE SpMM, true f32)")
+               "torch.sparse.mm on the CSR form of the same matrix (cuSPARSE SpMM, true f32)",
+               dev_ms=device_ms(torch, lambda: bcsr_spmm(ab, bd)))
         del ab, bd
         torch.cuda.synchronize()
 
@@ -1177,6 +1225,7 @@ def main() -> int:
             "launched_by": launched_by[k],
             "max_abs_err": results[k]["max_abs_err"],
             "ms": results[k]["ms"],
+            "device_ms": results[k]["device_ms"],
             "plain_ms": results[k]["plain_ms"],
             "bound_ms": results[k]["bound_ms"],
             "bound_by": results[k]["bound_by"],

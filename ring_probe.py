@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Probes of the port's kernels on one CUDA card (the ring kernels
-K6-K8; K1 and K5 in ``kernels``).
+K6-K8; K1, K2, K3 and K5 in ``kernels``).
 
     python3 ring_probe.py accuracy [--unpromoted]
     python3 ring_probe.py step ROOT [ROOT ...]
     python3 ring_probe.py kernels ROOT [ROOT ...]
-    python3 ring_probe.py launch
-    python3 ring_probe.py variants [NAME ...]
+    python3 ring_probe.py launch [--root ROOT]
+    python3 ring_probe.py variants [--root ROOT] [NAME ...]
 
 ``accuracy``: K8 and its plain twin on the D = 2 and D = 4 hub operands
 of the sharded R-MCL loop on R-MAT s14 (the operands ``chip_smoke.py``
@@ -26,22 +26,33 @@ and K6 alone on its cols and vals as that tree's ``pallas_ring``
 exchange calls it: median, min and max of 7 calls each.
 
 ``kernels``: as ``step``, one fresh process a ROOT (give two in the
-order A B B A), K1 and K5 at the shapes ``chip_smoke.py`` times them:
-K1 on the R-MAT s14 plan's W = 64 and W = 8192 tiles and the
-``max_w=32768`` plan's W = 32768 tile, K5 on the cant-class band
-(BCSR(8, 128), N = 512) and on s14 (N = 128).  Each one call at a time
-(CUDA events around the call, host enqueue included: median, min and
-max of 15) and back to back (20 calls between two events, per call).
+order A B B A), K1, K2, K3 and K5 at the shapes ``chip_smoke.py`` times
+them: K1 on the R-MAT s14 plan's W = 64 and W = 8192 tiles and the
+``max_w=32768`` plan's W = 32768 tile, K2 on the plan's first hub part
+(R = 563, N = 16384), K3 on the s14 assembly's windows (Q = 82,792,
+W = 128) and as that tree's assembly calls it (the windows and the row
+heads in one launch, or in two), K5 on the cant-class band (BCSR(8,
+128), N = 512) and on s14 (N = 128).  Each one call at a time (CUDA events around the call, host
+enqueue included: median, min and max of 15) and back to back (20 calls
+between two events, per call).
 
-``launch``: K4 and K6 at their main-path sizes beside the library calls
-that compute the same functions, timed one call at a time (as
-``chip_smoke.py``), back to back, on the host, and by ``torch.profiler``
-on the device; then the host cost of each step of a kernel wrapper.
+``launch``: K2, K3, K4 and K6 at their main-path sizes, beside the
+library calls that compute the same functions where there are some,
+timed one call at a time (as ``chip_smoke.py``), back to back, on the
+host, and by ``torch.profiler`` on the device; then the host cost of
+each step of a kernel wrapper.
 
 ``variants``: text-edited builds of ``csrc/ring.cu`` (K6),
 ``csrc/cumsum_i32.cu`` (K4), ``csrc/sort_dedup_compact.cu`` (K1, on the
-s14 plan's W = 8192 tile) and ``csrc/bcsr_spmm.cu`` (K5), each entry of
-``VARIANTS`` or those named, timed in turn on the main path's inputs.
+s14 plan's W = 8192 tile), ``csrc/bcsr_spmm.cu`` (K5),
+``csrc/compact_nonzero_rows.cu`` (K2) and ``csrc/window_gather.cu``
+(K3), each entry of ``VARIANTS`` or those named, timed in turn on the
+main path's inputs.  The entries named "v1" edit K2 and K3 as first
+written (a CTA a row with a block scan each 1024 lanes; a thread a
+lane), in a checkout that still has them, given as ``--root``.
+
+``--root ROOT`` (``launch``, ``variants``): import the port, and build
+the variants, from the checkout ROOT instead of this script's own.
 """
 
 from __future__ import annotations
@@ -221,9 +232,37 @@ def _back_to_back(torch, fn, calls: int = 20, reps: int = 5) -> list:
     return out
 
 
+def ell_inputs(dev) -> dict:
+    """K2's and K3's main-path inputs, as ``chip_smoke.py`` phase 3 cuts
+    them from R-MAT s14 (edge factor 8, seed 7, random weights): the
+    first hub part (R = 563, N = 16384) and its valid width; the s14
+    assembly's window source, its window positions (Q = 82,792) and its
+    row heads (one a row), with the clipped starts of the windows."""
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import exclusive_cumsum
+    from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import _window_starts
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)
+    plan = plan_ell(a, a)
+    pt = E._plan_tensors(plan, dev)
+    _, _, _, _, vw, part = next(E._hub_products(a, a, plan, pt))
+    flat_c, flat_v, counts, flat_base = E._tiles_impl(a, a, plan)
+    ocap = -(-E._nnz_bucket(int(counts.sum())) // 128) * 128
+    starts = exclusive_cumsum(counts)[:-1]
+    fc, fvb = E._window_source(flat_c, flat_v, plan.ncols)
+    p0 = E._window_positions(counts, flat_base, starts, ocap // 128)
+    heads = torch.where(counts > 0, flat_base, 0).to(torch.int32)
+    return {"part": part, "vw": vw, "fc": fc, "fvb": fvb, "p0": p0, "heads": heads,
+            "starts": _window_starts(p0, fc.shape[0] // 128, 128)}
+
+
 def kernels_one(dev) -> dict:
-    """This process's port (imported from sys.path[0]): K1 and K5 at the
-    shapes of ``chip_smoke.py`` phases 3, 5 and 6, in ms."""
+    """This process's port (imported from sys.path[0]): K1, K2, K3 and K5
+    at the shapes of ``chip_smoke.py`` phases 3, 5 and 6, in ms."""
     import numpy as np
     import torch
 
@@ -231,7 +270,11 @@ def kernels_one(dev) -> dict:
     from sparse_matrix_with_flops_tpu_torch.formats import BCSR
     from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
     from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
-    from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import sort_dedup_compact
+    from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
+        compact_nonzero_rows,
+        sort_dedup_compact,
+        window_gather,
+    )
     from sparse_matrix_with_flops_tpu_torch.ops.spmm import bcsr_spmm
     from sparse_matrix_with_flops_tpu_torch.utils.generate import banded_csr, rmat_csr
 
@@ -253,6 +296,23 @@ def kernels_one(dev) -> dict:
             out[f"K1 W={w} R={tc.shape[0]}"] = _times(torch, k1, 15)
             out[f"K1 W={w} back to back"] = _back_to_back(torch, k1)
         del pc, pv
+    x = ell_inputs(dev)
+    # K3 as this tree's assembly calls it: the windows and the row heads
+    # in one launch where the wrapper takes two lists, else two calls
+    if "p1" in inspect.signature(window_gather).parameters:
+        assembly = lambda: window_gather(x["fc"], x["fvb"], x["p0"], 128, x["heads"])  # noqa: E731
+    else:
+        assembly = lambda: (window_gather(x["fc"], x["fvb"], x["p0"]),  # noqa: E731
+                            window_gather(x["fc"], x["fvb"], x["heads"]))
+    for label, fn in (
+        (f"K2 R={x['part'].shape[0]} N={x['part'].shape[1]}",
+         lambda: compact_nonzero_rows(x["part"], x["vw"])),
+        (f"K3 Q={x['p0'].shape[0]} W=128", lambda: window_gather(x["fc"], x["fvb"], x["p0"])),
+        (f"K3-assembly windows + {x['heads'].shape[0]} row heads", assembly),
+    ):
+        out[label] = _times(torch, fn, 15)
+        out[f"{label.split()[0]} back to back"] = _back_to_back(torch, fn)
+    del x
     band = banded_csr(62451, bandwidth=32, device=dev)
     for label, x, n in (("band", band, 512), ("s14", a, 128)):
         ab = BCSR.from_csr(x, 8, 128)
@@ -287,11 +347,12 @@ def _enter_device(torch, dev) -> None:
 
 
 def launch_costs(dev) -> None:
-    """K4 and K6 at their main-path sizes against the library calls that
-    compute the same functions: the one-call CUDA-event time that
-    ``chip_smoke.py`` reports, the per-call time of 200 back-to-back
-    calls (device-bound once the host keeps ahead), the host time a call
-    takes to enqueue, and the device time of each kernel from
+    """K2, K3, K4 and K6 at their main-path sizes, and the library calls
+    that compute the same functions (K3's: one index of an unfolded view
+    a stream, the clipped starts already built): the one-call CUDA-event
+    time that ``chip_smoke.py`` reports, the per-call time of 200
+    back-to-back calls (device-bound once the host keeps ahead), the host
+    time a call takes to enqueue, and the device time of each kernel from
     ``torch.profiler``; then the host cost of the steps of a wrapper."""
     import time
 
@@ -299,20 +360,36 @@ def launch_costs(dev) -> None:
 
     from sparse_matrix_with_flops_tpu_torch import _build
     from sparse_matrix_with_flops_tpu_torch.ops.scan_kernels import cumsum_i32
+    from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
+        compact_nonzero_rows,
+        window_gather,
+    )
     from sparse_matrix_with_flops_tpu_torch.parallel import ring_kernels as RK
 
     _build.library()
+    ei = ell_inputs(dev)
+    fc, fvb, st = ei["fc"], ei["fvb"], ei["starts"]
     g = torch.Generator().manual_seed(0)
     x = torch.randint(-(2**30), 2**30, (10_597_376,), generator=g, dtype=torch.int32).to(dev)
     xc = torch.randint(0, 2**14, (4, 4096, 128), generator=g, dtype=torch.int32).to(dev)
     xv = torch.rand((4, 4096, 128), generator=g).to(dev)
     idx = RK._owners(4, RK.RIGHT, dev)
     cases = {
+        f"K2 compact_nonzero_rows R={ei['part'].shape[0]} N={ei['part'].shape[1]}":
+            lambda: compact_nonzero_rows(ei["part"], ei["vw"]),
+        f"K3 window_gather Q={ei['p0'].shape[0]} W=128": lambda: window_gather(fc, fvb, ei["p0"]),
+        f"K3 window_gather row heads Q={ei['heads'].shape[0]}":
+            lambda: window_gather(fc, fvb, ei["heads"]),
+        "unfold(0, 128, 1)[starts] cols+vals":
+            lambda: (fc.unfold(0, 128, 1)[st], fvb.unfold(0, 128, 1)[st]),
         "K4 cumsum_i32 n=10597376": lambda: cumsum_i32(x),
         "torch.cumsum int32": lambda: torch.cumsum(x, 0, dtype=torch.int32),
         "K6 D=4 cols+vals one call": lambda: RK.ring_all_gather(xc, xv),
         "index gather cols+vals": lambda: (xc[idx], xv[idx]),
     }
+    if "p1" in inspect.signature(window_gather).parameters:  # the two-list form
+        cases["K3 window_gather windows + row heads in one call"] = lambda: window_gather(
+            fc, fvb, ei["p0"], 128, ei["heads"])
     for name, fn in cases.items():
         one = statistics.median(_times(torch, fn, 15))
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -384,6 +461,98 @@ K5_MMA = """        mma_tf32(d, al, bh0, bh1);
         mma_tf32(d, ah, bh0, bh1);
 """
 
+K2_G = "  G = G < kMaxCluster ? G : kMaxCluster;"
+K3_STORE = """    out_c[o] = realign(c, nc, r);
+    out_v[o] = realign(v, nv, r);"""
+K3_HEAD = """  static_assert(W == 128, "one 16-byte vector a lane");
+  const int lane = threadIdx.x & 31;
+  const long long warp = (blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x) >> 5;
+"""
+K3_END = """    out_v[o] = realign(v, nv, r);
+  }
+}"""
+
+
+def k3_loop(loop: str) -> list:
+    """Edits that replace the loop of K3's W = 128 kernel by ``loop``
+    (which ends the function)."""
+    return [(K3_HEAD, K3_HEAD + "#if 0\n"), (K3_END, K3_END[:-1] + "#endif\n" + loop)]
+
+
+def k3_windows_a_warp(n: int) -> list:
+    """K3 with ``n`` windows a warp in flight (loads of all, then the
+    stores of all): the whole loop of the W = 128 kernel replaced."""
+    loop = f"""  constexpr int kUnroll = {n};
+  const long long step = static_cast<long long>(gridDim.x) * kWarps * kUnroll;
+  for (long long q0 = warp * kUnroll; q0 < Q; q0 += step) {{
+    long long s[kUnroll];
+    int4 c[kUnroll], v[kUnroll], cn[kUnroll], vn[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {{
+      s[u] = q0 + u < Q ? clipped_start(position(p0, Q0, p1, q0 + u), nr, W) : 0;
+    }}
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {{
+      if (q0 + u < Q) {{
+        const long long a = (s[u] >> 2) + lane;
+        c[u] = src_c[a];
+        v[u] = src_v[a];
+        if (lane == 31 && (s[u] & 3)) {{
+          cn[u] = src_c[a + 1];
+          vn[u] = src_v[a + 1];
+        }}
+      }}
+    }}
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {{
+      if (q0 + u < Q) {{
+        const int r = static_cast<int>(s[u] & 3);
+        int4 nc = shfl_down4(c[u]), nv = shfl_down4(v[u]);
+        if (lane == 31) nc = cn[u], nv = vn[u];
+        const long long o = (q0 + u) * (W / 4) + lane;
+        out_c[o] = realign(c[u], nc, r);
+        out_v[o] = realign(v[u], nv, r);
+      }}
+    }}
+  }}
+}}"""
+    return k3_loop(loop)
+
+
+# units of one stream of one window, two in flight: unit i < Q the cols
+# of window i, unit Q + i its value bits (row Q + i of the [2, Q, W]
+# output), so the warps in flight read one stream at a time
+K3_UNITS = """  constexpr int kUnroll = 2;
+  const long long step = static_cast<long long>(gridDim.x) * kWarps * kUnroll;
+  for (long long i0 = warp * kUnroll; i0 < 2 * Q; i0 += step) {
+    long long s[kUnroll];
+    int4 c[kUnroll], cn[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + u;
+      s[u] = i < 2 * Q ? clipped_start(position(p0, Q0, p1, i < Q ? i : i - Q), nr, W) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + u;
+      if (i < 2 * Q) {
+        const int4* src = i < Q ? src_c : src_v;
+        const long long a = (s[u] >> 2) + lane;
+        c[u] = src[a];
+        if (lane == 31 && (s[u] & 3)) cn[u] = src[a + 1];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (i0 + u < 2 * Q) {
+        int4 nc = shfl_down4(c[u]);
+        if (lane == 31) nc = cn[u];
+        out_c[(i0 + u) * (W / 4) + lane] = realign(c[u], nc, static_cast<int>(s[u] & 3));
+      }
+    }
+  }
+}"""
+
 VARIANTS = {  # name -> (source, [(old, new), ...], checked): exact text edits
     "K6 as is": ("ring.cu", [], True),
     "K6 device scope": ("ring.cu", [
@@ -429,16 +598,78 @@ VARIANTS = {  # name -> (source, [(old, new), ...], checked): exact text edits
     "K5 no B slabs": ("bcsr_spmm.cu", [("  if ((st.flags & 1) == 0) return;", "  return;")],
                       False),
     "K5 no mma": ("bcsr_spmm.cu", [(K5_MMA, "")], False),
+    "K2 as is": ("compact_nonzero_rows.cu", [], True),
+    # designs that lost: one CTA a row (8 pieces, counted, then read
+    # again), clusters of 4 CTAs (2 pieces each)
+    "K2 one CTA a row": ("compact_nonzero_rows.cu", [(K2_G, "  G = 1;")], True),
+    "K2 clusters of 4": ("compact_nonzero_rows.cu", [(
+        "constexpr int kMaxCluster = 8;", "constexpr int kMaxCluster = 4;")], True),
+    # timing only, wrong results: what the loads, the stores and the
+    # scan cost
+    "K2 no loads": ("compact_nonzero_rows.cu", [(
+        "return *reinterpret_cast<const float4*>(v + e);",
+        "return make_float4(e & 4, 1.0f, 0.0f, e & 8);")], False),
+    "K2 no stores": ("compact_nonzero_rows.cu", [(
+        "      *reinterpret_cast<int4*>(cols + p) = c;\n"
+        "      *reinterpret_cast<float4*>(vals + p) = v;",
+        "      if (c.x == -12345) *reinterpret_cast<int4*>(cols + p) = c;")], False),
+    "K2 no scan": ("compact_nonzero_rows.cu", [(
+        "const unsigned excl = block_excl(packed, sm.warp_tot, ptotal);",
+        "const unsigned excl = threadIdx.x * 0x40004u; ptotal = 0x4000400u;")], False),
+    "K3 as is": ("window_gather.cu", [], True),
+    # designs that lost or tied: 4-byte loads and stores (the kernel of
+    # every other W) at W = 128; two or four windows a warp in flight;
+    # one stream of one window a unit; eight CTAs an SM (32 registers);
+    # streaming stores
+    "K3 4-byte loads and stores": ("window_gather.cu", [(
+        "const bool vec = W == 128 &&", "const bool vec = W == -128 &&")], True),
+    "K3 two windows a warp": ("window_gather.cu", k3_windows_a_warp(2), True),
+    "K3 four windows a warp": ("window_gather.cu", k3_windows_a_warp(4), True),
+    "K3 one stream a unit": ("window_gather.cu", k3_loop(K3_UNITS), True),
+    "K3 eight CTAs an SM": ("window_gather.cu", [(
+        "__global__ void __launch_bounds__(kThreads)\n    window_vec_kernel(",
+        "__global__ void __launch_bounds__(kThreads, 8)\n    window_vec_kernel(")], True),
+    "K3 streaming stores": ("window_gather.cu", [(
+        K3_STORE, "    __stcs(out_c + o, realign(c, nc, r));\n"
+                  "    __stcs(out_v + o, realign(v, nv, r));")], True),
+    # timing only, wrong results
+    "K3 no loads": ("window_gather.cu", [
+        ("    const int4 c = src_c[a], v = src_v[a];",
+         "    const int4 c = make_int4(static_cast<int>(a), lane, 1, 2), v = c;"),
+        ("    if (lane == 31 && r) cn = src_c[a + 1], vn = src_v[a + 1];", "")], False),
+    "K3 no stores": ("window_gather.cu", [(
+        K3_STORE, "    const int4 x = realign(c, nc, r), y = realign(v, nv, r);\n"
+                  "    if ((x.x ^ y.w) == 0x7ffffff3) out_c[o] = x;")], False),
+    # K2 and K3 as first written (--root: a checkout that has them);
+    # timing only, wrong results: what the loads, the stores and the
+    # scan cost
+    "K2 v1 as is": ("compact_nonzero_rows.cu", [], True),
+    "K2 v1 no loads": ("compact_nonzero_rows.cu", [("x = v[i];", "x = (float)(i & 1);")],
+                         False),
+    "K2 v1 no stores": ("compact_nonzero_rows.cu", [
+        ("      ko[base + pos] = i;\n      vo[base + pos] = x;",
+         "      if (x == -1.5f) ko[base + pos] = i;"),
+        ("    ko[i] = ncols;\n    vo[i] = 0.0f;", "    if (ncols < -7) ko[i] = 0;")], False),
+    "K2 v1 no scan": ("compact_nonzero_rows.cu", [(
+        "const int pos = smf::block_ballot_scan(keep, warp_cnt, total);",
+        "const int pos = threadIdx.x; total = blockDim.x >> 1; (void)warp_cnt;")], False),
+    "K3 v1 as is": ("window_gather.cu", [], True),
+    "K3 v1 no loads": ("window_gather.cu", [(
+        "out_c[i] = src_c[s];\n  out_v[i] = src_v[s];",
+        "out_c[i] = static_cast<int>(s);\n  out_v[i] = static_cast<int>(q);")], False),
+    "K3 v1 no stores": ("window_gather.cu", [(
+        "out_c[i] = src_c[s];\n  out_v[i] = src_v[s];",
+        "if (src_c[s] == -7 && src_v[s] == -9) out_c[i] = 0;")], False),
 }
 
 
-def build_variant(name: str, source: str, edits) -> ctypes.CDLL:
-    """``csrc/<source>`` with exact text edits, and errors.cu, as one
-    library under build/ring_probe/, its entry points typed as
-    ``_build.library()``'s."""
+def build_variant(name: str, source: str, edits, root: str = HERE) -> ctypes.CDLL:
+    """``csrc/<source>`` of the checkout ``root`` with exact text edits,
+    and errors.cu, as one library under build/ring_probe/, its entry
+    points typed as ``_build.library()``'s."""
     from sparse_matrix_with_flops_tpu_torch import _build
 
-    csrc = os.path.join(HERE, PKG, "csrc")
+    csrc = os.path.join(root, PKG, "csrc")
     out = os.path.join(HERE, "build", "ring_probe")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(csrc, source)) as f:
@@ -473,13 +704,15 @@ def device_ms(torch, fn, calls: int = 20) -> float:
     return sum(k.self_device_time_total for k in prof.key_averages()) / calls / 1e3
 
 
-def variants(dev, names) -> None:
+def variants(dev, names, root: str = HERE) -> None:
     """Each entry of VARIANTS (those named, when names are given) built
-    and timed in turn (those marked checked held against the twin first),
-    in the order given and then again in reverse (device time by torch.profiler, and
-    one call by CUDA events as chip_smoke.py times it), on the main
-    path's K6 (D = 4) and K4 inputs, and K4 also on 2^25 words; K5 on
-    the cant-class band (BCSR(8, 128), N = 512) and on s14 (N = 128)."""
+    from ``root``'s sources and timed in turn (those marked checked held
+    against the twin first), in the order given and then again in
+    reverse (device time by torch.profiler, and one call by CUDA events
+    as chip_smoke.py times it), on the main path's K6 (D = 4), K4, K2
+    and K3 inputs, and K4 also on 2^25 words; K5 on the cant-class band
+    (BCSR(8, 128), N = 512) and on s14 (N = 128); K3 also on the row
+    heads of the same assembly."""
     import numpy as np
     import torch
 
@@ -532,7 +765,24 @@ def variants(dev, names) -> None:
                                            mat.values[:nnz].abs(), size=(mat.rows, mat.ncols))
             tol = 1e-7 + 1e-4 * torch.sparse.mm(absa, b.abs())
             k5[label] = (lambda ab=ab, b=b: bcsr_spmm(ab, b), bcsr_spmm_plain(ab, b), tol)
-    libs = {name: build_variant(name, *VARIANTS[name][:2]) for name in chosen}
+    k23 = None
+    if any(n[:2] in ("K2", "K3") for n in chosen):
+        from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
+            compact_nonzero_rows,
+            compact_nonzero_rows_plain,
+            window_gather,
+            window_gather_plain,
+        )
+
+        ei = ell_inputs(dev)
+        k23 = {
+            "K2": (lambda: compact_nonzero_rows(ei["part"], ei["vw"]),
+                   compact_nonzero_rows_plain(ei["part"], ei["vw"])),
+            "K3": (lambda: window_gather(ei["fc"], ei["fvb"], ei["p0"]),
+                   window_gather_plain(ei["fc"], ei["fvb"], ei["p0"], 128)),
+        }
+        heads = lambda: window_gather(ei["fc"], ei["fvb"], ei["heads"])  # noqa: E731
+    libs = {name: build_variant(name, *VARIANTS[name][:2], root) for name in chosen}
     res = {name: [] for name in chosen}
     for name in [*chosen, *reversed(chosen)]:
         _build.library = lambda lib=libs[name]: lib
@@ -545,6 +795,10 @@ def variants(dev, names) -> None:
         elif name.startswith("K5"):
             fn, s14 = k5["band"][0], k5["s14"][0]
             ok = all(bool(((f() - p).abs() <= t).all()) for f, p, t in k5.values())
+        elif name[:2] in ("K2", "K3"):
+            fn, want23 = k23[name[:2]]
+            got = fn()
+            ok = torch.equal(got[0], want23[0]) and torch.equal(got[1], want23[1])
         elif name.startswith("K6"):
             fn = lambda: RK.ring_all_gather(xc, xv)  # noqa: E731
             gc, gv = fn()
@@ -555,7 +809,8 @@ def variants(dev, names) -> None:
         if VARIANTS[name][2] and not ok:
             raise SystemExit(f"{name}: differs from the twin")
         big = (device_ms(torch, lambda: cumsum_i32(xl)) if name.startswith("K4") else
-               device_ms(torch, s14) if name.startswith("K5") else 0.0)
+               device_ms(torch, s14) if name.startswith("K5") else
+               device_ms(torch, heads) if name.startswith("K3") else 0.0)
         res[name].append((device_ms(torch, fn), statistics.median(_times(torch, fn, 15)), big))
     for name, r in res.items():
         print(f"{name}: device " + " / ".join(f"{d:.4f}" for d, _, _ in r) + " ms; one call "
@@ -563,7 +818,9 @@ def variants(dev, names) -> None:
               + ("; device at 2^25 words " + " / ".join(f"{b:.4f}" for _, _, b in r) + " ms"
                  if name.startswith("K4") else "")
               + ("; device on s14 " + " / ".join(f"{b:.4f}" for _, _, b in r) + " ms"
-                 if name.startswith("K5") else ""), flush=True)
+                 if name.startswith("K5") else "")
+              + ("; device on the row heads " + " / ".join(f"{b:.4f}" for _, _, b in r)
+                 + " ms" if name.startswith("K3") else ""), flush=True)
 
 
 def main() -> int:
@@ -572,7 +829,10 @@ def main() -> int:
                                      "launch", "variants"))
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--unpromoted", action="store_true")
-    args = ap.parse_args()
+    ap.add_argument("--root", default=HERE,
+                    help="launch / variants: the checkout to import the port from")
+    args = ap.parse_intermixed_args()
+    root = os.path.abspath(args.root)
     import torch
 
     if not torch.cuda.is_available():
@@ -589,11 +849,11 @@ def main() -> int:
     if args.what in ("step", "kernels"):
         step(args.roots, args.what)
     elif args.what == "launch":
-        sys.path.insert(0, HERE)
+        sys.path.insert(0, root)
         launch_costs(dev)
     elif args.what == "variants":
-        sys.path.insert(0, HERE)
-        variants(dev, args.roots)
+        sys.path.insert(0, root)
+        variants(dev, args.roots, root)
     else:
         sys.path.insert(0, HERE)
         accuracy(dev, not args.unpromoted)

@@ -38,8 +38,8 @@ _SIGNATURES = {
     "smf_sort_dedup_compact": (_P, _P, _P, _P, _I, _I, _I, _I),
     # vals, kout, vout, R, N, ncols
     "smf_compact_nonzero_rows": (_P, _P, _P, _I, _I, _I),
-    # src_c, src_v, p0, out_c, out_v, Q, nr, W
-    "smf_window_gather": (_P, _P, _P, _P, _P, _L, _L, _I),
+    # src_c, src_v, p0, Q0, p1, Q1, out, nr, W
+    "smf_window_gather": (_P, _P, _P, _L, _P, _L, _P, _L, _I),
     # x, out, n, scratch
     "smf_cumsum_i32": (_P, _P, _L, _P),
     # items, n_items, stages, group, splits, n_splits, partial, blocks, b,

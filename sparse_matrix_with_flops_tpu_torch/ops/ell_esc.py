@@ -337,7 +337,8 @@ def _assemble_body(
     Each output window k copies the 128 flat lanes at its source
     position (K3).  A window that crosses a row boundary is right only
     up to it, so the first <= 127 slots of every row are repaired: the
-    row's exact head is gathered from its ``flat_base`` (K3), rolled
+    row's exact head is gathered from its ``flat_base`` (K3, in the same
+    launch as the windows), rolled
     right by ``start % 128`` and added into the one or two windows it
     lands in, under disjoint masks.  A slot takes the repair iff it lies
     within 128 of its row's start, which one long scan gives (K4)."""
@@ -352,11 +353,9 @@ def _assemble_body(
     starts = out_rp[:-1]
 
     fc, fvb = _window_source(flat_c, flat_v, ncols)
-    wc, wvb = window_gather(
-        fc, fvb, _window_positions(counts, flat_base, starts, nwin), w
-    )
-    fix_c, fix_vb = window_gather(
-        fc, fvb, torch.where(nonempty, flat_base, 0).to(INDEX_DTYPE), w
+    wc, wvb, fix_c, fix_vb = window_gather(
+        fc, fvb, _window_positions(counts, flat_base, starts, nwin), w,
+        torch.where(nonempty, flat_base, 0).to(INDEX_DTYPE),
     )
     lane = torch.arange(w, dtype=INDEX_DTYPE, device=device)[None, :]
     okf = nonempty[:, None] & (lane < counts[:, None])

@@ -151,43 +151,57 @@ def _window_starts(p0: torch.Tensor, nr: int, w: int) -> torch.Tensor:
 
 
 def window_gather_plain(
-    src_c: torch.Tensor, src_v: torch.Tensor, p0: torch.Tensor, w: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3's twin: an index gather of ``W`` lanes from each start."""
-    start = _window_starts(p0, src_c.shape[0] // w, w)
-    idx = start[:, None] + torch.arange(w, device=p0.device)
-    return src_c[idx], src_v[idx]
+    src_c: torch.Tensor, src_v: torch.Tensor, p0: torch.Tensor, w: int,
+    p1: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """K3's twin: an index gather of ``W`` lanes from each start (of
+    ``p0``, then of ``p1`` when given)."""
+    outs = []
+    for p in (p0,) if p1 is None else (p0, p1):
+        start = _window_starts(p, src_c.shape[0] // w, w)
+        idx = start[:, None] + torch.arange(w, device=p.device)
+        outs += [src_c[idx], src_v[idx]]
+    return tuple(outs)
 
 
 def window_gather(
-    src_c: torch.Tensor, src_v: torch.Tensor, p0: torch.Tensor, w: int = 128
-) -> tuple[torch.Tensor, torch.Tensor]:
+    src_c: torch.Tensor, src_v: torch.Tensor, p0: torch.Tensor, w: int = 128,
+    p1: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
     """``out[q, l] = src[s(q) + l]`` for the int32 cols and value bits,
     ``s(q)`` the clipped start of :func:`_window_starts`.  The sources
     hold ``nr * W`` lanes, ``nr >= 2``; ``p0`` is int32 [Q].  Equals the
-    reference's two row takes + ``align_windows`` on the same ``p0``."""
+    reference's two row takes + ``align_windows`` on the same ``p0``.
+    Returns ``(cols, bits)`` [Q, W]; with a second int32 position list
+    ``p1`` [Q1], one launch also gathers its windows and the result is
+    ``(cols, bits, cols1, bits1)``."""
     check_tensor(src_c, "window_gather src_c", torch.int32, 1)
     check_tensor(src_v, "window_gather src_v", torch.int32, 1)
     check_tensor(p0, "window_gather p0", torch.int32, 1)
+    lists = (p0,) if p1 is None else (p0, p1)
+    if p1 is not None:
+        check_tensor(p1, "window_gather p1", torch.int32, 1)
     t = src_c.shape[0]
-    if src_v.shape[0] != t or t % w or t < 2 * w:
+    if w < 1 or src_v.shape[0] != t or t % w or t < 2 * w:
         raise ValueError(
             f"window_gather: sources of {t} / {src_v.shape[0]} lanes, "
             f"need equal multiples of W={w}, at least 2W"
         )
-    if not on_card("window_gather", src_c, src_v, p0):
-        return window_gather_plain(src_c, src_v, p0, w)
-    q = p0.shape[0]
-    out_c = torch.empty((q, w), dtype=torch.int32, device=p0.device)
-    out_v = torch.empty((q, w), dtype=torch.int32, device=p0.device)
-    if q:
+    if not on_card("window_gather", src_c, src_v, *lists):
+        return window_gather_plain(src_c, src_v, p0, w, p1)
+    q0, q1 = p0.shape[0], 0 if p1 is None else p1.shape[0]
+    # [2, Q0 + Q1, W]: the cols, then the bits, of p0's windows, then p1's
+    out = torch.empty((2, q0 + q1, w), dtype=torch.int32, device=p0.device)
+    if q0 + q1:
         launch(
             "smf_window_gather", p0.device,
-            src_c.data_ptr(), src_v.data_ptr(), p0.data_ptr(),
-            out_c.data_ptr(), out_v.data_ptr(), q, t // w, w,
+            src_c.data_ptr(), src_v.data_ptr(), p0.data_ptr(), q0,
+            p1.data_ptr() if q1 else 0, q1, out.data_ptr(), t // w, w,
         )
         window_gather.launches += 1
-    return out_c, out_v
+    if p1 is None:
+        return out[0], out[1]
+    return out[0, :q0], out[1, :q0], out[0, q0:], out[1, q0:]
 
 
 window_gather.launches = 0

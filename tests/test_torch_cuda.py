@@ -158,6 +158,203 @@ def test_window_gather_kernel_matches_twin(dev):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
+def _k2_rows(r, n, seed, dev):
+    """[r, n] f32 rows: ~10% nonzero, row 0 all zero and row 1 all
+    nonzero (when r > 2), and -0.0 and NaN lanes scattered through."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((r, n), generator=g, device=dev) + 0.25
+    x = torch.where(torch.rand((r, n), generator=g, device=dev) < 0.1, x, 0.0)
+    special = torch.rand((r, n), generator=g, device=dev)
+    x = torch.where(special < 0.02, -0.0, x)
+    x = torch.where(special > 0.99, float("nan"), x)
+    if r > 2:
+        x[0] = 0.0
+        x[1] = torch.rand(n, generator=g, device=dev) + 0.5
+    return x
+
+
+def _same_k2(got, want):
+    # bit for bit: NaN lanes compare by their bits, -0.0 is never kept
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("r", [1, 563])
+@pytest.mark.parametrize("n", [1, 3, 127, 128, 1000, 4097, 16384, 65536, 131072])
+@pytest.mark.parametrize("narrow", [False, True])
+def test_compact_nonzero_rows_edge_shapes(dev, r, n, narrow):
+    # one CTA a row up to 2048 lanes, clusters of 2-8 CTAs above, and
+    # several 2048-lane pieces a CTA past 16384; N off the 4-lane grid
+    # takes the 4-byte path
+    x = _k2_rows(r, n, n + r, dev)
+    ncols = max(n - n // 3 - 1, 0) if narrow else n
+    before = compact_nonzero_rows.launches
+    got = compact_nonzero_rows(x, ncols)
+    want = compact_nonzero_rows_plain(x, ncols)
+    torch.cuda.synchronize()
+    assert compact_nonzero_rows.launches == before + 1
+    _same_k2(got, want)
+    kept = (got[0] < ncols).sum(1)
+    lane = torch.arange(n, device=dev)
+    assert torch.equal(kept, ((x != 0) & (lane < ncols)).sum(1))
+
+
+@pytest.mark.parametrize("fill", ["zero", "nonzero", "negative_zero", "nan"])
+@pytest.mark.parametrize("n", [1, 4097, 16384])
+def test_compact_nonzero_rows_single_row_of_one_kind(dev, fill, n):
+    value = {"zero": 0.0, "nonzero": 1.5, "negative_zero": -0.0, "nan": float("nan")}[fill]
+    x = torch.full((1, n), value, device=dev)
+    for ncols in (n, n // 2):
+        got = compact_nonzero_rows(x, ncols)
+        want = compact_nonzero_rows_plain(x, ncols)
+        torch.cuda.synchronize()
+        _same_k2(got, want)
+
+
+def test_compact_nonzero_rows_off_the_16_byte_grid(dev):
+    # a contiguous view one float past the allocation's start: the
+    # kernel's 4-byte path at a width its 16-byte path would take
+    r, n = 9, 16384
+    base = _k2_rows(1, r * n + 1, 3, dev).reshape(-1)
+    x = base[1:].view(r, n)
+    assert x.data_ptr() % 16 == 4
+    _same_k2(compact_nonzero_rows(x, n - 5), compact_nonzero_rows_plain(x, n - 5))
+
+
+def _k3_source(nr, w, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    src_c = torch.randint(-(2**31), 2**31 - 1, (nr * w,), generator=g, dtype=torch.int32)
+    src_v = torch.randint(-(2**31), 2**31 - 1, (nr * w,), generator=g, dtype=torch.int32)
+    return src_c.to(dev), src_v.to(dev)
+
+
+def _k3_positions(nr, w, q, seed, dev):
+    """q positions: every offset 0..W-1 in turn, then starts clipped at
+    both ends (before the source, inside its last window, past it)."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randint(0, nr, (q,), generator=g)
+    p = rows * w + torch.arange(q) % w
+    ends = torch.tensor([-1, -(2**31), -w - 3, (nr - 1) * w, (nr - 1) * w + w // 2,
+                         nr * w - 1, nr * w, nr * w + 5 * w + 1, 2**31 - 1])
+    k = min(q, ends.numel())
+    p[:k] = ends[:k]
+    return p.to(torch.int32).to(dev)
+
+
+@pytest.mark.parametrize("w", [1, 3, 32, 64, 128, 256])
+@pytest.mark.parametrize("nr,q", [(2, 1), (2, 300), (37, 3001)])
+def test_window_gather_every_offset_and_clip(dev, w, nr, q):
+    # W = 128 on the 16-byte grid takes the shuffle-realigning kernel,
+    # every other W the 4-byte one; 3001 windows are no whole number of
+    # a CTA's 16, and nr = 2 is the smallest source
+    src_c, src_v = _k3_source(nr, w, w + q, dev)
+    p0 = _k3_positions(nr, w, q, nr + q, dev)
+    before = window_gather.launches
+    got = window_gather(src_c, src_v, p0, w)
+    want = window_gather_plain(src_c, src_v, p0, w)
+    torch.cuda.synchronize()
+    assert window_gather.launches == before + 1
+    assert len(got) == 2 and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_window_gather_source_off_the_16_byte_grid(dev):
+    nr, w = 20, 128
+    src_c, src_v = _k3_source(nr + 1, w, 4, dev)
+    for shift in (1, 2, 3):
+        sc, sv = src_c[shift:shift + nr * w], src_v[shift:shift + nr * w]
+        p0 = _k3_positions(nr, w, 700, shift, dev)
+        got = window_gather(sc, sv, p0, w)
+        want = window_gather_plain(sc, sv, p0, w)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("w", [128, 32])
+@pytest.mark.parametrize("q0,q1", [(3001, 517), (1, 1), (0, 40), (40, 0)])
+def test_window_gather_two_lists_in_one_launch(dev, w, q0, q1):
+    nr = 29
+    src_c, src_v = _k3_source(nr, w, 7, dev)
+    p0 = _k3_positions(nr, w, q0, 8, dev)
+    p1 = _k3_positions(nr, w, q1, 9, dev)
+    before = window_gather.launches
+    got = window_gather(src_c, src_v, p0, w, p1)
+    want = window_gather_plain(src_c, src_v, p0, w, p1)
+    torch.cuda.synchronize()
+    assert window_gather.launches == before + 1
+    assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
+    one = window_gather(src_c, src_v, p0, w) + window_gather(src_c, src_v, p1, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+
+
+def test_k2_and_k3_back_to_back_without_a_synchronize(dev):
+    # 20 calls of each, no synchronize between them, then every result
+    # held to its twin
+    x = _k2_rows(563, 16384, 11, dev)
+    src_c, src_v = _k3_source(700, 128, 12, dev)
+    p0 = _k3_positions(700, 128, 20000, 13, dev)
+    p1 = _k3_positions(700, 128, 4000, 14, dev)
+    k2 = [compact_nonzero_rows(x, 16000) for _ in range(20)]
+    k3 = [window_gather(src_c, src_v, p0, 128, p1) for _ in range(20)]
+    torch.cuda.synchronize()
+    want2 = compact_nonzero_rows_plain(x, 16000)
+    want3 = window_gather_plain(src_c, src_v, p0, 128, p1)
+    for got in k2:
+        _same_k2(got, want2)
+    for got in k3:
+        assert all(torch.equal(a, b) for a, b in zip(got, want3))
+
+
+def test_k2_and_k3_replay_in_a_cuda_graph_with_new_inputs(dev):
+    # K2 (clusters of 8 CTAs, and a 4097-lane row on the 4-byte path) and
+    # K3 (two lists) captured once, replayed on refilled inputs, each
+    # replay equal to the twins and to an eager call
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows = {n: torch.empty((37, n), device=dev) for n in (16384, 4097)}
+    src_c = torch.empty(300 * 128, dtype=torch.int32, device=dev)
+    src_v = torch.empty_like(src_c)
+    p0 = torch.empty(5000, dtype=torch.int32, device=dev)
+    p1 = torch.empty(300, dtype=torch.int32, device=dev)
+
+    def refill():
+        for n, x in rows.items():
+            x.copy_(_k2_rows(37, n, int(torch.randint(0, 2**30, (1,), generator=g,
+                                                      device=dev)), dev))
+        for t in (src_c, src_v):
+            t.copy_(torch.randint(-(2**31), 2**31 - 1, t.shape, generator=g, device=dev,
+                                  dtype=torch.int32))
+        for t in (p0, p1):
+            t.copy_(torch.randint(-500, 300 * 128 + 500, t.shape, generator=g, device=dev,
+                                  dtype=torch.int32))
+
+    def calls():
+        out = [compact_nonzero_rows(x, n - 7) for n, x in rows.items()]
+        return out + [window_gather(src_c, src_v, p0, 128, p1)]
+
+    refill()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # build, size the grids, warm the allocator
+        calls()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (compact_nonzero_rows.launches, window_gather.launches)
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert (compact_nonzero_rows.launches, window_gather.launches) == (
+        before[0] + 2, before[1] + 1)
+    for _ in range(3):
+        refill()
+        graph.replay()
+        eager = calls()
+        torch.cuda.synchronize()
+        for (n, x), got, again in zip(rows.items(), captured, eager):
+            _same_k2(got, compact_nonzero_rows_plain(x, n - 7))
+            _same_k2(again, got)
+        want = window_gather_plain(src_c, src_v, p0, 128, p1)
+        assert all(torch.equal(a, b) for a, b in zip(captured[2], want))
+        assert all(torch.equal(a, b) for a, b in zip(eager[2], want))
+
+
 @pytest.mark.parametrize(
     "n",
     [

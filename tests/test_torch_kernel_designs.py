@@ -1,6 +1,7 @@
-"""The host-side logic that the Hopper kernels K1 (``sort_dedup_compact``)
-and K5 (``bcsr_spmm``) rest on, emulated in numpy and held against the
-JAX package's Pallas kernels (interpret mode) and f64 products.
+"""The host-side logic that the Hopper kernels K1 (``sort_dedup_compact``),
+K2 (``compact_nonzero_rows``), K3 (``window_gather``) and K5
+(``bcsr_spmm``) rest on, emulated in numpy and held against the JAX
+package's Pallas kernels (interpret mode), the twins and f64 products.
 
 * K1 (``csrc/sort_dedup_compact.cu``): the 64-bit packed (column, value
   bits) key order; the plan of stages (inside a thread, by shuffles, in
@@ -16,6 +17,15 @@ JAX package's Pallas kernels (interpret mode) and f64 products.
   step's chain promoted into f32, rows summed in stage order, pieces
   of split rows summed in order.  Held to 1e-7 + 1e-4 |A||B| of the f64
   product, and to the Pallas kernel within the same bound.
+* K2 (``csrc/compact_nonzero_rows.cu``): the split of a row over a
+  cluster of CTAs, each CTA's count and the offsets from the exchanged
+  counts, the packed block scan of a piece, the staged write shifted by
+  the output's alignment and the padding, every output position written
+  once; bit-equal to the Pallas kernel and the twin.
+* K3 (``csrc/window_gather.cu``): the clipped start in C integer
+  arithmetic, the aligned vector reads (all inside the source) realigned
+  by a neighbour's vector, the two-list walk; bit-equal to the
+  reference's row takes + ``align_windows`` and the twin.
 """
 
 import jax.numpy as jnp
@@ -24,6 +34,8 @@ import pytest
 import torch
 
 from sparse_matrix_with_flops_tpu.ops import spmm as jspmm
+from sparse_matrix_with_flops_tpu.ops.pallas_sort import align_windows
+from sparse_matrix_with_flops_tpu.ops.pallas_sort import compact_nonzero_rows as j_compact
 from sparse_matrix_with_flops_tpu.ops.pallas_sort import sort_dedup_compact as j_sdc
 from sparse_matrix_with_flops_tpu.utils import generate as jgen
 from sparse_matrix_with_flops_tpu_torch.formats.bcsr import (
@@ -32,7 +44,11 @@ from sparse_matrix_with_flops_tpu_torch.formats.bcsr import (
     SPMM_GROUP,
     SPMM_ROWS,
 )
-from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import sort_dedup_compact_plain
+from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
+    compact_nonzero_rows_plain,
+    sort_dedup_compact_plain,
+    window_gather_plain,
+)
 
 from torch_port_util import assert_close_values, both_bcsr, jax_random_csr
 
@@ -525,3 +541,255 @@ def test_k5_promotion_is_what_keeps_long_sums_accurate():
     err_t = (k5_emulate(tb, x, promote=False) - want) / want.max()
     assert np.abs(err_p).max() < 1e-6
     assert err_t.mean() < -2e-7 and abs(err_p.mean()) < abs(err_t.mean()) / 4
+
+
+# ---------------------------------------------------------------------------
+# K2
+# ---------------------------------------------------------------------------
+UNWRITTEN = -0x2152411  # a value the emulated outputs start with
+
+
+def k2_geometry(n, threads=256, vecs=2, max_cluster=8):
+    """(G, S, piece) of K2's launch for rows of n lanes: the cluster's
+    CTAs, the lanes (and output positions) a CTA owns, a piece's lanes."""
+    piece = threads * 4 * vecs
+    g = min(max(-(-n // piece), 1), max_cluster)
+    return g, (-(-n // g) + 3) & ~3, piece
+
+
+def k2_block_excl(x, threads):
+    """K2's ``block_excl``: warp Kogge-Stone scans in uint32, the warp
+    totals scanned by every warp; (exclusive scan, block total)."""
+    mask = 0xFFFFFFFF
+
+    def warp_incl(v):
+        v = v.copy()
+        d = 1
+        while d < 32:
+            y = np.zeros_like(v)
+            y[..., d:] = v[..., :-d]
+            v = (v + y) & mask
+            d *= 2
+        return v
+
+    nw = threads // 32
+    incl = warp_incl(x.reshape(nw, 32).astype(np.uint64))
+    t = np.zeros(32, np.uint64)
+    t[:nw] = incl[:, 31]
+    tincl = warp_incl(t)
+    before = (tincl - t)[:nw]
+    excl = (before[:, None] + incl - x.reshape(nw, 32)) & mask
+    return excl.reshape(-1), int(tincl[nw - 1])
+
+
+def k2_write_out(cols, vals, writes, a, b, stage_c, stage_v, sh, vec, pad, ncols):
+    """K2's ``write_out`` on one row: positions [a, b) from the staging
+    area (slot = position - a + sh) or the padding; VEC: 16-byte vectors
+    from a rounded down, whole ones stored at once, the ends by lane."""
+    if a >= b:
+        return
+    if not vec:
+        for p in range(a, b):
+            cols[p] = ncols if pad else stage_c[p - a + sh]
+            vals[p] = 0 if pad else stage_v[p - a + sh]
+            writes[p] += 1
+        return
+    v0 = a & ~3
+    for i in range((b - v0 + 3) >> 2):
+        p = v0 + 4 * i
+        c = [ncols] * 4 if pad else stage_c[4 * i:4 * i + 4]
+        v = [0] * 4 if pad else stage_v[4 * i:4 * i + 4]
+        whole = p >= a and p + 4 <= b
+        for k in range(4):
+            if whole or a <= p + k < b:
+                cols[p + k], vals[p + k] = c[k], v[k]
+                writes[p + k] += 1
+
+
+def k2_emulate(vals, ncols, threads=256, vecs=2, max_cluster=8):
+    """K2 (``csrc/compact_nonzero_rows.cu``) on [R, N] f32 rows: the
+    cluster split, each CTA's count, the counts exchanged, a packed block
+    scan a piece, the staged survivors shifted by the output's alignment,
+    the vector writes, the padding of the positions a CTA owns.  Returns
+    (cols, value bits, writes a position)."""
+    assert vecs == 2  # two 16-bit counts packed in a word
+    r, n = vals.shape
+    g, s, piece = k2_geometry(n, threads, vecs, max_cluster)
+    vec = n % 4 == 0
+    bits = vals.view(np.int32)
+    cols = np.full((r, n), UNWRITTEN, np.int64)
+    out = np.full((r, n), UNWRITTEN, np.int64)
+    writes = np.zeros((r, n), np.int64)
+    t = np.arange(threads)
+    for row in range(r):
+        spans = []
+        for rank in range(g):
+            lo = min(rank * s, n)
+            hi = min(lo + s, n)
+            spans.append((lo, hi, min(hi, ncols), -(-(hi - lo) // piece)))
+
+        def flags(lo, hi, lim, pc, j):
+            e = lo + pc * piece + (j * threads + t) * 4
+            lane = e[:, None] + np.arange(4)
+            x = np.where(lane < hi, vals[row, np.minimum(lane, n - 1)], 0.0)
+            return lane, (x != 0) & (lane < lim)
+
+        cnt = []
+        for lo, hi, lim, pieces in spans:
+            mine = np.zeros(threads, np.uint64)
+            for pc in range(pieces):
+                for j in range(vecs):
+                    mine += flags(lo, hi, lim, pc, j)[1].sum(1).astype(np.uint64)
+            cnt.append(k2_block_excl(mine, threads)[1])
+        total = sum(cnt)
+        for rank, (lo, hi, lim, pieces) in enumerate(spans):
+            base = sum(cnt[:rank])
+            for pc in range(pieces):
+                f = [flags(lo, hi, lim, pc, j) for j in range(vecs)]
+                packed = f[0][1].sum(1).astype(np.uint64) | (
+                    f[1][1].sum(1).astype(np.uint64) << np.uint64(16))
+                excl, ptotal = k2_block_excl(packed, threads)
+                sh = base & 3 if vec else 0
+                stage_c = np.full(piece + 4, UNWRITTEN + 1, np.int64)
+                stage_v = np.full(piece + 4, UNWRITTEN + 1, np.int64)
+                slots = [excl & 0xFFFF, (ptotal & 0xFFFF) + (excl >> 16)]
+                for j, (lane, keep) in enumerate(f):
+                    for ti in range(threads):
+                        slot = int(slots[j][ti])
+                        for k in np.nonzero(keep[ti])[0]:
+                            stage_c[sh + slot] = lane[ti, k]
+                            stage_v[sh + slot] = bits[row, lane[ti, k]]
+                            slot += 1
+                m = (ptotal & 0xFFFF) + (ptotal >> 16)
+                k2_write_out(cols[row], out[row], writes[row], base, base + m,
+                             stage_c, stage_v, sh, vec, False, ncols)
+                base += m
+            k2_write_out(cols[row], out[row], writes[row], max(lo, total), hi,
+                         None, None, 0, vec, True, ncols)
+    return cols, out, writes
+
+
+def _k2_rows(rng, r, n):
+    """Rows of every kind: all zero, all nonzero, -0.0 and NaN lanes."""
+    x = np.where(rng.random((r, n)) < 0.3, rng.standard_normal((r, n)), 0.0)
+    x = x.astype(np.float32)
+    special = rng.random((r, n))
+    x[special < 0.05] = -0.0
+    x[special > 0.97] = np.nan
+    if r > 2:
+        x[0] = 0.0
+        x[1] = rng.random(n).astype(np.float32) + 0.5
+    return x
+
+
+@pytest.mark.parametrize("r,n,ncols,threads", [
+    (1, 1, 1, 256), (1, 3, 3, 256), (3, 5, 4, 32), (4, 130, 100, 256),
+    (3, 2049, 2049, 256), (3, 4097, 3000, 256), (2, 16384, 16300, 256),
+    (4, 3000, 2900, 32), (3, 6001, 6001, 32), (3, 700, 0, 32),
+])
+def test_k2_emulation_matches_the_pallas_kernel_and_the_twin(rng, r, n, ncols, threads):
+    # threads = 32 shrinks a piece to 256 lanes, so that clusters of 8
+    # CTAs with several pieces each run at small widths
+    x = _k2_rows(rng, r, n)
+    ek, ev, writes = k2_emulate(x, ncols, threads=threads)
+    assert (writes == 1).all()  # every output position once
+    jk, jv = j_compact(jnp.asarray(x), ncols, interpret=True, rows_per_step=1)
+    np.testing.assert_array_equal(ek, np.asarray(jk))
+    np.testing.assert_array_equal(ev, np.asarray(jv).view(np.int32))
+    tk, tv = compact_nonzero_rows_plain(torch.from_numpy(x), ncols)
+    np.testing.assert_array_equal(ek, tk.numpy())
+    np.testing.assert_array_equal(ev, tv.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 4, 2048, 2049, 16384, 16385, 65536, 131072, 131075])
+def test_k2_geometry_covers_each_row_once(n):
+    g, s, piece = k2_geometry(n)
+    assert 1 <= g <= 8 and s % 4 == 0 and (g == 8 or s <= piece)
+    spans = [(min(k * s, n), min(min(k * s, n) + s, n)) for k in range(g)]
+    assert spans[0][0] == 0 and spans[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(lo < hi for lo, hi in spans)  # no CTA without lanes
+    # the scan's 16-bit halves hold a piece's count
+    assert piece // 2 < 1 << 16
+
+
+# ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+def k3_start(p, nr, w):
+    """K3's ``clipped_start`` in C integer arithmetic (division truncates
+    toward zero, the remainder takes the dividend's sign)."""
+    q = abs(p) // w * (1 if p >= 0 else -1)
+    fq = q - (1 if p - q * w < 0 else 0)
+    wr = min(max(fq, 0), nr - 2)
+    return wr * w + min(max(p - wr * w, 0), w - 1)
+
+
+def k3_emulate(src_c, src_v, lists, w=128):
+    """K3's W = 128 kernel: per window, the aligned 16-byte vectors
+    a + lane (a = start // 4) of each stream, lane 31 also a + 32 when the
+    start is off the grid (every read inside the source), the right
+    neighbour's vector by a shuffle, the 4 words at start % 4.  Windows
+    are walked as the launch does: a window a warp, grid-stride over the
+    lists one after the other."""
+    assert w == 128
+    t = src_c.size
+    nr = t // w
+    vc, vv = src_c.reshape(-1, 4), src_v.reshape(-1, 4)
+    outs = [np.full((p.size, w), UNWRITTEN, np.int64) for p in lists for _ in (0, 1)]
+    q_all = sum(p.size for p in lists)
+    grid = min(-(-q_all // 8), 132 * 4)  # resident CTAs of 8 warps
+    seen = np.zeros(q_all, np.int64)
+    for warp in range(grid * 8):
+        for q in range(warp, q_all, grid * 8):
+            seen[q] += 1
+            li, row = (0, q) if q < lists[0].size else (1, q - lists[0].size)
+            s = k3_start(int(lists[li][row]), nr, w)
+            a, r = s >> 2, s & 3
+            for src, out in ((vc, outs[2 * li]), (vv, outs[2 * li + 1])):
+                assert 0 <= a and a + 31 < src.shape[0]
+                own = src[a:a + 32]
+                nxt = np.empty_like(own)
+                nxt[:31] = own[1:]
+                if r:
+                    assert a + 32 < src.shape[0]
+                    nxt[31] = src[a + 32]
+                words = np.concatenate([own, nxt], axis=1)
+                out[row] = words[:, r:r + 4].reshape(-1)
+    assert (seen == 1).all()
+    return outs
+
+
+def _k3_positions(rng, nr, w, q):
+    """Offsets 0, 1, 3, 4, 5 and 127 at random windows, then starts
+    clipped at both ends."""
+    offs = np.array([0, 1, 3, 4, 5, 127])
+    p = rng.integers(0, nr, q) * w + offs[np.arange(q) % offs.size]
+    ends = [-1, -(2**31), -w - 3, (nr - 1) * w, (nr - 1) * w + 64, nr * w - 1, nr * w,
+            nr * w + 5 * w + 1, 2**31 - 1]
+    p[:min(q, len(ends))] = ends[:min(q, len(ends))]
+    return p.astype(np.int32)
+
+
+@pytest.mark.parametrize("nr,q0,q1", [(2, 16, 0), (6, 40, 0), (9, 24, 16), (40, 104, 48)])
+def test_k3_emulation_matches_align_windows_and_the_twin(rng, nr, q0, q1):
+    w = 128
+    src_c = rng.integers(-(2**31), 2**31 - 1, size=nr * w).astype(np.int32)
+    src_v = rng.integers(-(2**31), 2**31 - 1, size=nr * w).astype(np.int32)
+    lists = [_k3_positions(rng, nr, w, q) for q in (q0, q1)]
+    got = k3_emulate(src_c, src_v, lists if q1 else lists[:1])
+    src = np.concatenate([src_c.reshape(-1, w), src_v.reshape(-1, w)], axis=1)
+    twin = window_gather_plain(torch.from_numpy(src_c), torch.from_numpy(src_v),
+                               torch.from_numpy(lists[0]), w,
+                               torch.from_numpy(lists[1]) if q1 else None)
+    for li, p in enumerate(lists[:2 if q1 else 1]):
+        # the reference: two row takes of the window source, align_windows
+        wr = np.clip(p.astype(np.int64) // w, 0, nr - 2)
+        off = np.clip(p - wr * w, 0, w - 1)
+        g = np.concatenate([src[wr], src[wr + 1]], axis=1)
+        jc, jv = align_windows(jnp.asarray(g), jnp.asarray(off[:, None].astype(np.int32)),
+                               interpret=True)
+        np.testing.assert_array_equal(got[2 * li], np.asarray(jc))
+        np.testing.assert_array_equal(got[2 * li + 1], np.asarray(jv))
+        np.testing.assert_array_equal(got[2 * li], twin[2 * li].numpy())
+        np.testing.assert_array_equal(got[2 * li + 1], twin[2 * li + 1].numpy())
