@@ -48,7 +48,20 @@
    phase 4), ``rmcl_ell`` and ``bcsr_spmm`` (each bit-equal to the same
    call with the switches as the script found them), then the caller's
    switches read back unchanged; a bare ``torch.matmul`` under the same
-   switches must differ from true f32, or the phase would prove nothing.
+   switches must differ from true f32, or the phase would prove nothing;
+11. the general R-MCL application from a graph file (plain torch, no
+   kernel of its own): phase 8's graph written as a SNAP file and read
+   back with ``load_coo`` (native loader) on the card, equal to the
+   in-memory COO; ``rmcl`` at margin 2.5, scan (no device-to-host read
+   under ``torch.cuda.set_sync_debug_mode("error")``) equal to loop,
+   each step of ``rmcl_one_step`` against an f64 oracle of the prune
+   rules without the S cut from the oracle's previous iterate; the
+   reference's overflow at the default margin 1.5; ``nrmcl`` on both
+   routes (default "Diffs" with the overflow, STATIC bit-equal to phase
+   8's ``rmcl_ell`` and launching K1) and "Same" on ``tdata.snap``;
+   ``extract_clusters``; ``rmcl_resumable`` stopped at 2 and resumed to
+   5 against the straight run.  It times the scan and loop iterations,
+   the loop's host planning and the file's load.
 
 K1's tiles log their longest run of one column (what a run sum costs):
 at s14 (phases 3 and 5) and in one R-MCL step (phase 8).
@@ -461,7 +474,7 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
         f"{it_host:.3f} ms host clock [{card}]")
     if failed:
         raise AssertionError("phase 8: " + "; ".join(failed))
-    del out5, its, host
+    del its, host
     torch.cuda.synchronize()
 
     # ---- 9. sharded R-MCL, D = 4 shards on the card ---------------------
@@ -598,7 +611,288 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
                   lambda: ring_matmul(a_cols, md_loc), ("ring_matmul",), path=False)
         del a_cols, md_loc, full, full_b
         torch.cuda.synchronize()
-    return coo
+    return coo, out5
+
+
+def general_oracle_step(np, sp, a64, prev):
+    """One general R-MCL step on the host in f64, no S cut: P = Mgt ·
+    Mt (scipy), then per row inflate, threshold (util.cc:4-9), keep and
+    renormalise.  ``prev`` is a scipy CSR; returns (the next iterate as
+    a scipy CSR, the rows with a value within FLIP_REL of their
+    threshold)."""
+    p = (a64 @ prev).tocsr()
+    p.sort_indices()
+    n = p.shape[0]
+    cnt = np.diff(p.indptr)
+    if (cnt == 0).any():
+        raise AssertionError("oracle: an empty row of Mgt · Mt")
+    row = np.repeat(np.arange(n), cnt)
+    w = p.data * p.data
+    rsum = np.add.reduceat(w, p.indptr[:-1])
+    rmax = np.maximum.reduceat(w, p.indptr[:-1])
+    avg = rsum / cnt
+    t = np.minimum(np.maximum(0.9 * avg * (1.0 - 2.0 * (rmax - avg)), 1e-7), rmax)
+    keep = w >= t[row]
+    near = np.zeros(n, bool)
+    np.logical_or.at(near, row, np.abs(w - t[row]) <= FLIP_REL * t[row])
+    ksum = np.bincount(row[keep], weights=w[keep], minlength=n)
+    out = sp.csr_matrix(
+        (w[keep] / ksum[row[keep]], p.indices[keep], np.concatenate(
+            [[0], np.cumsum(np.bincount(row[keep], minlength=n))])),
+        shape=p.shape,
+    )
+    return out, near
+
+
+def compare_csr(np, what, got, want, near):
+    """Two iterates as scipy CSRs.  Rows whose kept columns differ must
+    be prune flips at the oracle's boundary rows (``near``), at most
+    MAX_FLIP_SHARE of the rows; the other rows' values within 1e-3
+    relative + 1e-7.  Returns the list of failures (empty if none)."""
+    n = got.shape[0]
+
+    def keys(m):
+        return np.repeat(np.arange(n, dtype=np.int64), np.diff(m.indptr)) * n + m.indices
+
+    kg, kw = keys(got), keys(want)
+    flips = np.unique(np.setxor1d(kg, kw) // n)
+    same_g = ~np.isin(kg // n, flips)
+    same_w = ~np.isin(kw // n, flips)
+    vg, vw = got.data[same_g].astype(np.float64), want.data[same_w]
+    err = np.abs(vg - vw)
+    bound = 1e-3 * np.maximum(np.abs(vg), np.abs(vw)) + 1e-7
+    log(f"{what}: nnz {kg.size} vs {kw.size}; {flips.size} of {n} rows differ in "
+        f"their kept columns; max |err| on the equal rows {err.max(initial=0.0):.3e}; "
+        f"{int(near.sum())} rows at a prune boundary")
+    failed = []
+    if (~near[flips]).any():
+        failed.append(f"{what}: rows differ away from any prune boundary: "
+                      f"{flips[~near[flips]][:10].tolist()}")
+    if flips.size > MAX_FLIP_SHARE * n:
+        failed.append(f"{what}: {flips.size} flipped rows > {MAX_FLIP_SHARE:.1%}")
+    if not (err <= bound).all():
+        failed.append(f"{what}: values differ on equal rows ({int((err > bound).sum())} entries)")
+    for f in failed:
+        log(f"FAIL {f}")
+    return failed
+
+
+def general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, host_ms):
+    """Phase 11: the general R-MCL application from a graph file, on the
+    card: ``load_coo`` of a SNAP file against the in-memory COO,
+    ``rmcl`` scan and loop at margin 2.5 (scan with no host read, each
+    step against the f64 oracle), the reference's overflow at margin
+    1.5, ``nrmcl`` on both routes, clusters and a resumed checkpoint."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    from sparse_matrix_with_flops_tpu_torch.cli import nrmcl
+    from sparse_matrix_with_flops_tpu_torch.io import load_coo
+    from sparse_matrix_with_flops_tpu_torch.io.native import get_lib
+    from sparse_matrix_with_flops_tpu_torch.models import checkpoint as CK
+    from sparse_matrix_with_flops_tpu_torch.models import clusters as CL
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl_ell import rmcl_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import run_sums, segment_sum
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import esc_expand, esc_sort
+
+    # the modules, not the functions of the same names that models/ exports
+    R = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl")
+    RE = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl_ell")
+    iters, margin = 5, 2.5
+    failed = []
+    tmp = tempfile.TemporaryDirectory()
+    snap = os.path.join(tmp.name, "rmat_s14.snap")
+    nnz = int(coo.nnz)
+    r, c, v = (x[:nnz].cpu().numpy() for x in (coo.row, coo.col, coo.val))
+    with open(snap, "w") as f:  # "from to value", read transposed back to (row, col)
+        f.write(f"# R-MAT s14, edge factor 8, seed 7\n{coo.nrows} {nnz}\n")
+        f.write("\n".join(f"{b} {a} {x:.9g}" for a, b, x in zip(r, c, v)) + "\n")
+    if get_lib() is None:
+        raise AssertionError("the native loader did not build")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_coo(snap, extra_capacity=coo.nrows)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    same = (loaded.device == dev and (loaded.nrows, loaded.ncols) == (coo.nrows, coo.ncols)
+            and all(torch.equal(getattr(loaded, k), getattr(coo, k))
+                    for k in ("row", "col", "val", "nnz")))
+    log(f"load_coo {snap.rsplit('/', 1)[-1]} ({nnz} edges, native loader) on "
+        f"{loaded.device}: {load_ms:.1f} ms; {'==' if same else '!='} the in-memory COO [{card}]")
+    if not same:
+        raise AssertionError("phase 11: the SNAP file read back differs from the COO")
+
+    mt0 = R.rmcl_init(loaded)
+    mgt = mt0.deep_copy()
+    pc, cc = R.plan_capacities(mgt, mt0, margin)
+    mtc = mt0.with_capacity(cc)
+    log(f"general R-MCL s14: rows {mt0.rows} nnz {int(mt0.nnz)}; margin {margin}: "
+        f"product_cap = c_cap = {pc}")
+    R.rmcl_scan(mgt, mtc, pc, cc, 1)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # where a step's device time goes (step 1, at the scan's capacities)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        R.rmcl_one_step(mgt, mtc, pc, cc)
+        torch.cuda.synchronize()
+    ka = sorted(prof.key_averages(), key=lambda k: -k.self_device_time_total)
+    busy = sum(k.self_device_time_total for k in ka) / 1e3
+    log(f"rmcl_one_step s14 step 1 at margin {margin} under torch.profiler: device "
+        f"{busy:.3f} ms in {sum(k.count for k in ka)} kernels; largest: " + "; ".join(
+            f"{k.key[:60]} x{k.count} {k.self_device_time_total / 1e3:.3f} ms" for k in ka[:6]))
+    # what the fixed summation order costs: run_sums against index_add_'s
+    # float atomics on the same step's sorted products
+    prow, pcol, pval, fl = esc_expand(mgt, mtc, pc)
+    prow, pcol, pval, valid, flags, seg, nnzc = esc_sort(prow, pcol, pval, mgt.rows)
+    nseg = int(nnzc)
+    seg = torch.where(valid, seg, nseg).long()
+    off = torch.searchsorted(seg, torch.arange(nseg + 1, device=dev))
+    want = run_sums(pval, off)
+    if not torch.equal(run_sums(pval, off), want):
+        raise AssertionError("phase 11: run_sums gave other bits on a second call")
+    rs_ms = cuda_ms(torch, lambda: run_sums(pval, off))
+    ia_ms = cuda_ms(torch, lambda: segment_sum(pval, seg, nseg))
+    log(f"run sums of step 1's {int(fl)} products in {nseg} runs: run_sums (fixed order) "
+        f"{rs_ms:.3f} ms, index_add_ (float atomics) {ia_ms:.3f} ms [{card}]")
+    del prow, pcol, pval, valid, flags, seg, off, want, prof, ka
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")  # any device-to-host read raises
+    try:
+        s.record()
+        scan_mt, hist = R.rmcl_scan(mgt, mtc, pc, cc, iters)
+        e.record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    e.synchronize()
+    scan_ms = s.elapsed_time(e) / iters
+    hist = {k: x.cpu().numpy() for k, x in hist.items()}
+    log(f"rmcl_scan s14 margin {margin}: no device-to-host read in {iters} steps "
+        f"(sync debug mode \"error\"); {scan_ms:.3f} ms/iteration (CUDA events); nnz "
+        f"{hist['nnz'].tolist()} flops {hist['flops'].tolist()} overflow "
+        f"{hist['overflow'].tolist()}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    scan = R.rmcl(mt0, max_iters=iters, mode="scan", margin=margin)
+    same_scan = nrmcl.same_iterates(scan_mt, scan.mt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = R.rmcl(mt0, max_iters=iters, mode="loop", margin=margin)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / iters
+    same = nrmcl.same_iterates(loop.mt, scan.mt)
+    bits = all(np.array_equal(x, y) for x, y in zip(loop.mt.to_numpy(), scan.mt.to_numpy()))
+    log(f"rmcl s14 margin {margin}: loop {loop_ms:.3f} ms/iteration (host clock); scan "
+        f"{'Same' if same else 'Diffs'} as loop by nrmcl's comparison, bit-equal {bits}; "
+        f"overflow scan {scan.overflow} loop {loop.overflow}; nnz scan "
+        f"{scan.nnz_history.tolist()} loop {loop.nnz_history.tolist()} [{card}]")
+    if not (same and same_scan):
+        failed.append("scan differs from loop")
+    if scan.overflow or loop.overflow or hist["overflow"].any():
+        failed.append(f"overflow at margin {margin}")
+
+    # each step against the f64 oracle, from the oracle's previous iterate
+    rp, ci, vv = mgt.to_numpy()
+    a64 = sp.csr_matrix((vv.astype(np.float64), ci, rp), shape=mgt.shape)
+    prev = sp.csr_matrix((vv.astype(np.float32), ci, rp), shape=mgt.shape)
+    plan = []
+    oracle_nnz, oracle_nnzc = [], []
+    for i in range(iters):
+        want, near = general_oracle_step(np, sp, a64, prev.astype(np.float64))
+        oracle_nnz.append(want.nnz)
+        oracle_nnzc.append(int(a64.dot(prev.astype(np.float64)).nnz))
+        prev_t = R.CSR.from_numpy(prev.indptr, prev.indices, prev.data, prev.shape[1], dev,
+                                  capacity=cc)
+        plan.append(host_ms(torch, lambda p=prev_t: R.plan_capacities(mgt, p, 1.0), 5))
+        got, info = R.rmcl_one_step(mgt, prev_t, pc, cc)
+        grp, gci, gv = got.to_numpy()
+        if bool(info["overflow_products"] | info["overflow_c"] | info["overflow_mt"]):
+            failed.append(f"step {i + 1}: overflow")
+        if not np.isfinite(gv).all():
+            failed.append(f"step {i + 1}: non-finite values")
+        failed += compare_csr(
+            np, f"rmcl_one_step {i + 1} vs f64 oracle (from the oracle's iterate {i})",
+            sp.csr_matrix((gv, gci, grp), shape=mgt.shape), want, near)
+        prev = want.astype(np.float32)
+    oracle_nnz = np.asarray(oracle_nnz)
+    log(f"general R-MCL s14: f64 oracle nnz(C) {oracle_nnzc}, nnz(Mt) {oracle_nnz.tolist()}; "
+        f"the loop's host "
+        f"planning {statistics.median(plan):.3f} ms a step (median of "
+        f"{[round(x, 3) for x in plan]}) [{card}]")
+    if (np.abs(scan.nnz_history - oracle_nnz) > MAX_FLIP_SHARE * oracle_nnz).any():
+        failed.append("scan: the nnz history is off the f64 oracle's")
+    if failed:
+        raise AssertionError("phase 11: " + "; ".join(failed))
+
+    # the reference's own overflow at its default margin (ROADMAP C8)
+    dflt = R.rmcl(mt0, max_iters=iters, mode="scan")
+    log(f"rmcl s14 scan at the default margin 1.5: overflow {dflt.overflow}; flops "
+        f"{dflt.flops_history.tolist()}")
+    if not dflt.overflow:
+        raise AssertionError("phase 11: no overflow at margin 1.5, where the reference has one")
+    del scan_mt, mtc, dflt, got
+    torch.cuda.synchronize()
+
+    # the command line, both routes, on the SNAP file and on tdata.snap
+    captured = []
+
+    def spy(*a, **k):
+        captured.append(rmcl_ell(*a, **k))
+        return captured[-1]
+
+    def cli(label, argv, must=()):
+        buf = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(buf):
+                return nrmcl.main(argv)
+
+        t0 = time.perf_counter()
+        rc = drive(label, run, must)
+        ms = (time.perf_counter() - t0) * 1e3
+        out = buf.getvalue().splitlines()
+        verdict = next((x for x in out if x in ("Same", "Diffs")), None)
+        log(f"{label}: {verdict}, exit {rc}, {ms:.1f} ms; " + "; ".join(
+            x for x in out if x.startswith(("seq-loop", "final"))) + f" [{card}]")
+        return verdict, rc, out
+
+    verdict, rc, out = cli("nrmcl -i s14.snap -m 5", ["-i", snap, "-m", "5"])
+    if (verdict, rc) != ("Diffs", 1) or not any("overflow = True" in x for x in out):
+        raise AssertionError("phase 11: nrmcl's default route on s14 should report the "
+                             "reference's overflow and Diffs")
+    RE.rmcl_ell = spy
+    try:
+        cli("nrmcl -i s14.snap -m 5 -r STATIC", ["-i", snap, "-m", "5", "-r", "STATIC"],
+            ("sort_dedup_compact",))
+    finally:
+        RE.rmcl_ell = rmcl_ell
+    got = captured[0][0]
+    same = all(np.array_equal(x, y) for x, y in zip(got.to_numpy(), static5.to_numpy()))
+    log(f"nrmcl STATIC's iterate {'==' if same else '!='} phase 8's rmcl_ell(coo, 5) "
+        f"bit for bit")
+    if not same:
+        raise AssertionError("phase 11: the STATIC route differs from rmcl_ell")
+    verdict, rc, _ = cli("nrmcl -i tests/tdatas/tdata.snap -m 5",
+                         ["-i", os.path.join(ROOT, "tests", "tdatas", "tdata.snap"), "-m", "5"])
+    if (verdict, rc) != ("Same", 0):
+        raise AssertionError("phase 11: nrmcl on tdata.snap is not Same")
+
+    # clusters of the final iterate, and a checkpoint resumed
+    labels = CL.extract_clusters(scan.mt)
+    sizes = list(CL.cluster_sizes(labels).values())
+    log(f"extract_clusters s14: {len(sizes)} clusters, largest {sizes[:8]}")
+    ck, ck2 = os.path.join(tmp.name, "ck.npz"), os.path.join(tmp.name, "straight.npz")
+    CK.rmcl_resumable(mt0, max_iters=2, checkpoint_path=ck)
+    resumed, it, _ = CK.rmcl_resumable(mt0, max_iters=iters, checkpoint_path=ck)
+    straight, _, _ = CK.rmcl_resumable(mt0, max_iters=iters, checkpoint_path=ck2)
+    same = it == iters and all(
+        np.array_equal(x, y) for x, y in zip(resumed.to_numpy(), straight.to_numpy()))
+    log(f"rmcl_resumable: stopped at 2, resumed to {it}: {'==' if same else '!='} the "
+        f"straight run bit for bit")
+    if not same:
+        raise AssertionError("phase 11: the resumed run differs from the straight run")
+    tmp.cleanup()
 
 
 def main() -> int:
@@ -1157,7 +1451,7 @@ def main() -> int:
     del c, pc, y, b64d
     torch.cuda.synchronize()
 
-    coo = rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms)
+    coo, static5 = rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms)
 
     # ---- 10. a caller that turned TF32 on (ROADMAP C7) -------------------
     from sparse_matrix_with_flops_tpu_torch.config import _f32_switches, true_f32
@@ -1210,6 +1504,11 @@ def main() -> int:
         if not same:
             raise AssertionError(f"TF32 on: {k} differs")
     del c, cc, on, found, ab14, b14, xm, exact
+    torch.cuda.synchronize()
+
+    # ---- 11. general R-MCL and nrmcl from a graph file -------------------
+    general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, host_ms)
+    del coo, static5
     torch.cuda.synchronize()
 
     for k, n in launches.items():

@@ -175,6 +175,20 @@ class CSR:
             np.asarray(row_ptr) - 1, np.asarray(col_ind) - 1, values, ncols, device
         )
 
+    def output(self, path: str | None = None, name: str = "csr") -> str:
+        """Text dump (CSR::output debugging aid, CSR.h:109-128), the same
+        text as the reference's; written to ``path`` when given."""
+        rp, col, val = self.to_numpy()
+        lines = [f"{name} rows={self.rows} cols={self.ncols} nnz={int(rp[-1])}"]
+        for i in range(self.rows):
+            ent = " ".join(f"({col[j]},{val[j]:.6g})" for j in range(rp[i], rp[i + 1]))
+            lines.append(f"{i}: {ent}")
+        text = "\n".join(lines) + "\n"
+        if path:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
     def make_ordered(self) -> "CSR":
         """Sort columns within each row (CSR::makeOrdered, CSR.cc:73-86):
         one stable sort by (entry row, col); padding sorts to the tail."""
@@ -221,6 +235,13 @@ class CSR:
         p_t = torch.zeros_like(p)
         p_t[p.long()] = torch.arange(p.shape[0], dtype=p.dtype, device=self.device)
         return self.permute_rows(p).permute_cols(p_t)
+
+    def row_descending_order_permutation(self) -> torch.Tensor:
+        """Row ids by descending nnz, equal counts in row order
+        (CSR::rowDescendingOrderPermutation, CSR.cc:484-494; the
+        reference's stable key/value sort on the negated counts)."""
+        order = torch.sort(-self.row_counts(), stable=True).indices
+        return order.to(INDEX_DTYPE)
 
     def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Tight host arrays ``(row_ptr, col_ind[:nnz], values[:nnz])``."""
@@ -305,3 +326,23 @@ class CSR:
         da, db = da[:n], db.to(self.device)[:n]
         denom = torch.maximum(da.abs(), db.abs()).clamp(min=1e-30)
         return bool(((da - db).abs() <= rel * denom).all())
+
+    # ---- diff metrics (CSR.cc:213-240, 381-415) -------------------------
+    def differs(self, other: "CSR") -> torch.Tensor:
+        """Relative L2 distance ||A - B||_F / ||A||_F through the dense
+        forms (CSR::differs, CSR.cc:213-240); a 0-d tensor.  The sparse
+        form that the R-MCL loops track is ``ops.metrics.differs``."""
+        da = self.to_dense()
+        db = other.to_dense().to(self.device)
+        num = torch.sqrt(((da - db) ** 2).sum())
+        return num / torch.sqrt((da**2).sum()).clamp(min=1e-30)
+
+    def row_growth_stats(
+        self, other: "CSR", bounds=(-30.0, -20.0, -5.0, 0.0, 5.0, 20.0, 30.0, 100.0)
+    ) -> torch.Tensor:
+        """Histogram of per-row nnz percent change from ``self`` to
+        ``other`` (differsStats, CSR.cc:381-415; bucket bounds from
+        qrmcl.cc:17)."""
+        from ..ops.metrics import row_growth_histogram
+
+        return row_growth_histogram(self, other, bounds)

@@ -1,7 +1,22 @@
-"""Algorithm drivers of the port: R-MCL initialisation and the static
-fused R-MCL loop."""
+"""Algorithms of the port: R-MCL (reference semantics and the
+static fused loop), cluster extraction and checkpointing."""
 
-from .rmcl import rmcl_init
+from .checkpoint import load_checkpoint, rmcl_resumable, save_checkpoint
+from .clusters import cluster_sizes, extract_clusters
+from .rmcl import rmcl, rmcl_init, rmcl_one_step
 from .rmcl_ell import plan_rmcl_ell, rmcl_ell, rmcl_ell_scan, rmcl_ell_step
 
-__all__ = ["plan_rmcl_ell", "rmcl_ell", "rmcl_ell_scan", "rmcl_ell_step", "rmcl_init"]
+__all__ = [
+    "cluster_sizes",
+    "extract_clusters",
+    "load_checkpoint",
+    "rmcl_resumable",
+    "save_checkpoint",
+    "rmcl",
+    "rmcl_init",
+    "rmcl_one_step",
+    "plan_rmcl_ell",
+    "rmcl_ell",
+    "rmcl_ell_scan",
+    "rmcl_ell_step",
+]

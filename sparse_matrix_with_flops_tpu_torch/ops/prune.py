@@ -13,7 +13,9 @@ Semantics mirror the reference (values are float32 / QValue):
   util.cc:47-69).
 
 Every row statistic is a segment reduction over the entry streams
-(``ops/segments.py``), and one stable sort compacts the survivors.
+(``ops/segments.py``), the float row sums each in a fixed order
+(``run_sums``) so that the same stream gives the same bits on the card;
+one stable sort compacts the survivors.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..config import (
     QVALUE_DTYPE,
 )
 from ..formats.csr import CSR
-from .segments import exclusive_cumsum, segment_max, segment_sum
+from .segments import exclusive_cumsum, run_sums, segment_max, segment_sum
 
 
 def compute_threshold(avg: torch.Tensor, rmax: torch.Tensor) -> torch.Tensor:
@@ -49,23 +51,27 @@ def inflate_prune_normalize_stream(
 ):
     """Fused inflate→threshold→prune→normalize over entry streams.
 
-    ``erow`` must be non-decreasing over valid entries (CSR entry order)
-    with sentinel ``rows`` on padding.  Returns (row_ptr, col, val,
-    overflow): the survivors compacted to the front in (row, col) order
-    and padded out to ``out_cap``; ``overflow`` flags survivors >
-    out_cap (omp_CSR_RMCL_OneStep, omp_csr_kernel.cc:154-198)."""
+    ``erow`` must be non-decreasing over valid entries (CSR entry order),
+    the valid entries first, with sentinel ``rows`` on padding.  Returns
+    (row_ptr, col, val, overflow): the survivors compacted to the front
+    in (row, col) order and padded out to ``out_cap``; ``overflow`` flags
+    survivors > out_cap (omp_CSR_RMCL_OneStep, omp_csr_kernel.cc:154-198)."""
     cap = erow.shape[0]
     seg = torch.where(valid, erow, rows)
     w = torch.where(valid, val * val, 0.0).to(QVALUE_DTYPE)  # inflation
-    rsum = segment_sum(w, seg, rows)
+    # each row's run of the stream
+    roff = torch.searchsorted(
+        seg, torch.arange(rows + 1, dtype=seg.dtype, device=seg.device)
+    )
+    rsum = run_sums(w, roff)
     rmax = segment_max(w, seg, rows)
-    rcount = segment_sum(valid.to(QVALUE_DTYPE), seg, rows)
+    rcount = (roff[1:] - roff[:-1]).to(QVALUE_DTYPE)
     avg = rsum / torch.clamp(rcount, min=1.0)
     thresh = compute_threshold(avg, rmax)
 
     own = erow.long().clamp(0, max(rows - 1, 0))
     keep = valid & (w >= thresh[own])
-    ksum = segment_sum(torch.where(keep, w, 0.0), seg, rows)
+    ksum = run_sums(torch.where(keep, w, 0.0), roff)
     newval = torch.where(keep, w / torch.clamp(ksum, min=1e-30)[own], 0.0)
 
     # compact survivors: a stable sort on the keep-aware row key keeps

@@ -79,6 +79,17 @@ def segment_sum(
     return out[:num_segments]
 
 
+def run_sums(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Sums of the contiguous runs ``values[offsets[i]:offsets[i + 1]]``
+    (an empty run sums to 0), each added up in an order fixed by the run
+    alone: the same run gives the same bits in every call, whatever lies
+    around it.  :func:`segment_sum`'s scatter-add is float atomics on
+    CUDA, whose order changes from run to run.  ``offsets`` must be
+    non-decreasing and within ``[0, len(values)]``; values past
+    ``offsets[-1]`` are left out."""
+    return torch.segment_reduce(values, "sum", offsets=offsets.long(), unsafe=True)
+
+
 def segment_max(
     values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 ) -> torch.Tensor:

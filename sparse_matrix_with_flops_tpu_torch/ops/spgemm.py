@@ -23,7 +23,7 @@ import torch
 from ..config import INDEX_DTYPE, QVALUE_DTYPE
 from ..formats.csr import CSR
 from ..utils.nphost import csr_host
-from .segments import exclusive_cumsum, repeat_segments, segment_boundaries
+from .segments import exclusive_cumsum, repeat_segments, run_sums, segment_boundaries
 
 
 class BView(NamedTuple):
@@ -119,6 +119,28 @@ def esc_sort(prow, pcol, pval, rows: int):
     return prow, pcol, pval, pvalid, flags, seg, nnzc
 
 
+def esc_compress(prow, pcol, pval, flags, seg, nnzc, total, rows: int, ncols: int,
+                 out_cap: int):
+    """C's entries from the sorted product streams of :func:`esc_sort`:
+    the first ``out_cap`` (row, col) segments as ``(crow, ccol, cval)``,
+    the sentinel (rows, ncols, 0) past nnz(C); segments past ``out_cap``
+    are dropped.  ``total`` is the flop count of :func:`esc_expand`.
+    Each value sums its segment's run of products in a fixed order
+    (``run_sums``), so equal products give equal bits on the card."""
+    cap, dev = prow.shape[0], prow.device
+    # each segment's first product; segments past nnz(C) start at the
+    # end of the valid products, and one dump slot takes the rest
+    start = torch.zeros(out_cap + 2, dtype=torch.int64, device=dev) + total.clamp(max=cap)
+    idx = torch.where(flags, seg.long(), out_cap + 1).clamp(max=out_cap + 1)
+    start.scatter_(0, idx, torch.arange(cap, device=dev))
+    cval = run_sums(pval, start[: out_cap + 1])
+    live = torch.arange(out_cap, device=dev) < nnzc
+    first = start[:out_cap].clamp(max=cap - 1)
+    crow = torch.where(live, prow[first], rows).to(INDEX_DTYPE)
+    ccol = torch.where(live, pcol[first], ncols).to(INDEX_DTYPE)
+    return crow, ccol, cval.to(QVALUE_DTYPE)
+
+
 # ---------------------------------------------------------------------------
 # numeric and symbolic SpGEMM
 # ---------------------------------------------------------------------------
@@ -129,21 +151,13 @@ def spgemm(a: CSR, b: CSR, product_cap: int, out_cap: int) -> CSR:
     if a.ncols != b.rows:
         raise ValueError(f"inner dimensions differ: {a.ncols} != {b.rows}")
     m, n, dev = a.rows, b.ncols, a.device
-    prow, pcol, pval, _ = esc_expand(a, b, product_cap)
-    prow, pcol, pval, pvalid, _, seg, _ = esc_sort(prow, pcol, pval, m)
-    # one dump slot past out_cap takes padding and overflow
-    seg = torch.where(pvalid, seg, out_cap).long().clamp(max=out_cap)
-    cval = torch.zeros(out_cap + 1, dtype=QVALUE_DTYPE, device=dev)
-    cval.index_add_(0, seg, pval)
-    crow = torch.full((out_cap + 1,), m, dtype=INDEX_DTYPE, device=dev)
-    crow.scatter_reduce_(0, seg, prow, reduce="amin")
-    ccol = torch.full((out_cap + 1,), n, dtype=INDEX_DTYPE, device=dev)
-    ccol.scatter_reduce_(0, seg, pcol, reduce="amin")
-    crow = crow[:out_cap]
+    prow, pcol, pval, total = esc_expand(a, b, product_cap)
+    prow, pcol, pval, _, flags, seg, nnzc = esc_sort(prow, pcol, pval, m)
+    crow, ccol, cval = esc_compress(prow, pcol, pval, flags, seg, nnzc, total, m, n, out_cap)
     row_ptr = torch.searchsorted(
         crow, torch.arange(m + 1, dtype=INDEX_DTYPE, device=dev)
     ).to(INDEX_DTYPE)
-    return CSR(row_ptr, ccol[:out_cap], cval[:out_cap], n)
+    return CSR(row_ptr, ccol, cval, n)
 
 
 def spgemm_symbolic(a: CSR, b: CSR, product_cap: int):

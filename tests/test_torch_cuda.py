@@ -902,3 +902,74 @@ def test_pallas_ring_equals_all_gather_on_card(dev):
     assert torch.equal(ag.values, pr.values)
     for k in hag:
         np.testing.assert_array_equal(hpr[k], hag[k])
+
+
+# ---- general R-MCL and ingestion on the card ----------------------------------
+def _rmcl_init_s12(dev):
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
+
+    g = rmat_csr(12, edge_factor=8, seed=3, device="cpu")
+    rp, ci, v = g.to_numpy()
+    coo = COO.from_numpy(np.repeat(np.arange(g.rows), np.diff(rp)), ci, v, g.rows, g.rows,
+                         capacity=ci.size + g.rows, device=dev)
+    return rmcl_init(coo)
+
+
+def test_rmcl_scan_makes_no_host_read(dev):
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import plan_capacities, rmcl_scan
+
+    mt0 = _rmcl_init_s12(dev)
+    pc, cc = plan_capacities(mt0, mt0, 2.5)
+    mt = mt0.with_capacity(cc)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, hist = rmcl_scan(mt0, mt, pc, cc, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.device.type == "cuda" and hist["nnz"].device.type == "cuda"
+    assert not bool(hist["overflow"].any())
+
+
+def test_rmcl_scan_equals_loop_on_the_card(dev):
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl
+
+    mt0 = _rmcl_init_s12(dev)
+    scan = rmcl(mt0, max_iters=5, mode="scan", margin=2.5)
+    loop = rmcl(mt0, max_iters=5, mode="loop", margin=2.5)
+    assert scan.mt.device.type == "cuda" and not scan.overflow
+    for x, y in zip(scan.mt.to_numpy(), loop.mt.to_numpy()):
+        np.testing.assert_array_equal(x, y)  # the steps are deterministic
+    np.testing.assert_array_equal(scan.nnz_history, loop.nnz_history)
+    # and equal to the CPU path's within the comparators
+    cpu = rmcl(mt0.to("cpu"), max_iters=5, mode="loop", margin=2.5)
+    np.testing.assert_array_equal(cpu.nnz_history, loop.nnz_history)
+    rg, cg, vg = loop.mt.to_numpy()
+    rc, cc_, vc = cpu.mt.to_numpy()
+    np.testing.assert_array_equal(rg, rc)
+    np.testing.assert_array_equal(cg, cc_)
+    _assert_vals(torch.from_numpy(vg), torch.from_numpy(vc))
+
+
+def test_run_sums_are_deterministic_on_the_card(dev):
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import run_sums
+
+    g = torch.Generator().manual_seed(0)
+    lens = torch.randint(0, 300, (20000,), generator=g)
+    vals = torch.rand(int(lens.sum()), generator=g)
+    off = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(lens, 0)])
+    got = run_sums(vals.to(dev), off.to(dev))
+    assert torch.equal(got, run_sums(vals.to(dev), off.to(dev)))
+    want = torch.zeros(lens.numel(), dtype=torch.float64).index_add_(
+        0, torch.repeat_interleave(torch.arange(lens.numel()), lens), vals.double())
+    _assert_vals(got.cpu(), want.float())
+
+
+def test_load_coo_lands_on_the_card_by_default(dev):
+    from sparse_matrix_with_flops_tpu_torch.io import load_coo
+
+    coo = load_coo("tests/tdatas/tdata.snap")
+    assert coo.device == dev and coo.row.device == dev and coo.nnz.device == dev
+    cpu = load_coo("tests/tdatas/tdata.snap", device="cpu")
+    for k in ("row", "col", "val", "nnz"):
+        assert torch.equal(getattr(coo, k).cpu(), getattr(cpu, k))
