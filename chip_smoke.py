@@ -61,10 +61,25 @@
    8's ``rmcl_ell`` and launching K1) and "Same" on ``tdata.snap``;
    ``extract_clusters``; ``rmcl_resumable`` stopped at 2 and resumed to
    5 against the straight run.  It times the scan and loop iterations,
-   the loop's host planning and the file's load.
+   the loop's host planning and the file's load;
+12. the flops-binned engine, the partitioned driver and the rest of the
+   command line: ``classify_flops``, ``flops_stats`` and ``nnz_stats``
+   of s14's A·A equal to a numpy recomputation; ``plan_bins`` and
+   ``spgemm_binned`` on s14 against scipy, K1 launched once a non-empty
+   bin, bit-equal over calls, no host read in a warm call, timed (CUDA
+   events) with one call's device time by kernel; K1 at binned's
+   W = 4096 and W = 16 tiles against its twin; ``spgemm_ell_partitioned``
+   (4 groups) on the band and on s14 against scipy, with s14's peak
+   device memory beside one ``spgemm_ell`` call's; ``perf`` (esc,
+   binned, ell, ell-partitioned) and ``analysis --bins`` (its counts
+   against scipy's) on phase 11's SNAP file, ``mat_dat_analysis`` on
+   ``tdata.snap``, ``corpus --synthetic --scales 14 --cant --kernel auto
+   --check --mt`` with and without ``--duel`` (s14 routed ``ell``, the
+   band ``block``, both with ``nnzc_ok``), each through its ``main``.
 
 K1's tiles log their longest run of one column (what a run sum costs):
-at s14 (phases 3 and 5) and in one R-MCL step (phase 8).
+at s14 (phases 3 and 5) and in one R-MCL step (phase 8).  Its cases in
+the ``kernels`` line include binned's tiles (phase 12).
 
 The s14 matrix of phases 3-5 is built with the constructors' default
 device, and the script checks that it lands on the card.  Before each
@@ -161,16 +176,51 @@ def cuda_ms(torch, fn, reps: int = 15, warm: int = 2) -> float:
     return statistics.median(times)
 
 
+PROFILE_TRIES = 3  # torch.profiler sessions before a device time counts as not recorded
+
+
+def profile_kernels(torch, fn, calls: int = 1) -> list:
+    """``key_averages()`` of ``calls`` calls of ``fn`` under torch.profiler
+    (CUDA activity), sorted by device time, largest first. A session now
+    and then hands back no device event at all (CUPTI's records lost, the
+    kernels ran): such a session is taken again, up to PROFILE_TRIES in
+    all; an empty list means none recorded one."""
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ka = [k for k in prof.key_averages() if k.self_device_time_total > 0]
+        if ka:
+            return sorted(ka, key=lambda k: -k.self_device_time_total)
+    return []
+
+
 def device_ms(torch, fn, calls: int = 20) -> float:
     """Device time of ``fn``'s kernels a call, in ms, from torch.profiler
-    (no host enqueue in it)."""
+    (no host enqueue in it). Where no profiler session recorded a device
+    event, the median CUDA-event time of one call instead (enqueue gaps
+    included), and the log says so."""
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(k.self_device_time_total for k in prof.key_averages()) / calls / 1e3
+    ka = profile_kernels(torch, fn, calls)
+    if ka:
+        return sum(k.self_device_time_total for k in ka) / calls / 1e3
+    ms = cuda_ms(torch, fn)
+    log(f"  torch.profiler recorded no device event in {PROFILE_TRIES} sessions: "
+        f"device time by CUDA events instead, {ms:.4f} ms")
+    return ms
+
+
+def breakdown(ka, top: int) -> str:
+    """One call's device time by kernel, from ``profile_kernels``."""
+    if not ka:
+        return (f"device time not measured (torch.profiler recorded no device event "
+                f"in {PROFILE_TRIES} sessions)")
+    return (f"device {sum(k.self_device_time_total for k in ka) / 1e3:.3f} ms in "
+            f"{sum(k.count for k in ka)} kernels; largest: " + "; ".join(
+                f"{k.key[:60]} x{k.count} {k.self_device_time_total / 1e3:.3f} ms"
+                for k in ka[:top]))
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -682,7 +732,9 @@ def general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, h
     card: ``load_coo`` of a SNAP file against the in-memory COO,
     ``rmcl`` scan and loop at margin 2.5 (scan with no host read, each
     step against the f64 oracle), the reference's overflow at margin
-    1.5, ``nrmcl`` on both routes, clusters and a resumed checkpoint."""
+    1.5, ``nrmcl`` on both routes, clusters and a resumed checkpoint.
+    Returns the temporary directory and the SNAP file in it, which
+    phase 12 reads."""
     import contextlib
     import importlib
     import io
@@ -734,14 +786,9 @@ def general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, h
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # where a step's device time goes (step 1, at the scan's capacities)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        R.rmcl_one_step(mgt, mtc, pc, cc)
-        torch.cuda.synchronize()
-    ka = sorted(prof.key_averages(), key=lambda k: -k.self_device_time_total)
-    busy = sum(k.self_device_time_total for k in ka) / 1e3
-    log(f"rmcl_one_step s14 step 1 at margin {margin} under torch.profiler: device "
-        f"{busy:.3f} ms in {sum(k.count for k in ka)} kernels; largest: " + "; ".join(
-            f"{k.key[:60]} x{k.count} {k.self_device_time_total / 1e3:.3f} ms" for k in ka[:6]))
+    ka = profile_kernels(torch, lambda: R.rmcl_one_step(mgt, mtc, pc, cc))
+    log(f"rmcl_one_step s14 step 1 at margin {margin} under torch.profiler: "
+        + breakdown(ka, 6))
     # what the fixed summation order costs: run_sums against index_add_'s
     # float atomics on the same step's sorted products
     prow, pcol, pval, fl = esc_expand(mgt, mtc, pc)
@@ -756,7 +803,7 @@ def general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, h
     ia_ms = cuda_ms(torch, lambda: segment_sum(pval, seg, nseg))
     log(f"run sums of step 1's {int(fl)} products in {nseg} runs: run_sums (fixed order) "
         f"{rs_ms:.3f} ms, index_add_ (float atomics) {ia_ms:.3f} ms [{card}]")
-    del prow, pcol, pval, valid, flags, seg, off, want, prof, ka
+    del prow, pcol, pval, valid, flags, seg, off, want, ka
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
     torch.cuda.set_sync_debug_mode("error")  # any device-to-host read raises
@@ -892,7 +939,229 @@ def general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, h
         f"straight run bit for bit")
     if not same:
         raise AssertionError("phase 11: the resumed run differs from the straight run")
-    tmp.cleanup()
+    return tmp, snap
+
+
+def log2_hist_np(np, x, buckets: int = 13):
+    """The stats.cc log2 histogram on the host: the ceiling of an f32
+    log2 of max(x, 1), clipped to the last bucket."""
+    k = np.ceil(np.log2(np.maximum(np.asarray(x).astype(np.float32), np.float32(1.0))))
+    return np.bincount(np.clip(k.astype(np.int64), 0, buckets - 1), minlength=buckets)
+
+
+def binned_phase(torch, np, sp, dev, card, a, ca, snap, drive, record, burst, check_vals,
+                 scipy_check):
+    """Phase 12: the flops statistics against a numpy recomputation, the
+    binned engine on R-MAT s14 (K1 once a non-empty bin, bit-stable, no
+    host read, timed, its device time by kernel), K1 at the binned
+    widths against its twin, the partitioned driver on the band and on
+    s14 (peak memory against one ``spgemm_ell``), and the command-line
+    programs perf, analysis, mat_dat_analysis and corpus in process."""
+    import contextlib
+    import io
+
+    from sparse_matrix_with_flops_tpu_torch.cli import analysis, corpus, mat_dat_analysis, perf
+    from sparse_matrix_with_flops_tpu_torch.config import FLOPS_BIN_BOUNDS
+    from sparse_matrix_with_flops_tpu_torch.ops import binned as BN
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_esc import spgemm_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.flops import (
+        classify_flops,
+        flops_stats,
+        nnz_stats,
+        row_flops,
+    )
+    from sparse_matrix_with_flops_tpu_torch.ops.partitioned import spgemm_ell_partitioned
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import exclusive_cumsum
+    from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
+        sort_dedup_compact,
+        sort_dedup_compact_plain,
+    )
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import esc_expand
+
+    t_phase = time.perf_counter()
+    # ---- 12a. flops statistics of A·A against numpy ----------------------
+    rp, ci, _ = a.to_numpy()
+    n = a.rows
+    elen = np.diff(rp).astype(np.int64)[ci]
+    cs = np.concatenate([[0], np.cumsum(elen)])
+    rf = cs[rp[1:]] - cs[rp[:-1]]
+    order = np.argsort(rf, kind="stable")
+    sorted_f = rf[order]
+    starts = np.searchsorted(sorted_f, (0,) + FLOPS_BIN_BOUNDS, side="right")
+    want = {
+        "sorted_rows": order,
+        "sorted_flops": sorted_f,
+        "flops_offsets": np.concatenate([[0], np.cumsum(sorted_f)]),
+        "bin_starts": np.concatenate([[0], starts[:-1], [n]]),
+    }
+    fb = classify_flops(a, a)
+    hist, trf = flops_stats(a, a)
+    pat = sp.csr_matrix((np.ones(ci.size), ci, rp), shape=a.shape)
+    ps = (pat @ pat).tocsr()
+    got = {k: getattr(fb, k).cpu().numpy() for k in want}
+    got["flops hist"], want["flops hist"] = hist.cpu().numpy(), log2_hist_np(np, rf)
+    got["row flops"], want["row flops"] = trf.cpu().numpy(), rf
+    bad = [k for k in want if not np.array_equal(got[k].astype(np.int64), want[k])]
+    log(f"classify_flops s14: bin starts {got['bin_starts'].tolist()}; flops histogram "
+        f"{got['flops hist'].tolist()}")
+    if bad:
+        raise AssertionError(f"phase 12: {bad} differ from the numpy recomputation")
+
+    # ---- 12b. the binned engine on s14 -----------------------------------
+    t0 = time.perf_counter()
+    plan = BN.plan_bins(a, a)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    rows = [int((r >= 0).sum()) for r, _ in plan.bins]
+    log(f"plan_bins s14: {plan_ms:.1f} ms; bins (W, rows) "
+        f"{[(w, k) for (_, w), k in zip(plan.bins, rows)]}; {plan.huge_rows.size} huge rows "
+        f"carry {plan.huge_product_cap} of {plan.product_cap} products")
+    c = drive("s14 spgemm_binned", lambda: BN.spgemm_binned(a, a, plan),
+              ("sort_dedup_compact",))
+    if sort_dedup_compact.launches != plan.num_bins:
+        raise AssertionError(f"phase 12: K1 launched {sort_dedup_compact.launches} times for "
+                             f"{plan.num_bins} non-empty bins")
+    scipy_check(a, c, "s14 spgemm_binned", positive=True)
+    c2 = BN.spgemm_binned(a, a, plan)
+    torch.cuda.set_sync_debug_mode("error")  # any device-to-host read raises
+    try:
+        c3 = BN.spgemm_binned(a, a, plan)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for other, what in ((c2, "a second call"), (c3, "a call under sync debug mode")):
+        if not all(torch.equal(getattr(c, k), getattr(other, k))
+                   for k in ("row_ptr", "col_ind", "values")):
+            raise AssertionError(f"phase 12: spgemm_binned differs from {what}")
+    log("s14 spgemm_binned: bit-equal over three calls; the warm call made no "
+        "device-to-host read (sync debug mode \"error\")")
+    nh = nnz_stats(c).cpu().numpy()
+    if not np.array_equal(nh.astype(np.int64), log2_hist_np(np, np.diff(ps.indptr))):
+        raise AssertionError("phase 12: nnz_stats(A·A) differs from the numpy recomputation")
+    log(f"nnz_stats s14 A·A: {nh.tolist()} == numpy's; classify_flops, flops_stats too")
+    del c2, c3
+    flops = plan.product_cap
+    fn = lambda: BN.spgemm_binned(a, a, plan)  # noqa: E731
+    ms = cuda_ms(torch, fn, reps=9)
+    ka = profile_kernels(torch, fn)
+    log(f"s14 spgemm_binned warm: {ms:.3f} ms (median of 9, CUDA events), "
+        f"{2 * flops / ms / 1e6:.3f} GFLOPS [{card}]")
+    log("s14 spgemm_binned, one call under torch.profiler: " + breakdown(ka, 8))
+    del c, ka
+
+    # ---- 12c. K1 at the binned widths ------------------------------------
+    pt = BN._plan_tensors(plan, dev)
+    _, pcol, pval, _ = esc_expand(a, a, plan.product_cap)
+    rfd = row_flops(a, a)
+    row_off = exclusive_cumsum(rfd)
+    rfd = torch.cat([rfd, rfd.new_zeros(1)])
+    widths = [w for w, _ in pt["bins"]]
+    for w_sel in (4096, 16):
+        if w_sel not in widths:
+            raise AssertionError(f"phase 12: the s14 bin plan has no W={w_sel} bin")
+        rid = pt["bins"][widths.index(w_sel)][1]
+        tc, tv = BN._gather_bin_products(rid, w_sel, pcol, pval, row_off, rfd, a.ncols)
+        kk, kv = sort_dedup_compact(tc, tv, a.ncols)
+        pk, pv = sort_dedup_compact_plain(tc, tv, a.ncols)
+        torch.cuda.synchronize()
+
+        def k1_same(got, w_sel=w_sel, pk=pk, pv=pv, kv=kv):
+            if not torch.equal(got[0], pk):
+                raise AssertionError(f"K1 binned W={w_sel}: cols differ from the twin")
+            if not torch.equal(got[1], kv):
+                raise AssertionError(f"K1 binned W={w_sel}: differs from the first call")
+            return check_vals(got[1], pv, f"K1 binned W={w_sel}")
+
+        err = k1_same((kk, kv))
+        k1 = lambda tc=tc, tv=tv: sort_dedup_compact(tc, tv, a.ncols)  # noqa: E731
+        burst(f"K1 binned W={w_sel}", k1, k1_same)
+        record(
+            "sort_dedup_compact", f"binned W={w_sel} R={tc.shape[0]} presorted=1", err,
+            cuda_ms(torch, k1), cuda_ms(torch, lambda: sort_dedup_compact_plain(tc, tv, a.ncols)),
+            bound(16.0 * tc.numel()), NO_CALL["sort_dedup_compact"], dev_ms=device_ms(torch, k1),
+        )
+    del pcol, pval, tc, tv, kk, kv, pk, pv
+    torch.cuda.synchronize()
+
+    # ---- 12d. the partitioned driver -------------------------------------
+    cb = drive("band spgemm_ell_partitioned parts=4",
+               lambda: spgemm_ell_partitioned(ca, ca, parts=4),
+               ("sort_dedup_compact", "window_gather", "cumsum_i32"))
+    scipy_check(ca, cb, "band spgemm_ell_partitioned parts=4", positive=False)
+    del cb
+    peaks = {}
+    for label, fn in (
+        ("partitioned parts=4", lambda: spgemm_ell_partitioned(a, a, parts=4)),
+        ("spgemm_ell", lambda: spgemm_ell(a, a, plan_ell(a, a))),
+    ):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = drive(f"s14 {label}", fn, ("sort_dedup_compact", "window_gather", "cumsum_i32"))
+        ms_with_plan = (time.perf_counter() - t0) * 1e3
+        peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        scipy_check(a, out, f"s14 {label}", positive=True)
+        log(f"s14 {label}: peak device memory above the inputs {peaks[label]:.1f} MiB; "
+            f"{ms_with_plan:.1f} ms with its plans, one cold call [{card}]")
+        del out
+    log(f"s14 partitioned / single-call peak memory: "
+        f"{peaks['partitioned parts=4'] / peaks['spgemm_ell']:.3f} [{card}]")
+
+    # ---- 12e. the command line, in process -------------------------------
+    def cli(label, main, argv, must=()):
+        buf = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(buf):
+                return main(argv)
+
+        t0 = time.perf_counter()
+        rc = drive(label, run, must)
+        out = buf.getvalue().splitlines()
+        log(f"{label}: exit {rc}, {(time.perf_counter() - t0) * 1e3:.1f} ms wall")
+        if rc != 0:
+            raise AssertionError(f"phase 12: {label} exited {rc}")
+        return out
+
+    k134 = ("sort_dedup_compact", "window_gather", "cumsum_i32")
+    for kernel, must in (("esc", ()), ("binned", ("sort_dedup_compact",)), ("ell", k134),
+                         ("ell-partitioned", k134)):
+        out = cli(f"perf --kernel {kernel}", perf.main, ["-i", snap, "--kernel", kernel], must)
+        if not (out and out[-1].startswith(f"{kernel} spgemm: ") and "GFLOPS = " in out[-1]):
+            raise AssertionError(f"phase 12: perf --kernel {kernel} printed no GFLOPS line")
+        log(f"  {out[-1]} [{card}]")
+    # analysis on the same file against scipy: the file holds "from to
+    # value" lines, read untransposed as (from, to)
+    with open(snap) as f:
+        f.readline()
+        nrows = int(f.readline().split()[0])
+    edges = np.loadtxt(snap, comments="#", skiprows=2, ndmin=2)
+    fm = sp.csr_matrix((edges[:, 2], (edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64))),
+                       shape=(nrows, nrows))
+    fp = fm.copy()
+    fp.data[:] = 1.0
+    oflops = int(np.diff(fp.indptr)[fp.indices].sum())
+    want_first = (f"N= {nrows} Annz= {fm.nnz} Cnnz={(fp @ fp).nnz} flops= {2 * oflops} ")
+    out = cli("analysis --bins", analysis.main, ["-i", snap, "--bins"])
+    if not (out[0].startswith(want_first) and out[1] == f"Oflops={oflops}"):
+        raise AssertionError(f"phase 12: analysis printed {out[:2]}, scipy gives "
+                             f"{want_first!r} Oflops={oflops}")
+    log(f"  {out[0]} | {out[1]} == scipy's; {sum(x.startswith('Binwise') for x in out)} bins")
+    tdata = os.path.join(ROOT, "tests", "tdatas", "tdata.snap")
+    out = cli("mat_dat_analysis tdata.snap", mat_dat_analysis.main, ["-i", tdata])
+    log(f"  {' | '.join(out)}")
+    for extra in ((), ("--duel",)):
+        argv = ["--synthetic", "--scales", "14", "--cant", "--kernel", "auto", "--check", "--mt",
+                *extra]
+        out = cli(f"corpus {' '.join(argv)}", corpus.main, argv, k134)
+        recs = [json.loads(x) for x in out if x.startswith("{")]
+        for r in recs:
+            log(f"  {json.dumps(r)} [{card}]")
+        routes = [(r["matrix"], r["routed"]["kernel"], r["nnzc_ok"]) for r in recs]
+        if routes != [("rmat_s14", "ell", True), ("banded_cant_62k_b32", "block", True)]:
+            raise AssertionError(f"phase 12: corpus records {routes}")
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1507,8 +1776,17 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 11. general R-MCL and nrmcl from a graph file -------------------
-    general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, host_ms)
+    tmp, snap = general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms,
+                                   host_ms)
     del coo, static5
+    torch.cuda.synchronize()
+
+    # ---- 12. the binned engine, the partitioned driver, the command line -
+    try:
+        binned_phase(torch, np, sp, dev, card, a, ca, snap, drive, record, burst, check_vals,
+                     scipy_check)
+    finally:
+        tmp.cleanup()
     torch.cuda.synchronize()
 
     for k, n in launches.items():

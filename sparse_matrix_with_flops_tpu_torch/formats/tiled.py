@@ -3,14 +3,16 @@ of one flat region (the port of the JAX package's ``formats/tiled.py``).
 
 ``(flat_base, counts)`` index the flat region the way ``row_ptr`` indexes
 a CSR; ``to_csr`` runs the windowed flat export of ``ops/ell_esc.py``,
-``as_bview`` lets the stream ESC of ``ops/spgemm.py`` read it as B, and
-``spmv`` works on the flat region directly.
+``to_host_csr`` the same export on the host, ``as_bview`` lets the
+stream ESC of ``ops/spgemm.py`` read it as B, and ``spmv`` works on the
+flat region directly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..config import INDEX_DTYPE, QVALUE_DTYPE
@@ -90,4 +92,23 @@ class TiledCSR:
             self.ncols,
             out_cap,
             exact,
+        )
+
+    def to_host_csr(self) -> CSR:
+        """Flat CSR export stitched on the host (one ragged gather of each
+        row's range, no device gather); the CSR is put on this matrix's
+        device."""
+        from ..utils.nphost import concat_ranges
+
+        counts = self.counts.cpu().numpy().astype(np.int64)
+        base = self.flat_base.cpu().numpy().astype(np.int64)
+        rp = np.zeros(self.rows + 1, dtype=np.int64)
+        np.cumsum(counts, out=rp[1:])
+        src = concat_ranges(base, base + counts)
+        return CSR.from_numpy(
+            rp,
+            self.flat_col.cpu().numpy()[src],
+            self.flat_val.cpu().numpy()[src],
+            self.ncols,
+            self.flat_col.device,
         )

@@ -1,17 +1,21 @@
-"""Flops of C = A·B per entry and per row (the port of the JAX package's
-``ops/flops.py:27-55``): ``rowFlops[i] = sum over j in A[i,:] of
-nnz(B[j,:])``, single-count (callers double it for GFLOPS); and the
-footprint row costs that ``balance=True`` partitions on (``:136-175``).
-The binning and statistics helpers are not ported yet."""
+"""Flops of C = A·B per entry and per row, the framework's namesake (the
+port of the JAX package's ``ops/flops.py``): ``rowFlops[i] = sum over j
+in A[i,:] of nnz(B[j,:])``, single-count (callers double it for
+GFLOPS); rows sorted and binned by flops (gpuFlopsClassify,
+mindex2-cuda/flops.cu:96-140); the log2 histograms of stats.cc; and the
+footprint row costs that ``balance=True`` and the partitioned driver cut
+on."""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..config import INDEX_DTYPE
+from ..config import FLOPS_BIN_BOUNDS, INDEX_DTYPE
 from ..formats.csr import CSR
-from .segments import segment_sum
+from .segments import exclusive_cumsum, segment_sum
 
 
 def entry_flops(a: CSR, b: CSR) -> torch.Tensor:
@@ -30,6 +34,77 @@ def spgemm_flops(a: CSR, b: CSR) -> tuple[torch.Tensor, torch.Tensor]:
     """(per-row flops, total), both int32."""
     rf = row_flops(a, b)
     return rf, rf.sum(dtype=INDEX_DTYPE)
+
+
+class FlopsBinning(NamedTuple):
+    """Rows sorted by flops with bin boundaries (gpuFlopsClassify,
+    flops.cu:110-140)."""
+
+    sorted_rows: torch.Tensor  # int32[m] row ids, ascending flops
+    sorted_flops: torch.Tensor  # int32[m]
+    flops_offsets: torch.Tensor  # int32[m+1] exclusive prefix of sorted_flops
+    bin_starts: torch.Tensor  # int32[nbins+1] boundaries into sorted_rows
+
+
+def flops_bin_id(flops: torch.Tensor) -> torch.Tensor:
+    """Row flops -> bin id 1..7 of the reference's bins {1: f=0, 2: f=1,
+    3: 2-4, 4: 5-16, 5: 17-64, 6: 65-512, 7: >512} (flops.cu:39-47)."""
+    bounds = torch.tensor(FLOPS_BIN_BOUNDS, dtype=flops.dtype, device=flops.device)
+    return (torch.searchsorted(bounds, flops) + 1).to(INDEX_DTYPE)
+
+
+def classify_flops(a: CSR, b: CSR) -> FlopsBinning:
+    """Rows by flops and the bin boundaries, on A's device: per-row flops,
+    a stable sort of the rows by them, the exclusive scan of the sorted
+    flops (each product's output slot), and each bin's first row by a
+    search of the sorted flops (flops.cu:96-140)."""
+    rf = row_flops(a, b)
+    sorted_flops, order = torch.sort(rf, stable=True)
+    offsets = exclusive_cumsum(sorted_flops)
+    # bin b covers flops in (bounds[b-1], bounds[b]]
+    bounds = torch.tensor((0,) + FLOPS_BIN_BOUNDS, dtype=rf.dtype, device=rf.device)
+    starts = torch.searchsorted(sorted_flops, bounds, right=True).to(INDEX_DTYPE)
+    edge = torch.tensor([0, a.rows], dtype=INDEX_DTYPE, device=rf.device)
+    bin_starts = torch.cat([edge[:1], starts[:-1], edge[1:]])
+    return FlopsBinning(order.to(INDEX_DTYPE), sorted_flops, offsets, bin_starts)
+
+
+# ---- histograms (stats.cc parity) ------------------------------------------------
+def log2_histogram(x: torch.Tensor, num_buckets: int = 13) -> torch.Tensor:
+    """Log2-bucket histogram (int32): bucket k counts values in
+    [2^(k-1), 2^k), bucket 0 the zeros and ones (pushToStats +
+    flopsStats, stats.cc:3-57).  The bucket is the ceiling of an f32
+    log2, as the reference computes it, so the edges agree."""
+    xf = torch.clamp(x.to(torch.float32), min=1.0)
+    k = torch.ceil(torch.log2(xf)).to(torch.int64).clamp(0, num_buckets - 1)
+    hist = torch.zeros(num_buckets, dtype=INDEX_DTYPE, device=x.device)
+    return hist.index_add_(0, k, torch.ones_like(k, dtype=INDEX_DTYPE))
+
+
+def flops_stats(a: CSR, b: CSR, num_buckets: int = 13):
+    """(per-row flops histogram, per-row flops) (flopsStats,
+    stats.cc:29-57)."""
+    rf = row_flops(a, b)
+    return log2_histogram(rf, num_buckets), rf
+
+
+def nnz_stats(c: CSR, num_buckets: int = 13) -> torch.Tensor:
+    """Per-row nnz histogram (CSR::nnzStats, CSR.cc:242-249)."""
+    return log2_histogram(c.row_counts(), num_buckets)
+
+
+def print_stats(hist, title: str = "stats") -> None:
+    """Textual histogram like outputStats (stats.cc:14-27); the same text
+    as the reference's."""
+    hist = hist.cpu().numpy() if isinstance(hist, torch.Tensor) else np.asarray(hist)
+    total = hist.sum()
+    print(f"=== {title} (total {total}) ===")
+    lo = 0
+    for k, cnt in enumerate(hist):
+        hi = 1 << k
+        if cnt:
+            print(f"  [{lo:>8} .. {hi:>8}): {cnt}")
+        lo = hi
 
 
 def footprint_row_costs(a: CSR, b: CSR, chunk: int | None = None) -> np.ndarray:

@@ -973,3 +973,79 @@ def test_load_coo_lands_on_the_card_by_default(dev):
     cpu = load_coo("tests/tdatas/tdata.snap", device="cpu")
     for k in ("row", "col", "val", "nnz"):
         assert torch.equal(getattr(coo, k).cpu(), getattr(cpu, k))
+
+
+# ---- the binned engine and the partitioned driver (K1 per bin) ----------------------
+@pytest.mark.parametrize("w,r", [(16, 2283), (4096, 2278), (4096, 13), (16, 5)])
+def test_sort_dedup_compact_at_the_binned_widths(dev, w, r):
+    """K1 as spgemm_binned calls it: unsorted product tiles (presorted
+    1), rows ragged, R not a multiple of 8."""
+    rng = np.random.default_rng(w + r)
+    ncols = 3 * w
+    lens = rng.integers(0, w + 1, r)
+    tc = rng.integers(0, ncols, (r, w)).astype(np.int32)
+    tc[np.arange(w)[None, :] >= lens[:, None]] = ncols
+    tv = np.where(tc < ncols, rng.standard_normal((r, w)), 0.0).astype(np.float32)
+    tc, tv = torch.from_numpy(tc).to(dev), torch.from_numpy(tv).to(dev)
+    k, v = sort_dedup_compact(tc, tv, ncols)
+    k2, v2 = sort_dedup_compact(tc, tv, ncols)
+    pk, _ = sort_dedup_compact_plain(tc, tv, ncols)
+    torch.cuda.synchronize()
+    assert torch.equal(k, pk)
+    _assert_run_sums(v, tc, tv, ncols)
+    assert torch.equal(k2, k) and torch.equal(v2, v)
+
+
+@pytest.mark.parametrize("widths", [(16, 64, 256, 1024, 4096), (16, 64)])
+def test_spgemm_binned_on_card(dev, widths):
+    """Bit-equal across two calls, the CPU run's structure and values
+    within the comparators, one K1 launch a non-empty bin, and no host
+    read in a warm call."""
+    from sparse_matrix_with_flops_tpu_torch.ops.binned import plan_bins, spgemm_binned
+
+    a = rmat_csr(12, edge_factor=8, seed=7, weights="random", device="cpu")
+    want = spgemm_binned(a, a, plan_bins(a, a, widths=widths))
+    ad = a.to(dev)
+    plan = plan_bins(ad, ad, widths=widths)
+    assert plan.huge_rows.size > 0
+    got = spgemm_binned(ad, ad, plan)
+    before = sort_dedup_compact.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = spgemm_binned(ad, ad, plan)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert sort_dedup_compact.launches == before + plan.num_bins
+    for x, y in ((got.row_ptr, again.row_ptr), (got.col_ind, again.col_ind),
+                 (got.values, again.values)):
+        assert torch.equal(x, y)
+    _same_csr(got, want)
+
+
+def test_spgemm_ell_partitioned_on_card_matches_scipy(dev):
+    """Structure equal to scipy's pattern product, values within REL_TOL
+    of the f64 product relative to |A||A|."""
+    import scipy.sparse as sp
+
+    from sparse_matrix_with_flops_tpu_torch.ops.partitioned import spgemm_ell_partitioned
+
+    def keys(m):
+        return np.repeat(np.arange(m.shape[0], dtype=np.int64), np.diff(m.indptr)) \
+            * m.shape[1] + m.indices
+
+    for x in (rmat_csr(11, edge_factor=8, seed=7, weights="random", device=dev),
+              banded_csr(5000, bandwidth=32, device=dev)):
+        rp, ci, v = x.to_numpy()
+        m = sp.csr_matrix((v.astype(np.float64), ci, rp), shape=x.shape)
+        mag = (abs(m) @ abs(m)).tocsr()  # no cancellation: the pattern product
+        mag.sort_indices()
+        prod = (m @ m).tocsr()
+        want = np.zeros(mag.nnz)
+        want[np.searchsorted(keys(mag), keys(prod))] = prod.data
+        c = spgemm_ell_partitioned(x, x, parts=3)
+        assert c.device == dev
+        grp, gci, gv = c.to_numpy()
+        assert np.array_equal(grp, mag.indptr) and np.array_equal(gci, mag.indices)
+        assert (np.abs(gv - want) <= REL_TOL * mag.data + ABS_TOL).all()
