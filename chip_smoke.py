@@ -75,7 +75,22 @@
    against scipy's) on phase 11's SNAP file, ``mat_dat_analysis`` on
    ``tdata.snap``, ``corpus --synthetic --scales 14 --cant --kernel auto
    --check --mt`` with and without ``--duel`` (s14 routed ``ell``, the
-   band ``block``, both with ``nnzc_ok``), each through its ``main``.
+   band ``block``, both with ``nnzc_ok``), each through its ``main``;
+13. the rest of the distributed layer, D = 4 shards stacked on the card
+   (plain torch, no kernel of its own): ``sharded_spgemm`` and
+   ``sharded_spgemm_ring`` on phase 4's s14 in the natural layout
+   against scipy, each bit-equal over two calls made with no host read,
+   timed, the ring's planner timed on the host; ``sharded_spgemm_2d`` at
+   (2, 2), each block against the same block of scipy's product; the
+   dynamic ``sharded_rmcl_scan`` on phase 8's graph relabelled by the
+   flops-balanced permutation, 3 iterations at ``plan_shard_capacities``
+   margin 4.0 of iteration 1's flops, with no host read, bit for bit
+   against the single-card ``rmcl_scan``, its step's device time by
+   kernel; ``sharded_rmcl_adaptive`` on the natural layout, 3
+   iterations, its first snake permutation against numpy's, its result
+   against the single-card loop by the R-MCL gate (values within 1e-5),
+   a repartition timed alone; ``dryrun_multichip(4)``.  It logs its wall
+   time and the peak device memory of the sharded SpGEMM and the scan.
 
 K1's tiles log their longest run of one column (what a run sum costs):
 at s14 (phases 3 and 5) and in one R-MCL step (phase 8).  Its cases in
@@ -589,7 +604,9 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
                      reps=5, warm=1)
         log(f"sharded_rmcl_ell s14 D=4 {ex} warm iteration 2: {ms:.3f} ms device "
             f"(CUDA events) [{card}]")
-    del plan4, arrays4, smgt4, lc1, lv1
+    ka = profile_kernels(torch, lambda: PS._sharded_step(plan4, smgt4, arrays4, lc1, lv1, "ring"))
+    log("sharded_rmcl_ell s14 D=4 ring iteration 2 under torch.profiler: " + breakdown(ka, 6))
+    del plan4, arrays4, smgt4, lc1, lv1, ka
     torch.cuda.synchronize()
 
     # K6 on this run's [lr, 128] iterate blocks, cols and vals in one call
@@ -694,11 +711,12 @@ def general_oracle_step(np, sp, a64, prev):
     return out, near
 
 
-def compare_csr(np, what, got, want, near):
+def compare_csr(np, what, got, want, near, tol=None):
     """Two iterates as scipy CSRs.  Rows whose kept columns differ must
     be prune flips at the oracle's boundary rows (``near``), at most
     MAX_FLIP_SHARE of the rows; the other rows' values within 1e-3
-    relative + 1e-7.  Returns the list of failures (empty if none)."""
+    relative + 1e-7, or within ``tol`` absolute where it is given.
+    Returns the list of failures (empty if none)."""
     n = got.shape[0]
 
     def keys(m):
@@ -710,7 +728,7 @@ def compare_csr(np, what, got, want, near):
     same_w = ~np.isin(kw // n, flips)
     vg, vw = got.data[same_g].astype(np.float64), want.data[same_w]
     err = np.abs(vg - vw)
-    bound = 1e-3 * np.maximum(np.abs(vg), np.abs(vw)) + 1e-7
+    bound = 1e-3 * np.maximum(np.abs(vg), np.abs(vw)) + 1e-7 if tol is None else tol
     log(f"{what}: nnz {kg.size} vs {kw.size}; {flips.size} of {n} rows differ in "
         f"their kept columns; max |err| on the equal rows {err.max(initial=0.0):.3e}; "
         f"{int(near.sum())} rows at a prune boundary")
@@ -1162,6 +1180,359 @@ def binned_phase(torch, np, sp, dev, card, a, ca, snap, drive, record, burst, ch
         if routes != [("rmat_s14", "ell", True), ("banded_cant_62k_b32", "block", True)]:
             raise AssertionError(f"phase 12: corpus records {routes}")
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
+def snake_perm_np(np, rf, rows: int, d: int, lr: int):
+    """``parallel/rmcl._snake_perm_device`` recomputed on the host: the
+    rows by descending flops (stable), dealt boustrophedon over the
+    valid slots, padding rows into the trailing holes."""
+    n_pad = d * lr
+    idx = np.arange(n_pad)
+    order = np.argsort(-np.where(idx < rows, rf.astype(np.int64), -1), kind="stable")
+    k, r = idx // lr, idx % lr
+    rank = r * d + np.where(r % 2 == 0, k, d - 1 - k)
+    key = np.where(r < np.clip(rows - k * lr, 0, lr), rank, n_pad + rank)
+    perm = np.zeros(n_pad, np.int64)
+    perm[np.argsort(key, kind="stable")] = order
+    return perm
+
+
+def run_sums_offset_probe(torch, dev, runs: int = 3000, moves: int = 8) -> list:
+    """How many of ``runs`` runs (lengths 1 to 4096, random f32 values)
+    ``run_sums`` adds to other bits when the whole stream is moved by
+    0 .. ``moves`` - 1 slots, against the unmoved stream: nonzero counts
+    show a summation order that depends on a run's offset."""
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import run_sums
+
+    g = torch.Generator().manual_seed(13)
+    lens = torch.randint(1, 4097, (runs,), generator=g)
+    vals = torch.rand(int(lens.sum()), generator=g).to(dev)
+    off = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(lens, 0)]).to(dev)
+    base = run_sums(vals, off)
+    counts = []
+    for k in range(moves):
+        moved = torch.cat([torch.zeros(k, device=dev), vals])
+        counts.append(int((run_sums(moved, off + k) != base).sum()))
+    return counts
+
+
+def distributed_phase(torch, np, sp, dev, card, a, drive, cuda_ms, host_ms):
+    """Phase 13: the rest of the distributed layer with D = 4 shards
+    stacked on the card: ``sharded_spgemm`` and ``sharded_spgemm_ring``
+    on R-MAT s14 against scipy (bit-equal over calls, no host read), the
+    2-D SpGEMM block by block, the dynamic ``sharded_rmcl_scan`` (no host
+    read) bit for bit against the single-card ``rmcl_scan``, the adaptive
+    ``sharded_rmcl_adaptive`` against the single-card loop, and
+    ``dryrun_multichip(4)``.  None of these modules launches a kernel of
+    its own; the dry run's static R-MCL reaches K1."""
+    import importlib
+
+    from sparse_matrix_with_flops_tpu_torch.config import ABS_TOL, REL_TOL
+    from sparse_matrix_with_flops_tpu_torch.formats import COO
+    from sparse_matrix_with_flops_tpu_torch.ops.flops import row_flops
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        dryrun_multichip,
+        flops_balanced_permutation,
+        make_mesh,
+        row_sharding,
+        shard_csr,
+        unshard_csr,
+    )
+    from sparse_matrix_with_flops_tpu_torch.parallel import rmcl as PR
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import (
+        plan_spgemm_ring,
+        sharded_spgemm,
+        sharded_spgemm_ring,
+    )
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm2d import (
+        shard_csr_2d,
+        sharded_spgemm_2d,
+    )
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    R = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl")
+    t_phase = time.perf_counter()
+    d = 4
+    failed = []
+    mesh = make_mesh(d)  # the card, by default
+    if mesh.device != dev:
+        raise AssertionError(f"make_mesh({d}) is on {mesh.device}, not {dev}")
+
+    # ---- 13a. sharded and ring SpGEMM on s14 against scipy ---------------
+    rp, ci, v = a.to_numpy()
+    n = a.rows
+    amat = sp.csr_matrix((v.astype(np.float64), ci, rp), shape=a.shape)
+    pat = sp.csr_matrix((np.ones(ci.size), ci, rp), shape=a.shape)
+    ps = (pat @ pat).tocsr()
+    ps.sort_indices()
+    cm = (amat @ amat).tocsr()
+    am = (abs(amat) @ abs(amat)).tocsr()
+    am.sort_indices()
+
+    def keys(m):
+        r = np.repeat(np.arange(m.shape[0], dtype=np.int64), np.diff(m.indptr))
+        return r * m.shape[1] + m.indices
+
+    def check_block(what, grp, gci, gv, r0, r1, c0, c1):
+        """C's rows r0:r1, columns c0:c1 (shifted to 0): structure equal
+        to scipy's pattern product, values within REL_TOL of the f64
+        product relative to |A||A|."""
+        ps_b, am_b = ps[r0:r1, c0:c1].tocsr(), am[r0:r1, c0:c1].tocsr()
+        cm_b = cm[r0:r1, c0:c1].tocsr()
+        for m in (ps_b, am_b, cm_b):
+            m.sort_indices()
+        if not (np.array_equal(grp, ps_b.indptr) and np.array_equal(gci, ps_b.indices)):
+            failed.append(f"{what}: row_ptr/col_ind differ from scipy")
+            log(f"FAIL {failed[-1]}")
+            return
+        ref = np.zeros(ps_b.nnz)
+        ref[np.searchsorted(keys(ps_b), keys(cm_b))] = cm_b.data
+        err = np.abs(gv - ref)
+        ok = np.isfinite(gv) & (err <= REL_TOL * am_b.data + ABS_TOL)
+        log(f"{what}: nnz {gci.size} structure == scipy; max |err|/|A||A| "
+            f"{(err / am_b.data).max(initial=0.0):.3e}")
+        if not ok.all():
+            failed.append(f"{what}: {int((~ok).sum())} values off scipy")
+            log(f"FAIL {failed[-1]}")
+
+    sa = shard_csr(a, d)
+    lr = sa.local_rows
+    elen = np.diff(rp).astype(np.int64)
+    rowf = np.bincount(np.repeat(np.arange(n), np.diff(rp)), weights=elen[ci], minlength=n)
+    shard_flops = rowf.reshape(d, lr).sum(axis=1).astype(np.int64)
+    shard_nnzc = np.diff(ps.indptr).reshape(d, lr).sum(axis=1)
+    pc, oc = int(shard_flops.max()), int(shard_nnzc.max())
+    log(f"sharded s14 D={d}, natural layout: flops a shard {shard_flops.tolist()}, "
+        f"nnz(C) a shard {shard_nnzc.tolist()}; product_cap {pc}, out_cap {oc}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    c1, info = drive(f"sharded_spgemm s14 D={d}",
+                     lambda: sharded_spgemm(mesh, sa, sa, pc, oc), ())
+    peak_spgemm = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    plan, ents = plan_spgemm_ring(sa, sa)
+    plan_ms0 = (time.perf_counter() - t0) * 1e3
+    plan_ms = host_ms(torch, lambda: plan_spgemm_ring(sa, sa), 3)
+    log(f"plan_spgemm_ring s14 D={d}: {plan_ms:.3f} ms host (median of 3; first "
+        f"{plan_ms0:.3f}); step widths {plan.step_widths} product caps "
+        f"{plan.step_prod_caps} [{card}]")
+    c2, info2 = drive(f"sharded_spgemm_ring s14 D={d}",
+                      lambda: sharded_spgemm_ring(mesh, sa, sa, out_cap=oc, plan=plan,
+                                                  step_ents=ents), ())
+    if not (np.array_equal(info["flops"].cpu().numpy(), shard_flops)
+            and np.array_equal(info2["flops"].cpu().numpy(), shard_flops)
+            and np.array_equal(info["nnz"].cpu().numpy(), shard_nnzc)):
+        failed.append("sharded SpGEMM: per-shard flops or nnz(C) off the host's")
+    for what, c in (("sharded_spgemm", c1), ("sharded_spgemm_ring", c2)):
+        check_block(f"{what} s14 D={d} (unsharded)", *unshard_csr(c).to_numpy(), 0, n, 0, n)
+    # bit-equal over calls, with no host read
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = sharded_spgemm(mesh, sa, sa, pc, oc)[0]
+        ring2 = sharded_spgemm_ring(mesh, sa, sa, out_cap=oc, plan=plan, step_ents=ents)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same = all(torch.equal(getattr(x, f), getattr(y, f)) for x, y in ((c1, again), (c2, ring2))
+               for f in ("row_ptr", "col_ind", "values"))
+    log(f"sharded_spgemm and sharded_spgemm_ring: a second call with no host read (sync "
+        f"debug mode \"error\") {'==' if same else '!='} the first bit for bit")
+    if not same:
+        failed.append("sharded SpGEMM: a second call gave other bits")
+    del again, ring2
+    sh_ms = cuda_ms(torch, lambda: sharded_spgemm(mesh, sa, sa, pc, oc), reps=5, warm=1)
+    ring_ms = cuda_ms(torch, lambda: sharded_spgemm_ring(mesh, sa, sa, out_cap=oc, plan=plan,
+                                                         step_ents=ents), reps=5, warm=1)
+    log(f"sharded_spgemm s14 D={d} warm: {sh_ms:.3f} ms; sharded_spgemm_ring {ring_ms:.3f} "
+        f"ms (CUDA events, median of 5); peak device memory of the first call "
+        f"{peak_spgemm / 2**30:.3f} GiB above its inputs [{card}]")
+    del c1, c2, info, info2, plan, ents
+    torch.cuda.synchronize()
+
+    # ---- 13b. 2-D SpGEMM, (nx, ny) = (2, 2) --------------------------------
+    nx = ny = 2
+    mesh2 = make_mesh((nx, ny))
+    b_rp, b_ci, b_v, stripe, b_rows = shard_csr_2d(a, nx, ny)
+    sa2 = shard_csr(a, nx)
+    lr2 = sa2.local_rows
+    erow = np.repeat(np.arange(n), np.diff(rp))
+    caps = []
+    for y in range(ny):
+        sel = (ci >= y * stripe) & (ci < (y + 1) * stripe)
+        blen = np.bincount(erow[sel], minlength=n)
+        rf_y = np.bincount(erow, weights=blen[ci], minlength=n).reshape(nx, lr2).sum(axis=1)
+        nnz_y = [ps[x * lr2:(x + 1) * lr2, y * stripe:(y + 1) * stripe].nnz for x in range(nx)]
+        caps += list(zip(rf_y.astype(np.int64).tolist(), nnz_y))
+    pc2, oc2 = max(c for c, _ in caps), max(z for _, z in caps)
+    blocks = drive(f"sharded_spgemm_2d s14 ({nx}, {ny})",
+                   lambda: sharded_spgemm_2d(mesh2, sa2, b_rp, b_ci, b_v, stripe, b_rows, pc2,
+                                             oc2), ())
+    c_rp, c_ci, c_v = (x.cpu().numpy() for x in blocks)
+    for x in range(nx):
+        for y in range(ny):
+            nz = int(c_rp[x, y, -1])
+            check_block(f"sharded_spgemm_2d block [{x}, {y}]", c_rp[x, y], c_ci[x, y, :nz],
+                        c_v[x, y, :nz], x * lr2, (x + 1) * lr2, y * stripe, (y + 1) * stripe)
+    ms2 = cuda_ms(torch, lambda: sharded_spgemm_2d(mesh2, sa2, b_rp, b_ci, b_v, stripe, b_rows,
+                                                   pc2, oc2), reps=5, warm=1)
+    log(f"sharded_spgemm_2d s14 ({nx}, {ny}): product_cap {pc2} out_cap {oc2}; warm "
+        f"{ms2:.3f} ms (CUDA events, median of 5) [{card}]")
+    del blocks, b_rp, b_ci, b_v, sa2, sa, cm, am, ps, pat, amat
+    torch.cuda.synchronize()
+
+    # ---- 13c. dynamic sharded R-MCL against the single-card scan ---------
+    g = rmat_csr(14, edge_factor=8, seed=7)  # phase 8's graph, unit weights
+    grp, gci, gv = g.to_numpy()
+    coo = COO.from_numpy(np.repeat(np.arange(n), np.diff(grp)), gci, gv, n, n,
+                         capacity=gci.size + n, device=dev)
+    mt0 = R.rmcl_init(coo)
+    rf0 = row_flops(mt0, mt0).cpu().numpy()
+    perm = flops_balanced_permutation(rf0, d)
+    mtp = mt0.conjugate_permute(torch.from_numpy(perm))
+    flops1, _ = spgemm_upper_bounds(mtp, mtp)
+    smgt = shard_csr(mtp, d)
+    margin = 4.0
+    pcs, ccs = PR.plan_shard_capacities(smgt, flops1, margin=margin)
+    smt = shard_csr(mtp, d, local_capacity=ccs)
+    log(f"dynamic sharded R-MCL s14 D={d}: nnz {int(mtp.nnz)}, flops-balanced relabel; "
+        f"iteration 1 flops {flops1}; margin {margin}: product_cap = c_cap = {pcs} a shard")
+    iters = 3
+    PR.sharded_rmcl_scan(mesh, smgt, smt, pcs, ccs, 1)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")  # any device-to-host read raises
+    try:
+        s.record()
+        smt3, hist = drive(f"sharded_rmcl_scan s14 D={d} {iters} iterations",
+                           lambda: PR.sharded_rmcl_scan(mesh, smgt, smt, pcs, ccs, iters), ())
+        e.record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    e.synchronize()
+    scan_ms = s.elapsed_time(e) / iters
+    peak_scan = torch.cuda.max_memory_allocated() - base
+    hist = {k: x.cpu().numpy() for k, x in hist.items()}
+    log(f"sharded_rmcl_scan s14 D={d}: no device-to-host read in {iters} steps; "
+        f"{scan_ms:.3f} ms/iteration (CUDA events); flops {hist['flops'].tolist()} nnz "
+        f"{hist['nnz_mt'].tolist()} overflow {hist['overflow'].tolist()} differs "
+        f"{hist['differs'].tolist()}; peak device memory {peak_scan / 2**30:.3f} GiB above "
+        f"its inputs [{card}]")
+    if hist["overflow"].any():
+        failed.append(f"sharded_rmcl_scan overflows at margin {margin}: raise the margin")
+    ka = profile_kernels(torch, lambda: PR.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs))
+    log(f"sharded_rmcl_step s14 D={d} step 1 under torch.profiler: " + breakdown(ka, 6))
+    pc1, cc1 = R.plan_capacities(mtp, mtp, 2.5)
+    one, h1 = R.rmcl_scan(mtp, mtp.with_capacity(cc1), pc1, cc1, iters)
+    h1 = {k: x.cpu().numpy() for k, x in h1.items()}
+    got, want = unshard_csr(smt3).to_numpy(), one.to_numpy()
+    same = all(np.array_equal(x, y) for x, y in zip(got, want))
+    diff_rel = np.abs(hist["differs"] - h1["differs"]) / np.abs(h1["differs"])
+    log(f"sharded_rmcl_scan {'==' if same else '!='} the single-card rmcl_scan (margin 2.5, "
+        f"cap {pc1}) bit for bit after {iters} iterations; nnz {h1['nnz'].tolist()} flops "
+        f"{h1['flops'].tolist()}; differs relative gap {diff_rel.max():.3e}")
+    if not same:
+        # Each shard's products for a row are the single card's, in the
+        # same order, but at another offset of the stream.  The cause
+        # held to: run_sums (CUB's segmented reduce) adds a run in an
+        # order that depends on where the run starts, and at D = 1 (the
+        # single card's offsets) the bits are equal.
+        counts = run_sums_offset_probe(torch, dev)
+        log(f"  run_sums of 3,000 runs moved by 0..7 slots: runs whose bits differ from "
+            f"offset 0: {counts}")
+        smgt1 = shard_csr(mtp, 1)
+        one1, _ = PR.sharded_rmcl_scan(make_mesh(1), smgt1, shard_csr(mtp, 1, local_capacity=cc1),
+                                       pc1, cc1, iters)
+        same1 = all(np.array_equal(x, y) for x, y in zip(unshard_csr(one1).to_numpy(), want))
+        log(f"  sharded_rmcl_scan at D = 1 (the single card's offsets) "
+            f"{'==' if same1 else '!='} rmcl_scan bit for bit")
+        del one1, smgt1
+        rel = np.full(1, np.inf)
+        struct = np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+        if struct:
+            rel = np.abs(got[2] - want[2]) / np.abs(want[2])
+            log(f"  D = {d}: the structure is equal; {int((got[2] != want[2]).sum())} of "
+                f"{got[2].size} values differ, max relative {rel.max():.3e}")
+        g1 = unshard_csr(PR.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs)[0]).to_numpy()
+        w1 = R.rmcl_one_step(mtp, mtp.with_capacity(cc1), pc1, cc1)[0].to_numpy()
+        if np.array_equal(g1[0], w1[0]) and np.array_equal(g1[1], w1[1]):
+            log(f"  after iteration 1: {int((g1[2] != w1[2]).sum())} of {g1[2].size} values "
+                f"differ, max relative {(np.abs(g1[2] - w1[2]) / np.abs(w1[2])).max():.3e}")
+        if not (any(counts) and counts[0] == 0 and same1 and struct and rel.max() <= 1e-6):
+            failed.append("sharded_rmcl_scan differs from the single-card scan beyond the "
+                          "summation order of run_sums")
+    if not (np.array_equal(hist["nnz_mt"], h1["nnz"]) and np.array_equal(hist["flops"],
+                                                                         h1["flops"])):
+        failed.append("sharded_rmcl_scan: nnz or flops history off the single card's")
+    if not (diff_rel <= 1e-6).all():
+        failed.append("sharded_rmcl_scan: differs off the single card's by more than 1e-6")
+    del smt3, one, smgt, smt, mtp, ka
+    torch.cuda.synchronize()
+
+    # ---- 13d. adaptive sharded R-MCL against the single-card loop --------
+    lr = -(-n // d)
+    pca = max(16, int(np.ceil(int(rf0.sum()) / d * 2.0)))
+    lcap_t = max(pca, int(mt0.capacity))
+    smgt = shard_csr(mt0, d, local_capacity=lcap_t)
+    smt = shard_csr(mt0, d, local_capacity=lcap_t)
+    rfb = torch.from_numpy(rf0.astype(np.int32).reshape(d, lr)).to(dev)
+    rep = PR._device_repartition_pair(mesh, smgt, smt, rfb, n)
+    perm_dev = rep[2].cpu().numpy()
+    perm_np = snake_perm_np(np, rf0, n, d, lr)
+    same = np.array_equal(perm_dev, perm_np) and np.array_equal(
+        perm_dev[perm_dev < n], flops_balanced_permutation(rf0, d))
+    log(f"_snake_perm_device of iteration 1 {'==' if same else '!='} its numpy recomputation "
+        f"(and the host's flops_balanced_permutation) index for index; spread after "
+        f"{float(rep[4]):.4f}, overflow {bool(rep[3])}")
+    if not same:
+        failed.append("the device snake permutation differs from numpy's")
+    rep_ms = cuda_ms(torch, lambda: PR._device_repartition_pair(mesh, smgt, smt, rfb, n),
+                     reps=5, warm=1)
+    del rep, smgt, smt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, ah = drive(f"sharded_rmcl_adaptive s14 D={d} {iters} iterations",
+                    lambda: PR.sharded_rmcl_adaptive(mt0, mesh, max_iters=iters), ())
+    torch.cuda.synchronize()
+    ad_ms = (time.perf_counter() - t0) * 1e3 / iters
+    log(f"sharded_rmcl_adaptive s14 D={d}: {ad_ms:.3f} ms/iteration (host clock, set-up and "
+        f"the final unshard included); one repartition {rep_ms:.3f} ms (CUDA events, median "
+        f"of 5); rebalanced {ah['rebalanced'].tolist()} spread_before "
+        f"{[round(float(x), 4) for x in ah['spread_before']]} spread_after "
+        f"{[round(float(x), 4) for x in ah['spread_after']]} nnz {ah['nnz'].tolist()} "
+        f"overflow {ah['overflow'].tolist()} [{card}]")
+    if ah["overflow"].any():
+        failed.append("sharded_rmcl_adaptive overflows")
+    loop = R.rmcl(mt0, max_iters=iters, mode="loop")
+    rp0, ci0, v0 = mt0.to_numpy()
+    a64 = sp.csr_matrix((v0.astype(np.float64), ci0, rp0), shape=mt0.shape)
+    prev = a64
+    near = np.zeros(n, bool)
+    for _ in range(iters):
+        prev, nr = general_oracle_step(np, sp, a64, prev)
+        near |= nr
+    grp, gci, gv = out.to_numpy()
+    lrp, lci, lv = loop.mt.to_numpy()
+    failed += compare_csr(
+        np, f"sharded_rmcl_adaptive vs single-card rmcl loop ({iters} iterations)",
+        sp.csr_matrix((gv, gci, grp), shape=mt0.shape),
+        sp.csr_matrix((lv, lci, lrp), shape=mt0.shape), near, tol=1e-5)
+    if not np.allclose(ah["differs"], loop.differs_history, rtol=1e-3, atol=1e-5):
+        failed.append("sharded_rmcl_adaptive: differs history off the single-card loop's")
+    del out, loop, mt0, coo
+    torch.cuda.synchronize()
+
+    # ---- 13e. the multi-shard dry run --------------------------------------
+    drive("dryrun_multichip(4)", lambda: dryrun_multichip(4), ())
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s; peak device memory above the "
+        f"inputs: sharded_spgemm {peak_spgemm / 2**30:.3f} GiB, sharded_rmcl_scan "
+        f"{peak_scan / 2**30:.3f} GiB [{card}]")
+    if failed:
+        raise AssertionError("phase 13: " + "; ".join(failed))
 
 
 def main() -> int:
@@ -1787,6 +2158,10 @@ def main() -> int:
                      scipy_check)
     finally:
         tmp.cleanup()
+    torch.cuda.synchronize()
+
+    # ---- 13. the rest of the distributed layer, D = 4 shards on the card -
+    distributed_phase(torch, np, sp, dev, card, a, drive, cuda_ms, host_ms)
     torch.cuda.synchronize()
 
     for k, n in launches.items():

@@ -81,12 +81,14 @@ def segment_sum(
 
 def run_sums(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """Sums of the contiguous runs ``values[offsets[i]:offsets[i + 1]]``
-    (an empty run sums to 0), each added up in an order fixed by the run
-    alone: the same run gives the same bits in every call, whatever lies
-    around it.  :func:`segment_sum`'s scatter-add is float atomics on
-    CUDA, whose order changes from run to run.  ``offsets`` must be
-    non-decreasing and within ``[0, len(values)]``; values past
-    ``offsets[-1]`` are left out."""
+    (an empty run sums to 0), each added up in a fixed order: the same
+    stream gives the same bits in every call.  On CUDA (CUB's segmented
+    reduce) the order also depends on where a run starts in ``values``,
+    so the same run at another offset can differ in its last bits.
+    :func:`segment_sum`'s scatter-add is float atomics on CUDA, whose
+    order changes from call to call.  ``offsets`` must be non-decreasing
+    and within ``[0, len(values)]``; values past ``offsets[-1]`` are
+    left out."""
     return torch.segment_reduce(values, "sum", offsets=offsets.long(), unsafe=True)
 
 

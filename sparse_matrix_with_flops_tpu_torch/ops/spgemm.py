@@ -126,7 +126,7 @@ def esc_compress(prow, pcol, pval, flags, seg, nnzc, total, rows: int, ncols: in
     the sentinel (rows, ncols, 0) past nnz(C); segments past ``out_cap``
     are dropped.  ``total`` is the flop count of :func:`esc_expand`.
     Each value sums its segment's run of products in a fixed order
-    (``run_sums``), so equal products give equal bits on the card."""
+    (``run_sums``), so the same stream gives the same bits on the card."""
     cap, dev = prow.shape[0], prow.device
     # each segment's first product; segments past nnz(C) start at the
     # end of the valid products, and one dump slot takes the rest

@@ -270,6 +270,33 @@ def _segments_gathered(plan, a_rp, a_ci, a_v, g_cols, g_vals):
     return seg_c, seg_v
 
 
+def dense_blocks(lc, lv, n: int):
+    """Every shard's iterate block [lr, S] as dense rows [D, lr, n], in
+    one plain indexed set: a row holds each real column at most once
+    (the ELL invariant that ``mt_to_ell`` sets and every step keeps,
+    ``models/rmcl_ell.py:147-150``), so only the sentinel column n
+    repeats, and it is cut off.  No accumulation, so no float atomics."""
+    d, lr, _ = lc.shape
+    md = torch.zeros((d, lr, n + 1), dtype=QVALUE_DTYPE, device=lc.device)
+    shard = torch.arange(d, device=lc.device)[:, None, None]
+    rix = torch.arange(lr, device=lc.device)[None, :, None]
+    md.index_put_((shard, rix, lc.long()), lv)
+    return md[:, :, :n]
+
+
+def hub_block(slot, pos, val, hmax: int, width: int):
+    """One (shard, owner) pair's hub entries as the dense [hmax, width]
+    operand of its hub product: one ``index_add_`` into a flat buffer
+    whose extra row takes the -1 pads.  A hub row holds each column once
+    (a CSR row), so a cell receives at most one entry and its sum is
+    exact in any order; a caller's duplicate columns are summed, as the
+    reference's scatter-add sums them.  (An accumulating ``index_put_``
+    serialises the pads, which all land on one cell.)"""
+    flat = torch.zeros((hmax + 1) * width, dtype=QVALUE_DTYPE, device=val.device)
+    flat.index_add_(0, torch.where(slot >= 0, slot, hmax) * width + pos, val)
+    return flat.view(hmax + 1, width)[:hmax]
+
+
 def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True):
     """Per-entry segments of every shard (+ the hub products when
     ``hub``) through the ring: the iterate blocks rotate rightwards, so
@@ -290,11 +317,7 @@ def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True):
     hmax = plan.hmax if hub else 0
     c_h = md_me = None
     if hmax:
-        rix = torch.arange(lr, device=dev)[:, None]
-        md_me = torch.zeros((d, lr, n + 1), dtype=QVALUE_DTYPE, device=dev)
-        for me in range(d):  # col n (the sentinel) is the dump
-            md_me[me].index_put_((rix, lc[me].long()), lv[me], accumulate=True)
-        md_me = md_me[:, :, :n]
+        md_me = dense_blocks(lc, lv, n)
         c_h = torch.zeros((d, hmax, n), dtype=QVALUE_DTYPE, device=dev)
     block_c, block_v = lc, lv
     for k in range(d):
@@ -311,13 +334,9 @@ def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True):
                 slot = arrays["hub_ent_slot"][me][owner].long()
                 pos = arrays["hub_ent_pos"][me][owner].long()
                 idx = arrays["hub_kidx"][me][owner].long()
-                ab = torch.zeros((hmax + 1, idx.shape[0]), dtype=QVALUE_DTYPE, device=dev)
-                ab.index_put_(
-                    (torch.where(slot >= 0, slot, hmax), pos),
-                    arrays["hub_ent_val"][me][owner], accumulate=True,
-                )
+                ab = hub_block(slot, pos, arrays["hub_ent_val"][me][owner], hmax, idx.shape[0])
                 with true_f32():
-                    part = torch.matmul(ab[:hmax], md_me[me][idx.clamp(0, lr - 1)])
+                    part = torch.matmul(ab, md_me[me][idx.clamp(0, lr - 1)])
                 c_h[me] = c_h[me] + part
         if hmax:
             c_h = torch.roll(c_h, 1, 0)  # ppermute i -> i + 1

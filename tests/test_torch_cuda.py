@@ -1049,3 +1049,122 @@ def test_spgemm_ell_partitioned_on_card_matches_scipy(dev):
         grp, gci, gv = c.to_numpy()
         assert np.array_equal(grp, mag.indptr) and np.array_equal(gci, mag.indices)
         assert (np.abs(gv - want) <= REL_TOL * mag.data + ABS_TOL).all()
+
+
+# ---- the distributed layer on the card (shards stacked on one card) ------------------
+def _sharded_pair(dev, d=4):
+    from sparse_matrix_with_flops_tpu_torch.parallel.sharded import shard_csr
+
+    a = rmat_csr(10, edge_factor=8, seed=5, weights="random", device="cpu")
+    return a, shard_csr(a, d), shard_csr(a.to(dev), d)
+
+
+def test_make_mesh_2d_defaults_to_the_card(dev):
+    m = make_mesh((2, 2))
+    assert m.device.type == "cuda" and m.num_shards == 4 and m.shape == (2, 2)
+
+
+def test_sharded_spgemm_and_ring_on_card_match_cpu_path(dev):
+    """Both exchanges on the card: bit-equal over two calls, no host read
+    with the plan passed in, the CPU run's structure and values within
+    the comparators."""
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel.sharded import unshard_csr
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import (
+        plan_spgemm_ring,
+        sharded_spgemm,
+        sharded_spgemm_ring,
+    )
+
+    a, sc, sd = _sharded_pair(dev)
+    flops, _ = spgemm_upper_bounds(a, a)
+    cpu_mesh, mesh = make_mesh(4, "cpu"), make_mesh(4, dev)
+    want = sharded_spgemm(cpu_mesh, sc, sc, flops, flops)[0]
+    want_ring = sharded_spgemm_ring(cpu_mesh, sc, sc, out_cap=flops)[0]
+    plan, ents = plan_spgemm_ring(sd, sd)
+    runs = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            runs.append((sharded_spgemm(mesh, sd, sd, flops, flops)[0],
+                         sharded_spgemm_ring(mesh, sd, sd, out_cap=flops, plan=plan,
+                                             step_ents=ents)[0]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for (g1, r1), (g2, r2) in zip(runs[:1], runs[1:]):
+        for x, y in ((g1, g2), (r1, r2)):
+            assert x.values.device.type == "cuda"
+            assert torch.equal(x.row_ptr, y.row_ptr) and torch.equal(x.values, y.values)
+    for got, ref in ((runs[0][0], want), (runs[0][1], want_ring)):
+        _same_csr(unshard_csr(got), unshard_csr(ref))
+
+
+def test_sharded_rmcl_scan_makes_no_host_read(dev):
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_scan
+    from sparse_matrix_with_flops_tpu_torch.parallel.rmcl import (
+        plan_shard_capacities,
+        sharded_rmcl_scan,
+    )
+    from sparse_matrix_with_flops_tpu_torch.parallel.sharded import shard_csr, unshard_csr
+
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+
+    mt0 = _rmcl_init_s12(dev)
+    flops, _ = spgemm_upper_bounds(mt0, mt0)
+    smgt = shard_csr(mt0, 4)
+    pc, cc = plan_shard_capacities(smgt, flops, margin=6.0)
+    smt = shard_csr(mt0, 4, local_capacity=cc)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, hist = sharded_rmcl_scan(make_mesh(4, dev), smgt, smt, pc, cc, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.values.device.type == "cuda" and hist["nnz_mt"].device.type == "cuda"
+    assert not bool(hist["overflow"].any())
+    # the single-card scan on the same rows: the same structure, and the
+    # values but for run_sums' summation order, which depends on where a
+    # run starts in the stream (PERF.md)
+    single, sh = rmcl_scan(mt0, mt0.with_capacity(4 * cc), 4 * pc, 4 * cc, 3)
+    (grp, gci, gv), (wrp, wci, wv) = unshard_csr(out).to_numpy(), single.to_numpy()
+    np.testing.assert_array_equal(grp, wrp)
+    np.testing.assert_array_equal(gci, wci)
+    np.testing.assert_allclose(gv, wv, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(hist["nnz_mt"].cpu().numpy(), sh["nnz"].cpu().numpy())
+
+
+def test_ring_densify_equals_the_accumulating_index_put_on_card(dev):
+    """The ring exchange's densifies on the card: the plain set of the
+    iterate blocks and the hub operands' ``index_add_`` give the
+    accumulating index_put_'s bits (one value a cell; the sentinel
+    column and the pads' row cut off)."""
+    from sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell import dense_blocks
+
+    t = _rmcl_graph(512, 0.02, (9,), 3)
+    plan, arrays, smgt = sharded_plan(t, 4, S=128, max_tile=1024)
+    cols, vals = RMCL.mt_to_ell(t, 128)
+    lc = torch.where(cols >= t.ncols, plan.n, cols).reshape(4, plan.lr, 128).to(dev)
+    lv = vals.reshape(4, plan.lr, 128).to(dev)
+    n = plan.n
+    want = torch.zeros((4, plan.lr, n + 1), device=dev)
+    rix = torch.arange(plan.lr, device=dev)[:, None]
+    for me in range(4):
+        want[me].index_put_((rix, lc[me].long()), lv[me], accumulate=True)
+    got = dense_blocks(lc, lv, n)
+    assert torch.equal(got, want[:, :, :n])
+    # and the hub operands of every (shard, owner) pair
+    from sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell import hub_block
+
+    hmax = plan.hmax
+    assert hmax > 0
+    for me in range(4):
+        for owner in range(4):
+            slot, pos, val = (arrays[k][me][owner].to(dev) for k in (
+                "hub_ent_slot", "hub_ent_pos", "hub_ent_val"))
+            width = arrays["hub_kidx"][me][owner].shape[0]
+            acc = torch.zeros((hmax + 1, width), device=dev)
+            acc.index_put_((torch.where(slot >= 0, slot, hmax).long(), pos.long()), val,
+                           accumulate=True)
+            assert torch.equal(hub_block(slot.long(), pos.long(), val, hmax, width), acc[:hmax])
+

@@ -210,3 +210,68 @@ def test_sharded_rejects_unknown_exchange():
     t = port_csr(_graph("plain"))
     with pytest.raises(ValueError):
         TP.sharded_rmcl_ell(t, make_mesh(2, "cpu"), max_iters=1, S=16, exchange="tree")
+
+
+def _accumulating_densify(lc, lv, n):
+    """The ring exchange's densify as it was: one accumulating
+    ``index_put_`` a shard into [lr, n + 1], the sentinel column cut."""
+    d, lr, _ = lc.shape
+    md = torch.zeros((d, lr, n + 1), dtype=lv.dtype)
+    rix = torch.arange(lr)[:, None]
+    for me in range(d):
+        md[me].index_put_((rix, lc[me].long()), lv[me], accumulate=True)
+    return md[:, :, :n]
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("source", ["random", "iterate"])
+def test_dense_blocks_equals_the_accumulating_densify(d, source):
+    """The plain indexed set of ``dense_blocks`` equals the accumulating
+    densify bit for bit: each row's real columns are distinct (the ELL
+    invariant) and only the sentinel column n, cut off, repeats.  On a
+    random ELL iterate with padded lanes, and on the hub graph's iterate
+    after one step of the ring exchange."""
+    if source == "random":
+        rng = np.random.default_rng(d)
+        lr, S = 16, 8
+        n = d * lr
+        lc = np.full((d, lr, S), n, np.int32)
+        lv = np.zeros((d, lr, S), np.float32)
+        for me in range(d):
+            for r in range(lr):
+                k = int(rng.integers(0, S + 1))  # 0 to S real lanes, in any order
+                lc[me, r, :k] = rng.choice(n, size=k, replace=False)
+                lv[me, r, :k] = rng.random(k).astype(np.float32) + 0.01
+        lc, lv = torch.from_numpy(lc), torch.from_numpy(lv)
+    else:
+        t = port_csr(_graph("hub"))
+        plan, arrays, smgt = TP.plan_sharded_rmcl_ell(t, d, S=32, max_tile=256)
+        cols, vals = TR.mt_to_ell(t, 32)
+        n = plan.n
+        cols = torch.where(cols >= t.ncols, n, cols).reshape(d, plan.lr, 32)
+        lc, lv, _ = TP._sharded_step(plan, smgt, arrays, cols, vals.reshape(d, plan.lr, 32),
+                                     "ring")
+        assert bool((lc == n).any())  # padded lanes present
+    got = TP.dense_blocks(lc, lv, n)
+    assert got.shape == (d, lc.shape[1], n)
+    assert torch.equal(got, _accumulating_densify(lc, lv, n))
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("kind", ["hub", "odd"])
+def test_hub_block_equals_the_accumulating_densify(d, kind):
+    """The ring exchange's hub operand of every (shard, owner) pair as
+    ``hub_block`` builds it equals the accumulating ``index_put_`` it
+    replaced, bit for bit, -1 pads and all."""
+    plan, arrays, _ = TP.plan_sharded_rmcl_ell(port_csr(_graph(kind)), d, S=32, max_tile=256)
+    hmax = plan.hmax
+    assert hmax > 0
+    for me in range(d):
+        for owner in range(d):
+            slot = arrays["hub_ent_slot"][me][owner].long()
+            pos = arrays["hub_ent_pos"][me][owner].long()
+            val = arrays["hub_ent_val"][me][owner]
+            width = arrays["hub_kidx"][me][owner].shape[0]
+            want = torch.zeros((hmax + 1, width))
+            want.index_put_((torch.where(slot >= 0, slot, hmax), pos), val, accumulate=True)
+            assert torch.equal(TP.hub_block(slot, pos, val, hmax, width), want[:hmax])
