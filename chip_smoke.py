@@ -5,13 +5,16 @@
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``sparse_matrix_with_flops_tpu_torch/csrc``;
-3. holds each kernel (K1-K4) against its plain PyTorch twin on the card,
+3. holds each kernel (K1-K4, K9) against its plain PyTorch twin on the card,
    on inputs cut from the R-MAT s14 plan, and times both; K4 also on
    2^25 + 3 words off the 16-byte grid (4097 tiles, more than the card
    holds resident CTAs); K3 both as the assembly calls it (its windows
    and its row heads in one launch) and on the windows alone, beside
    an index of an unfolded view a stream; K2 and K3 also on the device
-   alone (torch.profiler);
+   alone (torch.profiler); K9 (``run_sums``) on an offset probe (3,000 runs
+   of 1-4096 values moved by 0-7 slots: K9 gives every move the same bits,
+   torch.segment_reduce does not) and bit for bit against its plain
+   version on the CPU;
 4. runs ``spgemm_auto`` on R-MAT s14 (edge factor 8, seed 7, random
    weights; routes ``ell``) and on the cant-class band
    ``banded_csr(62451, 32)`` (routes ``block``), checks both products
@@ -90,7 +93,26 @@
    iterations, its first snake permutation against numpy's, its result
    against the single-card loop by the R-MCL gate (values within 1e-5),
    a repartition timed alone; ``dryrun_multichip(4)``.  It logs its wall
-   time and the peak device memory of the sharded SpGEMM and the scan.
+   time and the peak device memory of the sharded SpGEMM and the scan;
+14. R-MCL on planted partitions (``planted_partition_coo``, the users'
+   test of the clustering): ``tools/cluster_quality.py``'s 64 x 64 nodes
+   (p_in 0.3, p_out 0.0005, seed 1, 8 iterations, floor 0.2) through
+   ``rmcl`` (K9) and ``rmcl_ell`` (K1), clusters, purity and the paths'
+   label agreement; ``tools/bench_rmcl_scale.py``'s 1024 x 64 = 65,536
+   nodes (p_out 8/n, seed 11, nnz(A) 1,825,520, S = 128): ``plan_rmcl_ell``
+   ms, ms an iteration as the slope of CUDA-event medians at 2 and 6
+   iterations, iteration 1 against the f64 oracle, 30 iterations to
+   clusters at weight floor 0.05 with purity >= 0.95, and one stream step's
+   run sums (K9) at that scale.
+
+K9's records hold it bit for bit against its plain version on the CPU
+on every run_sums call of a path (captured in one call: general R-MCL
+step 1 in phase 11, binned s14's huge rows in phase 12, the sharded
+step in phase 13, the planted step in phase 14), and time those calls
+together against torch.segment_reduce, CUB's segmented reduce, which
+is also K9's plain version on a card tensor.  Phase 12 also times
+``plan_ell`` on s14 cold in fresh processes with and without
+``prefault(1 << 28)`` first.
 
 K1's tiles log their longest run of one column (what a run sum costs):
 at s14 (phases 3 and 5) and in one R-MCL step (phase 8).  Its cases in
@@ -144,6 +166,12 @@ REPLACES = {
     "ring_all_gather": "sparse_matrix_with_flops_tpu/parallel/pallas_ring.py:64",
     "ring_matmul": "sparse_matrix_with_flops_tpu/parallel/pallas_ring.py:136",
     "ring_matmul_tiled": "sparse_matrix_with_flops_tpu/parallel/pallas_ring.py:254",
+    "run_sums": "sparse_matrix_with_flops_tpu/ops/segments.py:106",
+}
+# K9 is the port's own kernel: the line it names is no pl.pallas_call
+REPLACES_NOTE = {
+    "run_sums": "no TPU kernel: the JAX package sums its runs with XLA's jax.ops.segment_sum "
+                "(plain XLA); K9 fixes the card's summation order to a run's own, left to right",
 }
 SOURCES = {
     "sort_dedup_compact": f"{PKG}/csrc/sort_dedup_compact.cu",
@@ -154,7 +182,26 @@ SOURCES = {
     "ring_all_gather": f"{PKG}/csrc/ring.cu",
     "ring_matmul": f"{PKG}/csrc/ring.cu",
     "ring_matmul_tiled": f"{PKG}/csrc/ring.cu",
+    "run_sums": f"{PKG}/csrc/run_sums.cu",
 }
+PREFAULT_PROBE = """
+import json, sys, time
+from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+from sparse_matrix_with_flops_tpu_torch.utils import nphost
+from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device="cpu")
+t0 = time.perf_counter()
+if sys.argv[1] == "1":
+    nphost.prefault(1 << 28)
+t1 = time.perf_counter()
+plan_ell(a, a)
+t2 = time.perf_counter()
+plan_ell(a, a)
+t3 = time.perf_counter()
+print(json.dumps({"prefault_ms": (t1 - t0) * 1e3, "cold_ms": (t2 - t1) * 1e3,
+                  "warm_ms": (t3 - t2) * 1e3, "heap": nphost._HEAP}))
+"""
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -745,7 +792,8 @@ def compare_csr(np, what, got, want, near, tol=None):
     return failed
 
 
-def general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, host_ms):
+def general_rmcl_phase(torch, np, sp, dev, card, drive, record, coo, static5, cuda_ms,
+                       host_ms):
     """Phase 11: the general R-MCL application from a graph file, on the
     card: ``load_coo`` of a SNAP file against the in-memory COO,
     ``rmcl`` scan and loop at margin 2.5 (scan with no host read, each
@@ -764,8 +812,13 @@ def general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, h
     from sparse_matrix_with_flops_tpu_torch.models import checkpoint as CK
     from sparse_matrix_with_flops_tpu_torch.models import clusters as CL
     from sparse_matrix_with_flops_tpu_torch.models.rmcl_ell import rmcl_ell
-    from sparse_matrix_with_flops_tpu_torch.ops.segments import run_sums, segment_sum
-    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import esc_expand, esc_sort
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import (
+        blocked_run_sums,
+        run_sums,
+        run_sums_plain,
+        segment_sum,
+    )
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import esc_compress, esc_expand, esc_sort
 
     # the modules, not the functions of the same names that models/ exports
     R = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl")
@@ -807,6 +860,10 @@ def general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, h
     ka = profile_kernels(torch, lambda: R.rmcl_one_step(mgt, mtc, pc, cc))
     log(f"rmcl_one_step s14 step 1 at margin {margin} under torch.profiler: "
         + breakdown(ka, 6))
+    _, calls = capture_run_sums(lambda: R.rmcl_one_step(mgt, mtc, pc, cc))
+    k9_cases(torch, f"general R-MCL s14 step 1 (margin {margin})", calls, record, cuda_ms,
+             device_ms)
+    del calls
     # what the fixed summation order costs: run_sums against index_add_'s
     # float atomics on the same step's sorted products
     prow, pcol, pval, fl = esc_expand(mgt, mtc, pc)
@@ -880,6 +937,8 @@ def general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, h
             np, f"rmcl_one_step {i + 1} vs f64 oracle (from the oracle's iterate {i})",
             sp.csr_matrix((gv, gci, grp), shape=mgt.shape), want, near)
         prev = want.astype(np.float32)
+        if i == 0:
+            prev1 = prev
     oracle_nnz = np.asarray(oracle_nnz)
     log(f"general R-MCL s14: f64 oracle nnz(C) {oracle_nnzc}, nnz(Mt) {oracle_nnz.tolist()}; "
         f"the loop's host "
@@ -887,6 +946,25 @@ def general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms, h
         f"{[round(x, 3) for x in plan]}) [{card}]")
     if (np.abs(scan.nnz_history - oracle_nnz) > MAX_FLIP_SHARE * oracle_nnz).any():
         failed.append("scan: the nnz history is off the f64 oracle's")
+
+    # the prune's row sums of step 2 (from the oracle's iterate 1), each
+    # against its f64 sum: strictly sequential (run_sums) and in 32-value
+    # blocks (blocked_run_sums, what the prune adds)
+    p1 = R.CSR.from_numpy(prev1.indptr, prev1.indices, prev1.data, prev1.shape[1], dev,
+                          capacity=cc)
+    prow, pcol, pval, fl = esc_expand(mgt, p1, pc)
+    prow, pcol, pval, _, flags, seg, nnzc = esc_sort(prow, pcol, pval, mgt.rows)
+    crow, _, cval = esc_compress(prow, pcol, pval, flags, seg, nnzc, fl, mgt.rows, mgt.ncols, cc)
+    w = cval * cval
+    roff = torch.searchsorted(crow, torch.arange(mgt.rows + 1, dtype=crow.dtype, device=dev))
+    exact = run_sums_plain(w.double().cpu(), roff.cpu()).numpy()
+    lens = np.diff(roff.cpu().numpy())
+    for what, f in (("sequential", run_sums), ("32-value blocks", blocked_run_sums)):
+        rel = np.abs(f(w, roff).double().cpu().numpy() - exact) / np.maximum(exact, 1e-300)
+        r = int(rel.argmax())
+        log(f"step 2 prune row sums, {what}: max relative error {rel.max():.3e} at row {r} "
+            f"({lens[r]} entries); mean {rel.mean():.3e} [{card}]")
+    del prow, pcol, pval, flags, seg, crow, cval, w, p1
     if failed:
         raise AssertionError("phase 11: " + "; ".join(failed))
 
@@ -1065,7 +1143,9 @@ def binned_phase(torch, np, sp, dev, card, a, ca, snap, drive, record, burst, ch
     log(f"s14 spgemm_binned warm: {ms:.3f} ms (median of 9, CUDA events), "
         f"{2 * flops / ms / 1e6:.3f} GFLOPS [{card}]")
     log("s14 spgemm_binned, one call under torch.profiler: " + breakdown(ka, 8))
-    del c, ka
+    _, calls = capture_run_sums(fn)
+    k9_cases(torch, "s14 spgemm_binned (the huge rows)", calls, record, cuda_ms, device_ms)
+    del c, ka, calls
 
     # ---- 12c. K1 at the binned widths ------------------------------------
     pt = BN._plan_tensors(plan, dev)
@@ -1179,6 +1259,22 @@ def binned_phase(torch, np, sp, dev, card, a, ca, snap, drive, record, burst, ch
         routes = [(r["matrix"], r["routed"]["kernel"], r["nnzc_ok"]) for r in recs]
         if routes != [("rmat_s14", "ell", True), ("banded_cant_62k_b32", "block", True)]:
             raise AssertionError(f"phase 12: corpus records {routes}")
+
+    # ---- 12f. the host heap tuning: plan_ell cold, with and without prefault
+    # first, each in a fresh process (the CSR on the host: the planner's
+    # own time), in the order none, prefault, prefault, none
+    runs = {0: [], 1: []}
+    for pre in (0, 1, 1, 0):
+        out = subprocess.run([sys.executable, "-c", PREFAULT_PROBE, str(pre)], cwd=ROOT,
+                             capture_output=True, text=True, timeout=300, check=True).stdout
+        runs[pre].append(json.loads(out.strip().splitlines()[-1]))
+    for pre, label in ((0, "without prefault"), (1, "after prefault(1 << 28)")):
+        r = runs[pre]
+        log(f"plan_ell s14 cold in a fresh process {label}: "
+            f"{[round(x['cold_ms'], 1) for x in r]} ms, then warm "
+            f"{[round(x['warm_ms'], 1) for x in r]} ms; prefault "
+            f"{[round(x['prefault_ms'], 1) for x in r]} ms; (heap pages kept, THP allocator) "
+            f"{r[0]['heap']} [{card}]")
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1197,26 +1293,250 @@ def snake_perm_np(np, rf, rows: int, d: int, lr: int):
     return perm
 
 
-def run_sums_offset_probe(torch, dev, runs: int = 3000, moves: int = 8) -> list:
-    """How many of ``runs`` runs (lengths 1 to 4096, random f32 values)
-    ``run_sums`` adds to other bits when the whole stream is moved by
-    0 .. ``moves`` - 1 slots, against the unmoved stream: nonzero counts
-    show a summation order that depends on a run's offset."""
-    from sparse_matrix_with_flops_tpu_torch.ops.segments import run_sums
-
+def probe_runs(torch, dev, runs: int = 3000):
+    """The offset probe's stream: ``runs`` runs of 1 to 4096 random f32
+    values (seed 13) and their int64 offsets, on ``dev``."""
     g = torch.Generator().manual_seed(13)
     lens = torch.randint(1, 4097, (runs,), generator=g)
     vals = torch.rand(int(lens.sum()), generator=g).to(dev)
     off = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(lens, 0)]).to(dev)
-    base = run_sums(vals, off)
+    return vals, off
+
+
+def run_sums_offset_probe(torch, fn, vals, off, moves: int = 8) -> list:
+    """How many runs ``fn`` (a run-sum function) adds to other bits when
+    the whole stream is moved by 0 .. ``moves`` - 1 slots, against the
+    unmoved stream: nonzero counts show a summation order that depends
+    on a run's offset."""
+    base = fn(vals, off)
     counts = []
     for k in range(moves):
-        moved = torch.cat([torch.zeros(k, device=dev), vals])
-        counts.append(int((run_sums(moved, off + k) != base).sum()))
+        moved = torch.cat([torch.zeros(k, device=vals.device), vals])
+        counts.append(int((fn(moved, off + k) != base).sum()))
     return counts
 
 
-def distributed_phase(torch, np, sp, dev, card, a, drive, cuda_ms, host_ms):
+def capture_run_sums(fn):
+    """``fn()`` with every ``run_sums`` call on its path recorded: returns
+    (its result, the list of (values, offsets) of each call).  The
+    stream paths reach run_sums through ``ops/spgemm.esc_compress`` and
+    the prune's ``ops/segments.blocked_run_sums`` (two calls a sum)."""
+    import importlib
+
+    mods = [importlib.import_module(f"{PKG}.ops.{m}") for m in ("spgemm", "segments")]
+    real = mods[0].run_sums
+    seen = []
+
+    class Spy:
+        """Stands in for run_sums in its own module too, so the wrapper's
+        ``run_sums.launches += 1`` reaches the real count through it."""
+
+        def __call__(self, values, offsets):
+            seen.append((values, offsets))
+            return real(values, offsets)
+
+        @property
+        def launches(self):
+            return real.launches
+
+        @launches.setter
+        def launches(self, n):
+            real.launches = n
+
+    spy = Spy()
+    for m in mods:
+        m.run_sums = spy
+    try:
+        out = fn()
+    finally:
+        for m in mods:
+            m.run_sums = real
+    return out, seen
+
+
+K9_LIBRARY = ("torch.segment_reduce(values, 'sum', offsets=..., unsafe=True): CUB's segmented "
+              "reduce, whose order depends on a run's offset; on a card tensor it is also "
+              "K9's plain version")
+
+
+def k9_cases(torch, label, calls, record, cuda_ms, device_ms):
+    """K9 on a path's captured run_sums calls: each output bit-equal to
+    the plain version on the CPU; against the plain version on the card
+    (CUB's order) within 1e-7 + (len - 1) * 2^-23 of the run's absolute
+    sum, twice the textbook bound of an f32 sum of len values in any
+    order; then all the calls timed together against
+    torch.segment_reduce on the same inputs, one record.  Returns K9's
+    and CUB's device ms."""
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import run_sums, run_sums_plain
+
+    err, nbytes, runs, covered = 0.0, 0.0, 0, 0
+    for values, offsets in calls:
+        got = run_sums(values, offsets)
+        cub = run_sums_plain(values, offsets)
+        mag = run_sums_plain(values.abs(), offsets)
+        want = run_sums_plain(values.cpu(), offsets.cpu())
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+            bad = int((got.cpu().view(torch.int32) != want.view(torch.int32)).sum())
+            raise AssertionError(f"K9 {label}: {bad} of {want.numel()} sums differ from the "
+                                 f"plain version's bits on the CPU")
+        e = (got - cub).abs()
+        lens = (offsets[1:] - offsets[:-1]).clamp(min=1).to(torch.float32)
+        if not bool((e <= 1e-7 + (lens - 1) * 2.0**-23 * mag).all()):
+            raise AssertionError(f"K9 {label}: differs from torch.segment_reduce on the card "
+                                 f"beyond its rounding (max {float(e.max()):.3e})")
+        err = max(err, float(e.max()) if e.numel() else 0.0)
+        span = int(offsets[-1] - offsets[0])
+        covered += span
+        runs += offsets.numel() - 1
+        # the values the runs cover, the offsets and the sums, each once
+        nbytes += 4.0 * span + offsets.element_size() * offsets.numel() + 4.0 * (offsets.numel() - 1)
+        del got, cub, mag, want
+
+    def k9():
+        return [run_sums(v, o) for v, o in calls]
+
+    def cub():
+        return [run_sums_plain(v, o) for v, o in calls]
+
+    def lib():
+        return [torch.segment_reduce(v, "sum", offsets=o.long(), unsafe=True) for v, o in calls]
+
+    kb = bound(nbytes)
+    dev_k9, dev_cub = device_ms(torch, k9, 5), device_ms(torch, cub, 5)
+    ms = cuda_ms(torch, k9, reps=7)
+    if dev_k9 < kb[0]:  # faster than the card can move the bytes: records were lost
+        log(f"  K9 {label}: torch.profiler's {dev_k9:.4f} ms is below the byte bound "
+            f"{kb[0]:.4f} ms; device time by CUDA events instead ({ms:.4f} ms)")
+        dev_k9 = ms
+    record("run_sums", f"{label}: {len(calls)} call(s), {runs} runs over {covered} values", err,
+           ms, cuda_ms(torch, cub, reps=7), kb, cuda_ms(torch, lib, reps=7), K9_LIBRARY,
+           dev_ms=dev_k9)
+    log(f"K9 {label}: == the plain version's bits on the CPU in every call; device "
+        f"{dev_k9:.4f} ms against torch.segment_reduce's {dev_cub:.4f} ms")
+    return dev_k9, dev_cub
+
+
+def planted_phase(torch, np, sp, dev, card, drive, record, cuda_ms, device_ms):
+    """Phase 14: R-MCL on planted partitions, the users' test of the
+    clustering (``tools/cluster_quality.py``, ``tools/bench_rmcl_scale.py``):
+    (a) 64 x 64 nodes through the stream loop (``rmcl``, K9) and the
+    static-ELL path (``rmcl_ell``, K1), clusters, purity and the paths'
+    label agreement; (b) the reference-scale 1024 x 64 = 65,536 nodes at
+    S = 128: plan ms, ms/iteration by slope, iteration 1 against the f64
+    oracle, 30 iterations to clusters at purity >= 0.95, and one stream
+    step's run sums (K9) at that scale."""
+    import importlib
+
+    from sparse_matrix_with_flops_tpu_torch.models.clusters import cluster_sizes, extract_clusters
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl_ell import rmcl_ell
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import (
+        cluster_purity,
+        planted_partition_coo,
+    )
+
+    R = importlib.import_module(f"{PKG}.models.rmcl")
+    RM = importlib.import_module(f"{PKG}.models.rmcl_ell")
+    t_phase = time.perf_counter()
+    failed = []
+
+    # ---- 14a. tools/cluster_quality.py's case, both paths ----------------
+    kc, cs, iters, floor = 64, 64, 8, 0.2
+    coo, planted = planted_partition_coo(kc, cs, p_in=0.3, p_out=0.0005, seed=1)
+    if coo.device != dev:
+        raise AssertionError(f"planted_partition_coo with no device is on {coo.device}")
+    mt0 = R.rmcl_init(coo)
+    log(f"planted {kc} x {cs}: n {mt0.rows} nnz {int(mt0.nnz)}")
+    labels = {}
+    for path, fn, must in (
+        ("stream loop (rmcl)", lambda: R.rmcl(mt0, max_iters=iters, mode="loop").mt, ("run_sums",)),
+        ("static ELL (rmcl_ell)", lambda: rmcl_ell(mt0, max_iters=iters)[0],
+         ("sort_dedup_compact",)),
+    ):
+        t0 = time.perf_counter()
+        out = drive(f"planted {kc}x{cs} {path} {iters} iterations", fn, must)
+        lab = extract_clusters(out, weight_floor=floor)
+        secs = time.perf_counter() - t0
+        pur = cluster_purity(lab, planted)
+        labels[path] = lab
+        log(f"planted {kc}x{cs} {path}: {len(cluster_sizes(lab))} clusters found of {kc} "
+            f"planted, purity {pur:.4f}, {secs:.2f} s with extraction [{card}]")
+        if pur < 0.95:
+            failed.append(f"{kc}x{cs} {path}: purity {pur:.4f} < 0.95")
+    lab_s, lab_e = labels.values()
+    agree = float(np.mean(lab_s == lab_e))
+    log(f"planted {kc}x{cs}: label agreement stream vs ELL {agree:.4f}")
+    del coo, mt0
+
+    # ---- 14b. bench_rmcl_scale's reference-scale case --------------------
+    kc, cs, S, iters = 1024, 64, 128, 30
+    n = kc * cs
+    coo, planted = planted_partition_coo(kc, cs, p_in=0.3, p_out=8.0 / n, seed=11)
+    mgt = R.rmcl_init(coo).make_ordered()
+    nnz = int(mgt.nnz)
+    log(f"planted {kc} x {cs}: n {n} nnz(A) {nnz} (p_out 8/n, seed 11)")
+    if nnz != 1825520:
+        raise AssertionError(f"phase 14: nnz(A) {nnz} != 1,825,520")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = RM.plan_rmcl_ell(mgt, S=S)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    cols0, vals0 = RM.mt_to_ell(mgt, S)
+    a_d = RM._dense_huge(mgt, plan)
+    torch.cuda.synchronize()
+    log(f"plan_rmcl_ell planted n={n} S={S}: {plan_ms:.1f} ms host; bins "
+        f"{[(d, int(r.size)) for d, r, _ in plan.bins]} hub rows {plan.huge_rows.size} [{card}]")
+    walls = {k: cuda_ms(torch, lambda k=k: RM.rmcl_ell_scan(plan, mgt, a_d, cols0, vals0, k),
+                        reps=3, warm=1) for k in (2, 6)}
+    ms_iter = (walls[6] - walls[2]) / 4
+    log(f"rmcl_ell_scan planted n={n} S={S}: {ms_iter:.3f} ms/iteration (slope of CUDA-event "
+        f"medians, {walls[2]:.3f} ms at 2 and {walls[6]:.3f} ms at 6 iterations) [{card}]")
+    c1, v1, _ = RM.rmcl_ell_step(plan, mgt, a_d, cols0, vals0)
+    h0 = (cols0.cpu().numpy().astype(np.int64), vals0.cpu().numpy().astype(np.float64))
+    oc, ov, near = oracle_step(np, sp, mgt, *h0, S)
+    failed += compare_iterates(
+        np, f"planted n={n} rmcl_ell step 1 vs scipy f64 oracle",
+        c1.cpu().numpy().astype(np.int64), v1.cpu().numpy().astype(np.float64), oc, ov, near)
+    del c1, v1, oc, ov, near
+    t0 = time.perf_counter()
+    c30, v30, hist = drive(f"rmcl_ell_scan planted n={n} S={S} {iters} iterations",
+                           lambda: RM.rmcl_ell_scan(plan, mgt, a_d, cols0, vals0, iters),
+                           ("sort_dedup_compact",))
+    scan_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(v30).all()):
+        failed.append(f"planted n={n}: non-finite values after {iters} iterations")
+    mt_fin = RM.ell_to_csr(c30, v30, mgt.ncols)
+    t0 = time.perf_counter()
+    lab = extract_clusters(mt_fin, weight_floor=0.05)
+    ext_s = time.perf_counter() - t0
+    pur = cluster_purity(lab, planted)
+    found = len(cluster_sizes(lab))
+    log(f"planted n={n} {iters} iterations: {scan_s:.2f} s; nnz "
+        f"{hist['nnz'].cpu().numpy().tolist()}; differs "
+        f"{[round(float(x), 5) for x in hist['differs'].cpu().numpy()]}; {found} clusters of "
+        f"{kc} planted, purity {pur:.4f} at weight floor 0.05 (extraction {ext_s:.2f} s) [{card}]")
+    if pur < 0.95:
+        failed.append(f"planted n={n}: purity {pur:.4f} < 0.95")
+    del c30, v30, mt_fin, plan, a_d, cols0, vals0
+
+    # one stream step at this scale: K9 on its products and row sums
+    mt = mgt.deep_copy()
+    pc, cc = R.plan_capacities(mgt, mt, 1.5)
+    mtc = mt.with_capacity(cc)
+    (got, info), calls = capture_run_sums(
+        lambda: drive(f"rmcl_one_step planted n={n} step 1", lambda: R.rmcl_one_step(
+            mgt, mtc, pc, cc), ("run_sums",)))
+    if bool(info["overflow_products"] | info["overflow_c"] | info["overflow_mt"]):
+        failed.append(f"planted n={n} rmcl_one_step: overflow")
+    k9_cases(torch, f"planted n={n} rmcl_one_step step 1", calls, record, cuda_ms, device_ms)
+    del got, calls, mt, mtc
+    torch.cuda.synchronize()
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("phase 14: " + "; ".join(failed))
+
+
+def distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_ms):
     """Phase 13: the rest of the distributed layer with D = 4 shards
     stacked on the card: ``sharded_spgemm`` and ``sharded_spgemm_ring``
     on R-MAT s14 against scipy (bit-equal over calls, no host read), the
@@ -1224,7 +1544,8 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, cuda_ms, host_ms):
     read) bit for bit against the single-card ``rmcl_scan``, the adaptive
     ``sharded_rmcl_adaptive`` against the single-card loop, and
     ``dryrun_multichip(4)``.  None of these modules launches a kernel of
-    its own; the dry run's static R-MCL reaches K1."""
+    its own: their streams reach K9 through ``esc_compress`` and the
+    prune, and the dry run's static R-MCL reaches K1."""
     import importlib
 
     from sparse_matrix_with_flops_tpu_torch.config import ABS_TOL, REL_TOL
@@ -1426,6 +1747,9 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, cuda_ms, host_ms):
         failed.append(f"sharded_rmcl_scan overflows at margin {margin}: raise the margin")
     ka = profile_kernels(torch, lambda: PR.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs))
     log(f"sharded_rmcl_step s14 D={d} step 1 under torch.profiler: " + breakdown(ka, 6))
+    _, calls = capture_run_sums(lambda: PR.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs))
+    k9_cases(torch, f"sharded_rmcl_step s14 D={d} step 1", calls, record, cuda_ms, device_ms)
+    del calls
     pc1, cc1 = R.plan_capacities(mtp, mtp, 2.5)
     one, h1 = R.rmcl_scan(mtp, mtp.with_capacity(cc1), pc1, cc1, iters)
     h1 = {k: x.cpu().numpy() for k, x in h1.items()}
@@ -1436,35 +1760,15 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, cuda_ms, host_ms):
         f"cap {pc1}) bit for bit after {iters} iterations; nnz {h1['nnz'].tolist()} flops "
         f"{h1['flops'].tolist()}; differs relative gap {diff_rel.max():.3e}")
     if not same:
-        # Each shard's products for a row are the single card's, in the
-        # same order, but at another offset of the stream.  The cause
-        # held to: run_sums (CUB's segmented reduce) adds a run in an
-        # order that depends on where the run starts, and at D = 1 (the
-        # single card's offsets) the bits are equal.
-        counts = run_sums_offset_probe(torch, dev)
-        log(f"  run_sums of 3,000 runs moved by 0..7 slots: runs whose bits differ from "
-            f"offset 0: {counts}")
-        smgt1 = shard_csr(mtp, 1)
-        one1, _ = PR.sharded_rmcl_scan(make_mesh(1), smgt1, shard_csr(mtp, 1, local_capacity=cc1),
-                                       pc1, cc1, iters)
-        same1 = all(np.array_equal(x, y) for x, y in zip(unshard_csr(one1).to_numpy(), want))
-        log(f"  sharded_rmcl_scan at D = 1 (the single card's offsets) "
-            f"{'==' if same1 else '!='} rmcl_scan bit for bit")
-        del one1, smgt1
-        rel = np.full(1, np.inf)
+        # each shard's products for a row are the single card's, in the
+        # same order, at another offset of the stream: K9 adds a run in
+        # an order fixed by the run alone, so the bits must be equal
         struct = np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
         if struct:
             rel = np.abs(got[2] - want[2]) / np.abs(want[2])
             log(f"  D = {d}: the structure is equal; {int((got[2] != want[2]).sum())} of "
                 f"{got[2].size} values differ, max relative {rel.max():.3e}")
-        g1 = unshard_csr(PR.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs)[0]).to_numpy()
-        w1 = R.rmcl_one_step(mtp, mtp.with_capacity(cc1), pc1, cc1)[0].to_numpy()
-        if np.array_equal(g1[0], w1[0]) and np.array_equal(g1[1], w1[1]):
-            log(f"  after iteration 1: {int((g1[2] != w1[2]).sum())} of {g1[2].size} values "
-                f"differ, max relative {(np.abs(g1[2] - w1[2]) / np.abs(w1[2])).max():.3e}")
-        if not (any(counts) and counts[0] == 0 and same1 and struct and rel.max() <= 1e-6):
-            failed.append("sharded_rmcl_scan differs from the single-card scan beyond the "
-                          "summation order of run_sums")
+        failed.append("sharded_rmcl_scan differs from the single-card scan bit for bit")
     if not (np.array_equal(hist["nnz_mt"], h1["nnz"]) and np.array_equal(hist["flops"],
                                                                          h1["flops"])):
         failed.append("sharded_rmcl_scan: nnz or flops history off the single card's")
@@ -1562,7 +1866,11 @@ def main() -> int:
         cumsum_i32,
         cumsum_i32_plain,
     )
-    from sparse_matrix_with_flops_tpu_torch.ops.segments import exclusive_cumsum
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import (
+        exclusive_cumsum,
+        run_sums,
+        run_sums_plain,
+    )
     from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
         _window_starts,
         compact_nonzero_rows,
@@ -1601,6 +1909,7 @@ def main() -> int:
         "ring_all_gather": ring_all_gather,
         "ring_matmul": ring_matmul,
         "ring_matmul_tiled": ring_matmul_tiled,
+        "run_sums": run_sums,
     }
     ell_kernels = ("sort_dedup_compact", "compact_nonzero_rows", "window_gather", "cumsum_i32")
 
@@ -1816,6 +2125,27 @@ def main() -> int:
     del big
     del prod_c, prod_v, flat_c, flat_v, fc, fvb, part
     torch.cuda.synchronize()
+
+    # K9: the offset probe, K9 against torch.segment_reduce's order, then
+    # K9 bit-equal to its plain version on the CPU
+    pvals, poff = probe_runs(torch, dev)
+    k9_moves = run_sums_offset_probe(torch, run_sums, pvals, poff)
+    cub_moves = run_sums_offset_probe(torch, run_sums_plain, pvals, poff)
+    log(f"run_sums offset probe, 3,000 runs moved by 0..7 slots, runs whose bits differ from "
+        f"offset 0: K9 {k9_moves}; torch.segment_reduce {cub_moves}")
+    if any(k9_moves):
+        raise AssertionError("K9: a run's bits depend on where it starts in the stream")
+    want9 = run_sums_plain(pvals.cpu(), poff.cpu())
+
+    def k9_same(got):
+        if not torch.equal(got.cpu().view(torch.int32), want9.view(torch.int32)):
+            raise AssertionError("K9 probe: differs from the plain version's bits on the CPU")
+
+    k9_same(run_sums(pvals, poff))
+    burst("K9 probe", lambda: run_sums(pvals, poff), k9_same)
+    k9_cases(torch, "offset probe, 3,000 runs of 1-4096 values", [(pvals, poff)], record,
+             cuda_ms, device_ms)
+    del pvals, poff, want9
 
     # ---- 4. main path ----------------------------------------------------
     def scipy_check(x: CSR, c: CSR, what: str, positive: bool) -> None:
@@ -2147,8 +2477,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 11. general R-MCL and nrmcl from a graph file -------------------
-    tmp, snap = general_rmcl_phase(torch, np, sp, dev, card, drive, coo, static5, cuda_ms,
-                                   host_ms)
+    tmp, snap = general_rmcl_phase(torch, np, sp, dev, card, drive, record, coo, static5,
+                                   cuda_ms, host_ms)
     del coo, static5
     torch.cuda.synchronize()
 
@@ -2161,7 +2491,11 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 13. the rest of the distributed layer, D = 4 shards on the card -
-    distributed_phase(torch, np, sp, dev, card, a, drive, cuda_ms, host_ms)
+    distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_ms)
+    torch.cuda.synchronize()
+
+    # ---- 14. R-MCL on planted partitions, two sizes ----------------------
+    planted_phase(torch, np, sp, dev, card, drive, record, cuda_ms, device_ms)
     torch.cuda.synchronize()
 
     for k, n in launches.items():
@@ -2173,6 +2507,7 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCES[k],
             "replaces": REPLACES[k],
+            **({"replaces_note": REPLACES_NOTE[k]} if k in REPLACES_NOTE else {}),
             "launches": launches[k],
             "launched_by": launched_by[k],
             "max_abs_err": results[k]["max_abs_err"],

@@ -5,6 +5,7 @@ K6-K8; K1, K2, K3 and K5 in ``kernels``).
     python3 ring_probe.py accuracy [--unpromoted]
     python3 ring_probe.py step ROOT [ROOT ...]
     python3 ring_probe.py kernels ROOT [ROOT ...]
+    python3 ring_probe.py streams ROOT [ROOT ...]
     python3 ring_probe.py launch [--root ROOT]
     python3 ring_probe.py variants [--root ROOT] [NAME ...]
 
@@ -35,6 +36,13 @@ heads in one launch, or in two), K5 on the cant-class band (BCSR(8,
 128), N = 512) and on s14 (N = 128).  Each one call at a time (CUDA events around the call, host
 enqueue included: median, min and max of 15) and back to back (20 calls
 between two events, per call).
+
+``streams``: as ``step``, one fresh process a ROOT (give two in the
+order A B B A), the stream paths whose run sums go through
+``ops/segments.run_sums``: general R-MCL ``rmcl_scan`` on phase 11's
+s14 graph at margin 2.5 (3 iterations, per iteration), ``spgemm_binned``
+on s14 with random weights (warm), and one dynamic ``sharded_rmcl_step``
+at D = 4 as phase 13 runs it; CUDA events, median, min and max of 5.
 
 ``launch``: K2, K3, K4 and K6 at their main-path sizes, beside the
 library calls that compute the same functions where there are some,
@@ -320,6 +328,46 @@ def kernels_one(dev) -> dict:
             np.random.default_rng(0).random((x.rows, n)).astype(np.float32)).to(dev)
         out[f"K5 {label} N={n}"] = _times(torch, lambda: bcsr_spmm(ab, b), 15)
         out[f"K5 {label} back to back"] = _back_to_back(torch, lambda: bcsr_spmm(ab, b))
+    return out
+
+
+def streams_one(dev) -> dict:
+    """This process's port: the general scan, binned s14 and a dynamic
+    sharded step, each timed as ``chip_smoke.py`` phases 11-13 run it."""
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch.ops.binned import plan_bins, spgemm_binned
+    from sparse_matrix_with_flops_tpu_torch.ops.flops import row_flops
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        flops_balanced_permutation,
+        make_mesh,
+        shard_csr,
+    )
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    rm = importlib.import_module(f"{PKG}.models.rmcl")
+    pr = importlib.import_module(f"{PKG}.parallel.rmcl")
+    mgt, _ = s14_state(dev)
+    out = {}
+    pc, cc = rm.plan_capacities(mgt, mgt, 2.5)
+    mtc = mgt.with_capacity(cc)
+    out["rmcl_scan per iteration"] = [
+        t / 3 for t in _times(torch, lambda: rm.rmcl_scan(mgt, mtc, pc, cc, 3), 5)]
+    del mtc
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random")
+    plan = plan_bins(a, a)
+    out["spgemm_binned"] = _times(torch, lambda: spgemm_binned(a, a, plan), 5)
+    del a, plan
+    perm = flops_balanced_permutation(row_flops(mgt, mgt).cpu().numpy(), 4)
+    mtp = mgt.conjugate_permute(torch.from_numpy(perm))
+    flops1, _ = spgemm_upper_bounds(mtp, mtp)
+    smgt = shard_csr(mtp, 4)
+    pcs, ccs = pr.plan_shard_capacities(smgt, flops1, margin=4.0)
+    smt = shard_csr(mtp, 4, local_capacity=ccs)
+    mesh = make_mesh(4, dev)
+    out["sharded_rmcl_step D=4"] = _times(
+        torch, lambda: pr.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs), 5)
     return out
 
 
@@ -826,7 +874,7 @@ def variants(dev, names, root: str = HERE) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("accuracy", "step", "step-one", "kernels", "kernels-one",
-                                     "launch", "variants"))
+                                     "streams", "streams-one", "launch", "variants"))
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--unpromoted", action="store_true")
     ap.add_argument("--root", default=HERE,
@@ -839,14 +887,15 @@ def main() -> int:
         print("ring_probe: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    if args.what in ("step-one", "kernels-one"):
+    if args.what.endswith("-one"):
         sys.path.insert(0, args.roots[0])
-        print(json.dumps((step_one if args.what == "step-one" else kernels_one)(dev)))
+        one = {"step-one": step_one, "kernels-one": kernels_one, "streams-one": streams_one}
+        print(json.dumps(one[args.what](dev)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    if args.what in ("step", "kernels"):
+    if args.what in ("step", "kernels", "streams"):
         step(args.roots, args.what)
     elif args.what == "launch":
         sys.path.insert(0, root)

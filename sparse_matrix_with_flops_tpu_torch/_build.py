@@ -53,6 +53,8 @@ _SIGNATURES = {
     "smf_ring_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     # ... as smf_ring_matmul, then nt, slots
     "smf_ring_matmul_tiled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
+    # values, offsets, offsets are int64, out, runs, warp_per_run
+    "smf_run_sums": (_P, _P, _I, _P, _L, _I),
 }
 # C entries with no stream that write one int result through a pointer
 _QUERIES = {

@@ -13,8 +13,9 @@ Semantics mirror the reference (values are float32 / QValue):
   util.cc:47-69).
 
 Every row statistic is a segment reduction over the entry streams
-(``ops/segments.py``), the float row sums each in a fixed order
-(``run_sums``) so that the same stream gives the same bits on the card;
+(``ops/segments.py``), the float row sums each in a fixed order of the
+row alone (``blocked_run_sums``: 32-value blocks, then the blocks) so
+that a row gives the same bits on the card, on the CPU and in any shard;
 one stable sort compacts the survivors.
 """
 
@@ -30,7 +31,7 @@ from ..config import (
     QVALUE_DTYPE,
 )
 from ..formats.csr import CSR
-from .segments import exclusive_cumsum, run_sums, segment_max, segment_sum
+from .segments import blocked_run_sums, exclusive_cumsum, segment_max, segment_sum
 
 
 def compute_threshold(avg: torch.Tensor, rmax: torch.Tensor) -> torch.Tensor:
@@ -63,7 +64,7 @@ def inflate_prune_normalize_stream(
     roff = torch.searchsorted(
         seg, torch.arange(rows + 1, dtype=seg.dtype, device=seg.device)
     )
-    rsum = run_sums(w, roff)
+    rsum = blocked_run_sums(w, roff)
     rmax = segment_max(w, seg, rows)
     rcount = (roff[1:] - roff[:-1]).to(QVALUE_DTYPE)
     avg = rsum / torch.clamp(rcount, min=1.0)
@@ -71,7 +72,7 @@ def inflate_prune_normalize_stream(
 
     own = erow.long().clamp(0, max(rows - 1, 0))
     keep = valid & (w >= thresh[own])
-    ksum = run_sums(torch.where(keep, w, 0.0), roff)
+    ksum = blocked_run_sums(torch.where(keep, w, 0.0), roff)
     newval = torch.where(keep, w / torch.clamp(ksum, min=1e-30)[own], 0.0)
 
     # compact survivors: a stable sort on the keep-aware row key keeps

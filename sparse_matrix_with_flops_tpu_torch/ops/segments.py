@@ -5,13 +5,21 @@ reference's int32 index type.  JAX drops out-of-range scatters
 (``mode="drop"``, and the segment ops drop ids outside
 ``[0, num_segments)``); torch raises, so every scatter here goes into a
 buffer one slot longer whose last slot takes those indices.
+
+``run_sums`` launches K9 (``csrc/run_sums.cu``) for tensors on the card
+and runs ``run_sums_plain`` for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .._build import check_tensor, launch, on_card
 from ..config import INDEX_DTYPE
+
+# K9 gives a run a warp of its own when the stream holds at least this
+# many slots a run (row sums), else a lane (the products of one entry)
+WARP_RUN_SLOTS = 32
 
 
 def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -79,17 +87,67 @@ def segment_sum(
     return out[:num_segments]
 
 
+def run_sums_plain(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """K9's plain version: ``torch.segment_reduce``.  On the CPU it adds
+    each run left to right from 0.0, K9's order; on the card it is CUB's
+    segmented reduce, whose order depends on where a run starts."""
+    return torch.segment_reduce(values, "sum", offsets=offsets.long(), unsafe=True)
+
+
 def run_sums(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """Sums of the contiguous runs ``values[offsets[i]:offsets[i + 1]]``
-    (an empty run sums to 0), each added up in a fixed order: the same
-    stream gives the same bits in every call.  On CUDA (CUB's segmented
-    reduce) the order also depends on where a run starts in ``values``,
-    so the same run at another offset can differ in its last bits.
-    :func:`segment_sum`'s scatter-add is float atomics on CUDA, whose
-    order changes from call to call.  ``offsets`` must be non-decreasing
-    and within ``[0, len(values)]``; values past ``offsets[-1]`` are
-    left out."""
-    return torch.segment_reduce(values, "sum", offsets=offsets.long(), unsafe=True)
+    of a 1-D f32 stream, each added left to right in run-local order
+    from 0.0 (an empty run sums to 0), so a run gives the same bits in
+    every call, at every offset of the stream, on the card (K9) and on
+    the CPU (``run_sums_plain``).  :func:`segment_sum`'s scatter-add is
+    float atomics on CUDA, whose order changes from call to call.
+    ``offsets`` (int32 or int64) must be non-decreasing and within
+    ``[0, len(values)]``; values past ``offsets[-1]`` are left out."""
+    check_tensor(values, "run_sums", torch.float32, 1)
+    if offsets.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"run_sums: offsets must be int32 or int64, got {offsets.dtype}")
+    if offsets.dim() != 1 or not offsets.is_contiguous() or offsets.shape[0] < 1:
+        raise ValueError("run_sums: offsets must be a non-empty contiguous 1-D tensor")
+    if not on_card("run_sums", values, offsets):
+        return run_sums_plain(values, offsets)
+    runs = offsets.shape[0] - 1
+    out = torch.empty(runs, dtype=torch.float32, device=values.device)
+    if runs == 0:
+        return out
+    launch("smf_run_sums", values.device, values.data_ptr(), offsets.data_ptr(),
+           int(offsets.dtype == torch.int64), out.data_ptr(), runs,
+           int(values.shape[0] >= WARP_RUN_SLOTS * runs))
+    run_sums.launches += 1
+    return out
+
+
+run_sums.launches = 0
+
+
+RUN_BLOCK = 32  # values a block of blocked_run_sums
+
+
+def blocked_run_sums(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """:func:`run_sums` with each run added in blocks of RUN_BLOCK values
+    counted from the run's own start: the blocks' sums first, then each
+    run's block sums, both by ``run_sums``.  The order is still fixed by
+    the run alone (a run gives the same bits at any offset, on the card
+    and on the CPU), but a sum of n values carries about RUN_BLOCK +
+    n / RUN_BLOCK roundings instead of n: the prune's rows reach
+    thousands of values, where a strictly sequential f32 sum moved a
+    row's threshold past the f64 oracle's flip allowance.  No host
+    read."""
+    runs = offsets.shape[0] - 1
+    if runs == 0:
+        return run_sums(values, offsets)
+    o = offsets.long()
+    nb = (o[1:] - o[:-1] + RUN_BLOCK - 1) // RUN_BLOCK
+    boff = exclusive_cumsum(nb)
+    # sum(ceil(len / RUN_BLOCK)) <= len(values) // RUN_BLOCK + runs
+    q = torch.arange(values.shape[0] // RUN_BLOCK + runs, device=o.device)
+    r = (torch.searchsorted(boff, q, right=True) - 1).clamp(max=runs - 1)
+    starts = torch.where(q < boff[-1], o[r] + RUN_BLOCK * (q - boff[r]), o[-1])
+    return run_sums(run_sums(values, torch.cat([starts, o[-1:]])), boff)
 
 
 def segment_max(
@@ -102,3 +160,38 @@ def segment_max(
     )
     out.scatter_reduce_(0, _dump_ids(segment_ids, num_segments), values, reduce="amax")
     return out[:num_segments]
+
+
+def equal_partition(prefix_sum: torch.Tensor, num_parts: int) -> torch.Tensor:
+    """Split [0, n) into ``num_parts`` contiguous ranges of about equal
+    cost (``arrayEqualPartition``, util.cc:137-149): ``prefix_sum`` has
+    n + 1 entries from 0 to the total; returns int32 ``ends`` of length
+    num_parts + 1 with ends[0] == 0 and ends[-1] == n.  Ranges may be
+    empty."""
+    n = prefix_sum.shape[0] - 1
+    dev = prefix_sum.device
+    total = prefix_sum[n]
+    chunk = (total + num_parts - 1) // num_parts
+    targets = chunk * torch.arange(1, num_parts, dtype=prefix_sum.dtype, device=dev)
+    targets = torch.minimum(targets, total)
+    mids = torch.searchsorted(prefix_sum, targets, right=True).to(INDEX_DTYPE) - 1
+    mids = mids.clamp(0, n)
+    zero = torch.zeros(1, dtype=INDEX_DTYPE, device=dev)
+    last = torch.full((1,), n, dtype=INDEX_DTYPE, device=dev)
+    return torch.cat([zero, mids, last])
+
+
+def prefix_sum_to_counts(prefix_sum: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`exclusive_cumsum` (util.cc:117-121)."""
+    return prefix_sum[1:] - prefix_sum[:-1]
+
+
+def key_value_sort(keys: torch.Tensor, values: torch.Tensor, descending: bool = False):
+    """Paired stable sort by key (key_value_qsort.h:14-42).  Descending
+    sorts the negated keys ascending and negates back, as the reference
+    does, so ties keep their order and signed zeros and the int32
+    minimum come out as the reference's."""
+    k = -keys if descending else keys
+    order = torch.sort(k, stable=True).indices
+    k, v = k[order], values[order]
+    return (-k if descending else k), v

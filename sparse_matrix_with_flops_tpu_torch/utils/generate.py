@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..formats.coo import COO
 from ..formats.csr import CSR
 
 
@@ -92,3 +93,56 @@ def banded_csr(
     return CSR.from_numpy(
         row_ptr.astype(np.int32), cols.astype(np.int32), vals, n, device
     )
+
+
+def planted_partition_coo(
+    n_clusters: int,
+    cluster_size: int,
+    p_in: float = 0.3,
+    p_out: float = 0.002,
+    seed: int = 0,
+    device: torch.device | str | None = None,
+):
+    """Planted-partition (stochastic block model) graph: ``n_clusters``
+    communities of ``cluster_size`` nodes, edge probability ``p_in``
+    inside a community and ``p_out`` between (symmetric, unit weights).
+    Returns (COO with room for the self loops, int64 host labels), where
+    labels[i] is node i's planted community."""
+    rng = np.random.default_rng(seed)
+    n = n_clusters * cluster_size
+    rows, cols = [], []
+    for c in range(n_clusters):
+        base = c * cluster_size
+        mask = rng.random((cluster_size, cluster_size)) < p_in
+        r, co = np.nonzero(np.triu(mask, 1))
+        rows.append(base + r)
+        cols.append(base + co)
+    # edges between communities: p_out * n^2 / 2 pairs expected
+    m_out = rng.poisson(p_out * n * n / 2)
+    if m_out:
+        r = rng.integers(0, n, size=m_out)
+        co = rng.integers(0, n, size=m_out)
+        keep = (r // cluster_size) != (co // cluster_size)
+        rows.append(r[keep])
+        cols.append(co[keep])
+    r = np.concatenate(rows)
+    co = np.concatenate(cols)
+    # symmetrise (the reference mirrors symmetric inputs, COO.cc:92-122)
+    ar = np.concatenate([r, co]).astype(np.int64)
+    ac = np.concatenate([co, r]).astype(np.int64)
+    v = np.ones(ar.shape[0], np.float32)
+    labels = np.repeat(np.arange(n_clusters, dtype=np.int64), cluster_size)
+    coo = COO.from_numpy(ar, ac, v, n, n, capacity=ar.shape[0] + n, device=device)
+    return coo, labels
+
+
+def cluster_purity(found: np.ndarray, planted: np.ndarray) -> float:
+    """Purity of a found clustering against planted labels: each found
+    cluster's share of its majority community, weighted by its size
+    (1.0: every found cluster lies inside one community)."""
+    total = 0
+    for lab in np.unique(found):
+        members = planted[found == lab]
+        _, counts = np.unique(members, return_counts=True)
+        total += int(counts.max())
+    return total / found.shape[0]

@@ -1,14 +1,90 @@
 """Host-side (numpy) primitives for the SpGEMM planners.
 
 Copied from the JAX package's ``utils/nphost.py`` so the planners make
-the same plans.  The reference's glibc heap tuning and its transparent
-huge-page numpy allocator (a C file compiled into the package at import)
-are not carried over: they tuned page-fault cost on the TPU host.
+the same plans, with its host heap tuning: ``prefault`` keeps freed
+large blocks on the glibc heap and installs the transparent huge-page
+numpy allocator (``native/src/thpalloc.c``, built with gcc into
+``build/torch_native/``).  The reference does both when it is imported;
+the port does them on the first ``prefault`` call, so importing it
+changes nothing in the process.
 """
 
 from __future__ import annotations
 
+import ctypes
+import importlib.machinery
+import importlib.util
+import os
+import subprocess
+import sysconfig
+
 import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+THP_SOURCE = os.path.join(_PKG, "native", "src", "thpalloc.c")
+THP_LIB = os.path.join(os.path.dirname(_PKG), "build", "torch_native", "_thpalloc.so")
+
+
+def _keep_heap_pages() -> bool:
+    """Keep freed large blocks on the glibc heap instead of unmapping
+    them (``mallopt``: no trim, no mmap threshold), so a planner's
+    temporaries reuse pages that have already faulted in; False off
+    glibc."""
+    try:
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        m_trim_threshold, m_mmap_threshold = -1, -3
+        ok = libc.mallopt(m_trim_threshold, ctypes.c_int(2**31 - 1))
+        ok &= libc.mallopt(m_mmap_threshold, ctypes.c_int(2**31 - 1))
+        return bool(ok)
+    except OSError:
+        return False
+
+
+def _install_thpalloc() -> bool:
+    """Build (when missing or older than its source) and install the
+    transparent huge-page numpy data allocator, so MB-scale numpy
+    buffers come from MADV_HUGEPAGE mappings; False, with numpy left as
+    it was, when gcc, the headers or numpy's handler API are missing."""
+    try:
+        if not os.path.exists(THP_LIB) or os.path.getmtime(THP_LIB) < os.path.getmtime(
+            THP_SOURCE
+        ):
+            os.makedirs(os.path.dirname(THP_LIB), exist_ok=True)
+            tmp = f"{THP_LIB}.{os.getpid()}.tmp"
+            cmd = ["gcc", "-O2", "-shared", "-fPIC",
+                   f"-I{sysconfig.get_paths()['include']}", f"-I{np.get_include()}",
+                   "-o", tmp, THP_SOURCE]
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            os.replace(tmp, THP_LIB)
+        loader = importlib.machinery.ExtensionFileLoader("_thpalloc", THP_LIB)
+        spec = importlib.util.spec_from_loader("_thpalloc", loader)
+        mod = importlib.util.module_from_spec(spec)
+        loader.exec_module(mod)
+        return bool(mod.install())
+    except (OSError, ImportError, subprocess.SubprocessError):
+        return False
+
+
+# (heap pages kept, THP allocator installed), set by the first prefault
+_HEAP: tuple[bool, bool] | None = None
+_prefaulted = 0
+
+
+def prefault(nbytes: int) -> None:
+    """Pre-fault ``nbytes`` of heap so later numpy temporaries reuse warm
+    pages.  The first call keeps freed pages on the heap and installs the
+    THP allocator; under that allocator (faults are cheap there) the
+    call does nothing more.  Idempotent up to the high-water mark."""
+    global _HEAP, _prefaulted
+    if _HEAP is None:
+        _HEAP = (_keep_heap_pages(), _install_thpalloc())
+    kept, thp = _HEAP
+    if thp or not kept or nbytes <= _prefaulted:
+        return
+    block = np.empty(nbytes // 8, dtype=np.int64)
+    block[:: 4096 // 8] = 0  # touch every page
+    _prefaulted = nbytes
+    del block
 
 
 def repeat_idx(counts: np.ndarray, total: int | None = None) -> np.ndarray:

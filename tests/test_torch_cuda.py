@@ -965,6 +965,138 @@ def test_run_sums_are_deterministic_on_the_card(dev):
     _assert_vals(got.cpu(), want.float())
 
 
+def _k9_runs(case):
+    """(values, int64 offsets, leading slots before values[0] in its
+    buffer) of a K9 edge case, made from a seed."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    lead = 0
+    if case == "empty runs":
+        lens = np.where(rng.random(3000) < 0.6, 0, rng.integers(1, 40, 3000))
+        lens[:64] = 0  # a whole warp of empty runs
+    elif case == "an empty stream":
+        lens = np.zeros(70, np.int64)
+    elif case == "one value":
+        lens = np.array([1])
+    elif case == "2^20 values":
+        lens = np.array([1 << 20])
+    elif case == "around kShort":  # a lane's runs and the warp's, in the lane mode
+        lens = rng.integers(28, 37, 4000)
+        lens[1::2] = 0
+        lens[::997] = rng.integers(300, 5000, lens[::997].size)
+    elif case == "power law":
+        lens = np.minimum(rng.zipf(2.2, 20000), 50000)
+    else:  # "off the 16-byte grid <k>": the stream starts k slots past the grid
+        lead = int(case[-1])
+        lens = rng.integers(0, 40, 3000)
+        lens[5] = 4099
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    vals = rng.standard_normal(int(off[-1])).astype(np.float32)
+    vals[rng.random(vals.size) < 0.01] = -0.0
+    return vals, off, lead
+
+
+@pytest.mark.parametrize("case", ["empty runs", "an empty stream", "one value", "2^20 values",
+                                  "around kShort", "power law", "off the 16-byte grid 1",
+                                  "off the 16-byte grid 2", "off the 16-byte grid 3"])
+@pytest.mark.parametrize("odtype", [torch.int32, torch.int64])
+def test_run_sums_kernel_equals_the_cpu_bits(dev, case, odtype):
+    """K9 against its plain version on the CPU, bit for bit, in both
+    modes (a lane a short run, or a warp a run once the stream holds
+    WARP_RUN_SLOTS slots a run), with the runs moved through the stream
+    and followed by slots past offsets[-1] that must be left out."""
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import (
+        WARP_RUN_SLOTS,
+        run_sums,
+        run_sums_plain,
+    )
+
+    vals, off, lead = _k9_runs(case)
+    runs = off.size - 1
+    want = run_sums_plain(torch.from_numpy(vals), torch.from_numpy(off))
+    for shift in (0, 1, 3, 6):
+        for tail in (0, 5, WARP_RUN_SLOTS * runs):  # tail 0: the last run ends the stream
+            buf = torch.full((lead + shift + vals.size + tail,), 7.5)
+            buf[lead + shift:lead + shift + vals.size] = torch.from_numpy(vals)
+            v = buf.to(dev)[lead:]
+            o = torch.from_numpy(off + shift).to(odtype).to(dev)
+            before = run_sums.launches
+            got = run_sums(v, o)
+            torch.cuda.synchronize()
+            assert run_sums.launches == before + 1
+            assert got.shape == (runs,) and got.device == dev
+            assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), (
+                case, shift, tail)
+
+
+def test_blocked_run_sums_on_the_card_equal_the_cpu_bits(dev):
+    """The prune's blocked row sums (K9 twice) on the card, bit for bit
+    the CPU's, at two offsets of the stream."""
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import blocked_run_sums
+
+    rng = np.random.default_rng(31)
+    lens = np.minimum(rng.zipf(1.5, 16384), 20000)
+    lens[rng.random(lens.size) < 0.1] = 0
+    vals = rng.random(int(lens.sum()) + 3).astype(np.float32)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    want = blocked_run_sums(torch.from_numpy(vals), torch.from_numpy(off))
+    for shift in (0, 3):
+        v = torch.from_numpy(np.concatenate([np.zeros(shift, np.float32), vals])).to(dev)
+        got = blocked_run_sums(v, torch.from_numpy(off + shift).to(dev))
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_run_sums_refuses_what_the_kernel_does_not_take(dev):
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import run_sums
+
+    with pytest.raises(ValueError):
+        run_sums(torch.zeros(4, device=dev), torch.tensor([0, 4]))  # mixed devices
+    with pytest.raises(TypeError):
+        run_sums(torch.zeros(4, device=dev, dtype=torch.float16), torch.tensor([0, 4], device=dev))
+    with pytest.raises(ValueError):
+        run_sums(torch.zeros((2, 2), device=dev), torch.tensor([0, 4], device=dev))
+
+
+def test_run_sums_replays_in_a_cuda_graph_with_new_inputs(dev):
+    """K9 in both modes captured once and replayed on refilled values
+    and offsets, each replay equal to the CPU bits and to an eager call."""
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import run_sums, run_sums_plain
+
+    g = torch.Generator().manual_seed(11)
+    cases = {"lanes": (200_000, 50_000), "warps": (200_000, 1_000)}  # (slots, runs)
+    vals = {k: torch.empty(n, device=dev) for k, (n, _) in cases.items()}
+    offs = {k: torch.empty(r + 1, dtype=torch.int64, device=dev) for k, (_, r) in cases.items()}
+
+    def refill():
+        for k, (n, r) in cases.items():
+            cut = torch.sort(torch.randint(0, n + 1, (r + 1,), generator=g)).values
+            offs[k].copy_(cut)
+            vals[k].copy_(torch.randn(n, generator=g))
+
+    def calls():
+        return [run_sums(vals[k], offs[k]) for k in cases]
+
+    refill()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = run_sums.launches
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert run_sums.launches == before + 2
+    for _ in range(3):
+        refill()
+        graph.replay()
+        eager = calls()
+        torch.cuda.synchronize()
+        for k, got, again in zip(cases, captured, eager):
+            want = run_sums_plain(vals[k].cpu(), offs[k].cpu())
+            assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), k
+            assert torch.equal(again, got)
+
+
 def test_load_coo_lands_on_the_card_by_default(dev):
     from sparse_matrix_with_flops_tpu_torch.io import load_coo
 
@@ -1123,14 +1255,13 @@ def test_sharded_rmcl_scan_makes_no_host_read(dev):
         torch.cuda.set_sync_debug_mode(0)
     assert out.values.device.type == "cuda" and hist["nnz_mt"].device.type == "cuda"
     assert not bool(hist["overflow"].any())
-    # the single-card scan on the same rows: the same structure, and the
-    # values but for run_sums' summation order, which depends on where a
-    # run starts in the stream (PERF.md)
+    # the single-card scan on the same rows, bit for bit: K9 adds a run
+    # in an order fixed by the run alone, wherever it starts in a stream
     single, sh = rmcl_scan(mt0, mt0.with_capacity(4 * cc), 4 * pc, 4 * cc, 3)
     (grp, gci, gv), (wrp, wci, wv) = unshard_csr(out).to_numpy(), single.to_numpy()
     np.testing.assert_array_equal(grp, wrp)
     np.testing.assert_array_equal(gci, wci)
-    np.testing.assert_allclose(gv, wv, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(gv.view(np.int32), wv.view(np.int32))
     np.testing.assert_array_equal(hist["nnz_mt"].cpu().numpy(), sh["nnz"].cpu().numpy())
 
 
