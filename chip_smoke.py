@@ -103,7 +103,25 @@
    ms, ms an iteration as the slope of CUDA-event medians at 2 and 6
    iterations, iteration 1 against the f64 oracle, 30 iterations to
    clusters at weight floor 0.05 with purity >= 0.95, and one stream step's
-   run sums (K9) at that scale.
+   run sums (K9) at that scale;
+15. one rank a process (the process mesh, ranks started as processes of
+   this script with ``--rank-child``, each group under a wall-clock limit,
+   a failed rank failing the phase): (a) world size 1 under NCCL:
+   ``sharded_spgemm`` and ``sharded_spgemm_ring`` on phase 4's s14 and
+   ``sharded_rmcl_ell`` with each exchange on phase 8's graph, each bit
+   for bit against the stacked D = 1 path, and no host read (sync debug
+   mode "error") where the stacked path makes none; (b) two processes on
+   the one card under gloo, K6 / K8 launched one rank at a time on CUDA
+   IPC peer pointers: ``sharded_rmcl_ell`` on phase 8's graph, 3
+   iterations, each exchange, every rank's result bit for bit against the
+   stacked D = 2 path (SHA-256 of the arrays and statistics), and the
+   per-rank K6, K7 and K8 at phase 9's D = 2 shapes against their plain
+   versions (the twins over the group's all-gather), timed and labelled
+   as two processes time-sharing one card, not a cross-card figure; (c)
+   with more than one card, D = min(cards, 4) ranks under NCCL, one card
+   a rank, the checks of (b) (on one card it logs that it did not run).  The ranks' launches add to the counts of the ``kernels`` line,
+   and their per-rank cases to its ``cases`` (the kernel's own numbers
+   stay those of its stacked case).
 
 K9's records hold it bit for bit against its plain version on the CPU
 on every run_sums call of a path (captured in one call: general R-MCL
@@ -1839,9 +1857,488 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_
         raise AssertionError("phase 13: " + "; ".join(failed))
 
 
+# ---- 15. one rank a process ------------------------------------------------------
+EXCHANGES = ("all_gather", "pallas_ring", "ring", "fused_ring")
+# the kernels a process-mesh run of each exchange must launch on the card
+EXCHANGE_KERNELS = {
+    "all_gather": ("sort_dedup_compact",),
+    "pallas_ring": ("ring_all_gather", "sort_dedup_compact"),
+    "ring": ("sort_dedup_compact",),
+    "fused_ring": ("ring_matmul_tiled", "sort_dedup_compact"),
+}
+RANK_LIMIT_S = {"a": 240, "b": 300, "c": 300}  # a phase 15 group's wall clock
+# how each group's per-rank times are labelled
+RANK_LABEL = {"b": "two processes time-sharing one card, not a cross-card figure",
+              "c": "one card a rank, across cards"}
+S15, MT15 = 128, 8192  # phase 8's S and max_tile
+
+
+def kernel_wrappers() -> dict:
+    """The wrapper of every kernel, by name (each counts its launches)."""
+    from sparse_matrix_with_flops_tpu_torch.ops.scan_kernels import cumsum_i32
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import run_sums
+    from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
+        compact_nonzero_rows,
+        sort_dedup_compact,
+        window_gather,
+    )
+    from sparse_matrix_with_flops_tpu_torch.ops.spmm import bcsr_spmm
+    from sparse_matrix_with_flops_tpu_torch.parallel.ring_kernels import (
+        ring_all_gather,
+        ring_matmul,
+        ring_matmul_tiled,
+    )
+
+    return {
+        "sort_dedup_compact": sort_dedup_compact,
+        "compact_nonzero_rows": compact_nonzero_rows,
+        "window_gather": window_gather,
+        "cumsum_i32": cumsum_i32,
+        "bcsr_spmm": bcsr_spmm,
+        "ring_all_gather": ring_all_gather,
+        "ring_matmul": ring_matmul,
+        "ring_matmul_tiled": ring_matmul_tiled,
+        "run_sums": run_sums,
+    }
+
+
+def phase8_graph(torch, np, dev):
+    """Phase 8's R-MCL input: R-MAT s14 (edge factor 8, seed 7, unit
+    weights) as a COO on ``dev``, its ``rmcl_init`` and S-wide ELL."""
+    from sparse_matrix_with_flops_tpu_torch.formats import COO
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl_ell import mt_to_ell
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    g = rmat_csr(14, edge_factor=8, seed=7, device=dev)
+    grp, gci, gv = g.to_numpy()
+    n = g.rows
+    coo = COO.from_numpy(np.repeat(np.arange(n), np.diff(grp)), gci, gv, n, n,
+                         capacity=gci.size + n, device=dev)
+    mgt = rmcl_init(coo).make_ordered()
+    cols0, vals0 = mt_to_ell(mgt, S15)
+    return coo, mgt, cols0, vals0
+
+
+def rmcl_digest(np, out, hist) -> str:
+    """SHA-256 of an R-MCL result's CSR arrays and statistics: equal
+    digests mean bit-equal results."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (out.row_ptr, out.col_ind, out.values):
+        h.update(t.cpu().numpy().tobytes())
+    for k in sorted(hist):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(hist[k]).tobytes())
+    return h.hexdigest()
+
+
+def same_sharded(torch, x, y) -> bool:
+    return all(torch.equal(getattr(x, f), getattr(y, f))
+               for f in ("row_ptr", "col_ind", "values"))
+
+
+def rank_child(argv) -> int:
+    """One rank of phase 15 (``chip_smoke.py --rank-child MODE RANK WORLD
+    DIR``): joins the group through DIR's file store and writes its
+    report to DIR/rank<r>.json.  MODE a: world size 1 under NCCL; b: two
+    processes on one card under gloo; c: one card a rank under NCCL."""
+    import datetime
+    import traceback
+
+    import torch
+
+    mode, rank, world, work = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch.distributed as dist
+
+    from sparse_matrix_with_flops_tpu_torch.parallel import mesh as M
+    from sparse_matrix_with_flops_tpu_torch.parallel import peer
+
+    rep = {"runs": [], "digests": {}, "records": [], "failed": [], "log": []}
+    try:
+        M.init_distributed(backend="gloo" if mode == "b" else "nccl",
+                           init_method=f"file://{os.path.join(work, 'store')}", rank=rank,
+                           world_size=world, timeout=datetime.timedelta(seconds=150))
+        mesh = M.process_mesh() if world == 1 else M.make_mesh()
+        if mesh.device.type != "cuda" or not isinstance(mesh, M.ProcessMesh):
+            raise AssertionError(f"rank {rank}: {mesh} is not a process mesh on a card")
+        wrappers = kernel_wrappers()
+
+        def counted(label, fn, must=(), path=True):
+            """A main-path run: every count 0 just before, read just after."""
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+            counts = {k: w.launches for k, w in wrappers.items()}
+            rep["runs"].append({"label": label, "counts": counts, "path": path})
+            rep["log"].append(f"{label}: launches {counts}")
+            for k in must:
+                if not counts[k]:
+                    rep["failed"].append(f"{label} launched {k} no time")
+            return out
+
+        coo, mgt, cols0, vals0 = phase8_graph(torch, np, mesh.device)
+        if mode == "a":
+            child_world_one(torch, np, mesh, rep, counted, coo, mgt, cols0, vals0)
+        else:
+            child_rmcl(torch, np, mesh, rep, counted, coo, mode)
+            child_kernels(torch, np, mesh, rep, counted, mgt, cols0, vals0, mode)
+        peer.close_all()
+        dist.destroy_process_group()
+    except Exception:  # the report carries the failure; the exit code says it
+        rep["failed"].append(f"rank {rank}: " + traceback.format_exc()[-3000:])
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    return 1 if rep["failed"] else 0
+
+
+def host_reads(torch, fn) -> bool:
+    """Whether ``fn`` reads the card from the host (sync debug mode
+    "error" raises on the first such read)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return False
+    except RuntimeError as e:
+        if "synchroniz" not in str(e).lower():
+            raise
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def child_world_one(torch, np, mesh, rep, counted, coo, mgt, cols0, vals0):
+    """15(a): world size 1 under NCCL, each path bit-equal to the stacked
+    D = 1 path, and no host read where the stacked path makes none."""
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        make_mesh,
+        plan_sharded_rmcl_ell,
+        shard_csr,
+        sharded_rmcl_ell,
+        sharded_rmcl_ell_scan,
+        sharded_spgemm,
+        sharded_spgemm_ring,
+    )
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import plan_spgemm_ring
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    stacked = make_mesh(1, mesh.device)  # a group of one rank: the stacked mesh
+    if type(stacked) is type(mesh):
+        raise AssertionError("make_mesh(1) under a one-rank group is not the stacked mesh")
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random")  # phase 4's s14
+    pc, oc = spgemm_upper_bounds(a, a)
+    sp_, ss = shard_csr(a, mesh), shard_csr(a, stacked)
+    runs = {}
+    runs["spgemm"] = (
+        counted("sharded_spgemm s14 W=1 process mesh (NCCL)",
+                lambda: sharded_spgemm(mesh, sp_, sp_, pc, oc)[0]),
+        sharded_spgemm(stacked, ss, ss, pc, oc)[0])
+    plan_p, ents_p = plan_spgemm_ring(sp_, sp_, mesh)
+    plan_s, ents_s = plan_spgemm_ring(ss, ss)
+    runs["spgemm_ring"] = (
+        counted("sharded_spgemm_ring s14 W=1 process mesh (NCCL)",
+                lambda: sharded_spgemm_ring(mesh, sp_, sp_, out_cap=oc, plan=plan_p,
+                                            step_ents=ents_p)[0]),
+        sharded_spgemm_ring(stacked, ss, ss, out_cap=oc, plan=plan_s, step_ents=ents_s)[0])
+    for what, (x, y) in runs.items():
+        same = same_sharded(torch, x, y)
+        rep["log"].append(f"15a {what} s14: process mesh (W=1, NCCL) {'==' if same else '!='} "
+                          f"stacked D=1 bit for bit; nnz(C) {int(x.row_ptr[0, -1])}")
+        if not same:
+            rep["failed"].append(f"15a {what}: differs from the stacked D=1 path")
+    reads = {
+        "sharded_spgemm": (
+            host_reads(torch, lambda: sharded_spgemm(stacked, ss, ss, pc, oc)),
+            host_reads(torch, lambda: sharded_spgemm(mesh, sp_, sp_, pc, oc))),
+        "sharded_spgemm_ring": (
+            host_reads(torch, lambda: sharded_spgemm_ring(stacked, ss, ss, out_cap=oc,
+                                                          plan=plan_s, step_ents=ents_s)),
+            host_reads(torch, lambda: sharded_spgemm_ring(mesh, sp_, sp_, out_cap=oc,
+                                                          plan=plan_p, step_ents=ents_p))),
+    }
+    del runs, sp_, ss, plan_p, ents_p, plan_s, ents_s
+    n = mgt.rows
+    for ex in EXCHANGES:
+        got = counted(f"sharded_rmcl_ell s14 W=1 {ex} 3 iterations process mesh (NCCL)",
+                      lambda ex=ex: sharded_rmcl_ell(coo, mesh, max_iters=3, S=S15,
+                                                     max_tile=MT15, exchange=ex),
+                      EXCHANGE_KERNELS[ex])
+        want = sharded_rmcl_ell(coo, stacked, max_iters=3, S=S15, max_tile=MT15, exchange=ex)
+        same = rmcl_digest(np, *got) == rmcl_digest(np, *want)
+        rep["log"].append(f"15a sharded_rmcl_ell {ex}: process mesh (W=1, NCCL) "
+                          f"{'==' if same else '!='} stacked D=1 bit for bit (iterate and "
+                          f"stats); nnz {got[1]['nnz'].tolist()} differs "
+                          f"{got[1]['differs'].tolist()}")
+        if not same:
+            rep["failed"].append(f"15a sharded_rmcl_ell {ex}: differs from the stacked D=1 path")
+        # the scan, warm, with and without the process group's collectives
+        scans = []
+        for m in (stacked, mesh):
+            plan, arrays, smgt = plan_sharded_rmcl_ell(mgt, 1, S=S15, max_tile=MT15, mesh=m)
+            c0 = torch.where(cols0 >= n, plan.n, cols0).reshape(1, plan.lr, S15)
+            v0 = vals0.reshape(1, plan.lr, S15)
+
+            def scan(m=m, plan=plan, arrays=arrays, smgt=smgt, c0=c0, v0=v0):
+                return sharded_rmcl_ell_scan(m, plan, smgt, arrays, c0, v0, 2, ex)
+
+            scan()
+            scans.append(host_reads(torch, scan))
+        reads[f"sharded_rmcl_ell_scan {ex}"] = tuple(scans)
+    for what, (s_read, p_read) in reads.items():
+        rep["log"].append(f"15a {what}: host read under sync debug mode 'error': stacked "
+                          f"{'yes' if s_read else 'none'}, process mesh "
+                          f"{'yes' if p_read else 'none'}")
+        if p_read and not s_read:
+            rep["failed"].append(f"15a {what}: the process mesh reads the card from the host "
+                                 f"where the stacked path does not")
+
+
+def child_rmcl(torch, np, mesh, rep, counted, coo, mode):
+    """15(b) / (c): ``sharded_rmcl_ell`` on phase 8's graph, 3 iterations,
+    each exchange on the process mesh; the digests go to the parent."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import sharded_rmcl_ell
+
+    tag = "two processes on one card (gloo)" if mode == "b" else "one card a rank (NCCL)"
+    for ex in EXCHANGES:
+        t0 = time.perf_counter()
+        out = counted(f"sharded_rmcl_ell s14 D={mesh.num_shards} {ex} 3 iterations, {tag}",
+                      lambda ex=ex: sharded_rmcl_ell(coo, mesh, max_iters=3, S=S15,
+                                                     max_tile=MT15, exchange=ex),
+                      EXCHANGE_KERNELS[ex])
+        wall = time.perf_counter() - t0
+        rep["digests"][ex] = rmcl_digest(np, *out)
+        rep["log"].append(f"15{mode} rank {mesh.rank} {ex}: {wall:.3f} s with plan "
+                          f"({RANK_LABEL[mode]}); nnz "
+                          f"{out[1]['nnz'].tolist()} differs {out[1]['differs'].tolist()}")
+
+
+def child_kernels(torch, np, mesh, rep, counted, mgt, cols0, vals0, mode):
+    """15(b) / (c): per-rank K6, K7 and K8 at phase 9's shapes for the
+    group's D against their plain versions (the twins over the group's
+    all-gather), timed under the group's label."""
+    import torch.distributed as dist
+
+    from sparse_matrix_with_flops_tpu_torch.parallel import collectives as C
+    from sparse_matrix_with_flops_tpu_torch.parallel.ring_kernels import (
+        ring_all_gather,
+        ring_all_gather_plain,
+        ring_matmul,
+        ring_matmul_plain,
+        ring_matmul_tiled,
+        ring_matmul_tiled_plain,
+    )
+    from sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell import (
+        fused_hub_operands,
+        plan_sharded_rmcl_ell,
+    )
+
+    d, me, n = mesh.num_shards, mesh.rank, mgt.rows
+    rows = slice(me, me + 1)
+    label, backend = RANK_LABEL[mode], dist.get_backend()
+
+    def add(name, case, err, ms, plain_ms, kb, library, call=None):
+        rep["records"].append({
+            "name": name, "case": f"{case}, rank {me} [{label}]", "err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound": list(kb), "library": library, "call": call})
+        rep["log"].append(f"15{mode} rank {me} {name} [{case}]: max_abs_err {err:.3e} kernel "
+                          f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {kb[0]:.4f} ms ({kb[1]}) "
+                          f"library {library if isinstance(library, str) else f'{library:.4f} ms'}"
+                          f" [{label}]")
+
+    def burst(what, fn, check, calls=20):
+        outs = [fn() for _ in range(calls)]
+        torch.cuda.synchronize()
+        for o in outs:
+            check(o)
+        rep["log"].append(f"15{mode} rank {me} {what}: {calls} back-to-back calls pass the check")
+
+    # K6 on this rank's [lr, 128] iterate block, cols and vals in one call
+    xc = cols0.reshape(d, n // d, S15)[rows].contiguous()
+    xv = vals0.reshape(d, n // d, S15)[rows].contiguous()
+    want = (ring_all_gather_plain(xc, mesh), ring_all_gather_plain(xv, mesh))
+
+    def k6_same(got):
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"per-rank K6 D={d}: differs from the twin")
+
+    k6_same(ring_all_gather(xc, xv, mesh=mesh))
+    burst(f"per-rank K6 D={d}", lambda: ring_all_gather(xc, xv, mesh=mesh), k6_same)
+    gathered = [torch.empty((d, *x.shape[1:]), dtype=x.dtype, device=x.device) for x in (xc, xv)]
+    full = 2 * d * (xc[0].numel() + xv[0].numel()) * 4  # every block in, every block out
+    add("ring_all_gather", f"one rank a launch D={d} [{n // d}, {S15}] int32 + f32", 0.0,
+        cuda_ms(torch, lambda: ring_all_gather(xc, xv, mesh=mesh)),
+        cuda_ms(torch, lambda: (ring_all_gather_plain(xc, mesh),
+                                ring_all_gather_plain(xv, mesh))),
+        bound(full),
+        cuda_ms(torch, lambda: [dist.all_gather_into_tensor(o, x)
+                                for o, x in zip(gathered, (xc, xv))]),
+        f"torch.distributed.all_gather_into_tensor ({backend}) of the cols and of the vals, "
+        "owner-major")
+    # K7 / K8 on this rank's hub operands
+    sp_, arrays, _ = plan_sharded_rmcl_ell(mgt, d, S=S15, max_tile=MT15, mesh=mesh)
+    lc = torch.where(cols0 >= n, sp_.n, cols0).reshape(d, sp_.lr, S15)[rows]
+    lv = vals0.reshape(d, sp_.lr, S15)[rows]
+    a_cols, md_loc, nt = fused_hub_operands(sp_, arrays, lc, lv, mesh)
+    full_b = C.all_gather(mesh, md_loc).reshape(-1, md_loc.shape[2])
+    tol = 1e-7 + 1e-4 * (a_cols[0].abs() @ full_b.abs())
+    m, k, npad = a_cols.shape[1], a_cols.shape[2], md_loc.shape[2]
+    gf = 2.0 * m * k * npad
+    kb = bound(4.0 * (a_cols.numel() + full_b.numel() + m * npad), gf)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(a_cols[0], full_b))
+    for name, fk, fp in (
+        ("ring_matmul", lambda: ring_matmul(a_cols, md_loc, mesh=mesh),
+         lambda: ring_matmul_plain(a_cols, md_loc, mesh)),
+        ("ring_matmul_tiled", lambda: ring_matmul_tiled(a_cols, md_loc, nt, mesh=mesh),
+         lambda: ring_matmul_tiled_plain(a_cols, md_loc, nt, mesh)),
+    ):
+        got, p = fk(), fp()
+        torch.cuda.synchronize()
+
+        def close(x, name=name, p=p):
+            e = (x - p).abs()
+            if not bool(torch.isfinite(x).all()) or not bool((e <= tol).all()):
+                raise AssertionError(f"per-rank {name} D={d}: differs from the twin "
+                                     f"(max err {float(e.max()):.3e})")
+
+        close(got)
+        burst(f"per-rank {name} D={d}", fk, close)
+        add(name, f"one rank a launch D={d} M={m} lr={md_loc.shape[1]} N={npad} "
+            f"nt={nt if 'tiled' in name else npad}", float((got - p).abs().max()),
+            cuda_ms(torch, fk), cuda_ms(torch, fp), kb, lib_ms,
+            "torch.matmul(a_cols[rank], all-gathered B) (true f32)")
+        if name == "ring_matmul":  # B7 is on no path of the reference: a direct call
+            counted(f"per-rank ring_matmul D={d} on the hub operands", fk, ("ring_matmul",),
+                    path=False)
+
+
+def run_ranks(mode: str, world: int) -> list:
+    """Start ``world`` ranks of ``mode`` (``chip_smoke.py --rank-child``),
+    wait for them under RANK_LIMIT_S, kill any still running; each rank's
+    report (a missing one fails the phase)."""
+    import shutil
+
+    work = os.path.join(ROOT, "build", f"phase15{mode}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    for r in range(world):
+        logf = open(os.path.join(work, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-child", mode, str(r),
+             str(world), work], stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT), logf))
+    t0 = time.perf_counter()
+    limit = RANK_LIMIT_S[mode]
+    for p, _ in procs:
+        try:
+            p.wait(max(1.0, limit - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+    killed = []
+    for r, (p, logf) in enumerate(procs):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+            killed.append(r)
+        logf.close()
+    log(f"15{mode}: {world} rank(s) in {time.perf_counter() - t0:.1f} s, exit codes "
+        f"{[p.returncode for p, _ in procs]}" + (f"; killed at {limit} s: {killed}"
+                                                   if killed else ""))
+    reports = []
+    for r in range(world):
+        path = os.path.join(work, f"rank{r}.json")
+        if not os.path.exists(path):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"phase 15{mode}: rank {r} wrote no report; its output "
+                                 f"ends:\n{tail}")
+        with open(path) as f:
+            reports.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    return reports
+
+
+def process_phase(torch, np, dev, card, launches, launched_by, record):
+    """Phase 15: one rank a process (ranks started as processes of this
+    script, each under RANK_LIMIT_S).  (a) world size 1 under NCCL;
+    (b) two processes on the one card under gloo, K6 / K8 on CUDA IPC peer
+    pointers, each rank's R-MCL result held to the stacked D = 2 path and
+    per-rank K6 / K7 / K8 to their plain versions; (c) one card a rank
+    under NCCL when the machine has more than one card."""
+    t_phase = time.perf_counter()
+    failed = []
+    torch.cuda.empty_cache()
+
+    def take(mode, reports):
+        for r, rep in enumerate(reports):
+            for line in rep["log"]:
+                log(f"  [15{mode} rank {r}] {line}")
+            failed.extend(rep["failed"])
+            for run in rep["runs"]:
+                for k, n in run["counts"].items():
+                    launches[k] += n
+                    if n:
+                        label = f"{run['label']} (rank {r})"
+                        launched_by[k].append(label if run["path"] else
+                                              f"{label} (direct call, no path)")
+            for rec in rep["records"]:
+                record(rec["name"], rec["case"], rec["err"], rec["ms"], rec["plain_ms"],
+                       tuple(rec["bound"]), rec["library"], rec["call"], top=False)
+
+    take("a", run_ranks("a", 1))
+    coo = phase8_graph(torch, np, dev)[0]
+    groups = [("b", 2)]
+    if torch.cuda.device_count() > 1:
+        groups.append(("c", min(torch.cuda.device_count(), 4)))
+    else:
+        log("cross-card: 1 card, not run")
+    for mode, d in groups:
+        rank_group(torch, np, dev, coo, mode, d, take, failed)
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    if failed:
+        raise AssertionError("phase 15: " + "; ".join(failed))
+
+
+def rank_group(torch, np, dev, coo, mode, d, take, failed):
+    """Phase 15(b) or (c): the stacked D = d path's digests on ``dev``,
+    then the d ranks, each rank's digests held to them."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, sharded_rmcl_ell
+
+    want = {}
+    for ex in EXCHANGES:
+        out = sharded_rmcl_ell(coo, make_mesh(d, dev), max_iters=3, S=S15, max_tile=MT15,
+                               exchange=ex)
+        want[ex] = rmcl_digest(np, *out)
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reports = run_ranks(mode, d)
+    take(mode, reports)
+    for r, rep in enumerate(reports):
+        for ex in EXCHANGES:
+            same = rep["digests"].get(ex) == want[ex]
+            log(f"15{mode} sharded_rmcl_ell {ex} D={d} rank {r}: "
+                f"{'==' if same else '!='} the stacked D={d} path bit for bit "
+                f"(iterate and stats)")
+            if not same:
+                failed.append(f"15{mode} rank {r} {ex}: differs from the stacked path")
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--rank-child"]:
+        return rank_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
         return 1
@@ -1900,17 +2397,7 @@ def main() -> int:
         ring_matmul_tiled_plain,
     )
 
-    wrappers = {
-        "sort_dedup_compact": sort_dedup_compact,
-        "compact_nonzero_rows": compact_nonzero_rows,
-        "window_gather": window_gather,
-        "cumsum_i32": cumsum_i32,
-        "bcsr_spmm": bcsr_spmm,
-        "ring_all_gather": ring_all_gather,
-        "ring_matmul": ring_matmul,
-        "ring_matmul_tiled": ring_matmul_tiled,
-        "run_sums": run_sums,
-    }
+    wrappers = kernel_wrappers()
     ell_kernels = ("sort_dedup_compact", "compact_nonzero_rows", "window_gather", "cumsum_i32")
 
     # ---- 1. card -------------------------------------------------------
@@ -1954,11 +2441,12 @@ def main() -> int:
     results = {}
 
     def record(name, case, err, ms, plain_ms, kbound, library, library_call=None,
-               dev_ms=None):
+               dev_ms=None, top=True):
         """One case of a kernel: ``kbound`` (ms, what bounds it);
         ``library`` the time of the one PyTorch call that computes the
         same function (``library_call`` names it), or the reason there is
-        none; ``dev_ms`` the kernel's device time alone, where measured."""
+        none; ``dev_ms`` the kernel's device time alone, where measured.
+        The last case with ``top`` gives the kernel's own numbers."""
         lib_ms = library if isinstance(library, float) else None
         log(
             f"{name} [{case}]: max_abs_err {err:.3e} kernel {ms:.4f} ms "
@@ -1969,6 +2457,7 @@ def main() -> int:
                f"; device {dev_ms:.4f} ms ({kbound[0] / dev_ms:.1%} of the bound)")
         )
         r = results.setdefault(name, {"max_abs_err": 0.0, "cases": {}})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
         case_rec = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": kbound[0], "bound_by": kbound[1], "library_ms": lib_ms,
@@ -1979,12 +2468,13 @@ def main() -> int:
             case_rec["library_none"] = library
         if library_call is not None:
             case_rec["library_call"] = library_call
+        r["cases"][case] = case_rec
+        if not top:
+            return
         r.pop("library_none", None)
         r.pop("library_call", None)
         r.pop("device_ms", None)
-        r["max_abs_err"] = max(r["max_abs_err"], err)
         r.update({k: v for k, v in case_rec.items() if k != "max_abs_err"})  # the last case
-        r["cases"][case] = case_rec
 
     def check_vals(got, want, what):
         err = (got - want).abs()
@@ -2496,6 +2986,10 @@ def main() -> int:
 
     # ---- 14. R-MCL on planted partitions, two sizes ----------------------
     planted_phase(torch, np, sp, dev, card, drive, record, cuda_ms, device_ms)
+    torch.cuda.synchronize()
+
+    # ---- 15. one rank a process --------------------------------------------
+    process_phase(torch, np, dev, card, launches, launched_by, record)
     torch.cuda.synchronize()
 
     for k, n in launches.items():

@@ -8,6 +8,8 @@ K6-K8; K1, K2, K3 and K5 in ``kernels``).
     python3 ring_probe.py streams ROOT [ROOT ...]
     python3 ring_probe.py launch [--root ROOT]
     python3 ring_probe.py variants [--root ROOT] [NAME ...]
+    python3 ring_probe.py cross-card          # a machine with 2 or more cards
+    python3 ring_probe.py processes
 
 ``accuracy``: K8 and its plain twin on the D = 2 and D = 4 hub operands
 of the sharded R-MCL loop on R-MAT s14 (the operands ``chip_smoke.py``
@@ -50,6 +52,24 @@ timed one call at a time (as ``chip_smoke.py``), back to back, on the
 host, and by ``torch.profiler`` on the device; then the host cost of
 each step of a kernel wrapper.
 
+``cross-card``: ``chip_smoke.py`` phase 15(c) alone, on a machine with
+more than one card: D = min(cards, 4) ranks under NCCL, one card a rank
+(processes of ``chip_smoke.py --rank-child``), ``sharded_rmcl_ell`` with
+each exchange on phase 8's graph against the stacked D path on card 0,
+and the per-rank K6, K7 and K8 against their plain versions, timed.
+
+``processes``: what one rank a process meets on the machine it runs on, each
+group of ranks a process of this script under a wall-clock limit: which
+gloo collectives take card tensors (``all_gather_into_tensor``,
+``batch_isend_irecv``, two ranks); world size 1 under NCCL (per-rank K6 /
+K7 / K8 against their twins, ``sharded_rmcl_ell`` on R-MAT s10 with each
+exchange against the stacked D = 1 path); two processes on card 0 under
+gloo (per-rank K6 on [1000, 128] int32 + f32 blocks, K7 / K8 on
+[1, 200, 512] · [1, 256, 4096], nt 2048, against their twins and timed,
+CUDA events over 20 / 10 calls); whether the MPS control daemon starts
+(pipes under ``build/mps``), and if it does the two processes again
+under it.  The ranks' reports and output land in ``build/processes/``.
+
 ``variants``: text-edited builds of ``csrc/ring.cu`` (K6),
 ``csrc/cumsum_i32.cu`` (K4), ``csrc/sort_dedup_compact.cu`` (K1, on the
 s14 plan's W = 8192 tile), ``csrc/bcsr_spmm.cu`` (K5),
@@ -74,6 +94,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "sparse_matrix_with_flops_tpu_torch"
@@ -498,9 +519,12 @@ def launch_costs(dev) -> None:
     torch.cuda.synchronize()
 
 
-K6_SYNC = """      Flag(theirs[k * stride]).store(p.epoch, cuda::std::memory_order_release);
-      Flag f(mine[k * stride]);"""
-K6_WAIT = "!= p.epoch) __nanosleep(32);"
+K6_SYNC = "      Flag(theirs[k * stride]).store(p.epoch, cuda::std::memory_order_release);"
+K6_WAIT = "      wait_epoch<32>(&mine[k * stride], p.epoch);"
+K6_STACKED_TAIL = """dim3(ctas, d),
+        dim3(kGatherThreads), args, 0, stream));
+  };
+"""
 K4_VECS = "constexpr int kVecs = 8; "
 K5_STAGES = "constexpr int kStages = 2;"
 K5_COMPUTE = "compute<G>(st, atile"
@@ -604,7 +628,9 @@ K3_UNITS = """  constexpr int kUnroll = 2;
 VARIANTS = {  # name -> (source, [(old, new), ...], checked): exact text edits
     "K6 as is": ("ring.cu", [], True),
     "K6 device scope": ("ring.cu", [
-        (K6_SYNC, K6_SYNC.replace("Flag(", "DevFlag(").replace("Flag f(", "DevFlag f(")),
+        (K6_SYNC, K6_SYNC.replace("Flag(", "DevFlag(")),
+        (K6_WAIT, "      { DevFlag f(mine[k * stride]);\n        while (f.load("
+                  "cuda::std::memory_order_acquire) != p.epoch) __nanosleep(32); }"),
         ("using Flag = cuda::atomic_ref<int, cuda::thread_scope_system>;",
          "using Flag = cuda::atomic_ref<int, cuda::thread_scope_system>;\n"
          "using DevFlag = cuda::atomic_ref<int, cuda::thread_scope_device>;")], True),
@@ -612,13 +638,13 @@ VARIANTS = {  # name -> (source, [(old, new), ...], checked): exact text edits
         (K6_SYNC, "      __threadfence_system();\n" + K6_SYNC),
         (K6_WAIT, K6_WAIT + "\n      __threadfence_system();")], True),
     # timing only, wrong results: what the waits and the forwarding hops cost
-    "K6 no waits": ("ring.cu", [(K6_WAIT, "!= p.epoch && false) {}")], False),
-    "K6 hop 0 only": ("ring.cu", [("for (int k = 1; k + 1 < d; ++k) {",
-                                   "for (int k = 1; k + 1 < 1; ++k) {")], False),
+    "K6 no waits": ("ring.cu", [(K6_WAIT, "")], False),
+    "K6 hop 0 only": ("ring.cu", [("for (int k = 1; k < hops; ++k) {",
+                                   "for (int k = 1; k < 1; ++k) {")], False),
     # every launch through the instance whose parameters hold 2040 pointers
     "K6 large instance only": ("ring.cu", [(
-        "if (n <= kPtrsSmall) return run(std::integral_constant<int, kPtrsSmall>{});", "")],
-        True),
+        K6_STACKED_TAIL + "  if (n <= kPtrsSmall) return run(std::integral_constant<int, "
+        "kPtrsSmall>{});", K6_STACKED_TAIL)], True),
     "K4 as is": ("cumsum_i32.cu", [], True),
     "K4 4 vectors a lane": ("cumsum_i32.cu", [(K4_VECS, "constexpr int kVecs = 4; ")], True),
     "K4 6 vectors a lane": ("cumsum_i32.cu", [(K4_VECS, "constexpr int kVecs = 6; ")], True),
@@ -871,10 +897,233 @@ def variants(dev, names, root: str = HERE) -> None:
                  + " ms" if name.startswith("K3") else ""), flush=True)
 
 
+def processes_child(mode, rank, world, store, res) -> None:
+    """One rank of ``processes`` (see the module's docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from sparse_matrix_with_flops_tpu_torch.parallel import mesh as M
+    from sparse_matrix_with_flops_tpu_torch.parallel import peer
+
+    backend = "nccl" if mode.startswith("nccl") else "gloo"
+    t0 = time.time()
+    M.init_distributed(backend=backend, init_method=f"file://{store}", rank=rank,
+                       world_size=world)
+    mesh = M.process_mesh()
+    dev = mesh.device
+    out = {"init_s": time.time() - t0, "device": str(dev)}
+    if mode == "gloo_cuda":
+        x = torch.arange(8, device=dev, dtype=torch.float32) + 100 * rank
+        try:
+            o = torch.empty(8 * world, device=dev)
+            dist.all_gather_into_tensor(o, x)
+            torch.cuda.synchronize()
+            out["all_gather_into_tensor"] = o.cpu().tolist()
+        except Exception as e:  # noqa: BLE001 - the report says what the backend refused
+            out["all_gather_into_tensor"] = repr(e)[:300]
+        try:
+            r = torch.empty(8, device=dev)
+            reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, (rank + 1) % world),
+                                           dist.P2POp(dist.irecv, r, (rank - 1) % world)])
+            for q in reqs:
+                q.wait()
+            torch.cuda.synchronize()
+            out["batch_isend_irecv"] = r.cpu().tolist()
+        except Exception as e:  # noqa: BLE001
+            out["batch_isend_irecv"] = repr(e)[:300]
+    else:
+        from sparse_matrix_with_flops_tpu_torch.parallel import ring_kernels as RK
+
+        g = torch.Generator().manual_seed(1)
+        lr, S = 1000, 128
+        xc_full = torch.randint(0, 1 << 20, (world, lr, S), generator=g, dtype=torch.int32)
+        xv_full = torch.rand((world, lr, S), generator=g)
+        xc, xv = xc_full[rank:rank + 1].to(dev), xv_full[rank:rank + 1].to(dev)
+        t1 = time.time()
+        gc, gv = RK.ring_all_gather(xc, xv, mesh=mesh)
+        torch.cuda.synchronize()
+        out["k6_first_s"] = time.time() - t1
+        want_c = RK.ring_all_gather_plain(xc_full)[rank:rank + 1]
+        want_v = RK.ring_all_gather_plain(xv_full)[rank:rank + 1]
+        out["k6_ok"] = bool(torch.equal(gc.cpu(), want_c) and torch.equal(gv.cpu(), want_v))
+        outs = [RK.ring_all_gather(xc, xv, mesh=mesh) for _ in range(20)]
+        torch.cuda.synchronize()
+        out["k6_burst_ok"] = all(torch.equal(a.cpu(), want_c) and torch.equal(b.cpu(), want_v)
+                                 for a, b in outs)
+        pc = RK.ring_all_gather_plain(xc, mesh)
+        out["k6_plain_ok"] = bool(torch.equal(pc.cpu(), want_c))
+        m, lrb, n, nt = 200, 256, 4096, 2048
+        a_full = torch.rand((world, m, world * lrb), generator=g)
+        b_full = torch.rand((world, lrb, n), generator=g)
+        a, b = a_full[rank:rank + 1].to(dev), b_full[rank:rank + 1].to(dev)
+        for name, fk, fp in (
+            ("k7", lambda: RK.ring_matmul(a, b, mesh=mesh),
+             lambda: RK.ring_matmul_plain(a_full, b_full)[rank:rank + 1]),
+            ("k8", lambda: RK.ring_matmul_tiled(a, b, nt, mesh=mesh),
+             lambda: RK.ring_matmul_tiled_plain(a_full, b_full, nt)[rank:rank + 1]),
+        ):
+            t1 = time.time()
+            k = fk()
+            torch.cuda.synchronize()
+            out[f"{name}_first_s"] = time.time() - t1
+            p = fp()
+            out[f"{name}_err"] = float((k.cpu() - p).abs().max())
+            ks = [fk() for _ in range(10)]
+            torch.cuda.synchronize()
+            out[f"{name}_burst_err"] = max(float((x.cpu() - p).abs().max()) for x in ks)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(10):
+                fk()
+            e.record()
+            e.synchronize()
+            out[f"{name}_ms"] = s.elapsed_time(e) / 10
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(20):
+            RK.ring_all_gather(xc, xv, mesh=mesh)
+        e.record()
+        e.synchronize()
+        out["k6_ms"] = s.elapsed_time(e) / 20
+        out["launches"] = [RK.ring_all_gather.launches, RK.ring_matmul.launches,
+                           RK.ring_matmul_tiled.launches]
+        if mode == "nccl1":
+            import numpy as np
+
+            from sparse_matrix_with_flops_tpu_torch.formats import COO
+            from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, sharded_rmcl_ell
+            from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+            gg = rmat_csr(10, edge_factor=8, seed=7)
+            grp, gci, gv = gg.to_numpy()
+            coo = COO.from_numpy(np.repeat(np.arange(gg.rows), np.diff(grp)), gci, gv,
+                                 gg.rows, gg.rows, capacity=gci.size + gg.rows, device=dev)
+            for ex in ("ring", "all_gather", "pallas_ring", "fused_ring"):
+                r1, h1 = sharded_rmcl_ell(coo, mesh, max_iters=3, S=128, max_tile=1024,
+                                          exchange=ex)
+                r2, h2 = sharded_rmcl_ell(coo, make_mesh(1), max_iters=3, S=128, max_tile=1024,
+                                          exchange=ex)
+                out[f"rmcl_{ex}"] = bool(
+                    torch.equal(r1.row_ptr, r2.row_ptr) and torch.equal(r1.col_ind, r2.col_ind)
+                    and torch.equal(r1.values, r2.values)
+                    and all(np.array_equal(h1[k], h2[k]) for k in h1))
+    peer.close_all()
+    dist.destroy_process_group()
+    with open(res, "w") as f:
+        json.dump(out, f)
+
+
+def processes_group(mode, world, env=None, limit=150) -> None:
+    """Run ``world`` ranks of ``processes_child`` to their end or ``limit``
+    seconds and print each rank's report (or its output's tail)."""
+    d = os.path.join(HERE, "build", "processes", f"{mode}{world}{'_mps' if env else ''}")
+    os.makedirs(d, exist_ok=True)
+    store = os.path.join(d, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(d, f"rank{r}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "processes-child", mode, str(r),
+             str(world), store, os.path.join(d, f"rank{r}.json")], stdout=log,
+            stderr=subprocess.STDOUT, env={**os.environ, **(env or {})}))
+    t0 = time.time()
+    for p in procs:
+        try:
+            p.wait(max(1, limit - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    print(f"== {mode} x{world} {'MPS' if env else ''}: rc {[p.returncode for p in procs]} "
+          f"in {time.time() - t0:.1f} s", flush=True)
+    for r in range(world):
+        j = os.path.join(d, f"rank{r}.json")
+        if os.path.exists(j):
+            with open(j) as f:
+                print(f"  rank {r}: {f.read()}", flush=True)
+        else:
+            with open(os.path.join(d, f"rank{r}.log")) as f:
+                print(f"  rank {r} log tail: {f.read()[-3000:]}", flush=True)
+
+
+def processes() -> int:
+    """The ``processes`` probe (see the module's docstring)."""
+    import shutil
+
+    sys.path.insert(0, HERE)
+    from sparse_matrix_with_flops_tpu_torch import _build
+
+    _build.library()
+    mps = shutil.which("nvidia-cuda-mps-control")
+    print("mps control:", mps, flush=True)
+    processes_group("gloo_cuda", 2)
+    processes_group("nccl1", 1)
+    processes_group("k", 2)
+    if not mps:
+        return 0
+    base = os.path.join(HERE, "build", "mps")
+    env = {"CUDA_MPS_PIPE_DIRECTORY": os.path.join(base, "pipe"),
+           "CUDA_MPS_LOG_DIRECTORY": os.path.join(base, "log")}
+    for v in env.values():
+        os.makedirs(v, exist_ok=True)
+    try:
+        r = subprocess.run([mps, "-d"], env={**os.environ, **env}, capture_output=True,
+                           text=True, timeout=30)
+        print("mps start rc", r.returncode, r.stdout[-500:], r.stderr[-500:], flush=True)
+        if r.returncode == 0:
+            processes_group("k", 2, env, limit=120)
+    finally:
+        q = subprocess.run([mps], input="quit\n", env={**os.environ, **env},
+                           capture_output=True, text=True, timeout=30)
+        print("mps quit rc", q.returncode, flush=True)
+        logd = env["CUDA_MPS_LOG_DIRECTORY"]
+        for fn in os.listdir(logd):
+            with open(os.path.join(logd, fn)) as f:
+                print(f"  mps log {fn}: {f.read()[-1500:]}")
+    return 0
+
+
+def cross_card(dev) -> int:
+    """``chip_smoke.py`` phase 15(c) alone (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import chip_smoke
+
+    from sparse_matrix_with_flops_tpu_torch import _build
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("cross-card: needs more than one card", file=sys.stderr)
+        return 1
+    _build.library()
+    failed = []
+
+    def take(mode, reports):
+        for r, rep in enumerate(reports):
+            for line in rep["log"]:
+                print(f"  [15{mode} rank {r}] {line}", flush=True)
+            failed.extend(rep["failed"])
+
+    t0 = time.perf_counter()
+    coo = chip_smoke.phase8_graph(torch, np, dev)[0]
+    chip_smoke.rank_group(torch, np, dev, coo, "c", min(cards, 4), take, failed)
+    print(f"cross-card: {time.perf_counter() - t0:.1f} s; " +
+          ("; ".join(failed) if failed else "every check passed"), flush=True)
+    return 1 if failed else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("accuracy", "step", "step-one", "kernels", "kernels-one",
-                                     "streams", "streams-one", "launch", "variants"))
+                                     "streams", "streams-one", "launch", "variants",
+                                     "cross-card", "processes", "processes-child"))
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--unpromoted", action="store_true")
     ap.add_argument("--root", default=HERE,
@@ -887,6 +1136,10 @@ def main() -> int:
         print("ring_probe: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    if args.what == "processes-child":
+        processes_child(args.roots[0], int(args.roots[1]), int(args.roots[2]), args.roots[3],
+                        args.roots[4])
+        return 0
     if args.what.endswith("-one"):
         sys.path.insert(0, args.roots[0])
         one = {"step-one": step_one, "kernels-one": kernels_one, "streams-one": streams_one}
@@ -903,6 +1156,10 @@ def main() -> int:
     elif args.what == "variants":
         sys.path.insert(0, root)
         variants(dev, args.roots, root)
+    elif args.what == "cross-card":
+        return cross_card(dev)
+    elif args.what == "processes":
+        return processes()
     else:
         sys.path.insert(0, HERE)
         accuracy(dev, not args.unpromoted)

@@ -53,12 +53,29 @@ _SIGNATURES = {
     "smf_ring_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
     # ... as smf_ring_matmul, then nt, slots
     "smf_ring_matmul_tiled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
+    # one rank a launch: host array of the rank's operand blocks and every
+    # rank's landing buffers, ops, d, rank, words, slice, ctas, flags, the
+    # downstream rank's flags, epoch
+    "smf_ring_all_gather_rank": (_P, _I, _I, _I, _L, _L, _I, _P, _P, _I),
+    # one rank a launch: a_ptrs, a_ptrs on the host, b_ptrs, buf_ptrs,
+    # c_ptrs, flags, the downstream rank's flags, TMA map scratch, d, m,
+    # lr, n, nt, slots, dir, rank, ranks sharing the card, epoch
+    "smf_ring_matmul_rank": (_P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I),
     # values, offsets, offsets are int64, out, runs, warp_per_run
     "smf_run_sums": (_P, _P, _I, _P, _L, _I),
 }
 # C entries with no stream that write one int result through a pointer
 _QUERIES = {
     "smf_ring_all_gather_ctas": (_I, _P),  # d -> CTAs a rank of K6
+    "smf_peer_handle_bytes": (_P,),  # -> bytes of a CUDA IPC handle
+}
+# C entries with no stream (csrc/peer.cu: the peer buffers' CUDA IPC)
+_CALLS = {
+    "smf_peer_alloc": (_L, _P, _P),  # bytes, out pointer, out handle
+    "smf_peer_open": (_P, _P),  # handle, out pointer
+    "smf_peer_close": (_P,),
+    "smf_peer_free": (_P,),
 }
 
 
@@ -134,7 +151,7 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = (*argtypes, _P)
         fn.restype = ctypes.c_int
-    for name, argtypes in _QUERIES.items():
+    for name, argtypes in (*_QUERIES.items(), *_CALLS.items()):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -169,6 +186,15 @@ def query(name: str, device: torch.device, *args) -> int:
     if err != 0:
         raise_error(name, err)
     return out.value
+
+
+def call(name: str, device: torch.device, *args) -> None:
+    """Call the C entry ``name`` (no stream) with ``device`` current;
+    raise if it reports an error."""
+    with torch.cuda.device(device):
+        err = getattr(library(), name)(*args)
+    if err != 0:
+        raise_error(name, err)
 
 
 def raise_error(name: str, err: int) -> None:

@@ -1,5 +1,7 @@
-// K6-K8: the ring exchanges of the sharded R-MCL loop, with the D ranks
-// of the ring stacked on one card.
+// K6-K8: the ring exchanges of the sharded R-MCL loop, in two launch
+// modes: every rank of the ring stacked on one card in one launch, or one
+// rank a launch, for ranks in separate processes (one a card, or sharing
+// one).
 //
 // Replace the Pallas kernels of sparse_matrix_with_flops_tpu/parallel/
 // pallas_ring.py:
@@ -11,25 +13,51 @@
 //                               `_ring_mm_tiled_kernel`)
 //
 // There each chip ran one program and forwarded blocks to its neighbour
-// with remote DMAs, one semaphore pair per region.  Here one cooperative
-// launch runs all D ranks: blockIdx.y is the rank, gridDim.x CTAs work on
-// one rank's region, and every rank's buffers are reached only through
-// its own base pointer (K6: in the launch's parameters; K7 / K8: a device
-// array of D pointers per operand), as a peer pointer on another card
-// would be.  The protocol is the reference's write-once, one-writer-per-
-// region ring: a rank reads only its own buffers; its upstream neighbour
-// writes into them and then one thread fences and raises the flag of the
-// region.  Fences and atomics are system-scope and blocks written in this
-// launch are read through L2 (__ldcg, cp.async.cg), never the incoherent
-// L1, so the same code is right when the pointers are peer pointers on
-// other cards.  Ranks spin on each other's flags, so every CTA of the
-// grid must be resident at once: the launch is cooperative and sized from
-// occupancy, and a grid larger than what fits is refused by
+// with remote DMAs, one semaphore pair per region.  Here the protocol is
+// the reference's write-once, one-writer-per-region ring: a rank reads
+// only its own buffers; its upstream neighbour writes into them and then
+// one thread fences and raises the flag of the region.  Every rank's
+// buffers are reached only through its own base pointer, so one kernel
+// serves both modes:
+// * stacked (smf_ring_all_gather, smf_ring_matmul, smf_ring_matmul_tiled):
+//   one cooperative launch runs all D ranks, blockIdx.y is the rank,
+//   gridDim.x CTAs work on one rank's region, and the pointers are the
+//   ranks' blocks of the stacked tensors (K6: in the launch's parameters;
+//   K7 / K8: a device array of D pointers per operand);
+// * one rank a launch (smf_ring_all_gather_rank, smf_ring_matmul_rank):
+//   the grid is (gridDim.x, 1), the rank comes from the parameters, and
+//   the neighbour's buffers and flags are peer pointers (CUDA IPC
+//   mappings of the other processes' allocations, parallel/peer.py).
+// Fences and atomics are system-scope and blocks written by another rank
+// are read through L2 (__ldcg, cp.async.cg), never the incoherent L1, so
+// the code is the same whether the neighbour is a CTA row of this launch,
+// another process on this card or another card.  Ranks spin on each
+// other's flags, so every CTA of a launch must be resident at once: the
+// launch is cooperative and sized from occupancy (stacked: the card's
+// resident CTAs over D; one rank a launch: over the ranks that share the
+// card), and a grid larger than what fits is refused by
 // cudaLaunchCooperativeKernel (the wrapper raises) instead of
-// deadlocking.  K7 / K8's caller zeroes their flags before every launch;
-// K6's flags carry the launch's epoch and are never cleared (a launch
-// captured into a CUDA graph gets flags of its own that the graph zeroes:
-// `_build.stream_scratch`).
+// deadlocking.  Every wait on a flag is bounded: after kWaitNs of
+// %globaltimer the thread traps, so a rank that never arrives fails the
+// launch (an error at the next synchronize) and never hangs the card.
+//
+// Flags carry the epoch of the launch that raised them and are never
+// cleared.  Stacked, K6's flags are kept per (device, stream) and its
+// epoch advances with the stream's launches (`_build.stream_scratch`; a
+// launch captured into a CUDA graph gets flags of its own that the graph
+// zeroes); K7 / K8's caller zeroes their flags before every launch and
+// passes epoch 1.  One rank a launch, each rank's flags live beside its
+// landing buffers in its peer allocation, zeroed once, and the epoch is
+// the count of launches on that allocation, which every rank advances in
+// step (each launch is collective).  Two more waits make launches of
+// separate processes safe, since a rank's stream no longer orders its
+// neighbours' launches: (1) at entry, CTA 0 of every rank raises its
+// `ready` flag, and no CTA writes into its downstream neighbour's
+// buffers before that neighbour's ready flag carries this epoch (the
+// neighbour's stream is then done with the buffers' previous contents);
+// (2) K6 waits for its last block to land before the launch ends (the
+// stacked launch's end covers it).  K7 / K8 read their last block inside
+// the launch, so they need no such wait.
 //
 // K6 moves d blocks a rank (at D = 4 on R-MAT s14, [4096, 128] 4-byte
 // blocks of cols and vals: 16.8 MB in, 67 MB out), so it is bound by
@@ -141,11 +169,33 @@ using smf::tma_load;
 
 using Flag = cuda::atomic_ref<int, cuda::thread_scope_system>;
 
+// How long a thread waits for another rank's flag before it traps.
+constexpr unsigned long long kWaitNs = 30ull * 1000 * 1000 * 1000;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Spin until ``flag`` holds ``epoch`` (acquire), sleeping kSleep ns a
+// turn; trap after kWaitNs.
+template <unsigned kSleep>
+__device__ __forceinline__ void wait_epoch(int* flag, int epoch) {
+  Flag f(*flag);
+  if (f.load(cuda::std::memory_order_acquire) == epoch) return;
+  const unsigned long long t0 = global_ns();
+  while (f.load(cuda::std::memory_order_acquire) != epoch) {
+    __nanosleep(kSleep);
+    if (global_ns() - t0 > kWaitNs) __trap();
+  }
+}
+
 // ---- K6 ---------------------------------------------------------------
 constexpr int kGatherThreads = 256;
 // rank pointers an operand list of the launch's parameters holds (ops * d):
-// the usual call takes the small instance, whose 296 bytes of parameters
-// launch ~8 us sooner than the large one's 32,760 (device time the same;
+// the usual call takes the small instance, whose ~300 bytes of parameters
+// launch ~8 us sooner than the large one's ~32.7 KB (device time the same;
 // `ring_probe.py variants`, PERF.md)
 constexpr int kPtrsSmall = 16;
 constexpr int kPtrsLarge = 2040;  // CUDA >= 12.1 allows 32,764 bytes of parameters
@@ -159,10 +209,13 @@ template <int P>
 struct Gather {
   const unsigned* in[P];  // [op * d + r]: rank r's block of operand op
   unsigned* out[P];       // [op * d + r]: rank r's d blocks of operand op
-  int* flags;             // [d, d - 1, gridDim.x]; see the kernel
+  int* flags;             // [d, d - 1, gridDim.x] arrivals, then [d] ready;
+                          // see the kernel (one rank a launch: this rank's)
+  int* flags_dst;         // the downstream rank's flags (stacked: flags)
   long long words;        // 4-byte words of a block
   long long slice;        // words of each block a CTA owns, a multiple of 4
   int d, ops, epoch;
+  int rank;               // one rank a launch: the rank; stacked: -1
 };
 
 // Threads t < T of a group copy ``len`` words from ``src`` to ``dst`` (and
@@ -216,20 +269,33 @@ __device__ void copy_slice(const unsigned* src, unsigned* dst, unsigned* dst2,
 // hop k >= 1 it raises the downstream rank's flag (dst, k, i) for what it
 // stored at hop k - 1, waits for CTA i of the upstream rank to have
 // raised its own flag (me, k, i), and forwards the slice of its block k
-// into the downstream rank's block k + 1 (the last block, d - 1, is read
-// by no hop, so no flag announces it).  A flag holds the epoch of the
-// launch that last raised it, so flags are never cleared.
+// into the downstream rank's block k + 1.  Stacked, the last block, d - 1,
+// is read by no hop, so no flag announces it; one rank a launch, a last
+// round raises and waits for it, so that the launch ends only once the
+// rank's blocks have all landed.  One rank a launch, the CTA first waits
+// for the downstream rank's ready flag (raised by its CTA 0 at entry).  A
+// flag holds the epoch of the launch that last raised it, so flags are
+// never cleared.
 template <int P>
 __global__ void __launch_bounds__(kGatherThreads)
     ring_all_gather_kernel(const __grid_constant__ Gather<P> p) {
-  const int me = blockIdx.y, d = p.d;
+  const int me = p.rank < 0 ? static_cast<int>(blockIdx.y) : p.rank, d = p.d;
   const int dst = me + 1 == d ? 0 : me + 1;
   const long long lo = blockIdx.x * p.slice;
   const long long len = lo < p.words ? min(p.slice, p.words - lo) : 0;
   // flag (rank, k) of CTA i: flags[(rank * (d - 1) + k - 1) * gridDim.x + i]
   const long long stride = gridDim.x;
   int* const mine = p.flags + (me * (d - 1LL) - 1) * stride + blockIdx.x;
-  int* const theirs = p.flags + (dst * (d - 1LL) - 1) * stride + blockIdx.x;
+  int* const theirs = p.flags_dst + (dst * (d - 1LL) - 1) * stride + blockIdx.x;
+  if (p.rank >= 0 && d > 1) {
+    if (threadIdx.x == 0) {
+      const long long ready = d * (d - 1LL) * stride;  // [d] after the arrivals
+      if (blockIdx.x == 0)
+        Flag(p.flags[ready + me]).store(p.epoch, cuda::std::memory_order_release);
+      wait_epoch<32>(p.flags_dst + ready + dst, p.epoch);
+    }
+    __syncthreads();
+  }
   // the CTA's warps split evenly over the operands, so that each thread
   // copies one operand's units with all its loads in flight at once
   const int groups = min(p.ops, kGatherThreads / 32);
@@ -240,16 +306,17 @@ __global__ void __launch_bounds__(kGatherThreads)
     copy_slice(p.in[r + me] + lo, p.out[r + me] + lo,
                d > 1 ? p.out[r + dst] + p.words + lo : nullptr, len, false, t, gsize);
   }
-  for (int k = 1; k + 1 < d; ++k) {
+  const int hops = p.rank < 0 ? d - 1 : d;  // one rank a launch: block d - 1 too
+  for (int k = 1; k < hops; ++k) {
     __syncthreads();  // the slice of hop k - 1 is stored
     // the barrier orders the CTA's stores before thread 0's system-scope
     // release, and its acquire before the CTA's loads of the next hop
     if (threadIdx.x == 0) {
       Flag(theirs[k * stride]).store(p.epoch, cuda::std::memory_order_release);
-      Flag f(mine[k * stride]);
-      while (f.load(cuda::std::memory_order_acquire) != p.epoch) __nanosleep(32);
+      wait_epoch<32>(&mine[k * stride], p.epoch);
     }
     __syncthreads();
+    if (k + 1 == d) break;  // the last block is forwarded by no hop
     for (int op = g; op < p.ops && g < groups; op += groups) {
       const int r = op * d;
       copy_slice(p.out[r + me] + k * p.words + lo,
@@ -264,12 +331,21 @@ struct RingMatmul {
   const float* const* b;  // [d] -> B [lr, N]
   float* const* buf;      // [d] -> rotating buffer [slots, d - 1, lr, nt]
   float* const* c;        // [d] -> C [M, N]
-  int* flags;             // [d, strips, d] arrivals, then [d, strips] done
+  // [d, strips, d] arrivals, [d, strips] done, then [d] ready (one rank a
+  // launch: this rank's flags; stacked: every rank's)
+  int* flags;
+  int* flags_dst;         // the downstream rank's flags (stacked: flags)
   const CUtensorMap* amaps;  // [d] TMA maps of the ranks' A_rot, or null
   int d, m, lr, n, nt;
   int slots;  // N tiles the buffer holds; tile t uses slot t % slots
   int dir;  // +1: blocks flow to rank me + 1 (K7); -1: to me - 1 (K8)
+  int rank;   // one rank a launch: the rank; stacked: -1 (blockIdx.y)
+  int epoch;  // the tag the launch's flags carry
 };
+
+__device__ __forceinline__ int rank_of(const RingMatmul& p) {
+  return p.rank < 0 ? static_cast<int>(blockIdx.y) : p.rank;
+}
 
 constexpr int kBN = 64;   // columns of a strip: the wgmma N
 constexpr int kBK = 16;   // contraction depth of a stage: two k8 steps
@@ -382,22 +458,21 @@ __device__ __forceinline__ void producer_sync() {
 }
 
 // The producer warpgroup's side of the flags (its first thread spins on
-// or raises them).
-__device__ __forceinline__ void producer_wait_for(int* flag, int target,
+// or raises them); a flag is raised once a launch, to the launch's epoch.
+__device__ __forceinline__ void producer_wait_for(int* flag, int epoch,
                                                   int pt) {
   if (pt == 0) {
-    Flag f(*flag);
-    while (f.load(cuda::std::memory_order_acquire) < target) __nanosleep(64);
+    wait_epoch<64>(flag, epoch);
     __threadfence_system();
   }
   producer_sync();
 }
 
-__device__ __forceinline__ void producer_signal(int* flag, int pt) {
+__device__ __forceinline__ void producer_signal(int* flag, int epoch, int pt) {
   producer_sync();
   if (pt == 0) {
     __threadfence_system();
-    Flag(*flag).fetch_add(1, cuda::std::memory_order_release);
+    Flag(*flag).store(epoch, cuda::std::memory_order_release);
   }
 }
 
@@ -483,7 +558,7 @@ struct Producer {
     float* bs = st + Tl::kTileA;
     const int k0 = (it - hop0) * kBK;
     const int depth = p.lr;
-    const int me = blockIdx.y;
+    const int me = rank_of(p);
     if (p.amaps != nullptr) {
       if (pt == 0) {  // the m64 tiles that hold rows of A
         const int boxes = min(W * TP, (h.rows + 63) / 64);
@@ -559,14 +634,24 @@ struct Producer {
   }
 
   __device__ void run() {
-    const int d = p.d, me = blockIdx.y;
+    const int d = p.d, me = rank_of(p);
     const int dst = ((me + p.dir) % d + d) % d;
     const Walk wk(p);
-    int* arrive = p.flags;
-    int* done = arrive + static_cast<long long>(d) * wk.strips * d;
+    const long long arrivals = static_cast<long long>(d) * wk.strips * d;
+    int* arrive = p.flags;  // this rank's arrivals are raised upstream
+    int* done = arrive + arrivals;
+    int* arrive_dst = p.flags_dst;
+    int* done_dst = arrive_dst + arrivals;
     const long long blk = static_cast<long long>(p.lr) * p.nt;
     const float* own = d > 1 ? p.buf[me] : nullptr;
     float* next = d > 1 ? p.buf[dst] : nullptr;
+    if (p.rank >= 0 && d > 1) {  // the neighbour's buffer is free this launch
+      int* ready = done + static_cast<long long>(d) * wk.strips;  // [d]
+      int* ready_dst = done_dst + static_cast<long long>(d) * wk.strips;
+      if (pt == 0 && blockIdx.x == 0)
+        Flag(ready[me]).store(p.epoch, cuda::std::memory_order_release);
+      producer_wait_for(ready_dst + dst, p.epoch, pt);
+    }
     for (int s = blockIdx.x; s < wk.strips; s += gridDim.x) {
       const int t = s / wk.spt;
       const int c0 = (s % wk.spt) * kBN;  // first column within the N tile
@@ -574,9 +659,9 @@ struct Producer {
       const long long slot = static_cast<long long>(t % p.slots) * (d - 1) * blk;
       // the neighbour's slot holds strip s - slots * spt until it is done
       if (d > 1 && s >= p.slots * wk.spt)
-        producer_wait_for(&done[static_cast<long long>(dst) * wk.strips + s -
-                                p.slots * wk.spt],
-                          1, pt);
+        producer_wait_for(&done_dst[static_cast<long long>(dst) * wk.strips + s -
+                                    p.slots * wk.spt],
+                          p.epoch, pt);
       h.width = min(kBN, p.nt - c0);
       for (h.m0 = 0; h.m0 < p.m; h.m0 += Tl::kBM) {
         h.rows = min(Tl::kBM, p.m - h.m0);
@@ -590,7 +675,7 @@ struct Producer {
               flush();
               producer_wait_for(
                   &arrive[(static_cast<long long>(me) * wk.strips + s) * d + h.k],
-                  1, pt);
+                  p.epoch, pt);
             }
             h.b = own + slot + (h.k - 1) * blk + c0;
             h.ldb = p.nt;
@@ -609,12 +694,13 @@ struct Producer {
           flush();
           if (fwd)
             producer_signal(
-                &arrive[(static_cast<long long>(dst) * wk.strips + s) * d + h.k + 1],
-                pt);
+                &arrive_dst[(static_cast<long long>(dst) * wk.strips + s) * d + h.k + 1],
+                p.epoch, pt);
         }
       }
       // every read of this rank's buffer for strip s has landed
-      if (d > 1) producer_signal(&done[static_cast<long long>(me) * wk.strips + s], pt);
+      if (d > 1)
+        producer_signal(&done[static_cast<long long>(me) * wk.strips + s], p.epoch, pt);
     }
   }
 };
@@ -631,7 +717,7 @@ template <int W, int TP>
 __device__ void consume(const RingMatmul& p, const Ring<W, TP>& ring) {
   using Tl = Tiling<W, TP>;
   constexpr int S = Tl::kStages;
-  const int me = blockIdx.y;
+  const int me = rank_of(p);
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
   const int g = (threadIdx.x % 32) / 4, q = threadIdx.x % 4;
   const Walk wk(p);
@@ -732,7 +818,7 @@ __global__ void __launch_bounds__(Tiling<W, TP>::kThreads, 1)
   }
   __syncthreads();
   if (threadIdx.x >= Tl::kConsumers) {
-    const int me = blockIdx.y, d = p.d;
+    const int me = rank_of(p), d = p.d;
     const int dst = ((me + p.dir) % d + d) % d;
     const bool vec =
         ((p.nt | p.n) & 3) == 0 &&
@@ -747,9 +833,10 @@ __global__ void __launch_bounds__(Tiling<W, TP>::kThreads, 1)
   }
 }
 
-// CTAs per rank: as many as are resident at once over the d ranks (with
-// ``smem`` bytes of dynamic shared memory each), at most ``useful``;
-// cudaErrorCooperativeLaunchTooLarge when not even one CTA a rank fits.
+// CTAs per rank: as many as are resident at once over the d ranks that
+// share the card (with ``smem`` bytes of dynamic shared memory each), at
+// most ``useful``; cudaErrorCooperativeLaunchTooLarge when not even one
+// CTA a rank fits.
 int grid_x(const void* kernel, int threads, int smem, int d, long long useful,
            int& gx) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -789,9 +876,9 @@ int by_chunk(int m, F f) {
 }
 
 // The kernel for p's row chunk, with its shared memory granted, and its
-// CTAs per rank.
+// CTAs per rank when ``share`` ranks share the card.
 template <int W, int TP>
-int matmul_grid(const RingMatmul& p, const void*& kernel, int& gx) {
+int matmul_grid(const RingMatmul& p, int share, const void*& kernel, int& gx) {
   using Tl = Tiling<W, TP>;
   kernel = reinterpret_cast<const void*>(ring_matmul_kernel<W, TP>);
   const cudaError_t err = cudaFuncSetAttribute(
@@ -799,7 +886,7 @@ int matmul_grid(const RingMatmul& p, const void*& kernel, int& gx) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long strips =
       static_cast<long long>(p.n / p.nt) * ((p.nt + kBN - 1) / kBN);
-  return grid_x(kernel, Tl::kThreads, Tl::kSmem, p.d, strips, gx);
+  return grid_x(kernel, Tl::kThreads, Tl::kSmem, share, strips, gx);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -811,12 +898,14 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 
 // TMA maps of each rank's A_rot [M, d lr] viewed as [d blocks, M, lr]
 // (box {kBK, 64, 1}: one m64 tile of one stage), written to ``maps`` on
-// ``stream``.  False (and no maps) when a rank's A is not 16-byte
-// aligned or lr is not a multiple of 4: the kernel then loads A itself.
-int encode_amaps(const long long* a_host, int d, int m, int lr,
+// ``stream``: every rank's (rank < 0, stacked), or rank ``rank``'s alone,
+// from its own A.  False (and no maps) when an A is not 16-byte aligned
+// or lr is not a multiple of 4: the kernel then loads A itself.
+int encode_amaps(const long long* a_host, int d, int rank, int m, int lr,
                  CUtensorMap* maps, cudaStream_t stream, bool& ok) {
+  const int r0 = rank < 0 ? 0 : rank, r1 = rank < 0 ? d : rank + 1;
   ok = lr % 4 == 0;
-  for (int r = 0; r < d && ok; ++r) ok = a_host[r] % 16 == 0;
+  for (int r = r0; r < r1 && ok; ++r) ok = a_host[r] % 16 == 0;
   if (!ok) return 0;
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
@@ -829,7 +918,7 @@ int encode_amaps(const long long* a_host, int d, int m, int lr,
       return static_cast<int>(cudaErrorNotSupported);
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  std::vector<CUtensorMap> host(d);
+  std::vector<CUtensorMap> host(r1 - r0);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(lr),
                               static_cast<cuuint64_t>(m),
                               static_cast<cuuint64_t>(d)};
@@ -837,8 +926,8 @@ int encode_amaps(const long long* a_host, int d, int m, int lr,
                                  static_cast<cuuint64_t>(lr) * 4};
   const cuuint32_t box[3] = {kBK, 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  for (int r = 0; r < d; ++r) {
-    if (encode(&host[r], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+  for (int r = r0; r < r1; ++r) {
+    if (encode(&host[r - r0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                reinterpret_cast<void*>(a_host[r]), dims, strides, box, unit,
                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -846,16 +935,16 @@ int encode_amaps(const long long* a_host, int d, int m, int lr,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   // from pageable memory: the call returns once ``host`` has been read
-  return static_cast<int>(cudaMemcpyAsync(maps, host.data(),
+  return static_cast<int>(cudaMemcpyAsync(maps + r0, host.data(),
                                           host.size() * sizeof(CUtensorMap),
                                           cudaMemcpyHostToDevice, stream));
 }
 
 int launch_matmul(RingMatmul p, const long long* a_host, void* maps,
-                  cudaStream_t stream) {
+                  int share, cudaStream_t stream) {
   bool tma = false;
   if (p.lr > 0) {
-    const int err = encode_amaps(a_host, p.d, p.m, p.lr,
+    const int err = encode_amaps(a_host, p.d, p.rank, p.m, p.lr,
                                  static_cast<CUtensorMap*>(maps), stream, tma);
     if (err != 0) return err;
   }
@@ -865,11 +954,12 @@ int launch_matmul(RingMatmul p, const long long* a_host, void* maps,
     using Tl = Tiling<C::kW, C::kTP>;
     const void* kernel = nullptr;
     int gx = 0;
-    const int e = matmul_grid<C::kW, C::kTP>(p, kernel, gx);
+    const int e = matmul_grid<C::kW, C::kTP>(p, share, kernel, gx);
     if (e != 0) return e;
     void* args[] = {&p};
     return static_cast<int>(cudaLaunchCooperativeKernel(
-        kernel, dim3(gx, p.d), dim3(Tl::kThreads), args, Tl::kSmem, stream));
+        kernel, dim3(gx, p.rank < 0 ? p.d : 1), dim3(Tl::kThreads), args,
+        Tl::kSmem, stream));
   });
 }
 
@@ -910,14 +1000,60 @@ extern "C" int smf_ring_all_gather(const long long* bases, int ops, int d,
       }
     }
     p.flags = flags;
+    p.flags_dst = flags;
     p.words = words;
     p.slice = slice;
     p.d = d;
     p.ops = ops;
     p.epoch = epoch;
+    p.rank = -1;
     void* args[] = {&p};
     return static_cast<int>(cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(ring_all_gather_kernel<P>), dim3(ctas, d),
+        dim3(kGatherThreads), args, 0, stream));
+  };
+  if (n <= kPtrsSmall) return run(std::integral_constant<int, kPtrsSmall>{});
+  if (n <= kPtrsLarge) return run(std::integral_constant<int, kPtrsLarge>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One rank of K6 a launch.  bases: host array of ops + ops * d addresses:
+// this rank's block [words] of operand op at [op], and rank r's landing
+// buffer of operand op, [d, words], at [ops + op * d + r] (peer pointers
+// but for r = rank; the launch writes rank's and the downstream rank's);
+// ctas, slice: as smf_ring_all_gather, the same on every rank (ctas at
+// most smf_ring_all_gather_ctas(ranks sharing the card)); flags /
+// flags_dst: this rank's and the downstream rank's int32[d * (d - 1) *
+// ctas + d], zeroed once; epoch: the count of launches on them, >= 1,
+// the same on every rank.  Returns the cudaError_t of the launch.
+extern "C" int smf_ring_all_gather_rank(const long long* bases, int ops, int d,
+                                        int rank, long long words, long long slice,
+                                        int ctas, int* flags, int* flags_dst,
+                                        int epoch, cudaStream_t stream) {
+  const int n = ops * d;
+  if (ops < 1 || d < 1 || rank < 0 || rank >= d || words < 1 || slice < 1 ||
+      slice % 4 != 0 || ctas < 1 || epoch < 1 ||
+      static_cast<long long>(ctas) * slice < words)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto tag) {
+    constexpr int P = decltype(tag)::value;
+    Gather<P> p{};
+    for (int op = 0; op < ops; ++op) {
+      p.in[op * d + rank] = reinterpret_cast<const unsigned*>(bases[op]);
+      for (int r = 0; r < d; ++r)
+        p.out[op * d + r] = reinterpret_cast<unsigned*>(bases[ops + op * d + r]);
+    }
+    p.flags = flags;
+    p.flags_dst = flags_dst;
+    p.words = words;
+    p.slice = slice;
+    p.d = d;
+    p.ops = ops;
+    p.epoch = epoch;
+    p.rank = rank;
+    void* args[] = {&p};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(ring_all_gather_kernel<P>), dim3(ctas, 1),
         dim3(kGatherThreads), args, 0, stream));
   };
   if (n <= kPtrsSmall) return run(std::integral_constant<int, kPtrsSmall>{});
@@ -936,8 +1072,8 @@ extern "C" int smf_ring_matmul(const float* const* a, const long long* a_host,
                                float* const* c, int* flags, void* maps, int d,
                                int m, int lr, int n, cudaStream_t stream) {
   return launch_matmul(
-      RingMatmul{a, b, buf, c, flags, nullptr, d, m, lr, n, n, 1, 1}, a_host,
-      maps, stream);
+      RingMatmul{a, b, buf, c, flags, flags, nullptr, d, m, lr, n, n, 1, 1, -1, 1},
+      a_host, maps, d, stream);
 }
 
 // As smf_ring_matmul over n / nt column tiles (n % nt == 0), blocks
@@ -954,7 +1090,31 @@ extern "C" int smf_ring_matmul_tiled(const float* const* a,
   if (nt <= 0 || n % nt != 0 || slots < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_matmul(
-      RingMatmul{a, b, buf, c, flags, nullptr, d, m, lr, n, nt, slots, -1},
-      a_host, maps, stream);
+      RingMatmul{a, b, buf, c, flags, flags, nullptr, d, m, lr, n, nt, slots, -1, -1, 1},
+      a_host, maps, d, stream);
+}
+
+// One rank of K7 (dir = 1, nt = n, slots = 1) or K8 (dir = -1) a launch.
+// a, b, buf, c: device arrays of d pointers as in the stacked entries, of
+// which the launch reads a[rank], b[rank], c[rank], buf[rank] and the
+// downstream rank's buf[(rank + dir) mod d] (a peer pointer); a_host: d
+// host pointers, of which a_host[rank] is read (the TMA map is built from
+// this rank's A alone); flags / flags_dst: this rank's and the downstream
+// rank's int32[d * strips * (d + 1) + d], zeroed once; share: the ranks
+// that share this card (the grid takes 1 / share of its resident CTAs);
+// epoch: the count of launches on the flags, >= 1, the same on every rank.
+extern "C" int smf_ring_matmul_rank(const float* const* a, const long long* a_host,
+                                    const float* const* b, float* const* buf,
+                                    float* const* c, int* flags, int* flags_dst,
+                                    void* maps, int d, int m, int lr, int n, int nt,
+                                    int slots, int dir, int rank, int share, int epoch,
+                                    cudaStream_t stream) {
+  if (nt <= 0 || n % nt != 0 || slots < 1 || (dir != 1 && dir != -1) || rank < 0 ||
+      rank >= d || share < 1 || epoch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_matmul(
+      RingMatmul{a, b, buf, c, flags, flags_dst, nullptr, d, m, lr, n, nt, slots, dir,
+                 rank, epoch},
+      a_host, maps, share, stream);
 }
 

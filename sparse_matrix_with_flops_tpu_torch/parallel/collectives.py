@@ -1,0 +1,103 @@
+"""The collectives of the distributed layer: the port's counterparts of
+the ``jax.lax`` collectives that the JAX package calls inside
+``shard_map`` (``all_gather``, ``ppermute``, ``psum``, ``axis_index``),
+one implementation per mesh kind (``parallel/mesh.py``).
+
+A sharded tensor's leading axis holds the shards this process runs: all
+D on a stacked mesh (or when no mesh is given), this rank's one on a
+process mesh.
+
+* Stacked: ``all_gather`` is the stack itself (a view: on one card it
+  moves no bytes), ``ppermute`` is ``torch.roll`` on the shard axis,
+  ``psum`` a sum over it in shard order, and ``axis_index`` the loop
+  index of the per-shard body.
+* Process: ``all_gather`` is ``dist.all_gather_into_tensor``,
+  ``ppermute`` one ``dist.batch_isend_irecv`` (send to
+  ``(me + shift) % W``, receive from ``(me - shift) % W``), ``psum`` the
+  all-gathered values added as the stacked mesh adds them (never
+  ``dist.all_reduce``: NCCL's order of addition is not the stacked
+  path's, and a statistic such as R-MCL's ``differs`` must keep the
+  stacked path's bits), and ``axis_index`` the rank.  The backend is the
+  one the caller started the group with.  Under ``gloo``, ``ppermute``
+  copies a tensor on a card to the host for the exchange and back: gloo's
+  all-gather takes card tensors, but its send / receive do not (in torch
+  2.11 a card tensor given to them aborts the process: gloo writes from
+  the device pointer as if it were host memory).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from .mesh import ProcessMesh
+
+
+def is_process(mesh) -> bool:
+    """Whether ``mesh`` holds one shard a process."""
+    return isinstance(mesh, ProcessMesh)
+
+
+def local_ranks(mesh, d: int | None = None) -> list:
+    """The global shard index of each shard this process runs, in the
+    order of the leading axis: ``range(D)`` on a stacked mesh (``d`` when
+    no mesh is given), ``[rank]`` on a process mesh."""
+    if is_process(mesh):
+        return [mesh.rank]
+    return list(range(mesh.num_shards if mesh is not None else d))
+
+
+def axis_index(mesh, i: int = 0) -> int:
+    """``jax.lax.axis_index``: the global index of local shard ``i``."""
+    return mesh.rank if is_process(mesh) else i
+
+
+def require_stacked(mesh, who: str) -> None:
+    """Raise for a process mesh in a module that runs stacked shards only."""
+    if is_process(mesh):
+        raise NotImplementedError(
+            f"{who} runs on a stacked mesh only: one rank a process is not ported for it yet")
+
+
+def _host_staged(x: torch.Tensor) -> bool:
+    """Whether a send / receive of ``x`` goes through the host (gloo)."""
+    return x.is_cuda and dist.get_backend() == "gloo"
+
+
+def all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every shard's block: ``[L, ...] -> [D, ...]`` in shard order."""
+    if not is_process(mesh):
+        return x
+    src = x.contiguous()
+    out = src.new_empty((mesh.num_shards * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src)
+    return out
+
+
+def ppermute(mesh, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """``ppermute(i -> i + shift)``: shard ``me`` receives the block of
+    shard ``(me - shift) mod D``."""
+    if not is_process(mesh):
+        return torch.roll(x, shift, 0)
+    w = mesh.num_shards
+    s = shift % w
+    if s == 0:
+        return x
+    staged = _host_staged(x)
+    src = x.cpu() if staged else x.contiguous()
+    out = torch.empty_like(src)
+    me = mesh.rank
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, src, (me + s) % w),
+        dist.P2POp(dist.irecv, out, (me - s) % w),
+    ])
+    for r in reqs:
+        r.wait()
+    return out.to(x.device) if staged else out
+
+
+def psum(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of every shard's value: ``x`` is [L], one value a local
+    shard; the D values are added as one sum over the shard axis, in
+    shard order, on every mesh kind (the stacked path's bits)."""
+    return all_gather(mesh, x).sum()

@@ -2,24 +2,30 @@
 package's ``parallel/mesh.py``).
 
 The reference builds a ``jax`` mesh over the row axis ``"x"`` (and a
-2-D ``("x", "y")`` one for the column-striped SpGEMM) and runs one
-program per chip under ``shard_map``.  In the port the shards of that
-mesh are stacked on one card: every sharded tensor carries a leading
-shard axis, and the reference's collectives become
+2-D ``("x", "y")`` one for the column-striped SpGEMM) over the devices of
+every process, and runs one program per device under ``shard_map``.  The
+port has two kinds of mesh:
 
-* ``all_gather`` over an axis: the stacked tensor itself, read as a
-  view; on one card it moves no bytes, so the times of the sharded
-  modules are compute only;
-* ``ppermute(i -> i + 1)``: ``torch.roll(x, 1, 0)`` on the shard axis;
-* ``psum``: a sum over the shard axis, in shard order (deterministic);
-* ``axis_index``: the loop index of the per-shard body, which runs as a
-  Python loop over the shards.
+* :class:`ShardMesh`, the shards stacked on one device, when no process
+  group of more than one rank is up: every sharded tensor carries a
+  leading shard axis of D, the per-shard bodies run as a Python loop over
+  the shards, and the reference's collectives are views and index
+  operations of the stack (``parallel/collectives.py``): on one card an
+  all-gather moves no bytes;
+* :class:`ProcessMesh`, one shard a process, when ``torch.distributed``
+  is initialised with world size W > 1 (the mode follows from the
+  process group, as ``jax.make_mesh`` spans every process's devices):
+  rank r holds shard r, its sharded tensors carry a leading axis of 1,
+  the per-shard body runs once, and the collectives are
+  ``torch.distributed``'s (all-gather, send / receive), with the backend
+  the caller started the group with.  Its device is
+  ``cuda:(LOCAL_RANK % device_count())``, or the CPU when asked for.
 
-The ring kernels (``parallel/ring_kernels.py``) run all D ranks in one
-launch, each writing its neighbour's buffers through that rank's base
-pointer.  One rank per card (the same kernels on peer pointers over
-NVLink, or ``torch.distributed`` with one process per card, brought up
-by :func:`init_distributed`) is ROADMAP A10's cross-card step.
+The ring kernels (``parallel/ring_kernels.py``) follow the mesh: on a
+stacked mesh one launch runs all D ranks, each writing its neighbour's
+buffers through that rank's base pointer; on a process mesh each rank
+launches its own part and reaches its neighbour's buffers through CUDA
+IPC peer pointers (``parallel/peer.py``), on the same card or another.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import dataclasses
 import os
 
 import torch
-import torch.distributed
+import torch.distributed as dist
 
 from ..config import resolve_device
 
@@ -50,16 +56,82 @@ class ShardMesh:
         return (self.shape or (self.num_shards,))[self.axis_names.index(axis)]
 
 
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """One shard a process of the default process group: a 1-D mesh
+    ``(num_shards,)`` over :data:`ROW_AXIS`, of which this process holds
+    shard ``rank`` on ``device``."""
+
+    num_shards: int
+    rank: int
+    device: torch.device
+    shape: tuple = ()
+    axis_names: tuple = (ROW_AXIS,)
+
+    def axis_size(self, axis: str) -> int:
+        return (self.shape or (self.num_shards,))[self.axis_names.index(axis)]
+
+
+def _group_size() -> int:
+    """The default process group's world size, 1 when none is up."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def rank_device() -> torch.device:
+    """This rank's card: ``cuda:(LOCAL_RANK % device_count())``, with the
+    global rank for ``LOCAL_RANK`` when the launcher set none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('process mesh: no CUDA device; pass device="cpu" to work on the CPU')
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank() if dist.is_initialized() else 0))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def process_mesh(device: torch.device | str | None = None) -> ProcessMesh:
+    """The mesh of the default process group, one shard a rank, at any
+    world size (1 included), on ``device``: by default this rank's card
+    (:func:`rank_device`).  :func:`make_mesh` returns it when the group
+    has more than one rank."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("process_mesh: no torch.distributed process group is initialised")
+    world = dist.get_world_size()
+    dev = rank_device() if device is None else torch.device(device)
+    return ProcessMesh(world, dist.get_rank(), dev, (world,))
+
+
 def make_mesh(
-    n_shards: int | tuple = 1, device: torch.device | str | None = None
-) -> ShardMesh:
+    n_shards: int | tuple | None = None, device: torch.device | str | None = None
+) -> ShardMesh | ProcessMesh:
     """A mesh of ``n_shards`` shards along :data:`ROW_AXIS`, or of
     ``nx * ny`` shards over ``("x", "y")`` for a shape ``(nx, ny)`` (the
-    reference's ``jax.make_mesh((nx, ny), ("x", "y"))``), all on
-    ``device``: by default the current CUDA card, as the reference's
-    mesh is built over the accelerator's devices.  Without a card the
-    default raises; a CPU mesh is only made when ``device="cpu"`` is
-    asked for."""
+    reference's ``jax.make_mesh((nx, ny), ("x", "y"))``).
+
+    Under a process group of W > 1 ranks it is the process mesh of the
+    group (:func:`process_mesh`): ``n_shards`` must be W or None, and a
+    2-D shape raises ``NotImplementedError`` (one rank a process serves
+    the 1-D mesh; the 2-D SpGEMM over processes is not ported yet).
+    Otherwise the shards are stacked on ``device`` (one shard when
+    ``n_shards`` is None): by default the current CUDA card, as the
+    reference's mesh is built over the accelerator's devices.  Without a
+    card the default raises; a CPU mesh is only made when
+    ``device="cpu"`` is asked for."""
+    world = _group_size()
+    if world > 1:
+        if isinstance(n_shards, (tuple, list)) and len(n_shards) == 2:
+            raise NotImplementedError(
+                f"make_mesh({tuple(n_shards)}): a 2-D mesh over {world} processes is not "
+                "ported (one rank a process serves 1-D meshes; spgemm2d across processes "
+                "is later work)")
+        want = world if n_shards is None else (
+            int(n_shards[0]) if isinstance(n_shards, (tuple, list)) and len(n_shards) == 1
+            else n_shards)
+        if want != world:
+            raise ValueError(f"make_mesh({n_shards}) under a process group of {world} ranks: "
+                             f"a process mesh has one shard a rank, {world} in all")
+        return process_mesh(device)
+    if n_shards is None:
+        n_shards = 1
     shape = tuple(int(s) for s in n_shards) if isinstance(n_shards, (tuple, list)) else (
         int(n_shards),)
     if len(shape) not in (1, 2) or min(shape) < 1:
@@ -75,31 +147,33 @@ class StackedSharding:
     mesh's device and the axis the leading (shard-stack) dimension is
     split over, or None for a replicated operand."""
 
-    mesh: ShardMesh
+    mesh: ShardMesh | ProcessMesh
     axis: str | None
 
     def put(self, x):
         """``jax.device_put(x, sharding)``: ``x`` (a tensor, or a
         dataclass of tensors such as a ShardedCSR) on the mesh's device.
         A row-sharded tensor must carry one block a shard along its
-        leading dimension."""
+        leading dimension (on a process mesh, this rank's one block)."""
         if dataclasses.is_dataclass(x):
             return dataclasses.replace(x, **{
                 f.name: self.put(getattr(x, f.name)) for f in dataclasses.fields(x)
                 if isinstance(getattr(x, f.name), torch.Tensor)
             })
-        if self.axis is not None and (x.dim() == 0 or x.shape[0] != self.mesh.axis_size(self.axis)):
-            raise ValueError(f"a tensor of shape {tuple(x.shape)} has no leading axis of "
-                             f"{self.mesh.axis_size(self.axis)} shards along {self.axis!r}")
+        if self.axis is not None:
+            want = 1 if isinstance(self.mesh, ProcessMesh) else self.mesh.axis_size(self.axis)
+            if x.dim() == 0 or x.shape[0] != want:
+                raise ValueError(f"a tensor of shape {tuple(x.shape)} has no leading axis of "
+                                 f"{want} shards along {self.axis!r}")
         return x.to(self.mesh.device)
 
 
-def row_sharding(mesh: ShardMesh, axis: str = ROW_AXIS) -> StackedSharding:
+def row_sharding(mesh: ShardMesh | ProcessMesh, axis: str = ROW_AXIS) -> StackedSharding:
     """Split the leading (shard-stack) axis across ``axis`` of the mesh."""
     return StackedSharding(mesh, axis)
 
 
-def replicated(mesh: ShardMesh) -> StackedSharding:
+def replicated(mesh: ShardMesh | ProcessMesh) -> StackedSharding:
     return StackedSharding(mesh, None)
 
 
@@ -118,8 +192,13 @@ def init_distributed(**kwargs) -> None:
     ``jax.distributed.initialize`` wrapper.  With keyword arguments it
     calls ``torch.distributed.init_process_group(**kwargs)``; with none
     it initialises only when the environment marks a multi-process
-    launch (:func:`_multi_process_launch`) and is a no-op otherwise."""
-    if kwargs:
-        torch.distributed.init_process_group(**kwargs)
-    elif _multi_process_launch():
-        torch.distributed.init_process_group()
+    launch (:func:`_multi_process_launch`) and is a no-op otherwise.
+    When it starts a group on a machine with a card, it first makes this
+    rank's card (``LOCAL_RANK``, or ``kwargs["rank"]``, modulo the card
+    count) the current device."""
+    if not (kwargs or _multi_process_launch()):
+        return
+    if torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", kwargs.get("rank", os.environ.get("RANK", 0))))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    torch.distributed.init_process_group(**kwargs)

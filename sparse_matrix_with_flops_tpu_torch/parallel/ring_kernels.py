@@ -2,12 +2,28 @@
 package's ``parallel/pallas_ring.py``).
 
 The reference runs one program per chip under ``shard_map`` and moves
-blocks between chips with remote DMAs.  Here the D ranks of the ring are
-stacked on one card: every operand carries a leading rank axis, and one
-launch of the CUDA kernel (``csrc/ring.cu``) runs all ranks, each rank
-writing into its neighbour's buffers through that rank's base pointer
-and raising a flag per region.  Tensors on the CPU run each kernel's
-plain twin instead.  ``<wrapper>.launches`` counts kernel launches.
+blocks between chips with remote DMAs.  The port launches the CUDA
+kernels (``csrc/ring.cu``) in one of two modes, after the mesh
+(``parallel/mesh.py``):
+
+* stacked (no mesh, or a stacked one): the D ranks of the ring are
+  stacked on one card, every operand carries a leading rank axis of D,
+  and one launch runs all ranks, each rank writing into its neighbour's
+  buffers through that rank's base pointer and raising a flag per
+  region;
+* one rank a launch (a process mesh): every process passes its own
+  rank's blocks (a leading axis of 1) and launches its part alone; the
+  neighbour's landing buffer and flags are CUDA IPC peer pointers
+  (``parallel/peer.py``, allocated once per kernel and shape), the flags
+  carry an epoch that every rank advances in step, and each launch takes
+  the share of the card's resident CTAs left by the ranks that share
+  the card.  The grid's size is agreed by every rank once.
+
+Every wait on a flag is bounded (30 s of the card's clock, then a trap):
+a rank that never arrives fails the launch instead of hanging the card.
+Tensors on the CPU run each kernel's plain twin instead (on a process
+mesh: the twin over the group's all-gather of the blocks).
+``<wrapper>.launches`` counts kernel launches.
 
 * ``ring_all_gather`` (K6): ``[d, lr, ...] -> [d, d*lr, ...]``, block k
   of rank me being rank ``(me - k) mod d``'s (rotation order), for one
@@ -37,6 +53,7 @@ import torch
 
 from .._build import check_tensor, current_stream, launch, on_card, query, stream_scratch
 from ..config import QVALUE_DTYPE, true_f32
+from . import collectives, peer
 
 RIGHT, LEFT = 1, -1  # direction the blocks flow: to rank me + 1 or me - 1
 STRIP_COLS = 64  # columns a CTA of K7 / K8 owns (kBN in csrc/ring.cu): one flag set a strip
@@ -53,21 +70,33 @@ def _owners(d: int, direction: int, device) -> torch.Tensor:
     return (r[:, None] - direction * r[None, :]) % d
 
 
-def _rotate_cols(a: torch.Tensor, lr: int, direction: int) -> torch.Tensor:
-    """Owner-major column blocks of ``a`` [d, M, d*lr] -> rotation order
+def _rotate_cols(a: torch.Tensor, lr: int, direction: int, ranks=None) -> torch.Tensor:
+    """Owner-major column blocks of ``a`` [L, M, d*lr] -> rotation order
     (block k of rank me = owner's block at hop k), an index gather as
-    the reference's ``jnp.take`` (pallas_ring.py:158-163, :275-279)."""
-    d, m = a.shape[:2]
+    the reference's ``jnp.take`` (pallas_ring.py:158-163, :275-279).
+    Row i of ``a`` is rank ``ranks[i]`` (by default rank i, L = d)."""
+    rows, m = a.shape[:2]
+    d = a.shape[2] // lr
     own = _owners(d, direction, a.device)
-    blocks = a.view(d, m, d, lr)
-    idx = own[:, None, :, None].expand(d, m, d, lr)
-    return torch.gather(blocks, 2, idx).reshape(d, m, d * lr)
+    if ranks is not None:
+        own = own[list(ranks)]
+    blocks = a.view(rows, m, d, lr)
+    idx = own[:, None, :, None].expand(rows, m, d, lr)
+    return torch.gather(blocks, 2, idx).reshape(rows, m, d * lr)
 
 
 def _ptrs(tensors, device) -> torch.Tensor:
     """Device array of the tensors' base pointers (int64)."""
-    return torch.tensor([t.data_ptr() for t in tensors], dtype=torch.int64,
-                        device=device)
+    return _ptr_array([t.data_ptr() for t in tensors], device)
+
+
+def _ptr_array(addresses, device) -> torch.Tensor:
+    return torch.tensor(addresses, dtype=torch.int64, device=device)
+
+
+def _one_rank(mesh) -> bool:
+    """Whether the ring kernels launch one rank at a time on ``mesh``."""
+    return collectives.is_process(mesh)
 
 
 def _check_ranks(x: torch.Tensor, name: str) -> None:
@@ -86,8 +115,14 @@ MAX_RANK_POINTERS = 2040  # ops * d the launch's parameters hold (kPtrsLarge)
 _GRIDS: dict = {}  # (device index, d, words) -> K6's (CTAs a rank, slice, flag words)
 
 
-def ring_all_gather_plain(x: torch.Tensor) -> torch.Tensor:
-    """K6's twin: ``out[me, k] = x[(me - k) mod d]``, an index gather."""
+def ring_all_gather_plain(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """K6's twin: ``out[me, k] = x[(me - k) mod d]``, an index gather; on
+    a process mesh the same over the group's all-gather of the blocks,
+    this rank's row."""
+    if _one_rank(mesh):
+        full = collectives.all_gather(mesh, x)
+        d, lr = full.shape[:2]
+        return full[_owners(d, RIGHT, x.device)[mesh.rank]].reshape(1, d * lr, *x.shape[2:])
     d, lr = x.shape[:2]
     return x[_owners(d, RIGHT, x.device)].reshape(d, d * lr, *x.shape[2:])
 
@@ -107,13 +142,15 @@ def _gather_grid(dev: torch.device, d: int, words: int) -> tuple:
     return _GRIDS[key]
 
 
-def ring_all_gather(*xs: torch.Tensor):
+def ring_all_gather(*xs: torch.Tensor, mesh=None):
     """All-gather the ranks' ``[lr, ...]`` blocks around the ring:
     ``[d, lr, ...] -> [d, d*lr, ...]`` in rotation order, for one or more
     same-shaped operands of 4-byte dtypes (int32 cols, f32 vals) in one
     launch; the copy is bitwise.  Returns one output per operand (the
-    output itself for one operand); on the card the outputs of one call
-    are views into one allocation."""
+    output itself for one operand); on the card the outputs of one
+    stacked call are views into one allocation.  On a process mesh each
+    rank passes its own block, ``[1, lr, ...] -> [1, d*lr, ...]``
+    (collective: every rank calls it)."""
     if not xs:
         raise ValueError("ring_all_gather: need at least one operand")
     for x in xs:
@@ -123,10 +160,13 @@ def ring_all_gather(*xs: torch.Tensor):
                 f"ring_all_gather: operands of shapes {tuple(xs[0].shape)} and "
                 f"{tuple(x.shape)}"
             )
+    if _one_rank(mesh) and xs[0].shape[0] != 1:
+        raise ValueError("ring_all_gather: on a process mesh each rank passes one block")
     if on_card("ring_all_gather", *xs):
-        outs = _ring_all_gather_launch(xs)
+        outs = (_ring_all_gather_rank_launch(mesh, xs) if _one_rank(mesh)
+                else _ring_all_gather_launch(xs))
     else:
-        outs = [ring_all_gather_plain(x) for x in xs]
+        outs = [ring_all_gather_plain(x, mesh) for x in xs]
     return outs[0] if len(xs) == 1 else tuple(outs)
 
 
@@ -158,48 +198,126 @@ def _ring_all_gather_launch(xs) -> list:
     return outs
 
 
+_RANK_GRIDS: dict = {}  # (mesh, words) -> K6's (CTAs, slice) agreed by every rank
+
+
+def _rank_gather_grid(mesh, words: int) -> tuple:
+    """K6's (CTAs, words of a block each owns) one rank a launch: this
+    card's resident CTAs over the ranks that share it, the least of every
+    rank's (CTA i of every rank must own the same slice), agreed once."""
+    key = (mesh, words)
+    if key not in _RANK_GRIDS:
+        share = peer.card_share(mesh)
+        ctas = peer.agree_min(mesh, query("smf_ring_all_gather_ctas", mesh.device, share))
+        slice_ = max(-(-words // ctas), MIN_SLICE)
+        slice_ += -slice_ % 4
+        _RANK_GRIDS[key] = (-(-words // slice_), slice_)
+    return _RANK_GRIDS[key]
+
+
+def _landing_bytes(nbytes: int) -> int:
+    """``nbytes`` rounded up to 256, so that the flags after it align."""
+    return nbytes + -nbytes % 256
+
+
+def _ring_all_gather_rank_launch(mesh, xs) -> list:
+    """K6 one rank a launch: this rank's landing buffer (where its own
+    block 0 and the upstream rank's forwards land) is its peer
+    allocation; the result is copied out of it, so that the next launch
+    may overwrite it."""
+    x = xs[0]
+    dev, ops = x.device, len(xs)
+    d, me = mesh.num_shards, mesh.rank
+    lr = x.shape[1]
+    shape = (1, d * lr, *x.shape[2:])
+    if ops * d > MAX_RANK_POINTERS:
+        raise ValueError(
+            f"ring_all_gather: {ops} operands x {d} ranks exceed the "
+            f"{MAX_RANK_POINTERS} rank pointers a launch's parameters hold"
+        )
+    words = math.prod(x.shape[1:])
+    if not words:
+        return [torch.empty(shape, dtype=t.dtype, device=dev) for t in xs]
+    ctas, slice_ = _rank_gather_grid(mesh, words)
+    block = d * words * 4  # one operand's landing buffer, in bytes
+    land = _landing_bytes(ops * block)
+    flag_ints = d * (d - 1) * ctas + d
+    ps = peer.peer_buffers(mesh, ("ring_all_gather", ops, words), land + 4 * flag_ints)
+    dst = (me + 1) % d
+    bases = (ctypes.c_longlong * (ops + ops * d))(
+        *[t.data_ptr() for t in xs],
+        *[ps.ptr(r) + op * block for op in range(ops) for r in range(d)])
+    launch(
+        "smf_ring_all_gather_rank", dev, ctypes.addressof(bases), ops, d, me, words, slice_,
+        ctas, ps.ptr(me) + land, ps.ptr(dst) + land, ps.next_epoch(),
+    )
+    ring_all_gather.launches += 1
+    landed = ps.view(0, ops * d * words)
+    return [landed[op * d * words:(op + 1) * d * words].view(t.dtype).view(shape).clone()
+            for op, t in enumerate(xs)]
+
+
 ring_all_gather.launches = 0
 
 
-def unrotate(g: torch.Tensor) -> torch.Tensor:
+def unrotate(g: torch.Tensor, mesh=None) -> torch.Tensor:
     """Rotation order (block k = shard (me - k) mod d) -> owner-major
-    (block j = shard j), for every rank of ``g`` [d, d*lr, ...]."""
-    d = g.shape[0]
+    (block j = shard j), for every rank of ``g`` [d, d*lr, ...] (on a
+    process mesh, this rank's [1, d*lr, ...])."""
+    ranks = collectives.local_ranks(mesh, g.shape[0])
+    d = mesh.num_shards if mesh is not None else g.shape[0]
     lr = g.shape[1] // d
-    blocks = g.view(d, d, lr, *g.shape[2:])
-    pos = _owners(d, RIGHT, g.device)  # position of owner j: (me - j) mod d
-    return blocks[torch.arange(d, device=g.device)[:, None], pos].reshape(g.shape)
+    blocks = g.view(g.shape[0], d, lr, *g.shape[2:])
+    pos = _owners(d, RIGHT, g.device)[ranks]  # position of owner j: (me - j) mod d
+    rows = torch.arange(g.shape[0], device=g.device)[:, None]
+    return blocks[rows, pos].reshape(g.shape)
 
 
 # ---------------------------------------------------------------------------
 # K7 / K8: ring matmul
 # ---------------------------------------------------------------------------
-def _check_matmul(a: torch.Tensor, b: torch.Tensor, name: str) -> tuple:
+def _check_matmul(a: torch.Tensor, b: torch.Tensor, name: str, mesh=None) -> tuple:
     check_tensor(a, f"{name} a", QVALUE_DTYPE, 3)
     check_tensor(b, f"{name} b", QVALUE_DTYPE, 3)
-    d, m, k = a.shape
+    rows, m, k = a.shape
     lr, n = b.shape[1:]
-    if b.shape[0] != d or k != d * lr:
+    d = mesh.num_shards if _one_rank(mesh) else rows
+    if b.shape[0] != rows or k != d * lr or (_one_rank(mesh) and rows != 1):
         raise ValueError(
             f"{name}: a {tuple(a.shape)} and b {tuple(b.shape)} need "
-            f"[d, M, d*lr] and [d, lr, N]"
+            f"[d, M, d*lr] and [d, lr, N] (one rank a process: [1, M, d*lr] "
+            f"and [1, lr, N])"
         )
     return d, m, lr, n
 
 
-def _ring_matmul_twin(a_rot, b, direction: int) -> torch.Tensor:
+def _ring_matmul_twin(a_rot, b, direction: int, ranks=None) -> torch.Tensor:
     """Rank me adds ``a_rot[me][:, block k] @ b[owner]`` over k in the
-    ring's order (true f32: ``config.true_f32``)."""
-    d, m, _ = a_rot.shape
+    ring's order (true f32: ``config.true_f32``); ``b`` holds every
+    rank's block, row i of ``a_rot`` is rank ``ranks[i]`` (by default
+    rank i)."""
+    d = b.shape[0]
+    rows, m, _ = a_rot.shape
     lr, n = b.shape[1:]
     own = _owners(d, direction, b.device).tolist()
-    out = torch.zeros((d, m, n), dtype=QVALUE_DTYPE, device=b.device)
-    for me in range(d):
+    out = torch.zeros((rows, m, n), dtype=QVALUE_DTYPE, device=b.device)
+    for i, me in enumerate(range(d) if ranks is None else ranks):
         for k in range(d):
             with true_f32():
-                part = torch.matmul(a_rot[me, :, k * lr:(k + 1) * lr], b[own[me][k]])
-            out[me] += part
+                part = torch.matmul(a_rot[i, :, k * lr:(k + 1) * lr], b[own[me][k]])
+            out[i] += part
     return out
+
+
+def _ring_matmul_plain(a, b, direction: int, mesh) -> torch.Tensor:
+    """The twin in ``direction``'s order; on a process mesh over the
+    group's all-gather of B, this rank's row."""
+    lr = b.shape[1]
+    if _one_rank(mesh):
+        ranks = [mesh.rank]
+        return _ring_matmul_twin(_rotate_cols(a, lr, direction, ranks),
+                                 collectives.all_gather(mesh, b), direction, ranks)
+    return _ring_matmul_twin(_rotate_cols(a, lr, direction), b, direction)
 
 
 def _ring_matmul_launch(name, a_rot, b, d, m, lr, n, nt):
@@ -231,22 +349,60 @@ def _ring_matmul_launch(name, a_rot, b, d, m, lr, n, nt):
     return c
 
 
-def ring_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _ring_matmul_rank_launch(mesh, a, b, d, m, lr, n, nt, direction):
+    """K7 (``direction`` RIGHT, nt = N) or K8 (LEFT) one rank a launch:
+    this rank's rotating buffer and flags are its peer allocation, the
+    downstream rank's are reached through its peer pointer; A's TMA map
+    is built from this rank's A alone."""
+    me, dev = mesh.rank, b.device
+    a_rot = _rotate_cols(a, lr, direction, [me])
+    c = torch.empty((1, m, n), dtype=QVALUE_DTYPE, device=dev)
+    if not (m and n):
+        return c
+    tiles = n // nt
+    slots = min(RING_SLOTS, tiles) if direction == LEFT else 1
+    strips = tiles * -(-nt // STRIP_COLS)
+    land = _landing_bytes(slots * (d - 1) * lr * nt * 4)
+    flag_ints = d * strips * (d + 1) + d
+    ps = peer.peer_buffers(mesh, ("ring_matmul", direction, lr, n, nt), land + 4 * flag_ints)
+    dst = (me + direction) % d
+
+    def mine(address):  # a device array of d pointers, this rank's set
+        return _ptr_array([address if r == me else 0 for r in range(d)], dev)
+
+    ptrs = [mine(a_rot.data_ptr()), mine(b.data_ptr()),
+            _ptr_array([ps.ptr(r) for r in range(d)], dev), mine(c.data_ptr())]
+    a_host = torch.tensor([a_rot.data_ptr() if r == me else 0 for r in range(d)],
+                          dtype=torch.int64)
+    maps = torch.empty((d, TMA_MAP_BYTES), dtype=torch.uint8, device=dev)
+    launch(
+        "smf_ring_matmul_rank", dev, ptrs[0].data_ptr(), a_host.data_ptr(),
+        ptrs[1].data_ptr(), ptrs[2].data_ptr(), ptrs[3].data_ptr(), ps.ptr(me) + land,
+        ps.ptr(dst) + land, maps.data_ptr(), d, m, lr, n, nt, slots, direction, me,
+        peer.card_share(mesh), ps.next_epoch(),
+    )
+    return c
+
+
+def ring_matmul_plain(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """K7's twin: blocks in the rightward ring's order."""
-    lr = b.shape[1]
-    return _ring_matmul_twin(_rotate_cols(a, lr, RIGHT), b, RIGHT)
+    return _ring_matmul_plain(a, b, RIGHT, mesh)
 
 
-def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def ring_matmul(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """``C[me] = A[me] . B_full`` with B row-sharded: ``a`` [d, M, d*lr]
     (column block j multiplies shard j's block, owner-major), ``b``
     [d, lr, N]; returns [d, M, N].  Block k is contracted at hop k,
-    blocks flowing right."""
-    d, m, lr, n = _check_matmul(a, b, "ring_matmul")
+    blocks flowing right.  On a process mesh each rank passes its own
+    rows, ``a`` [1, M, d*lr] and ``b`` [1, lr, N] (collective)."""
+    d, m, lr, n = _check_matmul(a, b, "ring_matmul", mesh)
     if not on_card("ring_matmul", a, b):
-        return ring_matmul_plain(a, b)
-    a_rot = _rotate_cols(a, lr, RIGHT)
-    c = _ring_matmul_launch("smf_ring_matmul", a_rot, b, d, m, lr, n, n)
+        return ring_matmul_plain(a, b, mesh)
+    if _one_rank(mesh):
+        c = _ring_matmul_rank_launch(mesh, a, b, d, m, lr, n, n, RIGHT)
+    else:
+        a_rot = _rotate_cols(a, lr, RIGHT)
+        c = _ring_matmul_launch("smf_ring_matmul", a_rot, b, d, m, lr, n, n)
     if m and n:
         ring_matmul.launches += 1
     return c
@@ -260,24 +416,29 @@ def _check_nt(n: int, nt: int) -> None:
         raise ValueError(f"N = {n} not a multiple of nt = {nt}")
 
 
-def ring_matmul_tiled_plain(a: torch.Tensor, b: torch.Tensor, nt: int = 2048) -> torch.Tensor:
+def ring_matmul_tiled_plain(a: torch.Tensor, b: torch.Tensor, nt: int = 2048,
+                            mesh=None) -> torch.Tensor:
     """K8's twin: blocks in the leftward ring's order (the N tiling does
     not change any element's sum)."""
     _check_nt(b.shape[2], nt)
-    lr = b.shape[1]
-    return _ring_matmul_twin(_rotate_cols(a, lr, LEFT), b, LEFT)
+    return _ring_matmul_plain(a, b, LEFT, mesh)
 
 
-def ring_matmul_tiled(a: torch.Tensor, b: torch.Tensor, nt: int = 2048) -> torch.Tensor:
+def ring_matmul_tiled(a: torch.Tensor, b: torch.Tensor, nt: int = 2048,
+                      mesh=None) -> torch.Tensor:
     """:func:`ring_matmul` over ``N / nt`` column tiles, blocks flowing
     left (the production hub contraction of ``exchange="fused_ring"``);
-    ``N % nt == 0`` (pad B's columns with zeros)."""
-    d, m, lr, n = _check_matmul(a, b, "ring_matmul_tiled")
+    ``N % nt == 0`` (pad B's columns with zeros).  On a process mesh each
+    rank passes its own rows, as for :func:`ring_matmul`."""
+    d, m, lr, n = _check_matmul(a, b, "ring_matmul_tiled", mesh)
     _check_nt(n, nt)
     if not on_card("ring_matmul_tiled", a, b):
-        return ring_matmul_tiled_plain(a, b, nt)
-    a_rot = _rotate_cols(a, lr, LEFT)
-    c = _ring_matmul_launch("smf_ring_matmul_tiled", a_rot, b, d, m, lr, n, nt)
+        return ring_matmul_tiled_plain(a, b, nt, mesh)
+    if _one_rank(mesh):
+        c = _ring_matmul_rank_launch(mesh, a, b, d, m, lr, n, nt, LEFT)
+    else:
+        a_rot = _rotate_cols(a, lr, LEFT)
+        c = _ring_matmul_launch("smf_ring_matmul_tiled", a_rot, b, d, m, lr, n, nt)
     if m and n:
         ring_matmul_tiled.launches += 1
     return c

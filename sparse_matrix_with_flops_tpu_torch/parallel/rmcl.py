@@ -1,6 +1,8 @@
 """Distributed dynamic R-MCL (the port of the JAX package's
 ``parallel/rmcl.py``): Mt' = prune(inflate(Mgt · Mt)) with Mgt and the
-iterate Mt row-sharded, the shards stacked on one device.
+iterate Mt row-sharded, the shards stacked on one device (a process
+mesh, one rank a process, raises ``NotImplementedError`` here: it is not
+ported for this module yet).
 
 Each shard reads the whole iterate (the reference's all-gather, here the
 stacked blocks through one ``BView``: on one card it moves no bytes, so
@@ -31,9 +33,15 @@ from ..ops.metrics import csr_frobenius_diff
 from ..ops.prune import inflate_prune_normalize_stream
 from ..ops.segments import entry_rows, repeat_segments, segment_sum
 from ..ops.spgemm import bview_from_blocks, esc_compress, esc_expand_view, esc_sort
+from . import collectives
 from .mesh import ROW_AXIS, ShardMesh
 from .sharded import ShardedCSR, shard_csr, unshard_csr
-from .spgemm import _check_mesh
+from .spgemm import _check_mesh as _check_blocks
+
+
+def _check_mesh(mesh, *shards) -> None:
+    collectives.require_stacked(mesh, "the dynamic sharded R-MCL")
+    _check_blocks(mesh, *shards)
 
 
 def _local_fused_step(a_rp, a_ci, a_v, bv, ncols, product_cap, c_cap, mt_cap):
@@ -275,6 +283,7 @@ def sharded_rmcl_adaptive(
     dict of numpy arrays)."""
     from ..ops.flops import row_flops
 
+    collectives.require_stacked(mesh, "sharded_rmcl_adaptive")
     d = mesh.num_shards
     mt0 = mt0.to(mesh.device)
     n = mt0.rows

@@ -1,5 +1,6 @@
 """Distributed static fused R-MCL (the port of the JAX package's
-``parallel/rmcl_ell.py``), with the D shards stacked on one device.
+``parallel/rmcl_ell.py``), on a stacked mesh (the D shards on one
+device) or a process mesh (one shard a rank).
 
 The sharded counterpart of ``models/rmcl_ell.py``.  Mgt is row-sharded
 once; the per-shard degree-bin plans are unified to common shapes (the
@@ -19,8 +20,15 @@ entries reference, through one of four exchanges:
 * ``"fused_ring"``: the segments as in ``"ring"``, the hub contraction
   through kernel K8 (``ring_matmul_tiled``).
 
-The per-shard body runs as a loop over shards; statistics are summed
-over the shard axis (the reference's ``psum``).
+The per-shard body is written once, for the shards this process holds
+(the leading axis of the iterate and of every per-shard array): a
+stacked mesh runs it for each of its D shards, a process mesh once, for
+its rank.  The exchanges and the statistics' sums go through
+``parallel/collectives.py`` (the reference's ``all_gather``,
+``ppermute`` and ``psum``; on a process mesh ``torch.distributed``'s,
+with the sums added in the stacked path's order), and K6 / K8 launch one
+rank at a time on a process mesh, so a rank's iterate and statistics
+are bit for bit the stacked path's at the same D.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from ..models.rmcl_ell import (
     mt_to_ell,
 )
 from ..utils.nphost import concat_ranges, fast_repeat
+from . import collectives
 from .mesh import ShardMesh
 from .ring_kernels import ring_all_gather, ring_matmul_tiled, unrotate
 from .sharded import ShardedCSR, shard_csr
@@ -79,12 +88,16 @@ def _host_arrays(smgt: ShardedCSR) -> tuple:
     )
 
 
-def plan_sharded_rmcl_ell(mgt: CSR, num_shards: int, S: int = 128, max_tile: int = 8192):
+def plan_sharded_rmcl_ell(mgt: CSR, num_shards: int, S: int = 128, max_tile: int = 8192,
+                          mesh=None):
     """Shard Mgt + build the unified per-shard degree-bin arrays.
 
     Returns (plan, arrays, smgt): ``arrays`` is a dict of stacked
     [D, ...] tensors on Mgt's device (lists of them for the per-bin and
-    per-step arrays), the reference's keys and contents."""
+    per-step arrays), the reference's keys and contents.  On a process
+    mesh every rank plans from the same Mgt and keeps its own shard's
+    rows of ``arrays`` and ``smgt`` (a leading axis of 1); the plan, with
+    the ring schedule, is the same on every rank."""
     smgt = shard_csr(mgt, num_shards)
     lr = smgt.local_rows
     rp_all, col_all, val_all = _host_arrays(smgt)
@@ -251,7 +264,11 @@ def plan_sharded_rmcl_ell(mgt: CSR, num_shards: int, S: int = 128, max_tile: int
         hub_owner_loc=hol,
     )
     dev = mgt.device
-    up = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    keep = slice(None)
+    if collectives.is_process(mesh):
+        keep = slice(mesh.rank, mesh.rank + 1)
+        smgt = smgt.rank_block(mesh.rank)
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x[keep])).to(dev)  # noqa: E731
     arrays = {k: [up(x) for x in v] if isinstance(v, list) else up(v) for k, v in arrays.items()}
     return plan, arrays, smgt
 
@@ -271,7 +288,7 @@ def _segments_gathered(plan, a_rp, a_ci, a_v, g_cols, g_vals):
 
 
 def dense_blocks(lc, lv, n: int):
-    """Every shard's iterate block [lr, S] as dense rows [D, lr, n], in
+    """Every held shard's iterate block [lr, S] as dense rows [L, lr, n], in
     one plain indexed set: a row holds each real column at most once
     (the ELL invariant that ``mt_to_ell`` sets and every step keeps,
     ``models/rmcl_ell.py:147-150``), so only the sentinel column n
@@ -297,8 +314,8 @@ def hub_block(slot, pos, val, hmax: int, width: int):
     return flat.view(hmax + 1, width)[:hmax]
 
 
-def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True):
-    """Per-entry segments of every shard (+ the hub products when
+def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True, mesh=None):
+    """Per-entry segments of every held shard (+ the hub products when
     ``hub``) through the ring: the iterate blocks rotate rightwards, so
     at step k shard me holds owner (me - k) mod D's block and fills the
     entries the planner assigned to step k.
@@ -311,51 +328,55 @@ def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True):
     cap = smgt.local_capacity
     dev = lc.device
     a_ci, a_v = smgt.col_ind, smgt.values
+    ranks = collectives.local_ranks(mesh, d)
+    held = len(ranks)
     # rows cap + 1 take the -1 pads (the reference drops them)
-    seg_c = torch.full((d, cap + 2, S), n, dtype=INDEX_DTYPE, device=dev)
-    seg_v = torch.zeros((d, cap + 2, S), dtype=QVALUE_DTYPE, device=dev)
+    seg_c = torch.full((held, cap + 2, S), n, dtype=INDEX_DTYPE, device=dev)
+    seg_v = torch.zeros((held, cap + 2, S), dtype=QVALUE_DTYPE, device=dev)
     hmax = plan.hmax if hub else 0
     c_h = md_me = None
     if hmax:
         md_me = dense_blocks(lc, lv, n)
-        c_h = torch.zeros((d, hmax, n), dtype=QVALUE_DTYPE, device=dev)
+        c_h = torch.zeros((held, hmax, n), dtype=QVALUE_DTYPE, device=dev)
     block_c, block_v = lc, lv
     for k in range(d):
         ids_k = arrays["step_ents"][k].long()
-        for me in range(d):
+        for i, me in enumerate(ranks):
             owner = (me - k) % d
-            ids = ids_k[me]
+            ids = ids_k[i]
             safe_ids = ids.clamp(0, cap - 1)
-            loc = (a_ci[me][safe_ids].long() - owner * lr).clamp(0, lr - 1)
+            loc = (a_ci[i][safe_ids].long() - owner * lr).clamp(0, lr - 1)
             tgt = torch.where(ids >= 0, ids, cap + 1)
-            seg_c[me][tgt] = block_c[me][loc]
-            seg_v[me][tgt] = block_v[me][loc] * a_v[me][safe_ids][:, None]
+            seg_c[i][tgt] = block_c[i][loc]
+            seg_v[i][tgt] = block_v[i][loc] * a_v[i][safe_ids][:, None]
             if hmax:
-                slot = arrays["hub_ent_slot"][me][owner].long()
-                pos = arrays["hub_ent_pos"][me][owner].long()
-                idx = arrays["hub_kidx"][me][owner].long()
-                ab = hub_block(slot, pos, arrays["hub_ent_val"][me][owner], hmax, idx.shape[0])
+                slot = arrays["hub_ent_slot"][i][owner].long()
+                pos = arrays["hub_ent_pos"][i][owner].long()
+                idx = arrays["hub_kidx"][i][owner].long()
+                ab = hub_block(slot, pos, arrays["hub_ent_val"][i][owner], hmax, idx.shape[0])
                 with true_f32():
-                    part = torch.matmul(ab, md_me[me][idx.clamp(0, lr - 1)])
-                c_h[me] = c_h[me] + part
+                    part = torch.matmul(ab, md_me[i][idx.clamp(0, lr - 1)])
+                c_h[i] = c_h[i] + part
         if hmax:
-            c_h = torch.roll(c_h, 1, 0)  # ppermute i -> i + 1
+            c_h = collectives.ppermute(mesh, c_h, 1)  # i -> i + 1
         if k + 1 < d:
-            block_c = torch.roll(block_c, 1, 0)
-            block_v = torch.roll(block_v, 1, 0)
+            block_c = collectives.ppermute(mesh, block_c, 1)
+            block_v = collectives.ppermute(mesh, block_v, 1)
     return seg_c[:, : cap + 1], seg_v[:, : cap + 1], c_h
 
 
-def fused_hub_operands(plan, arrays, lc, lv):
-    """The operands of the fused ring's hub contraction for every shard:
-    ``(a_cols [D, hmax, D*lrk], md_loc [D, lrk, npad], nt)``, the
+def fused_hub_operands(plan, arrays, lc, lv, mesh=None):
+    """The operands of the fused ring's hub contraction for every held
+    shard: ``(a_cols [L, hmax, D*lrk], md_loc [L, lrk, npad], nt)``, the
     owner-major A columns cut from the union-dense operand and each
     shard's dense B block over its own union rows (N padded to a
     multiple of the tile width ``nt``)."""
-    n, lr, d = plan.n, plan.lr, plan.num_shards
+    n, lr = plan.n, plan.lr
+    held = lc.shape[0]
     lrk, dev = plan.hub_lrk, lc.device
+    ranks = collectives.local_ranks(mesh, held)
     flat = torch.from_numpy(plan.hub_owner_cols.reshape(-1).astype(np.int64)).to(dev)
-    hol = torch.from_numpy(plan.hub_owner_loc.astype(np.int64)).to(dev)
+    hol = torch.from_numpy(plan.hub_owner_loc[ranks].astype(np.int64)).to(dev)
     a_u = arrays["a_dense_u"]
     a_cols = torch.where(flat >= 0, a_u[:, :, flat.clamp(0, plan.hub_kh - 1)], 0.0)
     ntile = min(2048, 1 << (n - 1).bit_length())
@@ -364,20 +385,20 @@ def fused_hub_operands(plan, arrays, lc, lv):
     # the sentinel lanes
     okr = (hol >= 0)[:, :, None]
     safe_r = hol.clamp(0, lr - 1)
-    shard = torch.arange(d, device=dev)[:, None]
-    bc = torch.where(okr, lc[shard, safe_r], n).long()  # [d, lrk, S]
+    shard = torch.arange(held, device=dev)[:, None]
+    bc = torch.where(okr, lc[shard, safe_r], n).long()  # [L, lrk, S]
     bv = torch.where(okr, lv[shard, safe_r], 0.0)
     base = (shard[:, :, None] * lrk + torch.arange(lrk, device=dev)[None, :, None]) * npad
-    flat_md = torch.zeros(d * lrk * npad + 1, dtype=QVALUE_DTYPE, device=dev)
-    flat_md[torch.where(bc < n, base + bc, d * lrk * npad)] = bv
-    return a_cols.contiguous(), flat_md[:-1].view(d, lrk, npad), ntile
+    flat_md = torch.zeros(held * lrk * npad + 1, dtype=QVALUE_DTYPE, device=dev)
+    flat_md[torch.where(bc < n, base + bc, held * lrk * npad)] = bv
+    return a_cols.contiguous(), flat_md[:-1].view(held, lrk, npad), ntile
 
 
-def _fused_hub(plan, arrays, lc, lv):
-    """The hub products of every shard through K8, contracted around the
-    leftward ring."""
-    a_cols, md_loc, ntile = fused_hub_operands(plan, arrays, lc, lv)
-    return ring_matmul_tiled(a_cols, md_loc, nt=ntile)[:, :, : plan.n]
+def _fused_hub(plan, arrays, lc, lv, mesh=None):
+    """The hub products of every held shard through K8, contracted
+    around the leftward ring (one rank a launch on a process mesh)."""
+    a_cols, md_loc, ntile = fused_hub_operands(plan, arrays, lc, lv, mesh)
+    return ring_matmul_tiled(a_cols, md_loc, nt=ntile, mesh=mesh)[:, :, : plan.n]
 
 
 def _local_step(plan, a_rp, row_ids, ent_src, huge_rows, seg_c, seg_v, c_h=None):
@@ -414,51 +435,55 @@ def _local_step(plan, a_rp, row_ids, ent_src, huge_rows, seg_c, seg_v, c_h=None)
     return new_cols[:lr], new_vals[:lr], nnz_out, trunc
 
 
-def _sharded_step(plan, smgt, arrays, lc, lv, exchange: str):
-    """One iteration on the stacked [D, lr, S] iterate."""
-    n, S, d = plan.n, plan.S, plan.num_shards
+def _sharded_step(plan, smgt, arrays, lc, lv, exchange: str, mesh=None):
+    """One iteration on the held shards' [L, lr, S] iterate (all D on a
+    stacked mesh, this rank's on a process mesh)."""
+    n, S = plan.n, plan.S
     a_rp = smgt.row_ptr
+    held = lc.shape[0]
     c_h = None
     if exchange in ("ring", "fused_ring"):
-        seg_c, seg_v, c_h = _segments_ring(plan, smgt, arrays, lc, lv, hub=exchange == "ring")
+        seg_c, seg_v, c_h = _segments_ring(plan, smgt, arrays, lc, lv,
+                                           hub=exchange == "ring", mesh=mesh)
         if exchange == "fused_ring" and plan.hmax:
-            c_h = _fused_hub(plan, arrays, lc, lv)
+            c_h = _fused_hub(plan, arrays, lc, lv, mesh)
     else:
-        if exchange == "pallas_ring":
-            g_c, g_v = (unrotate(g) for g in ring_all_gather(lc, lv))  # one launch
-            views = [(g_c[me], g_v[me]) for me in range(d)]
-        else:  # the stacked shards are the gathered iterate
-            views = [(lc.reshape(n, S), lv.reshape(n, S))] * d
+        if exchange == "pallas_ring":  # one launch for the cols and the vals
+            g_c, g_v = (unrotate(g, mesh) for g in ring_all_gather(lc, lv, mesh=mesh))
+            views = [(g_c[i], g_v[i]) for i in range(held)]
+        else:  # the all-gathered iterate (stacked: the held shards themselves)
+            g_c, g_v = (collectives.all_gather(mesh, x).reshape(n, S) for x in (lc, lv))
+            views = [(g_c, g_v)] * held
         segs = [
-            _segments_gathered(plan, a_rp[me], smgt.col_ind[me], smgt.values[me], gc, gv)
-            for me, (gc, gv) in enumerate(views)
+            _segments_gathered(plan, a_rp[i], smgt.col_ind[i], smgt.values[i], gc, gv)
+            for i, (gc, gv) in enumerate(views)
         ]
         seg_c = [s[0] for s in segs]
         seg_v = [s[1] for s in segs]
         if plan.hmax:
             c_h = [
-                _hub_dense_products(arrays["a_dense_u"][me], gc, gv, n,
+                _hub_dense_products(arrays["a_dense_u"][i], gc, gv, n,
                                     krows=plan.hub_krows, khp=plan.hub_kh)
-                for me, (gc, gv) in enumerate(views)
+                for i, (gc, gv) in enumerate(views)
             ]
     out_c, out_v, nnz, trunc, d2, n2 = [], [], [], [], [], []
-    for me in range(d):
+    for i in range(held):
         nc, nv, nz, tr = _local_step(
-            plan, a_rp[me],
-            [r[me] for r in arrays["row_ids"]],
-            [s[me] for s in arrays["ent_src"]],
-            arrays["huge_rows"][me],
-            seg_c[me], seg_v[me],
-            None if c_h is None else c_h[me],
+            plan, a_rp[i],
+            [r[i] for r in arrays["row_ids"]],
+            [s[i] for s in arrays["ent_src"]],
+            arrays["huge_rows"][i],
+            seg_c[i], seg_v[i],
+            None if c_h is None else c_h[i],
         )
-        ld2, ln2 = _ell_drift_sq(lc[me], lv[me], nc, nv, n)
+        ld2, ln2 = _ell_drift_sq(lc[i], lv[i], nc, nv, n)
         for acc, x in zip((out_c, out_v, nnz, trunc, d2, n2), (nc, nv, nz, tr, ld2, ln2)):
             acc.append(x)
-    d2 = torch.stack(d2).sum()
-    n2 = torch.stack(n2).sum()
+    d2 = collectives.psum(mesh, torch.stack(d2))
+    n2 = collectives.psum(mesh, torch.stack(n2))
     stats = {
-        "nnz": torch.stack(nnz).sum().to(INDEX_DTYPE),
-        "truncated_rows": torch.stack(trunc).sum().to(INDEX_DTYPE),
+        "nnz": collectives.psum(mesh, torch.stack(nnz)).to(INDEX_DTYPE),
+        "truncated_rows": collectives.psum(mesh, torch.stack(trunc)).to(INDEX_DTYPE),
         "differs": torch.sqrt(d2) / torch.clamp(torch.sqrt(n2), min=1e-30),
     }
     return torch.stack(out_c), torch.stack(out_v), stats
@@ -474,16 +499,19 @@ def sharded_rmcl_ell_scan(
     max_iters: int,
     exchange: str = "ring",
 ):
-    """Device-resident multi-shard loop; ``mt_cols/vals`` are stacked
-    [D, lr, S].  Returns (cols, vals, stats history of tensors)."""
+    """Device-resident multi-shard loop; ``mt_cols/vals`` are the held
+    shards' [L, lr, S] (all D stacked; this rank's one on a process
+    mesh).  Returns (cols, vals, stats history of tensors, the same on
+    every rank)."""
     if exchange not in EXCHANGES:
         raise ValueError(f"exchange must be one of {EXCHANGES}, got {exchange!r}")
-    if mt_cols.shape[0] != mesh.num_shards:
-        raise ValueError("iterate and mesh disagree on the shard count")
+    if mt_cols.shape[0] != len(collectives.local_ranks(mesh)) or plan.num_shards != \
+            mesh.num_shards:
+        raise ValueError("iterate, plan and mesh disagree on the shard count")
     hist = []
     cols, vals = mt_cols, mt_vals
     for _ in range(max_iters):
-        cols, vals, stats = _sharded_step(plan, smgt, arrays, cols, vals, exchange)
+        cols, vals, stats = _sharded_step(plan, smgt, arrays, cols, vals, exchange, mesh)
         hist.append(stats)
     keys = ("nnz", "truncated_rows", "differs")
     return cols, vals, {
@@ -501,7 +529,9 @@ def sharded_rmcl_ell(
     exchange: str = "ring",
 ):
     """End-to-end distributed static R-MCL on ``mesh``'s device.  Returns
-    (CSR, stats dict of numpy arrays).
+    (CSR, stats dict of numpy arrays); on a process mesh every rank
+    passes the same graph and gets the same result (the iterate is
+    all-gathered once at the end).
 
     ``balance=True`` relabels the graph with the footprint-balanced snake
     permutation (``sharded.flops_balanced_permutation``) so every shard
@@ -523,7 +553,8 @@ def sharded_rmcl_ell(
         # conjugate relabel (P M Pt): rows and cols, so the iteration is
         # isomorphic
         mt0 = mt0.conjugate_permute(torch.from_numpy(perm))
-    plan, arrays, smgt = plan_sharded_rmcl_ell(mt0, num_shards, S=S, max_tile=max_tile)
+    plan, arrays, smgt = plan_sharded_rmcl_ell(mt0, num_shards, S=S, max_tile=max_tile,
+                                               mesh=mesh)
     cols, vals = mt_to_ell(mt0, S)
     # the ELL sentinel (ncols) becomes the padded global sentinel (n)
     cols = torch.where(cols >= mt0.ncols, plan.n, cols)
@@ -531,11 +562,14 @@ def sharded_rmcl_ell(
     if pad:
         cols = torch.cat([cols, cols.new_full((pad, S), plan.n)])
         vals = torch.cat([vals, vals.new_zeros((pad, S))])
+    held = collectives.local_ranks(mesh)
     fc, fv, hist = sharded_rmcl_ell_scan(
         mesh, plan, smgt, arrays,
-        cols.reshape(num_shards, plan.lr, S), vals.reshape(num_shards, plan.lr, S),
+        cols.reshape(num_shards, plan.lr, S)[held[0]:held[-1] + 1],
+        vals.reshape(num_shards, plan.lr, S)[held[0]:held[-1] + 1],
         max_iters, exchange,
     )
+    fc, fv = (collectives.all_gather(mesh, x) for x in (fc, fv))
     out = ell_to_csr(
         fc.reshape(plan.n, S)[: mt0.rows], fv.reshape(plan.n, S)[: mt0.rows], mt0.ncols
     )

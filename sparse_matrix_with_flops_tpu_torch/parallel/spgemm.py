@@ -2,17 +2,19 @@
 A and C row-sharded, B all-gathered (:func:`sharded_spgemm`) or rotated
 around the ring (:func:`sharded_spgemm_ring`).
 
-The shards are stacked on one device (``parallel/mesh.py``).  B's
-all-gather is the stacked blocks read through one ``BView``
-(``ops/spgemm.bview_from_blocks``): on one card it moves no bytes, so
-the times here are compute only.  The ring's ``ppermute`` is a
-``torch.roll`` of the stacked blocks.  Each shard runs the single-card
-stream ESC on its rows (Gustavson rows are independent, so there is no
-cross-shard reduction), and C's values are the fixed-order run sums of
-``esc_compress`` where the reference scatter-adds: two calls give the
-same bits on the card.  With capacities (and, for the ring, a plan)
-passed in, a call makes no device-to-host read, as the reference runs
-under ``jit``.
+Each shard runs one body, the single-card stream ESC on its rows
+(Gustavson rows are independent, so there is no cross-shard reduction):
+on a stacked mesh (``parallel/mesh.py``) a Python loop runs it for every
+shard, on a process mesh each rank runs it once for its own.  B's
+all-gather and the ring's ``ppermute`` are ``parallel/collectives.py``'s:
+stacked, the blocks read through one ``BView``
+(``ops/spgemm.bview_from_blocks``, no bytes moved on one card) and a
+``torch.roll`` of the stack; one rank a process, ``torch.distributed``'s
+all-gather and send / receive.  C's values are the fixed-order run sums
+of ``esc_compress`` where the reference scatter-adds: two calls give the
+same bits on the card, and a rank's block equals the stacked path's
+block.  With capacities (and, for the ring, a plan) passed in, a call
+makes no device-to-host read, as the reference runs under ``jit``.
 """
 
 from __future__ import annotations
@@ -26,14 +28,18 @@ from ..config import INDEX_DTYPE, QVALUE_DTYPE
 from ..formats.csr import CSR
 from ..ops.segments import entry_rows, exclusive_cumsum, repeat_segments
 from ..ops.spgemm import bview_from_blocks, esc_compress, esc_expand_view, esc_sort
+from . import collectives
 from .mesh import ROW_AXIS, ShardMesh
 from .sharded import ShardedCSR
 
 
 def _check_mesh(mesh: ShardMesh, *shards: ShardedCSR) -> None:
+    ranks = collectives.local_ranks(mesh)
     for s in shards:
         if s.num_shards != mesh.num_shards:
             raise ValueError(f"{s.num_shards} shards on a mesh of {mesh.num_shards}")
+        if (s.row_ptr.shape[0], s.rank) != (len(ranks), ranks[0]):
+            raise ValueError("the blocks held are not the mesh's shards of this process")
 
 
 def _compress(prow, pcol, pval, total, rows: int, ncols: int, out_cap: int):
@@ -56,9 +62,10 @@ def _local_spgemm(a_rp, a_ci, a_v, bv, ncols: int, product_cap: int, out_cap: in
     return row_ptr, ccol, cval, flops, nnzc
 
 
-def _stack_result(outs, ncols: int, global_rows: int) -> tuple[ShardedCSR, dict]:
+def _stack_result(outs, ncols: int, like: ShardedCSR) -> tuple[ShardedCSR, dict]:
     rp, ci, v, flops, nnzc = (torch.stack(x) for x in zip(*outs))
-    return ShardedCSR(rp, ci, v, ncols, global_rows), {"flops": flops, "nnz": nnzc}
+    return (ShardedCSR(rp, ci, v, ncols, like.global_rows, like.shards, like.rank),
+            {"flops": flops, "nnz": nnzc})
 
 
 def sharded_spgemm(
@@ -73,15 +80,17 @@ def sharded_spgemm(
 
     ``product_cap`` / ``out_cap`` are *per-shard* capacities (flops-balanced
     sharding keeps them near total/D).  Returns (C sharded, info dict
-    with the per-shard flops and nnz as [D] tensors)."""
+    with the per-shard flops and nnz as [L] tensors, L the shards this
+    process holds: D stacked, 1 on a process mesh)."""
     _check_mesh(mesh, a, b)
-    bv = bview_from_blocks(b.row_ptr, b.col_ind, b.values, b.ncols)  # the all-gather
+    bv = bview_from_blocks(*(collectives.all_gather(mesh, x)
+                             for x in (b.row_ptr, b.col_ind, b.values)), b.ncols)
     outs = [
-        _local_spgemm(a.row_ptr[me], a.col_ind[me], a.values[me], bv, b.ncols,
+        _local_spgemm(a.row_ptr[i], a.col_ind[i], a.values[i], bv, b.ncols,
                       product_cap, out_cap)
-        for me in range(a.num_shards)
+        for i in range(a.row_ptr.shape[0])
     ]
-    return _stack_result(outs, b.ncols, a.global_rows)
+    return _stack_result(outs, b.ncols, a)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -94,23 +103,24 @@ class RingPlan:
     __hash__ = object.__hash__
 
 
-def plan_spgemm_ring(a: ShardedCSR, b: ShardedCSR):
+def plan_spgemm_ring(a: ShardedCSR, b: ShardedCSR, mesh=None):
     """Host planner for the ring exchange: group each shard's A entries
     by the rotation step that delivers their B row, and size each step's
     product stream exactly (B's structure is fixed, so the per-(shard,
     step) product counts are host constants: the reference's P2
     cost-model law, util.cc:123-149, applied to ring steps).  A numpy
-    copy of the reference's planner.
+    copy of the reference's planner.  On a process mesh the blocks'
+    structure is first all-gathered, so every rank makes the same plan.
 
     Returns (RingPlan, step_ents) with step_ents[k] an int32 [D, Ek]
     tensor of local entry indices (-1 padded), uploaded once to A's
     device."""
     d = a.num_shards
     lr = b.local_rows
-    brp = b.row_ptr.cpu().numpy()
+    brp = collectives.all_gather(mesh, b.row_ptr).cpu().numpy()
     blen = (brp[:, 1:] - brp[:, :-1]).reshape(-1).astype(np.int64)  # [D*lr]
-    arp = a.row_ptr.cpu().numpy()
-    aci = a.col_ind.cpu().numpy()
+    arp = collectives.all_gather(mesh, a.row_ptr).cpu().numpy()
+    aci = collectives.all_gather(mesh, a.col_ind).cpu().numpy()
     groups = [[] for _ in range(d)]
     for sh in range(d):
         nnz_sh = int(arp[sh, -1])
@@ -170,28 +180,30 @@ def _ring_impl(mesh, plan: RingPlan, a: ShardedCSR, b: ShardedCSR, step_ents, ou
     _check_mesh(mesh, a, b)
     d, lr, ncols = a.num_shards, b.local_rows, b.ncols
     cap = a.local_capacity
-    erows = [entry_rows(a.row_ptr[me], cap) for me in range(d)]
-    parts = [[] for _ in range(d)]
-    totals = [torch.zeros((), dtype=INDEX_DTYPE, device=a.row_ptr.device)] * d
+    ranks = collectives.local_ranks(mesh)
+    erows = [entry_rows(a.row_ptr[i], cap) for i in range(len(ranks))]
+    parts = [[] for _ in ranks]
+    totals = [torch.zeros((), dtype=INDEX_DTYPE, device=a.row_ptr.device)] * len(ranks)
     blk_rp, blk_ci, blk_v = b.row_ptr, b.col_ind, b.values
     for k in range(d):
-        for me in range(d):  # the resident block is that of shard (me - k) mod d
+        for i, me in enumerate(ranks):  # the resident block is that of shard (me - k) mod d
             *streams, tot_k = _ring_step_products(
-                a.row_ptr[me], a.col_ind[me], a.values[me], erows[me],
-                blk_rp[me], blk_ci[me], blk_v[me], step_ents[k][me], (me - k) % d, lr,
+                a.row_ptr[i], a.col_ind[i], a.values[i], erows[i],
+                blk_rp[i], blk_ci[i], blk_v[i], step_ents[k][me], (me - k) % d, lr,
                 plan.step_prod_caps[k], ncols,
             )
-            parts[me].append(streams)
-            totals[me] = totals[me] + tot_k
+            parts[i].append(streams)
+            totals[i] = totals[i] + tot_k
         if k + 1 < d:  # ppermute i -> i + 1
-            blk_rp, blk_ci, blk_v = (torch.roll(x, 1, 0) for x in (blk_rp, blk_ci, blk_v))
+            blk_rp, blk_ci, blk_v = (collectives.ppermute(mesh, x, 1)
+                                     for x in (blk_rp, blk_ci, blk_v))
     outs = []
-    for me in range(d):  # the step streams in step order
-        prow, pcol, pval = (torch.cat(x) for x in zip(*parts[me]))
-        row_ptr, ccol, cval, nnzc = _compress(prow, pcol, pval, totals[me], a.local_rows, ncols,
+    for i in range(len(ranks)):  # the step streams in step order
+        prow, pcol, pval = (torch.cat(x) for x in zip(*parts[i]))
+        row_ptr, ccol, cval, nnzc = _compress(prow, pcol, pval, totals[i], a.local_rows, ncols,
                                              out_cap)
-        outs.append((row_ptr, ccol, cval, totals[me], nnzc))
-    return _stack_result(outs, ncols, a.global_rows)
+        outs.append((row_ptr, ccol, cval, totals[i], nnzc))
+    return _stack_result(outs, ncols, a)
 
 
 def sharded_spgemm_ring(
@@ -215,5 +227,5 @@ def sharded_spgemm_ring(
     from the planner.  With a prebuilt (plan, step_ents) the call makes
     no device-to-host read."""
     if plan is None:
-        plan, step_ents = plan_spgemm_ring(a, b)
+        plan, step_ents = plan_spgemm_ring(a, b, mesh)
     return _ring_impl(mesh, plan, a, b, step_ents, int(out_cap))

@@ -26,6 +26,7 @@ import torch
 from ..config import INDEX_DTYPE, QVALUE_DTYPE
 from ..formats.csr import CSR
 from ..ops.spgemm import bview_from_blocks
+from . import collectives
 from .mesh import ShardMesh
 from .sharded import ShardedCSR, shard_csr
 from .spgemm import _local_spgemm
@@ -90,6 +91,7 @@ def sharded_spgemm_2d(
     ``a`` is a ShardedCSR over "x" (each block read by every y).
     Returns C's blocks with leading [nx, ny] axes and stripe-local
     columns: (row_ptr, col_ind, values)."""
+    collectives.require_stacked(mesh, "sharded_spgemm_2d")
     nx, ny = mesh.axis_size("x"), mesh.axis_size("y")
     if a.num_shards != nx or tuple(b_rp.shape[:2]) != (nx, ny):
         raise ValueError(f"operands of {a.num_shards} and {tuple(b_rp.shape[:2])} shards "

@@ -781,6 +781,56 @@ def test_ring_matmul_kernels_match_twins(dev, d, m, lr, n, nt):
         assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
 
 
+def _unbounded_ring_library(tmp_path):
+    """``csrc/ring.cu`` built with its flag waits unbounded (the trap
+    after ``kWaitNs`` cut out), as a library of its own."""
+    import ctypes
+    import os
+    import subprocess
+
+    csrc = os.path.join(os.path.dirname(_build.__file__), "csrc")
+    with open(os.path.join(csrc, "ring.cu")) as f:
+        src = f.read()
+    bound = "    if (global_ns() - t0 > kWaitNs) __trap();\n"
+    assert src.count(bound) == 1
+    cu, so = tmp_path / "ring_unbounded.cu", tmp_path / "ring_unbounded.so"
+    cu.write_text(src.replace(bound, ""))
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-shared", "-o", str(so),
+                    str(cu), os.path.join(csrc, "errors.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    for table, extra in ((_build._SIGNATURES, (ctypes.c_void_p,)), (_build._QUERIES, ())):
+        for fn, argtypes in table.items():
+            if fn.startswith("smf_ring"):
+                getattr(lib, fn).argtypes = (*argtypes, *extra)
+                getattr(lib, fn).restype = ctypes.c_int
+    lib.smf_error_string.argtypes = (ctypes.c_int,)
+    lib.smf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def test_bounded_flag_waits_keep_the_stacked_bits(dev, tmp_path, monkeypatch):
+    """The stacked K6 and K8 give the same bits with the bounded flag
+    waits as with the waits unbounded, at the D = 4 main path's widths."""
+    g = torch.Generator().manual_seed(12)
+    xc = torch.randint(-(2**30), 2**30, (4, 4096, 128), generator=g, dtype=torch.int32).to(dev)
+    xv = torch.randn((4, 4096, 128), generator=g).to(dev)
+    a, b = _ring_operands(4, 297, 512, 4096, 12, dev)
+
+    def run():
+        gc, gv = ring_all_gather(xc, xv)
+        c = ring_matmul_tiled(a, b, 2048)
+        torch.cuda.synchronize()
+        return gc, gv, c
+
+    bounded = run()
+    lib = _unbounded_ring_library(tmp_path)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    unbounded = run()
+    for x, y in zip(bounded, unbounded):
+        assert torch.equal(x, y)
+    assert torch.equal(bounded[0], ring_all_gather_plain(xc))
+
+
 @pytest.mark.parametrize("d,lr", [(2, 16), (4, 8), (1, 32)])
 def test_ring_matmul_kernels_keep_the_bits_below_tf32(dev, d, lr):
     # every entry 1 + 2^-12: its low part lies below TF32's 10-bit mantissa,

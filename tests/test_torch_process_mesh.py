@@ -1,0 +1,206 @@
+"""One rank a process: the port's distributed layer on a process mesh
+(``torch.distributed``, ``gloo`` backend, on the CPU) against the
+stacked mesh at the same D, and once against the JAX package on its
+8-device CPU mesh.
+
+Each world size spawns its W ranks once (``torch.multiprocessing``,
+spawn start method, a file store in the test's temporary directory, so
+no port is taken); every rank runs all the cases of
+``torch_process_workers.cases`` and writes its results to a file, which
+the tests below read.  The ranks share one deadline: a rank still alive
+at it is killed and the run fails, so a stuck rank fails the tests and
+never hangs the suite.  Bit-equal means bit for bit: on the CPU a kernel
+wrapper on a process mesh runs its twin over the group's all-gather, and
+the sums of the statistics follow the stacked path's order.
+"""
+
+import importlib
+import os
+import pickle
+import time
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from sparse_matrix_with_flops_tpu.formats.csr import CSR as JCSR
+from sparse_matrix_with_flops_tpu.parallel import make_mesh as j_make_mesh
+from sparse_matrix_with_flops_tpu_torch.formats.coo import COO
+from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR as TCSR
+from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
+
+import torch_process_workers as W
+from torch_port_util import assert_close_values, assert_same_csr, trimmed, use_pallas_dedup
+
+JP = importlib.import_module("sparse_matrix_with_flops_tpu.parallel.rmcl_ell")
+TP = importlib.import_module("sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell")
+DEADLINE_S = 240  # one world's ranks, start to finish (a run takes ~10 s)
+JAX_WORLD = 4
+
+
+def _jax_graph() -> JCSR:
+    """The hub graph of ``tests/test_torch_sharded_rmcl.py``: 32 rows,
+    two hub rows at ``max_tile`` 256 and S 32, row-stochastic."""
+    rng = np.random.default_rng(0)
+    n = 32
+    mask = rng.random((n, n)) < 0.12
+    np.fill_diagonal(mask, True)
+    mask[5, :] = True
+    mask[20, 4:] = True
+    return JCSR.from_dense(np.where(mask, 1.0, 0.0).astype(np.float32)).aver_and_norm_rows()
+
+
+def _spawn(world: int, tmp) -> list:
+    """Run the W ranks to their end or the deadline; each rank's results."""
+    inputs = W.make_inputs(world)
+    if world == JAX_WORLD:
+        rp, ci, v = trimmed(_jax_graph())
+        inputs["jax_graph"] = (rp, ci, v, 32)
+    path = os.path.join(tmp, "inputs.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(inputs, f)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=W.run_rank,
+                         args=(r, world, os.path.join(tmp, "store"), path, str(tmp)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    stuck = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = []
+    for r in range(world):
+        err = os.path.join(tmp, f"rank{r}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append(f"rank {r}:\n{f.read()}")
+    assert not stuck, f"ranks {stuck} still running after {DEADLINE_S} s: killed"
+    assert not errors, "\n".join(errors)
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return inputs, out
+
+
+_RUNS: dict = {}
+
+
+def _run(world: int, tmp_path_factory):
+    """(W, inputs, every rank's results, the stacked mesh's results), once
+    a world size."""
+    if world not in _RUNS:
+        inputs, ranks = _spawn(world, tmp_path_factory.mktemp(f"ranks{world}"))
+        _RUNS[world] = (world, inputs, ranks, W.stacked_results(inputs))
+    return _RUNS[world]
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["W2", "W4"])
+def run(request, tmp_path_factory):
+    return _run(request.param, tmp_path_factory)
+
+
+def _each_rank_equals_stacked(run, key):
+    world, _, ranks, stacked = run
+    for r in range(world):
+        want = W.row_of(key, stacked[key], r)
+        assert W.same(ranks[r][key], want), f"rank {r}: {key} differs from the stacked mesh"
+
+
+# ---- collectives ------------------------------------------------------------------
+def test_all_gather_is_every_shard_in_rank_order(run):
+    world, inputs, ranks, _ = run
+    for r in range(world):
+        assert W.same(ranks[r]["all_gather"], inputs["shards"])
+    _each_rank_equals_stacked(run, "all_gather")
+
+
+@pytest.mark.parametrize("shift", [1, -1], ids=["+1", "-1"])
+def test_ppermute_receives_from_rank_minus_shift(run, shift):
+    world, inputs, ranks, _ = run
+    for r in range(world):
+        assert W.same(ranks[r][f"ppermute{shift:+d}"], inputs["shards"][[(r - shift) % world]])
+    _each_rank_equals_stacked(run, f"ppermute{shift:+d}")
+
+
+@pytest.mark.parametrize("key", ["psum", "psum_int"])
+def test_psum_keeps_the_stacked_sum(run, key):
+    world, _, ranks, stacked = run
+    _each_rank_equals_stacked(run, key)
+    want = torch.from_numpy(run[1]["shards"][:, 0, 0].copy()).sum().numpy() if key == "psum" \
+        else run[1]["counts"].sum()
+    assert W.same(stacked[key], np.asarray(want))
+
+
+def test_axis_index_is_the_rank(run):
+    world, _, ranks, _ = run
+    for r in range(world):
+        assert ranks[r]["axis_index"].tolist() == [r]
+
+
+# ---- sharding and the SpGEMMs ------------------------------------------------------
+@pytest.mark.parametrize("key", ["shard", "unshard"])
+def test_shard_and_unshard_equal_the_stacked_blocks(run, key):
+    _each_rank_equals_stacked(run, key)
+
+
+@pytest.mark.parametrize("key", ["spgemm", "spgemm_ring"])
+def test_sharded_spgemm_blocks_equal_the_stacked_path(run, key):
+    world, _, ranks, stacked = run
+    _each_rank_equals_stacked(run, key)
+    assert int(stacked[key][4].sum()) > 0  # C has entries
+
+
+# ---- R-MCL --------------------------------------------------------------------------
+@pytest.mark.parametrize("exchange", W.EXCHANGES)
+@pytest.mark.parametrize("case", sorted(W.RMCL_CASES))
+def test_sharded_rmcl_ell_equals_the_stacked_path(run, case, exchange):
+    """Iterate and statistics (differs, nnz, truncated rows) bit for bit,
+    on every rank."""
+    _each_rank_equals_stacked(run, f"rmcl/{case}/{exchange}")
+
+
+@pytest.mark.parametrize("case,hub", [("hub", True), ("nohub", False)])
+def test_rmcl_cases_with_and_without_hub_rows(case, hub):
+    inputs = W.make_inputs(2)
+    r, c, v, n = inputs["graph"]
+    _, S, max_tile, _ = W.RMCL_CASES[case]
+    mgt = rmcl_init(COO.from_numpy(r, c, v, n, n, capacity=c.size + n, device="cpu"))
+    plan = TP.plan_sharded_rmcl_ell(mgt.make_ordered(), 2, S=S, max_tile=max_tile)[0]
+    assert (plan.hmax > 0) == hub
+
+
+def test_sharded_rmcl_ell_on_processes_matches_jax(tmp_path_factory, monkeypatch):
+    """D = 4 ranks, the all_gather exchange, against the JAX package's
+    ``sharded_rmcl_ell`` on 4 of its 8 virtual CPU devices (its dedup
+    through the Pallas kernel in interpret mode, ROADMAP C5)."""
+    world, _, ranks, _ = _run(JAX_WORLD, tmp_path_factory)
+    use_pallas_dedup(monkeypatch)
+    j = _jax_graph()
+    want, jh = JP.sharded_rmcl_ell(j, j_make_mesh(JAX_WORLD), max_iters=2, S=32, max_tile=256,
+                                   exchange="all_gather")
+    for r in range(world):
+        rp, ci, v, differs, nnz, trunc = ranks[r]["rmcl/jax"]
+        got = TCSR(torch.from_numpy(rp), torch.from_numpy(ci), torch.from_numpy(v), 32)
+        assert_same_csr(want, got)
+        np.testing.assert_array_equal(nnz, jh["nnz"])
+        np.testing.assert_array_equal(trunc, jh["truncated_rows"])
+        assert_close_values(differs, jh["differs"])
+
+
+# ---- the mesh -------------------------------------------------------------------------
+def test_process_mesh_and_its_errors(run):
+    world, _, ranks, _ = run
+    for r in range(world):
+        out = ranks[r]
+        assert out["mesh"] == (True, world, r, "cpu")
+        assert out["make_mesh()"] is True
+        assert out["raises n != W"].startswith("ValueError"), out["raises n != W"]
+        assert out["raises 2-D"].startswith("NotImplementedError"), out["raises 2-D"]

@@ -191,9 +191,9 @@ def test_fused_ring_calls_k8_only_with_hub_rows(monkeypatch, kind, calls):
     seen = []
     real = TP.ring_matmul_tiled
 
-    def counted(a, b, nt=2048):
+    def counted(a, b, nt=2048, mesh=None):
         seen.append((tuple(a.shape), tuple(b.shape), nt))
-        return real(a, b, nt=nt)
+        return real(a, b, nt=nt, mesh=mesh)
 
     monkeypatch.setattr(TP, "ring_matmul_tiled", counted)
     t = port_csr(_graph(kind))

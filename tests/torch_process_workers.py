@@ -1,0 +1,222 @@
+"""One rank a process: the port's distributed layer on a process mesh
+(``torch.distributed`` with the ``gloo`` backend, on the CPU), and the
+same cases on the stacked mesh, for ``tests/test_torch_process_mesh.py``.
+
+The test spawns W processes that each run :func:`run_rank`; every rank
+writes its results to a file, and the test holds them against
+:func:`stacked_results`.  The module also runs alone, one rank a process
+under ``torchrun``, and then checks each rank against the stacked path
+itself::
+
+    torchrun --nproc-per-node 2 tests/torch_process_workers.py
+
+It imports torch and the port only (no JAX), so a rank starts quickly.
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+import pickle
+import sys
+import traceback
+
+import numpy as np
+import torch
+
+EXCHANGES = ("ring", "all_gather", "pallas_ring", "fused_ring")
+# R-MCL cases: (graph, S, max_tile, iterations); max_tile 256 at S 16
+# leaves degree classes up to 16, so the R-MAT's denser rows are hub rows
+RMCL_CASES = {"hub": ("rmat", 16, 256, 3), "nohub": ("rmat", 16, 8192, 3)}
+
+
+def make_inputs(world: int, seed: int = 0) -> dict:
+    """The inputs every rank and the stacked path share, as numpy arrays:
+    per-shard values for the collectives, a small R-MAT (n = 256) for the
+    SpGEMMs, and its R-MCL graph (unit weights, ``rmcl_init`` applied by
+    the callee)."""
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    rng = np.random.default_rng(seed)
+    a = rmat_csr(8, edge_factor=4, seed=3, weights="random", device="cpu")
+    g = rmat_csr(8, edge_factor=8, seed=7, device="cpu")
+    grp, gci, gv = g.to_numpy()
+    rp, ci, v = a.to_numpy()
+    return {
+        "world": world,
+        "shards": rng.standard_normal((world, 3, 5)).astype(np.float32),
+        "counts": rng.integers(0, 1000, (world,)).astype(np.int64),
+        "a": (rp, ci, v, a.ncols),
+        "graph": (np.repeat(np.arange(g.rows), np.diff(grp)), gci, gv, g.rows),
+    }
+
+
+def _csr(arrs):
+    from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR
+
+    rp, ci, v, ncols = arrs
+    return CSR.from_numpy(rp, ci, v, ncols, device="cpu")
+
+
+def _coo(arrs):
+    from sparse_matrix_with_flops_tpu_torch.formats import COO
+
+    r, c, v, n = arrs
+    return COO.from_numpy(r, c, v, n, n, capacity=c.size + n, device="cpu")
+
+
+def _np(x):
+    return x.numpy().copy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _sharded(s) -> tuple:
+    return _np(s.row_ptr), _np(s.col_ind), _np(s.values)
+
+
+def _caps(a, world: int) -> tuple:
+    """Per-shard product and output capacities of A·A: the total flops."""
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+
+    flops, _ = spgemm_upper_bounds(a, a)
+    return int(flops) + 8, int(flops) + 8
+
+
+def cases(mesh, inp: dict, rows) -> dict:
+    """Every case on ``mesh`` (stacked or process), with ``rows`` the
+    shards the mesh's process holds: each result as numpy arrays."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import collectives as C
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        shard_csr,
+        sharded_rmcl_ell,
+        sharded_spgemm,
+        sharded_spgemm_ring,
+        unshard_csr,
+    )
+
+    world = inp["world"]
+    out = {}
+    x = torch.from_numpy(inp["shards"])[rows]
+    out["all_gather"] = _np(C.all_gather(mesh, x))
+    out["ppermute+1"] = _np(C.ppermute(mesh, x, 1))
+    out["ppermute-1"] = _np(C.ppermute(mesh, x, -1))
+    out["psum"] = _np(C.psum(mesh, x[:, 0, 0].contiguous()))
+    out["psum_int"] = _np(C.psum(mesh, torch.from_numpy(inp["counts"])[rows]))
+    out["axis_index"] = np.array([C.axis_index(mesh, i) for i in range(x.shape[0])])
+    a = _csr(inp["a"])
+    sa = shard_csr(a, mesh)
+    out["shard"] = _sharded(sa)
+    out["unshard"] = _sharded(unshard_csr(sa, mesh))
+    pcap, ocap = _caps(a, world)
+    c, info = sharded_spgemm(mesh, sa, sa, pcap, ocap)
+    out["spgemm"] = (*_sharded(c), _np(info["flops"]), _np(info["nnz"]))
+    c, info = sharded_spgemm_ring(mesh, sa, sa, out_cap=ocap)
+    out["spgemm_ring"] = (*_sharded(c), _np(info["flops"]), _np(info["nnz"]))
+    coo = _coo(inp["graph"])
+    for name, (_, S, max_tile, iters) in RMCL_CASES.items():
+        for ex in EXCHANGES:
+            res, hist = sharded_rmcl_ell(coo, mesh, max_iters=iters, S=S, max_tile=max_tile,
+                                         exchange=ex)
+            out[f"rmcl/{name}/{ex}"] = (*_sharded(res), *(hist[k] for k in sorted(hist)))
+    if "jax_graph" in inp:  # the JAX comparison's graph, already row-stochastic
+        res, hist = sharded_rmcl_ell(_csr(inp["jax_graph"]), mesh, max_iters=2, S=32,
+                                     max_tile=256, exchange="all_gather")
+        out["rmcl/jax"] = (*_sharded(res), *(hist[k] for k in sorted(hist)))
+    return out
+
+
+def process_only(mesh, inp: dict) -> dict:
+    """What holds on a process mesh alone: the mesh's own fields and the
+    errors ``make_mesh`` raises under a group."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import ProcessMesh, make_mesh
+
+    world = inp["world"]
+    out = {"mesh": (type(mesh) is ProcessMesh, mesh.num_shards, mesh.rank, str(mesh.device))}
+    out["make_mesh()"] = type(make_mesh(device="cpu")) is ProcessMesh
+    for label, arg, exc in (("n != W", world + 1, ValueError),
+                            ("2-D", (2, world // 2), NotImplementedError)):
+        try:
+            make_mesh(arg, device="cpu")
+            out[f"raises {label}"] = "no error"
+        except exc as e:
+            out[f"raises {label}"] = type(e).__name__ + ": " + str(e)
+    return out
+
+
+def stacked_results(inp: dict) -> dict:
+    """The cases on the stacked mesh of the same D, on the CPU (built
+    directly: under a group ``make_mesh`` gives the process mesh)."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import ShardMesh
+
+    world = inp["world"]
+    return cases(ShardMesh(world, torch.device("cpu"), (world,)), inp, slice(0, world))
+
+
+def run_rank(rank: int, world: int, store: str, inputs: str, out_dir: str) -> None:
+    """One rank: join the gloo group through the file store ``store``, run
+    the cases on the process mesh, write ``rank<r>.pkl`` (or
+    ``rank<r>.err`` with the traceback) into ``out_dir``."""
+    torch.set_num_threads(1)
+    try:
+        import torch.distributed as dist
+
+        from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh
+
+        with open(inputs, "rb") as f:
+            inp = pickle.load(f)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        mesh = make_mesh(device="cpu")
+        out = cases(mesh, inp, slice(rank, rank + 1))
+        out.update(process_only(mesh, inp))
+        dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except Exception:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def row_of(key: str, value, rank: int):
+    """The part of a stacked result that rank ``rank`` holds: blocks and
+    per-shard arrays are cut to the rank's row; gathered results (the
+    all-gather, unshard, the R-MCL iterate and statistics, the sums) are
+    whole on every rank."""
+    if key in ("shard", "spgemm", "spgemm_ring"):
+        return tuple(x[rank:rank + 1] for x in value)
+    if key in ("ppermute+1", "ppermute-1", "axis_index"):
+        return value[rank:rank + 1]
+    return value
+
+
+def same(a, b) -> bool:
+    """Bit-equal (floats compared by their bits, so NaN equals NaN)."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def main() -> int:
+    """Under torchrun: one rank a process on the CPU, each rank held to
+    the stacked path at the same D."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    mesh_mod = importlib.import_module("sparse_matrix_with_flops_tpu_torch.parallel.mesh")
+    torch.set_num_threads(1)
+    mesh_mod.init_distributed()
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    inp = make_inputs(world)
+    mesh = mesh_mod.make_mesh(device="cpu")
+    got = cases(mesh, inp, slice(rank, rank + 1))
+    want = stacked_results(inp)
+    bad = [k for k in want if not same(got[k], row_of(k, want[k], rank))]
+    print(f"rank {rank} of {world}: {len(want) - len(bad)} of {len(want)} cases bit-equal "
+          f"to the stacked mesh" + (f"; differ: {bad}" if bad else ""), flush=True)
+    dist.destroy_process_group()
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
