@@ -110,18 +110,29 @@
    ``sharded_spgemm`` and ``sharded_spgemm_ring`` on phase 4's s14 and
    ``sharded_rmcl_ell`` with each exchange on phase 8's graph, each bit
    for bit against the stacked D = 1 path, and no host read (sync debug
-   mode "error") where the stacked path makes none; (b) two processes on
+   mode "error") where the stacked path makes none; with phase 13's
+   sizes, ``sharded_rmcl_scan`` (3 iterations, no host read),
+   ``sharded_rmcl_adaptive`` (3 iterations), ``sharded_spgemm_2d`` on a
+   (1, 1) process mesh and ``dryrun_multichip()``, each bit for bit
+   against the stacked D = 1 path; (b) two processes on
    the one card under gloo, K6 / K8 launched one rank at a time on CUDA
    IPC peer pointers: ``sharded_rmcl_ell`` on phase 8's graph, 3
    iterations, each exchange, every rank's result bit for bit against the
    stacked D = 2 path (SHA-256 of the arrays and statistics), and the
    per-rank K6, K7 and K8 at phase 9's D = 2 shapes against their plain
    versions (the twins over the group's all-gather), timed and labelled
-   as two processes time-sharing one card, not a cross-card figure; (c)
-   with more than one card, D = min(cards, 4) ranks under NCCL, one card
-   a rank, the checks of (b) (on one card it logs that it did not run).  The ranks' launches add to the counts of the ``kernels`` line,
-   and their per-rank cases to its ``cases`` (the kernel's own numbers
-   stay those of its stacked case).
+   as two processes time-sharing one card, not a cross-card figure; the
+   dynamic scan, the adaptive loop (the same ``perm_total`` on every
+   rank), the 2-D SpGEMM on (2, 1) and (1, 2) process meshes and the dry
+   run, every rank's blocks bit for bit against the stacked D = 2 path's,
+   each run's wall time and peak device memory logged a rank; (c) with
+   more than one card, D = min(cards, 4) ranks under NCCL, one card a
+   rank, the checks of (b), the (2, 2) 2-D mesh at D = 4, and weak
+   scaling on the process group (on one card it logs that it did not
+   run); then weak scaling stacked at D = 1, 2 and 4 (R-MAT s14 to s16,
+   ``parallel/weak_scaling.py``).  The ranks' launches add to the counts
+   of the ``kernels`` line, and their per-rank cases to its ``cases``
+   (the kernel's own numbers stay those of its stacked case).
 
 K9's records hold it bit for bit against its plain version on the CPU
 on every run_sums call of a path (captured in one call: general R-MCL
@@ -1868,9 +1879,11 @@ EXCHANGE_KERNELS = {
 }
 RANK_LIMIT_S = {"a": 240, "b": 300, "c": 300}  # a phase 15 group's wall clock
 # how each group's per-rank times are labelled
-RANK_LABEL = {"b": "two processes time-sharing one card, not a cross-card figure",
+RANK_LABEL = {"a": "world size 1 under NCCL, one card",
+              "b": "two processes time-sharing one card, not a cross-card figure",
               "c": "one card a rank, across cards"}
 S15, MT15 = 128, 8192  # phase 8's S and max_tile
+DYN_MARGIN, DYN_ITERS = 4.0, 3  # phase 13's scan: margin on iteration 1's flops / D
 
 
 def kernel_wrappers() -> dict:
@@ -1939,6 +1952,122 @@ def same_sharded(torch, x, y) -> bool:
                for f in ("row_ptr", "col_ind", "values"))
 
 
+def block_digest(np, *arrays) -> str:
+    """SHA-256 of tensors' or arrays' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in arrays:
+        h.update(x.cpu().numpy().tobytes() if hasattr(x, "cpu") else
+                 np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()
+
+
+def shapes_2d(d: int) -> list:
+    """The 2-D meshes phase 15 runs at D shards."""
+    return [(1, 1)] if d == 1 else [(d, 1), (1, d)] + ([(2, 2)] if d == 4 else [])
+
+
+def caps_2d(np, a, nx: int, ny: int) -> int:
+    """The most products of one block of A·A on an (nx, ny) mesh (A's row
+    block x against B's column stripe y): the product and output
+    capacity a block."""
+    rp, ci, _ = a.to_numpy()
+    n = a.rows
+    lr, stripe = -(-n // nx), -(-a.ncols // ny)
+    erow = np.repeat(np.arange(n), np.diff(rp))
+    most = 1
+    for y in range(ny):
+        sel = (ci >= y * stripe) & (ci < (y + 1) * stripe)
+        blen = np.bincount(erow[sel], minlength=n)
+        rf = np.bincount(erow, weights=blen[ci], minlength=n)
+        per = np.concatenate([rf, np.zeros(nx * lr - n)]).reshape(nx, lr).sum(axis=1)
+        most = max(most, int(per.max()))
+    return most
+
+
+def dynamic_paths(torch, np, mesh, run, mesh_2d, reads=None) -> dict:
+    """Phase 15's dynamic paths on ``mesh`` (the stacked reference, or a
+    rank's process mesh), at phase 13's sizes: ``sharded_rmcl_scan`` (3
+    iterations, phase 8's graph relabelled by the flops-balanced
+    permutation, DYN_MARGIN of iteration 1's flops a shard),
+    ``sharded_rmcl_adaptive`` (natural layout, 3 iterations),
+    ``sharded_spgemm_2d`` of phase 4's s14 on each of ``shapes_2d(D)``
+    (``mesh_2d(shape)`` makes the mesh) and ``dryrun_multichip``.
+    ``run(label, fn, must)`` calls each (counted and timed in a rank).
+    Returns {path: {shard: SHA-256}} for the shards this process holds;
+    with ``reads``, whether the scan reads the card from the host."""
+    from sparse_matrix_with_flops_tpu_torch.formats import COO
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
+    from sparse_matrix_with_flops_tpu_torch.ops.flops import row_flops
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        collectives,
+        dryrun_multichip,
+        flops_balanced_permutation,
+        plan_shard_capacities,
+        shard_csr,
+        shard_csr_2d,
+        sharded_rmcl_adaptive,
+        sharded_rmcl_scan,
+        sharded_spgemm_2d,
+    )
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    d, dev = mesh.num_shards, mesh.device
+    held = collectives.local_ranks(mesh)
+    out = {}
+    g = rmat_csr(14, edge_factor=8, seed=7, device=dev)  # phase 8's graph
+    grp, gci, gv = g.to_numpy()
+    n = g.rows
+    mt0 = rmcl_init(COO.from_numpy(np.repeat(np.arange(n), np.diff(grp)), gci, gv, n, n,
+                                   capacity=gci.size + n, device=dev))
+    perm = flops_balanced_permutation(row_flops(mt0, mt0).cpu().numpy(), d)
+    mtp = mt0.conjugate_permute(torch.from_numpy(perm))
+    flops1, _ = spgemm_upper_bounds(mtp, mtp)
+    smgt = shard_csr(mtp, mesh)
+    pcs, ccs = plan_shard_capacities(smgt, flops1, margin=DYN_MARGIN)
+    smt = shard_csr(mtp, mesh, local_capacity=ccs)
+
+    def scan():
+        return sharded_rmcl_scan(mesh, smgt, smt, pcs, ccs, DYN_ITERS)
+
+    new, hist = run(f"sharded_rmcl_scan s14 D={d} {DYN_ITERS} iterations, cap {pcs} a shard",
+                    scan, ("run_sums",))
+    stats = block_digest(np, *(hist[k] for k in sorted(hist)))
+    out["sharded_rmcl_scan"] = {
+        str(me): block_digest(np, new.row_ptr[i], new.col_ind[i], new.values[i]) + stats
+        for i, me in enumerate(held)}
+    if reads is not None:
+        reads["sharded_rmcl_scan"] = host_reads(torch, scan)
+    del new, hist, smgt, smt, mtp
+    res, ah = run(f"sharded_rmcl_adaptive s14 D={d} {DYN_ITERS} iterations",
+                  lambda: sharded_rmcl_adaptive(mt0, mesh, max_iters=DYN_ITERS), ("run_sums",))
+    out["sharded_rmcl_adaptive"] = {str(me): rmcl_digest(np, res, ah) for me in held}
+    out["perm_total"] = {str(me): block_digest(np, ah["perm_total"]) for me in held}
+    del res, mt0
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)  # phase 4's s14
+    for nx, ny in shapes_2d(d):
+        m2 = mesh_2d((nx, ny))
+        cap = caps_2d(np, a, nx, ny)
+        b = shard_csr_2d(a, nx, ny, mesh=m2)
+        sa = shard_csr(a, m2)
+        c = run(f"sharded_spgemm_2d s14 ({nx}, {ny}), cap {cap} a block",
+                lambda m2=m2, sa=sa, b=b, cap=cap: sharded_spgemm_2d(m2, sa, *b, cap, cap),
+                ("run_sums",))
+        blocks = ([m2.coords()] if collectives.is_process(m2) else
+                  [(x, y) for x in range(nx) for y in range(ny)])
+        out[f"sharded_spgemm_2d ({nx}, {ny})"] = {
+            str(x * ny + y): block_digest(np, *(t[x - blocks[0][0], y - blocks[0][1]]
+                                                for t in c))
+            for x, y in blocks}
+        del c, b, sa
+    dry = run(f"dryrun_multichip() D={d}", lambda: dryrun_multichip(mesh),
+              ("sort_dedup_compact", "run_sums"))
+    out["dryrun_multichip"] = {str(me): repr(dry) for me in held}
+    return out
+
+
 def rank_child(argv) -> int:
     """One rank of phase 15 (``chip_smoke.py --rank-child MODE RANK WORLD
     DIR``): joins the group through DIR's file store and writes its
@@ -1985,12 +2114,37 @@ def rank_child(argv) -> int:
                     rep["failed"].append(f"{label} launched {k} no time")
             return out
 
+        def timed(label, fn, must=()):
+            """A counted run, with its wall time and its peak device memory."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = counted(label, fn, must)
+            rep["log"].append(
+                f"15{mode} rank {rank} {label}: {time.perf_counter() - t0:.3f} s wall, peak "
+                f"device memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+                f"above its inputs ({RANK_LABEL[mode]})")
+            return out
+
         coo, mgt, cols0, vals0 = phase8_graph(torch, np, mesh.device)
         if mode == "a":
             child_world_one(torch, np, mesh, rep, counted, coo, mgt, cols0, vals0)
+            del coo, mgt, cols0, vals0
+            child_dynamic_one(torch, np, mesh, rep, timed)
         else:
             child_rmcl(torch, np, mesh, rep, counted, coo, mode)
             child_kernels(torch, np, mesh, rep, counted, mgt, cols0, vals0, mode)
+            del coo, mgt, cols0, vals0
+            torch.cuda.empty_cache()
+            rep["dynamic"] = dynamic_paths(torch, np, mesh, timed, M.make_mesh)
+            if mode == "c":
+                from sparse_matrix_with_flops_tpu_torch.parallel import weak_scaling_rmcl_ell
+
+                for row in timed("weak scaling, process group, R-MAT base scale 14",
+                                 lambda: weak_scaling_rmcl_ell(base_scale=14),
+                                 ("sort_dedup_compact",)):
+                    rep["log"].append(f"15c rank {rank} weak scaling: {json.dumps(row)}")
         peer.close_all()
         dist.destroy_process_group()
     except Exception:  # the report carries the failure; the exit code says it
@@ -2102,6 +2256,31 @@ def child_world_one(torch, np, mesh, rep, counted, coo, mgt, cols0, vals0):
         if p_read and not s_read:
             rep["failed"].append(f"15a {what}: the process mesh reads the card from the host "
                                  f"where the stacked path does not")
+
+
+def child_dynamic_one(torch, np, mesh, rep, timed):
+    """15(a): the dynamic scan, the adaptive loop, the 2-D SpGEMM on a
+    (1, 1) process mesh and the dry run at world size 1, each bit-equal
+    to the stacked D = 1 path; the scan makes no host read."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, process_mesh
+
+    stacked = make_mesh(1, mesh.device)
+    reads_p, reads_s = {}, {}
+    got = dynamic_paths(torch, np, mesh, timed, lambda s: process_mesh(shape=s), reads_p)
+    want = dynamic_paths(torch, np, stacked, lambda label, fn, must: fn(),
+                         lambda s: make_mesh(s, mesh.device), reads_s)
+    for path, by_shard in want.items():
+        same = got[path] == by_shard
+        rep["log"].append(f"15a {path}: process mesh (W=1, NCCL) {'==' if same else '!='} "
+                          f"stacked D=1 bit for bit")
+        if not same:
+            rep["failed"].append(f"15a {path}: differs from the stacked D=1 path")
+    rep["log"].append(f"15a sharded_rmcl_scan: host read under sync debug mode 'error': "
+                      f"stacked {'yes' if reads_s['sharded_rmcl_scan'] else 'none'}, process "
+                      f"mesh {'yes' if reads_p['sharded_rmcl_scan'] else 'none'}")
+    if reads_p["sharded_rmcl_scan"]:
+        rep["failed"].append("15a sharded_rmcl_scan: the process mesh reads the card from the "
+                             "host")
 
 
 def child_rmcl(torch, np, mesh, rep, counted, coo, mode):
@@ -2268,13 +2447,14 @@ def run_ranks(mode: str, world: int) -> list:
     return reports
 
 
-def process_phase(torch, np, dev, card, launches, launched_by, record):
+def process_phase(torch, np, dev, card, launches, launched_by, record, drive):
     """Phase 15: one rank a process (ranks started as processes of this
     script, each under RANK_LIMIT_S).  (a) world size 1 under NCCL;
     (b) two processes on the one card under gloo, K6 / K8 on CUDA IPC peer
-    pointers, each rank's R-MCL result held to the stacked D = 2 path and
-    per-rank K6 / K7 / K8 to their plain versions; (c) one card a rank
-    under NCCL when the machine has more than one card."""
+    pointers, each rank's R-MCL results (static, dynamic, adaptive, 2-D
+    SpGEMM, dry run) held to the stacked D = 2 path and per-rank K6 / K7 /
+    K8 to their plain versions; (c) one card a rank under NCCL when the
+    machine has more than one card; then weak scaling, stacked."""
     t_phase = time.perf_counter()
     failed = []
     torch.cuda.empty_cache()
@@ -2304,6 +2484,13 @@ def process_phase(torch, np, dev, card, launches, launched_by, record):
         log("cross-card: 1 card, not run")
     for mode, d in groups:
         rank_group(torch, np, dev, coo, mode, d, take, failed)
+    del coo
+    torch.cuda.empty_cache()
+    from sparse_matrix_with_flops_tpu_torch.parallel import weak_scaling_rmcl_ell
+
+    for row in drive("weak scaling, stacked D = 1, 2, 4, R-MAT s14-s16",
+                     lambda: weak_scaling_rmcl_ell((1, 2, 4), 14), ("sort_dedup_compact",)):
+        log(f"weak scaling: {json.dumps(row)} [{card}]")
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s [{card}]")
     if failed:
         raise AssertionError("phase 15: " + "; ".join(failed))
@@ -2322,8 +2509,25 @@ def rank_group(torch, np, dev, coo, mode, d, take, failed):
     del out
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    want_dyn = dynamic_paths(torch, np, make_mesh(d, dev), lambda label, fn, must: fn(),
+                             lambda s: make_mesh(s, dev))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     reports = run_ranks(mode, d)
     take(mode, reports)
+    for path, by_shard in want_dyn.items():
+        for r, rep in enumerate(reports):
+            got = rep.get("dynamic", {}).get(path, {})
+            same = bool(got) and all(got[k] == by_shard[k] for k in got)
+            log(f"15{mode} {path} D={d} rank {r}: {'==' if same else '!='} the stacked D={d} "
+                f"path bit for bit ({', '.join(f'shard {k}' for k in got)})")
+            if not same:
+                failed.append(f"15{mode} rank {r} {path}: differs from the stacked path")
+    perms = {rep.get("dynamic", {}).get("perm_total", {}).get(str(r)) for r, rep in
+             enumerate(reports)}
+    log(f"15{mode} sharded_rmcl_adaptive: {len(perms)} distinct perm_total over {d} ranks")
+    if len(perms) != 1:
+        failed.append(f"15{mode} sharded_rmcl_adaptive: the ranks hold different perm_total")
     for r, rep in enumerate(reports):
         for ex in EXCHANGES:
             same = rep["digests"].get(ex) == want[ex]
@@ -2989,7 +3193,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 15. one rank a process --------------------------------------------
-    process_phase(torch, np, dev, card, launches, launched_by, record)
+    process_phase(torch, np, dev, card, launches, launched_by, record, drive)
     torch.cuda.synchronize()
 
     for k, n in launches.items():

@@ -56,7 +56,10 @@ each step of a kernel wrapper.
 more than one card: D = min(cards, 4) ranks under NCCL, one card a rank
 (processes of ``chip_smoke.py --rank-child``), ``sharded_rmcl_ell`` with
 each exchange on phase 8's graph against the stacked D path on card 0,
-and the per-rank K6, K7 and K8 against their plain versions, timed.
+the per-rank K6, K7 and K8 against their plain versions, timed; the
+dynamic scan, the adaptive loop, the 2-D SpGEMM on (D, 1), (1, D) and, at
+D = 4, (2, 2) process meshes and the dry run, each rank's blocks against
+the stacked D path's; weak scaling on the process group.
 
 ``processes``: what one rank a process meets on the machine it runs on, each
 group of ranks a process of this script under a wall-clock limit: which

@@ -11,7 +11,9 @@ process mesh.
   moves no bytes), ``ppermute`` is ``torch.roll`` on the shard axis,
   ``psum`` a sum over it in shard order, and ``axis_index`` the loop
   index of the per-shard body.
-* Process: ``all_gather`` is ``dist.all_gather_into_tensor``,
+* Process: ``all_gather`` is ``dist.all_gather_into_tensor``, over the
+  whole group or, given an axis of a 2-D mesh, over the ranks that share
+  the other coordinate (the mesh's subgroup for that axis),
   ``ppermute`` one ``dist.batch_isend_irecv`` (send to
   ``(me + shift) % W``, receive from ``(me - shift) % W``), ``psum`` the
   all-gathered values added as the stacked mesh adds them (never
@@ -52,25 +54,24 @@ def axis_index(mesh, i: int = 0) -> int:
     return mesh.rank if is_process(mesh) else i
 
 
-def require_stacked(mesh, who: str) -> None:
-    """Raise for a process mesh in a module that runs stacked shards only."""
-    if is_process(mesh):
-        raise NotImplementedError(
-            f"{who} runs on a stacked mesh only: one rank a process is not ported for it yet")
-
-
 def _host_staged(x: torch.Tensor) -> bool:
     """Whether a send / receive of ``x`` goes through the host (gloo)."""
     return x.is_cuda and dist.get_backend() == "gloo"
 
 
-def all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
-    """Every shard's block: ``[L, ...] -> [D, ...]`` in shard order."""
+def all_gather(mesh, x: torch.Tensor, axis: str | None = None) -> torch.Tensor:
+    """Every shard's block: ``[L, ...] -> [D, ...]`` in shard order; with
+    ``axis``, the blocks of the shards along that axis of a 2-D mesh
+    that share this shard's other coordinate, in axis order (a stacked
+    caller indexes its stack along the axis itself)."""
     if not is_process(mesh):
         return x
     src = x.contiguous()
-    out = src.new_empty((mesh.num_shards * src.shape[0], *src.shape[1:]))
-    dist.all_gather_into_tensor(out, src)
+    n = mesh.num_shards if axis is None else mesh.axis_size(axis)
+    if n == 1:
+        return src
+    out = src.new_empty((n * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=None if axis is None else mesh.groups.get(axis))
     return out
 
 
@@ -96,8 +97,10 @@ def ppermute(mesh, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     return out.to(x.device) if staged else out
 
 
-def psum(mesh, x: torch.Tensor) -> torch.Tensor:
-    """The sum of every shard's value: ``x`` is [L], one value a local
-    shard; the D values are added as one sum over the shard axis, in
-    shard order, on every mesh kind (the stacked path's bits)."""
-    return all_gather(mesh, x).sum()
+def psum(mesh, x: torch.Tensor, axis: str | None = None, dtype=None) -> torch.Tensor:
+    """The sum of every shard's value (along ``axis``, as
+    :func:`all_gather`): ``x`` is [L], one value a local shard; the
+    values are added as one sum over the shard axis, in shard order, in
+    ``dtype`` (``torch.sum``'s default when None), on every mesh kind
+    (the stacked path's bits)."""
+    return all_gather(mesh, x, axis).sum(dtype=dtype)

@@ -15,11 +15,15 @@ port has two kinds of mesh:
 * :class:`ProcessMesh`, one shard a process, when ``torch.distributed``
   is initialised with world size W > 1 (the mode follows from the
   process group, as ``jax.make_mesh`` spans every process's devices):
-  rank r holds shard r, its sharded tensors carry a leading axis of 1,
-  the per-shard body runs once, and the collectives are
-  ``torch.distributed``'s (all-gather, send / receive), with the backend
-  the caller started the group with.  Its device is
-  ``cuda:(LOCAL_RANK % device_count())``, or the CPU when asked for.
+  rank r holds shard r of a 1-D mesh, or shard ``(x, y) = divmod(r, ny)``
+  of a 2-D ``(nx, ny)`` one (row-major, the order in which
+  ``jax.make_mesh((nx, ny), ("x", "y"))`` lays out its devices); its
+  sharded tensors carry a leading axis of 1, the per-shard body runs
+  once, and the collectives are ``torch.distributed``'s (all-gather,
+  send / receive), with the backend the caller started the group with,
+  along one axis of a 2-D mesh through the subgroups the mesh made when
+  it was created.  Its device is ``cuda:(LOCAL_RANK % device_count())``,
+  or the CPU when asked for.
 
 The ring kernels (``parallel/ring_kernels.py``) follow the mesh: on a
 stacked mesh one launch runs all D ranks, each writing its neighbour's
@@ -31,6 +35,7 @@ IPC peer pointers (``parallel/peer.py``), on the same card or another.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import torch
@@ -58,18 +63,30 @@ class ShardMesh:
 
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh:
-    """One shard a process of the default process group: a 1-D mesh
-    ``(num_shards,)`` over :data:`ROW_AXIS`, of which this process holds
-    shard ``rank`` on ``device``."""
+    """One shard a process of the default process group, of which this
+    process holds shard ``rank`` on ``device``: a 1-D mesh
+    ``(num_shards,)`` over :data:`ROW_AXIS`, or a 2-D ``(nx, ny)`` over
+    ``("x", "y")`` with rank r at ``(x, y) = divmod(r, ny)``.  ``groups``
+    maps each axis of a 2-D mesh to the process group of the ranks that
+    share this rank's other coordinate (None: no group of its own, the
+    axis spans one rank or all of them)."""
 
     num_shards: int
     rank: int
     device: torch.device
     shape: tuple = ()
     axis_names: tuple = (ROW_AXIS,)
+    groups: dict = dataclasses.field(default_factory=dict, compare=False, hash=False,
+                                     repr=False)
 
     def axis_size(self, axis: str) -> int:
         return (self.shape or (self.num_shards,))[self.axis_names.index(axis)]
+
+    def coords(self) -> tuple:
+        """This rank's index along each axis, row-major."""
+        if len(self.shape) == 2:
+            return divmod(self.rank, self.shape[1])
+        return (self.rank,)
 
 
 def _group_size() -> int:
@@ -88,16 +105,50 @@ def rank_device() -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
-def process_mesh(device: torch.device | str | None = None) -> ProcessMesh:
+def _axis_groups(nx: int, ny: int) -> dict:
+    """The subgroups of a 2-D process mesh: for each axis, the group of
+    the ranks that share this rank's other coordinate, in axis order.
+    ``dist.new_group`` is collective over the whole default group, so
+    every rank creates every subgroup, in one order; an axis of one rank
+    or of all of them needs none."""
+    world, me = dist.get_world_size(), dist.get_rank()
+    lines = {
+        ROW_AXIS: [[x * ny + y for x in range(nx)] for y in range(ny)],
+        COL_AXIS: [[x * ny + y for y in range(ny)] for x in range(nx)],
+    }
+    groups = {}
+    for axis, members in lines.items():
+        groups[axis] = None
+        if len(members[0]) in (1, world):
+            continue
+        for ranks in members:
+            g = dist.new_group(ranks)
+            if me in ranks:
+                groups[axis] = g
+    return groups
+
+
+def process_mesh(
+    device: torch.device | str | None = None, shape: tuple | None = None
+) -> ProcessMesh:
     """The mesh of the default process group, one shard a rank, at any
     world size (1 included), on ``device``: by default this rank's card
-    (:func:`rank_device`).  :func:`make_mesh` returns it when the group
+    (:func:`rank_device`).  ``shape`` is ``(W,)`` by default, or a 2-D
+    ``(nx, ny)`` with ``nx * ny == W`` (collective: it creates the
+    subgroups of the axes).  :func:`make_mesh` returns it when the group
     has more than one rank."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("process_mesh: no torch.distributed process group is initialised")
     world = dist.get_world_size()
+    shape = (world,) if shape is None else tuple(int(s) for s in shape)
+    if len(shape) not in (1, 2) or math.prod(shape) != world:
+        raise ValueError(f"a process mesh of shape {shape} under a process group of {world} "
+                         f"ranks: it has one shard a rank, {world} in all")
     dev = rank_device() if device is None else torch.device(device)
-    return ProcessMesh(world, dist.get_rank(), dev, (world,))
+    if len(shape) == 1:
+        return ProcessMesh(world, dist.get_rank(), dev, shape)
+    return ProcessMesh(world, dist.get_rank(), dev, shape, (ROW_AXIS, COL_AXIS),
+                       _axis_groups(*shape))
 
 
 def make_mesh(
@@ -108,9 +159,8 @@ def make_mesh(
     reference's ``jax.make_mesh((nx, ny), ("x", "y"))``).
 
     Under a process group of W > 1 ranks it is the process mesh of the
-    group (:func:`process_mesh`): ``n_shards`` must be W or None, and a
-    2-D shape raises ``NotImplementedError`` (one rank a process serves
-    the 1-D mesh; the 2-D SpGEMM over processes is not ported yet).
+    group (:func:`process_mesh`): ``n_shards`` must be W or None, or a
+    shape ``(nx, ny)`` with ``nx * ny == W`` (else ``ValueError``).
     Otherwise the shards are stacked on ``device`` (one shard when
     ``n_shards`` is None): by default the current CUDA card, as the
     reference's mesh is built over the accelerator's devices.  Without a
@@ -118,18 +168,8 @@ def make_mesh(
     ``device="cpu"`` is asked for."""
     world = _group_size()
     if world > 1:
-        if isinstance(n_shards, (tuple, list)) and len(n_shards) == 2:
-            raise NotImplementedError(
-                f"make_mesh({tuple(n_shards)}): a 2-D mesh over {world} processes is not "
-                "ported (one rank a process serves 1-D meshes; spgemm2d across processes "
-                "is later work)")
-        want = world if n_shards is None else (
-            int(n_shards[0]) if isinstance(n_shards, (tuple, list)) and len(n_shards) == 1
-            else n_shards)
-        if want != world:
-            raise ValueError(f"make_mesh({n_shards}) under a process group of {world} ranks: "
-                             f"a process mesh has one shard a rank, {world} in all")
-        return process_mesh(device)
+        return process_mesh(device, None if n_shards is None else (
+            tuple(n_shards) if isinstance(n_shards, (tuple, list)) else (n_shards,)))
     if n_shards is None:
         n_shards = 1
     shape = tuple(int(s) for s in n_shards) if isinstance(n_shards, (tuple, list)) else (

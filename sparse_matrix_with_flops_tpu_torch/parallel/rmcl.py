@@ -1,17 +1,20 @@
 """Distributed dynamic R-MCL (the port of the JAX package's
 ``parallel/rmcl.py``): Mt' = prune(inflate(Mgt · Mt)) with Mgt and the
-iterate Mt row-sharded, the shards stacked on one device (a process
-mesh, one rank a process, raises ``NotImplementedError`` here: it is not
-ported for this module yet).
+iterate Mt row-sharded, on a stacked mesh (the D shards on one device)
+or a process mesh (one shard a rank).
 
-Each shard reads the whole iterate (the reference's all-gather, here the
-stacked blocks through one ``BView``: on one card it moves no bytes, so
-the times are compute only) and runs the fused local step of
+Each shard reads the whole iterate (the reference's all-gather: stacked,
+the blocks through one ``BView``, which on one card moves no bytes, so
+the times are compute only; one rank a process, ``torch.distributed``'s
+all-gather) and runs the fused local step of
 ``models/rmcl.rmcl_one_step`` on its own rows: expand, sort, the
 fixed-order compress (``esc_compress``), then the prune at the shard's
 capacity.  Pruning is row-local, so the only collectives are the iterate
 all-gather and the sums over the shard axis of the statistics and of the
-drift (the reference's ``psum``, here in shard order).
+drift (the reference's ``psum``, in shard order on both mesh kinds).
+The per-shard bodies loop over the shards this process holds
+(``collectives.local_ranks``), so a rank's blocks and statistics are
+the stacked path's bit for bit.
 
 * :func:`sharded_rmcl_scan` loops ``max_iters`` steps with no
   device-to-host read (the reference is a ``lax.scan``), the statistics
@@ -20,6 +23,9 @@ drift (the reference's ``psum``, here in shard order).
   the flops of the next multiply (the HYB trigger lifted to the mesh):
   the flops, the snake permutation and the relabel all run on the
   device, and each iteration reads its decision scalars in one read.
+  On a process mesh every decision comes from gathered values added in
+  the stacked order, so every rank reads the same bits and takes the
+  same branch (ranks that disagree would wait on each other forever).
 """
 
 from __future__ import annotations
@@ -36,12 +42,7 @@ from ..ops.spgemm import bview_from_blocks, esc_compress, esc_expand_view, esc_s
 from . import collectives
 from .mesh import ROW_AXIS, ShardMesh
 from .sharded import ShardedCSR, shard_csr, unshard_csr
-from .spgemm import _check_mesh as _check_blocks
-
-
-def _check_mesh(mesh, *shards) -> None:
-    collectives.require_stacked(mesh, "the dynamic sharded R-MCL")
-    _check_blocks(mesh, *shards)
+from .spgemm import _check_mesh
 
 
 def _local_fused_step(a_rp, a_ci, a_v, bv, ncols, product_cap, c_cap, mt_cap):
@@ -76,14 +77,15 @@ def sharded_rmcl_step(
 ):
     """One distributed R-MCL iteration; caps are per-shard.  Returns
     (new Mt, stats of 0-d tensors: ``flops``, ``nnz_mt``, ``overflow``,
-    ``differs``), with no device-to-host read."""
+    ``differs``, the same on every rank), with no device-to-host read."""
     _check_mesh(mesh, mgt, mt)
     ncols = mt.ncols
-    bv = bview_from_blocks(mt.row_ptr, mt.col_ind, mt.values, ncols)  # the all-gather
+    bv = bview_from_blocks(*(collectives.all_gather(mesh, x)
+                             for x in (mt.row_ptr, mt.col_ind, mt.values)), ncols)
     outs, d2s, n2s = [], [], []
-    for me in range(mgt.num_shards):
+    for i, me in enumerate(collectives.local_ranks(mesh)):
         n_rp, n_ci, n_v, info = _local_fused_step(
-            mgt.row_ptr[me], mgt.col_ind[me], mgt.values[me], bv, ncols, product_cap, c_cap,
+            mgt.row_ptr[i], mgt.col_ind[i], mgt.values[i], bv, ncols, product_cap, c_cap,
             mt.local_capacity,
         )
         outs.append((n_rp, n_ci, n_v, info))
@@ -92,19 +94,24 @@ def sharded_rmcl_step(
             d2s.append(d2)
             n2s.append(n2)
     if track_differs:
-        d2, n2 = torch.stack(d2s).sum(), torch.stack(n2s).sum()
+        d2, n2 = (collectives.psum(mesh, torch.stack(x)) for x in (d2s, n2s))
         differs = torch.sqrt(d2) / torch.clamp(torch.sqrt(n2), min=1e-30)
     else:
         differs = torch.zeros((), dtype=QVALUE_DTYPE, device=mt.row_ptr.device)
     infos = [o[3] for o in outs]
+
+    def total(key, dtype=INDEX_DTYPE):
+        return collectives.psum(mesh, torch.stack([i[key].to(dtype) for i in infos]),
+                                dtype=dtype)
+
     stats = {
-        "flops": torch.stack([i["flops"] for i in infos]).sum(dtype=INDEX_DTYPE),
-        "nnz_mt": torch.stack([i["nnz_mt"] for i in infos]).sum(dtype=INDEX_DTYPE),
-        "overflow": torch.stack([i["overflow"] for i in infos]).any(),
+        "flops": total("flops"),
+        "nnz_mt": total("nnz_mt"),
+        "overflow": total("overflow", torch.int32) > 0,
         "differs": differs,
     }
     new_mt = ShardedCSR(*(torch.stack([o[i] for o in outs]) for i in range(3)), ncols,
-                        mt.global_rows)
+                        mt.global_rows, mt.shards, mt.rank)
     return new_mt, stats
 
 
@@ -157,14 +164,15 @@ def _spread(tots: torch.Tensor) -> torch.Tensor:
 def sharded_next_flops(mesh: ShardMesh, mgt: ShardedCSR, mt: ShardedCSR, axis=ROW_AXIS):
     """Per-row flops of the NEXT multiply Mgt·Mt plus the footprint
     terms, and the current layout's per-shard spread, on the device.
-    Returns (rf [D, lr] int32, spread 0-d f32, total 0-d f32)."""
+    Returns (rf [L, lr] int32 of the held shards, spread 0-d f32, total
+    0-d f32; the last two the same on every rank)."""
     _check_mesh(mesh, mgt, mt)
-    cnt_g = (mt.row_ptr[:, 1:] - mt.row_ptr[:, :-1]).reshape(-1)  # the all-gather, [n_pad]
+    cnt_g = collectives.all_gather(mesh, mt.row_ptr[:, 1:] - mt.row_ptr[:, :-1]).reshape(-1)
     n_glob = cnt_g.shape[0]
     m, cap = mgt.local_rows, mgt.local_capacity
     rfs = []
-    for me in range(mgt.num_shards):
-        a_rp0, a_ci0 = mgt.row_ptr[me], mgt.col_ind[me]
+    for i in range(len(collectives.local_ranks(mesh))):
+        a_rp0, a_ci0 = mgt.row_ptr[i], mgt.col_ind[i]
         valid = torch.arange(cap, device=a_rp0.device) < a_rp0[-1]
         ef = torch.where(valid, cnt_g[a_ci0.long().clamp(0, n_glob - 1)], 0).to(INDEX_DTYPE)
         rf = segment_sum(ef, entry_rows(a_rp0, cap), m)
@@ -173,7 +181,7 @@ def sharded_next_flops(mesh: ShardMesh, mgt: ShardedCSR, mt: ShardedCSR, axis=RO
         annz = (a_rp0[1:] - a_rp0[:-1]).to(INDEX_DTYPE)
         rfs.append(rf + torch.clamp(rf, max=n_glob) + annz + 32)
     rf = torch.stack(rfs)
-    tots = rf.sum(dim=1, dtype=INDEX_DTYPE).to(torch.float32)
+    tots = collectives.all_gather(mesh, rf.sum(dim=1, dtype=INDEX_DTYPE)).to(torch.float32)
     return rf, _spread(tots), tots.sum()
 
 
@@ -228,32 +236,39 @@ def _device_repartition_pair(
 ):
     """Conjugate-relabel (P·M·Pᵗ) and re-deal BOTH sharded operands on
     the device with the flops-balanced snake permutation computed from
-    ``rf`` ([D, lr]): the repartition with no round trip through the
-    host.  Returns (new_mgt, new_mt, perm [n_pad], overflow, spread
-    after)."""
+    ``rf`` ([L, lr], the held shards'): the repartition with no round
+    trip through the host.  Both operands and ``rf`` are all-gathered,
+    as the reference does, so every rank builds the same permutation by
+    the same stable sorts and regathers its own new rows.  Returns
+    (new_mgt, new_mt, perm [n_pad], overflow, spread after; the last
+    three the same on every rank)."""
     _check_mesh(mesh, mgt, mt)
     d, lr = mgt.num_shards, mgt.local_rows
     n_pad = d * lr
-    rf_g = rf.reshape(-1)  # the all-gather
+    rf_g = collectives.all_gather(mesh, rf).reshape(-1)
     perm = _snake_perm_device(rf_g, rows, d, lr)
     inv = torch.zeros(n_pad, dtype=INDEX_DTYPE, device=perm.device).index_put_(
         (perm.long(),), torch.arange(n_pad, dtype=INDEX_DTYPE, device=perm.device))
+    ga, gb = (ShardedCSR(*(collectives.all_gather(mesh, x)
+                           for x in (s.row_ptr, s.col_ind, s.values)), s.ncols, s.global_rows)
+              for s in (mgt, mt))
     new_a, new_b, myf, ovf = [], [], [], []
-    for me in range(d):
+    for me in collectives.local_ranks(mesh):
         old = perm[me * lr : (me + 1) * lr].long()
-        *na, ova = _regather(mgt, old, inv)
-        *nb, ovb = _regather(mt, old, inv)
+        *na, ova = _regather(ga, old, inv)
+        *nb, ovb = _regather(gb, old, inv)
         new_a.append(na)
         new_b.append(nb)
         myf.append(rf_g[old].sum(dtype=INDEX_DTYPE))
-        ovf.append(ova | ovb)
-    spread = _spread(torch.stack(myf).to(torch.float32))
+        ovf.append((ova | ovb).to(torch.int32))
+    spread = _spread(collectives.all_gather(mesh, torch.stack(myf)).to(torch.float32))
+    overflow = collectives.psum(mesh, torch.stack(ovf), dtype=torch.int32) > 0
 
     def stacked(blocks, like):
         return ShardedCSR(*(torch.stack([b[i] for b in blocks]) for i in range(3)), like.ncols,
-                          like.global_rows)
+                          like.global_rows, like.shards, like.rank)
 
-    return stacked(new_a, mgt), stacked(new_b, mt), perm, torch.stack(ovf).any(), spread
+    return stacked(new_a, mgt), stacked(new_b, mt), perm, overflow, spread
 
 
 def sharded_rmcl_adaptive(
@@ -279,11 +294,14 @@ def sharded_rmcl_adaptive(
     buckets as the flops do.  The only host traffic an iteration is ONE
     read of the scalars that drive the decision (differs, spread, total,
     nnz, overflow); the unshard and the final un-relabel happen once at
-    the end.  Returns (final CSR in the ORIGINAL labelling, history
-    dict of numpy arrays)."""
+    the end.  On a process mesh every rank passes the same ``mt0``, holds
+    its own row of shards and returns the same result (the final unshard
+    is collective).  Returns (final CSR in the ORIGINAL labelling, history
+    dict of numpy arrays: one entry an iteration, and ``perm_total``, the
+    final relabelling over the padded rows, new row i = original row
+    ``perm_total[i]``)."""
     from ..ops.flops import row_flops
 
-    collectives.require_stacked(mesh, "sharded_rmcl_adaptive")
     d = mesh.num_shards
     mt0 = mt0.to(mesh.device)
     n = mt0.rows
@@ -298,10 +316,12 @@ def sharded_rmcl_adaptive(
     total = int(rf0.sum())
     pc = cc = max(16, int(np.ceil(total / d * margin)))
     lcap_t = max(cc, int(mt0.capacity))
-    smgt = shard_csr(mt0, d, local_capacity=lcap_t)
-    smt = shard_csr(mt0, d, local_capacity=lcap_t)
+    smgt = shard_csr(mt0, mesh, local_capacity=lcap_t)
+    smt = shard_csr(mt0, mesh, local_capacity=lcap_t)
+    held = collectives.local_ranks(mesh)
     rf_blocks = torch.from_numpy(
         np.concatenate([rf0.astype(np.int32), np.zeros(n_pad - n, np.int32)]).reshape(d, lr)
+        [held[0]:held[-1] + 1]
     ).to(mesh.device)
     perm_total = torch.arange(n_pad, dtype=INDEX_DTYPE, device=mesh.device)
 
@@ -323,7 +343,8 @@ def sharded_rmcl_adaptive(
         new_smt, stats = sharded_rmcl_step(mesh, smgt, smt, pc, cc, axis)
         rf_blocks, next_spread, next_total = sharded_next_flops(mesh, smgt, new_smt, axis)
         smt = new_smt
-        # the iteration's one read: the decision scalars, in one tensor
+        # the iteration's one read: the decision scalars, in one tensor,
+        # each from gathered values (the same bits on every rank)
         host = torch.stack([
             x.to(torch.float64) for x in (stats["differs"], sp_after, next_spread, next_total,
                                           stats["nnz_mt"], stats["overflow"], r_ovf)
@@ -342,8 +363,9 @@ def sharded_rmcl_adaptive(
         hist["nnz"].append(int(host[4]))
         hist["overflow"].append(bool(host[5]) or (rebal and bool(host[6])))
 
-    mt_final = unshard_csr(smt)
+    mt_final = unshard_csr(smt, mesh)
+    hist["perm_total"] = perm_total.cpu().numpy()
     inv_np = np.zeros(n_pad, np.int32)
-    inv_np[perm_total.cpu().numpy()] = np.arange(n_pad, dtype=np.int32)
+    inv_np[hist["perm_total"]] = np.arange(n_pad, dtype=np.int32)
     out = mt_final.conjugate_permute(torch.from_numpy(inv_np[:n]))
     return out, {k: np.asarray(v) for k, v in hist.items()}

@@ -26,6 +26,7 @@ from ..config import INDEX_DTYPE, QVALUE_DTYPE
 from ..formats.csr import CSR
 from ..utils.nphost import csr_host
 from . import collectives
+from .mesh import ROW_AXIS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,12 +79,16 @@ class ShardedCSR:
 def shard_csr(a: CSR, num_shards, local_capacity: int | None = None) -> ShardedCSR:
     """Block row partition of ``a`` into ``num_shards`` equal blocks (rows
     padded up to a multiple of D; padding rows are empty), on ``a``'s
-    device.  ``num_shards`` may be a mesh: on a process mesh the result
-    holds this rank's block only (every rank passes the same ``a``)."""
+    device.  ``num_shards`` may be a mesh, whose "x" axis gives the
+    blocks (on a 2-D mesh the reference's ``P("x")``: each block is
+    replicated over "y"); on a process mesh the result holds this rank's
+    block only (every rank passes the same ``a``)."""
     if collectives.is_process(num_shards):
-        return shard_csr(a, num_shards.num_shards, local_capacity).rank_block(
-            num_shards.rank)
-    num_shards = int(getattr(num_shards, "num_shards", num_shards))
+        return shard_csr(a, num_shards.axis_size(ROW_AXIS), local_capacity).rank_block(
+            num_shards.coords()[0])
+    if hasattr(num_shards, "axis_size"):
+        num_shards = num_shards.axis_size(ROW_AXIS)
+    num_shards = int(num_shards)
     rp, col = csr_host(a)
     val = a.values.cpu().numpy()
     rows = a.rows
@@ -119,9 +124,10 @@ def shard_csr(a: CSR, num_shards, local_capacity: int | None = None) -> ShardedC
 def unshard_csr(s: ShardedCSR, mesh=None) -> CSR:
     """Stitch shard blocks back into one global CSR (host side) — the
     ``PCSR::toCSR`` role (original-matrix-perf/mvcsr.cc:80-121).  On a
-    process mesh the blocks are first all-gathered, so every rank gets
-    the whole matrix (collective)."""
-    rp, col, val = (collectives.all_gather(mesh, x) for x in (s.row_ptr, s.col_ind, s.values))
+    process mesh the blocks are first all-gathered (along "x" on a 2-D
+    mesh), so every rank gets the whole matrix (collective)."""
+    rp, col, val = (collectives.all_gather(mesh, x, ROW_AXIS)
+                    for x in (s.row_ptr, s.col_ind, s.values))
     if rp.shape[0] != s.num_shards:
         raise ValueError("unshard_csr: the blocks of one rank need its process mesh")
     rp = rp.cpu().numpy().astype(np.int64)

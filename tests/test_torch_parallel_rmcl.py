@@ -226,3 +226,28 @@ def test_dryrun_multichip_matches_reference(monkeypatch, capsys):
     m = re.search(r"static nnz=(\d+), dynamic nnz=(\d+), differs=([0-9.]+)", want)
     assert got[:2] == (int(m.group(1)), int(m.group(2)))
     assert abs(got[2] - float(m.group(3))) <= 5e-5
+
+
+# ---- weak scaling ------------------------------------------------------------------
+def test_weak_scaling_rows_follow_the_reference_recipe():
+    """Stacked D = 1, 2, 4 on the CPU: R-MAT at scale base + log2(D), the
+    reference tool's keys, the nnz of a direct ``sharded_rmcl_ell`` run
+    (ring, 2 iterations, S = 64), the efficiency against D = 1, and the
+    stacked caveat on every D > 1."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import sharded_rmcl_ell
+    from sparse_matrix_with_flops_tpu_torch.parallel import weak_scaling as WS
+
+    rows = WS.weak_scaling_rmcl_ell((1, 2, 4), base_scale=5, device="cpu")
+    assert [(r["devices"], r["scale"], r["rows"]) for r in rows] == [
+        (1, 5, 32), (2, 6, 64), (4, 7, 128)]
+    for r in rows:
+        assert {"devices", "scale", "rows", "ms_per_iter", "nnz_per_s", "nnz",
+                "weak_scaling_efficiency_pct", "mesh", "card", "caveat"} <= set(r)
+        _, hist = sharded_rmcl_ell(WS.prep(r["scale"], "cpu"), make_mesh(r["devices"], "cpu"),
+                                   max_iters=2, S=64, exchange="ring")
+        assert r["nnz"] == int(hist["nnz"][-1]) > 0
+        assert (r["mesh"], r["card"]) == ("stacked", "cpu")
+        assert bool(r["caveat"]) == (r["devices"] > 1)
+        assert r["weak_scaling_efficiency_pct"] == pytest.approx(
+            rows[0]["ms_per_iter"] / r["ms_per_iter"] * 100.0)
+        assert r["nnz_per_s"] == pytest.approx(r["nnz"] / r["ms_per_iter"] * 1e3)

@@ -1,7 +1,7 @@
 """One rank a process: the port's distributed layer on a process mesh
-(``torch.distributed``, ``gloo`` backend, on the CPU) against the
-stacked mesh at the same D, and once against the JAX package on its
-8-device CPU mesh.
+(``torch.distributed``, ``gloo`` backend, on the CPU; 1-D, and 2-D for
+the 2-D SpGEMM) against the stacked mesh at the same D, and once against
+the JAX package on its 8-device CPU mesh.
 
 Each world size spawns its W ranks once (``torch.multiprocessing``,
 spawn start method, a file store in the test's temporary directory, so
@@ -24,8 +24,14 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+import jax
+
 from sparse_matrix_with_flops_tpu.formats.csr import CSR as JCSR
+from sparse_matrix_with_flops_tpu.ops.spgemm import spgemm_upper_bounds as j_upper_bounds
 from sparse_matrix_with_flops_tpu.parallel import make_mesh as j_make_mesh
+from sparse_matrix_with_flops_tpu.parallel import rmcl as JRM
+from sparse_matrix_with_flops_tpu.parallel import sharded as JSH
+from sparse_matrix_with_flops_tpu.parallel import spgemm2d as J2
 from sparse_matrix_with_flops_tpu_torch.formats.coo import COO
 from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR as TCSR
 from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
@@ -195,6 +201,96 @@ def test_sharded_rmcl_ell_on_processes_matches_jax(tmp_path_factory, monkeypatch
         assert_close_values(differs, jh["differs"])
 
 
+# ---- the dynamic and adaptive sharded R-MCL -------------------------------------------
+@pytest.mark.parametrize("key", ["rmcl_scan", "rmcl_scan/stats", "next_flops/rf", "next_flops",
+                                 "repartition/mgt", "repartition/mt", "repartition"])
+def test_dynamic_rmcl_equals_the_stacked_path(run, key):
+    """The scan's blocks and statistics (3 iterations), the next
+    multiply's flops, the repartition's blocks, permutation, overflow
+    and spread, bit for bit on every rank."""
+    world, _, ranks, stacked = run
+    _each_rank_equals_stacked(run, key)
+    flops, nnz, overflow = stacked["rmcl_scan/stats"][1:4]
+    assert (flops > 0).all() and (nnz > 0).all() and not overflow.any()
+    perm, ovf, _ = stacked["repartition"]
+    assert np.array_equal(np.sort(perm), np.arange(perm.size)) and not ovf
+
+
+def test_adaptive_loop_is_the_same_on_every_rank(run):
+    """Every rank returns the stacked loop's CSR and history, and holds
+    the same relabelling."""
+    world, _, ranks, stacked = run
+    _each_rank_equals_stacked(run, "adaptive")
+    _each_rank_equals_stacked(run, "adaptive/perm_total")
+    perm = stacked["adaptive/perm_total"]
+    assert np.array_equal(np.sort(perm), np.arange(perm.size))
+    assert not np.array_equal(perm, np.arange(perm.size))  # the first iteration re-deals
+
+
+@pytest.mark.parametrize("key", ["spgemm_2d", "unshard_2d"])
+def test_spgemm_2d_on_a_2d_process_mesh_equals_the_stacked_path(run, key):
+    """Rank r holds block (x, y) = divmod(r, ny) of C; C unsharded is
+    whole on every rank: (2, 1) and (1, 2) at W = 2, (2, 2) at W = 4."""
+    world, _, ranks, stacked = run
+    for nx, ny in W.MESHES_2D[world]:
+        _each_rank_equals_stacked(run, f"{key}/{nx}x{ny}")
+        assert int(stacked[f"unshard_2d/{nx}x{ny}"][0][-1]) > 0  # C has entries
+
+
+def test_dryrun_on_processes_equals_the_stacked_dryrun(run):
+    _each_rank_equals_stacked(run, "dryrun")
+    assert int(run[3]["dryrun"][0]) > 0
+
+
+def test_dynamic_scan_and_2d_spgemm_on_processes_match_jax(tmp_path_factory):
+    """D = 4 ranks against the JAX package on 4 of its 8 virtual CPU
+    devices: the dynamic ``sharded_rmcl_scan`` (3 iterations) of the hub
+    graph and the (2, 2) ``sharded_spgemm_2d``; structure and integer
+    statistics equal, values and ``differs`` within the comparators."""
+    world, inputs, ranks, _ = _run(JAX_WORLD, tmp_path_factory)
+    j = JCSR.from_arrays(*inputs["jax_graph"][:3], ncols=inputs["jax_graph"][3])
+    flops, _ = j_upper_bounds(j, j)
+    js = JSH.shard_csr(j, world)
+    pc, cc = JRM.plan_shard_capacities(js, flops * 4, margin=4.0)
+    jmt, jh = JRM.sharded_rmcl_scan(j_make_mesh(world), js,
+                                    JSH.shard_csr(j, world, local_capacity=cc), pc, cc,
+                                    W.DYN_ITERS)
+    rp, ci, v, n = inputs["a"]
+    ja = JCSR.from_arrays(rp, ci, v, ncols=n)
+    cap = j_upper_bounds(ja, ja)[0] + 8
+    want = J2.sharded_spgemm_2d(jax.make_mesh((2, 2), ("x", "y")), JSH.shard_csr(ja, 2),
+                                *J2.shard_csr_2d(ja, 2, 2), cap, cap)
+    want = [np.asarray(x) for x in want]
+    for r in range(world):
+        differs, flops_h, nnz, overflow, *caps = ranks[r]["rmcl_scan/jax/stats"]
+        assert tuple(caps) == (pc, cc)
+        got = ranks[r]["rmcl_scan/jax"]
+        np.testing.assert_array_equal(got[0][0], np.asarray(jmt.row_ptr)[r])
+        np.testing.assert_array_equal(got[1][0], np.asarray(jmt.col_ind)[r])
+        assert_close_values(got[2][0], np.asarray(jmt.values)[r])
+        for k, x in (("flops", flops_h), ("nnz_mt", nnz), ("overflow", overflow)):
+            np.testing.assert_array_equal(x, np.asarray(jh[k]), err_msg=k)
+        np.testing.assert_allclose(differs, np.asarray(jh["differs"]), rtol=1e-5)
+        x, y = divmod(r, 2)
+        c = ranks[r]["spgemm_2d/2x2"]
+        np.testing.assert_array_equal(c[0][0, 0], want[0][x, y])
+        np.testing.assert_array_equal(c[1][0, 0], want[1][x, y])
+        assert_close_values(c[2][0, 0], want[2][x, y])
+
+
+def test_weak_scaling_on_processes_runs_d1_and_w(run):
+    """Under a group of W ranks the weak-scaling run gives D = 1 on each
+    rank's device and D = W on the process mesh, each with the stacked
+    run's scale, rows and nnz at the same D."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import weak_scaling_rmcl_ell
+
+    world, _, ranks, _ = run
+    want = W.weak_scaling_shape(weak_scaling_rmcl_ell((1, world), W.WS_BASE, device="cpu"))
+    want[1] = ("process", *want[1][1:5], True)  # on the CPU the ranks' caveat says so
+    for r in range(world):
+        assert ranks[r]["weak_scaling"] == want
+
+
 # ---- the mesh -------------------------------------------------------------------------
 def test_process_mesh_and_its_errors(run):
     world, _, ranks, _ = run
@@ -202,5 +298,7 @@ def test_process_mesh_and_its_errors(run):
         out = ranks[r]
         assert out["mesh"] == (True, world, r, "cpu")
         assert out["make_mesh()"] is True
-        assert out["raises n != W"].startswith("ValueError"), out["raises n != W"]
-        assert out["raises 2-D"].startswith("NotImplementedError"), out["raises 2-D"]
+        assert out["2-D"] == (True, (2, world // 2), ("x", "y"), divmod(r, world // 2), 2,
+                              world // 2)
+        for label in ("n != W", "nx*ny != W"):
+            assert out[f"raises {label}"].startswith("ValueError"), out[f"raises {label}"]

@@ -28,6 +28,14 @@ EXCHANGES = ("ring", "all_gather", "pallas_ring", "fused_ring")
 # R-MCL cases: (graph, S, max_tile, iterations); max_tile 256 at S 16
 # leaves degree classes up to 16, so the R-MAT's denser rows are hub rows
 RMCL_CASES = {"hub": ("rmat", 16, 256, 3), "nohub": ("rmat", 16, 8192, 3)}
+DYN_ITERS = 3  # the dynamic scan's and the adaptive loop's iterations
+WS_BASE = 5  # the weak-scaling run's R-MAT scale at D = 1
+# the shapes of the 2-D SpGEMM's process mesh, by world size
+MESHES_2D = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+# results that hold one block a shard: a rank holds its own ([x, y] for
+# the 2-D SpGEMM's blocks); every other result is whole on every rank
+BLOCK_KEYS = ("shard", "spgemm", "spgemm_ring", "rmcl_scan", "rmcl_scan/jax", "next_flops/rf",
+              "repartition/mgt", "repartition/mt")
 
 
 def make_inputs(world: int, seed: int = 0) -> dict:
@@ -81,9 +89,89 @@ def _caps(a, world: int) -> tuple:
     return int(flops) + 8, int(flops) + 8
 
 
-def cases(mesh, inp: dict, rows) -> dict:
+def dynamic_scan(mesh, g) -> tuple:
+    """The dynamic sharded scan of ``g`` (``DYN_ITERS`` iterations, the
+    products' and the iterate's capacity a shard at margin 4 on 4x the
+    flops): the held blocks, then the statistics in key order, then the
+    caps."""
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        plan_shard_capacities,
+        shard_csr,
+        sharded_rmcl_scan,
+    )
+
+    flops, _ = spgemm_upper_bounds(g, g)
+    smgt = shard_csr(g, mesh)
+    pc, cc = plan_shard_capacities(smgt, flops * 4, margin=4.0)
+    new, hist = sharded_rmcl_scan(mesh, smgt, shard_csr(g, mesh, local_capacity=cc), pc, cc,
+                                  DYN_ITERS)
+    return (*_sharded(new), *(_np(hist[k]) for k in sorted(hist)), pc, cc)
+
+
+def dynamic_cases(mesh, inp: dict) -> dict:
+    """The dynamic and adaptive sharded R-MCL on the R-MAT's R-MCL graph:
+    the scan, the next multiply's flops, the repartition of the scan's
+    iterate, the adaptive loop; the dry run."""
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        dryrun_multichip,
+        shard_csr,
+        sharded_next_flops,
+        sharded_rmcl_adaptive,
+    )
+    from sparse_matrix_with_flops_tpu_torch.parallel.rmcl import _device_repartition_pair
+    from sparse_matrix_with_flops_tpu_torch.parallel.sharded import ShardedCSR
+
+    out = {}
+    g = rmcl_init(_coo(inp["graph"]))
+    scan = dynamic_scan(mesh, g)
+    out["rmcl_scan"], out["rmcl_scan/stats"] = scan[:3], scan[3:]
+    smgt = shard_csr(g, mesh, local_capacity=g.capacity)
+    smt = ShardedCSR(*(torch.from_numpy(x) for x in scan[:3]), g.ncols, g.rows, smgt.shards,
+                     smgt.rank)
+    rf, spread, total = sharded_next_flops(mesh, smgt, smt)
+    out["next_flops/rf"], out["next_flops"] = (_np(rf),), (_np(spread), _np(total))
+    na, nb, perm, ovf, after = _device_repartition_pair(mesh, smgt, smt, rf, g.rows)
+    out["repartition/mgt"], out["repartition/mt"] = _sharded(na), _sharded(nb)
+    out["repartition"] = (_np(perm), _np(ovf), _np(after))
+    res, hist = sharded_rmcl_adaptive(g, mesh, max_iters=DYN_ITERS)
+    out["adaptive"] = (*res.to_numpy(), *(hist[k] for k in sorted(hist)))
+    out["adaptive/perm_total"] = hist["perm_total"]
+    out["dryrun"] = tuple(np.asarray(x) for x in dryrun_multichip(mesh))
+    return out
+
+
+def spgemm_2d_cases(world: int, inp: dict, mesh_2d) -> dict:
+    """The 2-D SpGEMM A·A of the random-weight R-MAT on each shape of
+    ``MESHES_2D[world]`` (``mesh_2d(shape)`` makes the mesh): the held
+    blocks of C, and C unsharded."""
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        shard_csr,
+        shard_csr_2d,
+        sharded_spgemm_2d,
+        unshard_2d,
+    )
+
+    out = {}
+    a = _csr(inp["a"])
+    flops, _ = spgemm_upper_bounds(a, a)
+    for nx, ny in MESHES_2D[world]:
+        m2 = mesh_2d((nx, ny))
+        b_rp, b_ci, b_v, stripe, b_rows = shard_csr_2d(a, nx, ny, mesh=m2)
+        c = sharded_spgemm_2d(m2, shard_csr(a, m2), b_rp, b_ci, b_v, stripe, b_rows,
+                              flops + 8, flops + 8)
+        out[f"spgemm_2d/{nx}x{ny}"] = tuple(_np(x) for x in c)
+        out[f"unshard_2d/{nx}x{ny}"] = unshard_2d(*c, stripe, a.rows, a.ncols,
+                                                   mesh=m2).to_numpy()
+    return out
+
+
+def cases(mesh, inp: dict, rows, mesh_2d) -> dict:
     """Every case on ``mesh`` (stacked or process), with ``rows`` the
-    shards the mesh's process holds: each result as numpy arrays."""
+    shards the mesh's process holds and ``mesh_2d(shape)`` the 2-D mesh
+    of the same kind: each result as numpy arrays."""
     from sparse_matrix_with_flops_tpu_torch.parallel import collectives as C
     from sparse_matrix_with_flops_tpu_torch.parallel import (
         shard_csr,
@@ -121,23 +209,42 @@ def cases(mesh, inp: dict, rows) -> dict:
         res, hist = sharded_rmcl_ell(_csr(inp["jax_graph"]), mesh, max_iters=2, S=32,
                                      max_tile=256, exchange="all_gather")
         out["rmcl/jax"] = (*_sharded(res), *(hist[k] for k in sorted(hist)))
+        scan = dynamic_scan(mesh, _csr(inp["jax_graph"]))
+        out["rmcl_scan/jax"], out["rmcl_scan/jax/stats"] = scan[:3], scan[3:]
+    out.update(dynamic_cases(mesh, inp))
+    out.update(spgemm_2d_cases(world, inp, mesh_2d))
     return out
 
 
+def weak_scaling_shape(rows) -> list:
+    """The weak-scaling rows without their times: (mesh, D, scale, rows,
+    nnz, caveat given)."""
+    return [(r["mesh"], r["devices"], r["scale"], r["rows"], r["nnz"], bool(r["caveat"]))
+            for r in rows]
+
+
 def process_only(mesh, inp: dict) -> dict:
-    """What holds on a process mesh alone: the mesh's own fields and the
-    errors ``make_mesh`` raises under a group."""
-    from sparse_matrix_with_flops_tpu_torch.parallel import ProcessMesh, make_mesh
+    """What holds on a process mesh alone: the mesh's own fields, a 2-D
+    process mesh's, and the errors ``make_mesh`` raises under a group."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        ProcessMesh,
+        make_mesh,
+        weak_scaling_rmcl_ell,
+    )
 
     world = inp["world"]
     out = {"mesh": (type(mesh) is ProcessMesh, mesh.num_shards, mesh.rank, str(mesh.device))}
     out["make_mesh()"] = type(make_mesh(device="cpu")) is ProcessMesh
-    for label, arg, exc in (("n != W", world + 1, ValueError),
-                            ("2-D", (2, world // 2), NotImplementedError)):
+    m2 = make_mesh((2, world // 2), device="cpu")
+    out["2-D"] = (type(m2) is ProcessMesh, m2.shape, m2.axis_names, m2.coords(),
+                  m2.axis_size("x"), m2.axis_size("y"))
+    out["weak_scaling"] = weak_scaling_shape(weak_scaling_rmcl_ell(base_scale=WS_BASE,
+                                                                   device="cpu"))
+    for label, arg in (("n != W", world + 1), ("nx*ny != W", (2, world))):
         try:
             make_mesh(arg, device="cpu")
             out[f"raises {label}"] = "no error"
-        except exc as e:
+        except ValueError as e:
             out[f"raises {label}"] = type(e).__name__ + ": " + str(e)
     return out
 
@@ -147,8 +254,16 @@ def stacked_results(inp: dict) -> dict:
     directly: under a group ``make_mesh`` gives the process mesh)."""
     from sparse_matrix_with_flops_tpu_torch.parallel import ShardMesh
 
-    world = inp["world"]
-    return cases(ShardMesh(world, torch.device("cpu"), (world,)), inp, slice(0, world))
+    world, cpu = inp["world"], torch.device("cpu")
+    return cases(ShardMesh(world, cpu, (world,)), inp, slice(0, world),
+                 lambda shape: ShardMesh(world, cpu, shape, ("x", "y")))
+
+
+def process_mesh_2d(shape):
+    """The 2-D process mesh of ``shape`` on the CPU."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shape, device="cpu")
 
 
 def run_rank(rank: int, world: int, store: str, inputs: str, out_dir: str) -> None:
@@ -166,7 +281,7 @@ def run_rank(rank: int, world: int, store: str, inputs: str, out_dir: str) -> No
         dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                                 world_size=world)
         mesh = make_mesh(device="cpu")
-        out = cases(mesh, inp, slice(rank, rank + 1))
+        out = cases(mesh, inp, slice(rank, rank + 1), process_mesh_2d)
         out.update(process_only(mesh, inp))
         dist.destroy_process_group()
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -179,11 +294,15 @@ def run_rank(rank: int, world: int, store: str, inputs: str, out_dir: str) -> No
 
 def row_of(key: str, value, rank: int):
     """The part of a stacked result that rank ``rank`` holds: blocks and
-    per-shard arrays are cut to the rank's row; gathered results (the
-    all-gather, unshard, the R-MCL iterate and statistics, the sums) are
-    whole on every rank."""
-    if key in ("shard", "spgemm", "spgemm_ring"):
+    per-shard arrays are cut to the rank's row (a 2-D SpGEMM's to its
+    block ``[x, y]``, ``(x, y) = divmod(rank, ny)``); gathered results
+    (the all-gather, unshard, the R-MCL iterates and statistics, the
+    sums, the permutation, the dry run) are whole on every rank."""
+    if key in BLOCK_KEYS:
         return tuple(x[rank:rank + 1] for x in value)
+    if key.startswith("spgemm_2d/"):
+        x, y = divmod(rank, int(key.split("x")[-1]))
+        return tuple(b[x:x + 1, y:y + 1] for b in value)
     if key in ("ppermute+1", "ppermute-1", "axis_index"):
         return value[rank:rank + 1]
     return value
@@ -209,7 +328,7 @@ def main() -> int:
     world, rank = dist.get_world_size(), dist.get_rank()
     inp = make_inputs(world)
     mesh = mesh_mod.make_mesh(device="cpu")
-    got = cases(mesh, inp, slice(rank, rank + 1))
+    got = cases(mesh, inp, slice(rank, rank + 1), process_mesh_2d)
     want = stacked_results(inp)
     bad = [k for k in want if not same(got[k], row_of(k, want[k], rank))]
     print(f"rank {rank} of {world}: {len(want) - len(bad)} of {len(want)} cases bit-equal "
