@@ -133,6 +133,20 @@
    ``parallel/weak_scaling.py``).  The ranks' launches add to the counts
    of the ``kernels`` line, and their per-rank cases to its ``cases``
    (the kernel's own numbers stay those of its stacked case).
+16. the compiled programs (``utils/graphs.py``): the warm ``spgemm_ell``
+   and ``rmcl_ell_scan`` run as CUDA graphs, captured once a plan and
+   replayed, through their normal entry points (so phases 4, 8, 10's
+   STATIC route and 14 run them too): the warm ``spgemm_ell`` on s14
+   (bit-equal to the eager warm body; a replay on A's values doubled
+   gives exactly twice C), ``rmcl_ell_scan`` on phase 8's graph (5
+   iterations) and on phase 14(b)'s planted graph (30 iterations, its
+   clusters and purity), each scan bit-equal to the eager loop of its
+   step, iterate and histories; eager and graph ms, capture ms, pool
+   bytes, peak memory and replays x launches a replay, in one ``phase
+   16`` JSON line.  A replay adds its captured launches to the counts.
+   The general ``rmcl_scan`` stays an eager loop: its step is bound by
+   the device, and a graph of it was measured as no gain
+   (``ring_probe.py capture``).
 
 K9's records hold it bit for bit against its plain version on the CPU
 on every run_sums call of a path (captured in one call: general R-MCL
@@ -1565,6 +1579,165 @@ def planted_phase(torch, np, sp, dev, card, drive, record, cuda_ms, device_ms):
         raise AssertionError("phase 14: " + "; ".join(failed))
 
 
+def same_bits(torch, x, y) -> bool:
+    """Bit for bit: tensors (f32 by their bits), CSRs array by array,
+    dicts, tuples and lists of them."""
+    if hasattr(x, "row_ptr"):
+        return all(same_bits(torch, getattr(x, k), getattr(y, k))
+                   for k in ("row_ptr", "col_ind", "values"))
+    if isinstance(x, dict):
+        return sorted(x) == sorted(y) and all(same_bits(torch, x[k], y[k]) for k in x)
+    if isinstance(x, (tuple, list)):
+        return len(x) == len(y) and all(same_bits(torch, a, b) for a, b in zip(x, y))
+    bits = (lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t)  # noqa: E731
+    return x.dtype == y.dtype and x.shape == y.shape and torch.equal(bits(x), bits(y))
+
+
+def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
+    """Phase 16: the compiled programs, CUDA graphs captured once a plan
+    and replayed through the normal entry points (``utils/graphs.py``):
+    the warm ``spgemm_ell`` on R-MAT s14 (phase 4's matrix, a fresh plan)
+    and ``rmcl_ell_scan`` on phase 8's graph (S = 128, 5 iterations) and
+    on phase 14(b)'s 65,536-node planted graph (30 iterations, clusters
+    and purity).  Each graph call is held bit for bit to the eager run of
+    the same body (the warm ``_tiles_impl``, a loop of the step), and the
+    SpGEMM replayed on A's values doubled must give exactly twice C.  For each program it
+    logs eager and graph ms (CUDA events, median of 15 after warm-up),
+    the capture's host ms, the graph's pool bytes, the peak device memory
+    of an eager call, of the capturing call and of a replaying call, and
+    replays x the launches a replay makes, counted by ``drive``."""
+    import importlib
+
+    from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR
+    from sparse_matrix_with_flops_tpu_torch.models.clusters import cluster_sizes, extract_clusters
+    from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import (
+        cluster_purity,
+        planted_partition_coo,
+    )
+
+    R = importlib.import_module(f"{PKG}.models.rmcl")
+    RM = importlib.import_module(f"{PKG}.models.rmcl_ell")
+    t_phase = time.perf_counter()
+    failed = []
+    report = {}
+
+    def peak_gib(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def program(label, owner, name, eager, call, must, iters=1, reps=15):
+        """One compiled program: eager and graph results, bits, times,
+        memory, capture and replays."""
+        want, peak_e = peak_gib(eager)
+        first, peak_c = peak_gib(call)  # the eager first run, then the capture
+        g = graphs.held(owner, name)
+        if g is None or g.graph is None:
+            raise AssertionError(f"phase 16: {label} kept no graph")
+        replays0 = g.replays
+        got, peak_r = peak_gib(lambda: drive(f"{label} (graph replays)", call, must))
+        per_call = g.replays - replays0
+        ok = same_bits(torch, first, want) and same_bits(torch, got, want)
+        eager_ms = cuda_ms(torch, eager, reps=reps, warm=1)
+        graph_ms = cuda_ms(torch, call, reps=reps, warm=1)
+        rec = {
+            "eager_ms": eager_ms, "graph_ms": graph_ms, "iterations": iters,
+            "eager_ms_per_iteration": eager_ms / iters, "graph_ms_per_iteration": graph_ms / iters,
+            "capture_ms": g.capture_ms, "pool_bytes": g.pool_bytes,
+            "peak_gib": {"eager": peak_e, "capturing call": peak_c, "replaying call": peak_r},
+            "replays_a_call": per_call,
+            "launches_a_replay": {w.__name__: n for w, n in g.launches.items()},
+            "bit_equal": ok,
+        }
+        report[label] = rec
+        log(f"{label}: eager {eager_ms:.3f} ms, graph {graph_ms:.3f} ms "
+            f"({eager_ms / iters:.3f} / {graph_ms / iters:.3f} ms an iteration, CUDA events, "
+            f"median of {reps}); capture {g.capture_ms:.1f} ms host; pool "
+            f"{g.pool_bytes / 2**20:.1f} MiB; peak GiB eager {peak_e:.3f}, capturing call "
+            f"{peak_c:.3f}, replaying call {peak_r:.3f}; {per_call} replays x "
+            f"{rec['launches_a_replay']} a call; graph {'==' if ok else '!='} eager bit for "
+            f"bit [{card}]")
+        if not ok:
+            failed.append(f"{label}: the graph differs from the eager run")
+        return got
+
+    # ---- 16a. the warm spgemm_ell on R-MAT s14 ---------------------------
+    plan = plan_ell(a, a)
+    E.spgemm_ell(a, a, plan)  # two-phase: caches the nnz(C) bucket
+    cap = plan._nnzc_cache
+
+    def warm_eager():
+        c, _ = E._tiles_impl(a, a, plan, fused_out_cap=cap)
+        return c
+
+    c = program("spgemm_ell s14 warm", plan, "spgemm_ell", warm_eager,
+                lambda: E.spgemm_ell(a, a, plan),
+                ("sort_dedup_compact", "compact_nonzero_rows", "window_gather", "cumsum_i32"))
+    a2 = CSR(a.row_ptr, a.col_ind, 2.0 * a.values, a.ncols)
+    c2 = E.spgemm_ell(a2, a, plan)  # a replay on new inputs
+    torch.cuda.synchronize()
+    doubled = (torch.equal(c2.row_ptr, c.row_ptr) and torch.equal(c2.col_ind, c.col_ind)
+               and torch.equal(c2.values, 2.0 * c.values))
+    log(f"spgemm_ell s14 warm graph replayed on A's values doubled: C's values "
+        f"{'exactly' if doubled else 'NOT'} doubled, structure kept")
+    if not doubled:
+        failed.append("spgemm_ell: the replay on 2A did not give exactly 2C")
+    del c, c2, a2, plan
+
+    # ---- 16b. rmcl_ell_scan on phase 8's graph -----------------------------
+    def ell_eager(plan, mgt, a_d, cols, vals, iters):
+        hist = []
+        for _ in range(iters):
+            cols, vals, st = RM.rmcl_ell_step(plan, mgt, a_d, cols, vals)
+            hist.append(st)
+        return cols, vals, {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+
+    coo, mgt, cols0, vals0 = phase8_graph(torch, np, dev)
+    plan = RM.plan_rmcl_ell(mgt, S=S15, max_tile=MT15)
+    a_d = RM._dense_huge(mgt, plan)
+    RM._plan_tensors(plan, dev)
+    program("rmcl_ell_scan s14 S=128 5 iterations", plan, "rmcl_ell_scan",
+            lambda: ell_eager(plan, mgt, a_d, cols0, vals0, 5),
+            lambda: RM.rmcl_ell_scan(plan, mgt, a_d, cols0, vals0, 5),
+            ("sort_dedup_compact",), iters=5)
+    del plan, a_d, cols0, vals0
+
+    # ---- 16c. rmcl_ell_scan on the 65,536-node planted graph ---------------
+    kc, cs, iters = 1024, 64, 30
+    pcoo, planted = planted_partition_coo(kc, cs, p_in=0.3, p_out=8.0 / (kc * cs), seed=11)
+    pmgt = R.rmcl_init(pcoo).make_ordered()
+    plan = RM.plan_rmcl_ell(pmgt, S=S15)
+    a_d = RM._dense_huge(pmgt, plan)
+    pc0, pv0 = RM.mt_to_ell(pmgt, S15)
+    RM._plan_tensors(plan, dev)
+    c30, v30, hist = program(
+        f"rmcl_ell_scan planted n={kc * cs} S=128 {iters} iterations", plan, "rmcl_ell_scan",
+        lambda: ell_eager(plan, pmgt, a_d, pc0, pv0, iters),
+        lambda: RM.rmcl_ell_scan(plan, pmgt, a_d, pc0, pv0, iters),
+        ("sort_dedup_compact",), iters=iters)
+    lab = extract_clusters(RM.ell_to_csr(c30, v30, pmgt.ncols), weight_floor=0.05)
+    pur = cluster_purity(lab, planted)
+    log(f"planted n={kc * cs} graph scan, {iters} iterations: {len(cluster_sizes(lab))} "
+        f"clusters of {kc} planted, purity {pur:.4f} at weight floor 0.05; nnz "
+        f"{hist['nnz'][-1].item()} at the end [{card}]")
+    if pur < 0.95:
+        failed.append(f"planted n={kc * cs}: purity {pur:.4f} < 0.95")
+    del pcoo, pmgt, plan, a_d, pc0, pv0, c30, v30, hist
+
+    del coo, mgt
+    torch.cuda.synchronize()
+    log("phase 16 " + json.dumps({"compiled_programs": report, "card": card}))
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("phase 16: " + "; ".join(failed))
+
+
 def distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_ms):
     """Phase 13: the rest of the distributed layer with D = 4 shards
     stacked on the card: ``sharded_spgemm`` and ``sharded_spgemm_ring``
@@ -1887,32 +2060,14 @@ DYN_MARGIN, DYN_ITERS = 4.0, 3  # phase 13's scan: margin on iteration 1's flops
 
 
 def kernel_wrappers() -> dict:
-    """The wrapper of every kernel, by name (each counts its launches)."""
-    from sparse_matrix_with_flops_tpu_torch.ops.scan_kernels import cumsum_i32
-    from sparse_matrix_with_flops_tpu_torch.ops.segments import run_sums
-    from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
-        compact_nonzero_rows,
-        sort_dedup_compact,
-        window_gather,
-    )
-    from sparse_matrix_with_flops_tpu_torch.ops.spmm import bcsr_spmm
-    from sparse_matrix_with_flops_tpu_torch.parallel.ring_kernels import (
-        ring_all_gather,
-        ring_matmul,
-        ring_matmul_tiled,
-    )
+    """The wrapper of every kernel, by name, in ``SOURCES``' order (each
+    counts its launches): the registry the kernel modules fill as the
+    package imports them."""
+    import sparse_matrix_with_flops_tpu_torch  # noqa: F401  (imports every kernel module)
+    from sparse_matrix_with_flops_tpu_torch._build import WRAPPERS
 
-    return {
-        "sort_dedup_compact": sort_dedup_compact,
-        "compact_nonzero_rows": compact_nonzero_rows,
-        "window_gather": window_gather,
-        "cumsum_i32": cumsum_i32,
-        "bcsr_spmm": bcsr_spmm,
-        "ring_all_gather": ring_all_gather,
-        "ring_matmul": ring_matmul,
-        "ring_matmul_tiled": ring_matmul_tiled,
-        "run_sums": run_sums,
-    }
+    by_name = {w.__name__: w for w in WRAPPERS}
+    return {k: by_name[k] for k in SOURCES}
 
 
 def phase8_graph(torch, np, dev):
@@ -2935,6 +3090,7 @@ def main() -> int:
     card = smi[0]
     plan = plan_ell(a, a)
     E.spgemm_ell(a, a, plan)  # caches the nnz(C) bucket
+    E.spgemm_ell(a, a, plan)  # captures the warm call's CUDA graph
     s14_warm = host_ms(torch, lambda: E.spgemm_ell(a, a, plan), 10)
     s14_cold = host_ms(torch, lambda: spgemm_auto(a, a), 3)
     bplan = plan_block(ca, ca)
@@ -3194,6 +3350,10 @@ def main() -> int:
 
     # ---- 15. one rank a process --------------------------------------------
     process_phase(torch, np, dev, card, launches, launched_by, record, drive)
+    torch.cuda.synchronize()
+
+    # ---- 16. the compiled programs: CUDA graphs ------------------------------
+    compiled_phase(torch, np, dev, card, a, drive, cuda_ms)
     torch.cuda.synchronize()
 
     for k, n in launches.items():

@@ -6,10 +6,13 @@ K6-K8; K1, K2, K3 and K5 in ``kernels``).
     python3 ring_probe.py step ROOT [ROOT ...]
     python3 ring_probe.py kernels ROOT [ROOT ...]
     python3 ring_probe.py streams ROOT [ROOT ...]
+    python3 ring_probe.py peaks ROOT [ROOT ...]
+    python3 ring_probe.py entry ROOT [ROOT ...]
     python3 ring_probe.py launch [--root ROOT]
     python3 ring_probe.py variants [--root ROOT] [NAME ...]
     python3 ring_probe.py cross-card          # a machine with 2 or more cards
     python3 ring_probe.py processes
+    python3 ring_probe.py capture
 
 ``accuracy``: K8 and its plain twin on the D = 2 and D = 4 hub operands
 of the sharded R-MCL loop on R-MAT s14 (the operands ``chip_smoke.py``
@@ -46,6 +49,12 @@ s14 graph at margin 2.5 (3 iterations, per iteration), ``spgemm_binned``
 on s14 with random weights (warm), and one dynamic ``sharded_rmcl_step``
 at D = 4 as phase 13 runs it; CUDA events, median, min and max of 5.
 
+``peaks``: as ``step``, one fresh process a ROOT (give two in the order
+A B B A), ``chip_smoke.py`` phase 12's peak device memory of one cold
+``spgemm_ell_partitioned`` call (4 groups) and of one cold
+``spgemm_ell`` on s14, and their ratio: fresh, once more, and after
+three warm ``spgemm_ell`` calls on another plan.
+
 ``launch``: K2, K3, K4 and K6 at their main-path sizes, beside the
 library calls that compute the same functions where there are some,
 timed one call at a time (as ``chip_smoke.py``), back to back, on the
@@ -81,6 +90,20 @@ s14 plan's W = 8192 tile), ``csrc/bcsr_spmm.cu`` (K5),
 main path's inputs.  The entries named "v1" edit K2 and K3 as first
 written (a CTA a row with a block scan each 1024 lanes; a thread a
 lane), in a checkout that still has them, given as ``--root``.
+
+``entry``: as ``step``, one fresh process a ROOT (give two in the order
+A B B A), the entry points that ``chip_smoke.py`` phases 4, 8, 10 and 11
+time, at their default settings: ``rmcl_ell`` (5 iterations, plan
+included), ``rmcl`` in scan mode on s14 and on tdata, ``rmcl_scan`` at
+margin 2.5, the warm ``spgemm_ell``, and ``corpus``' ``ell`` and
+partitioned rows on s14 with the partitioned row's peak memory.
+
+``capture``: what a CUDA graph costs and buys for the warm
+``spgemm_ell`` body, one ``rmcl_ell_step`` and one general
+``rmcl_one_step`` at ``chip_smoke.py`` phase 16's s14 sizes: eager and
+replay ms, ``utils/graphs.py``'s first run, capture ms and pool, a
+capture inside ``torch.cuda.graph`` for comparison, and the iterations
+after which a graph pays for its capture.
 
 ``--root ROOT`` (``launch``, ``variants``): import the port, and build
 the variants, from the checkout ROOT instead of this script's own.
@@ -395,6 +418,220 @@ def streams_one(dev) -> dict:
     return out
 
 
+def _one_step_bodies(dev) -> dict:
+    """The three step bodies at ``chip_smoke.py`` phase 16's s14 sizes,
+    each a function of no arguments that reads its inputs in place and
+    returns fresh outputs (no carry written back, so every run does the
+    same work): the warm ``spgemm_ell`` body (``_tiles_impl`` with the
+    cached bucket, random weights), one ``rmcl_ell_step`` on phase 8's
+    graph (S = 128) and one general ``rmcl_one_step`` at margin 2.5."""
+    import torch  # noqa: F401
+
+    from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    rm = importlib.import_module(f"{PKG}.models.rmcl")
+    re_ = importlib.import_module(f"{PKG}.models.rmcl_ell")
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random")
+    eplan = plan_ell(a, a)
+    E.spgemm_ell(a, a, eplan)  # caches the nnz(C) bucket
+    cap = eplan._nnzc_cache
+    mgt, (cols0, vals0) = s14_state(dev)
+    splan = re_.plan_rmcl_ell(mgt, S=128, max_tile=8192)
+    a_d = re_._dense_huge(mgt, splan)
+    re_._plan_tensors(splan, dev)
+    pc, cc = rm.plan_capacities(mgt, mgt, 2.5)
+    mtc = mgt.with_capacity(cc)
+    return {
+        "spgemm_ell s14 warm": lambda: E._tiles_impl(a, a, eplan, fused_out_cap=cap),
+        "rmcl_ell_step s14 S=128": lambda: re_.rmcl_ell_step(splan, mgt, a_d, cols0, vals0),
+        "rmcl_one_step s14 margin 2.5": lambda: rm.rmcl_one_step(mgt, mtc, pc, cc),
+    }
+
+
+def capture_costs(dev) -> None:
+    """What a CUDA graph costs and buys, for the three step bodies of
+    ``_one_step_bodies``: the eager body and the replay (CUDA events,
+    median of 5 after a warm run, with the replay's clones of the
+    outputs), the host ms of ``utils/graphs.py``'s first run (the eager
+    run, then the capture by ``capture_begin`` / ``capture_end``), its
+    ``capture_ms`` and pool, the host ms of a capture of the same body
+    inside ``torch.cuda.graph`` (which synchronizes, collects garbage and
+    empties the allocator's cache on entry), and the iterations after
+    which the graph pays for its capture: 1 + capture / (eager - replay),
+    none where the replay saves nothing."""
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    _build.library()
+    report = {}
+    for label, body in _one_step_bodies(dev).items():
+        body()
+        torch.cuda.synchronize()
+        eager = statistics.median(_times(torch, body, reps=5))
+        # nothing to load: the body reads its inputs in place
+        g = graphs.CapturedBody(label, body, (torch.empty(0, device=dev),))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.run()
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        replay = statistics.median(_times(torch, g.run, reps=5))
+        old = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(old):
+            body()
+        old_ms = (time.perf_counter() - t0) * 1e3
+        saved = eager - replay
+        row = {"eager ms": eager, "replay ms": replay, "first run ms": first,
+               "capture ms": g.capture_ms, "pool MiB": g.pool_bytes / 2**20,
+               "torch.cuda.graph capture ms": old_ms,
+               "break-even iterations": 1 + g.capture_ms / saved if saved > 0 else None}
+        del old, g
+        torch.cuda.synchronize()
+        report[label] = row
+        print(f"{label}: " + "; ".join(f"{k} {v:.3f}" if v is not None else f"{k} none"
+                                       for k, v in row.items()) + " [CUDA events; host clock "
+              "for first run and captures]", flush=True)
+    print(json.dumps({"capture": report}))
+
+
+def peaks_one(dev) -> dict:
+    """This process's port: ``chip_smoke.py`` phase 12's two peaks, each
+    the peak device memory of one cold call above what was allocated
+    before it (``spgemm_ell_partitioned`` with 4 groups, then
+    ``spgemm_ell`` with a fresh plan, on R-MAT s14), and their ratio: in
+    a fresh process, once more, and after three warm calls on another
+    plan (a two-phase call, then warm ones: where the tree has CUDA
+    graphs, an eager run with a capture and a replay)."""
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_esc import spgemm_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.partitioned import spgemm_ell_partitioned
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    _build.library()
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random")
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    out = {}
+    for tag in ("fresh", "again", "after warm calls"):
+        if tag == "after warm calls":
+            plan = plan_ell(a, a)
+            for _ in range(3):
+                spgemm_ell(a, a, plan)
+        part = peak(lambda: spgemm_ell_partitioned(a, a, parts=4))
+        one = peak(lambda: spgemm_ell(a, a, plan_ell(a, a)))
+        out.update({f"{tag}: partitioned": [part], f"{tag}: spgemm_ell": [one],
+                    f"{tag}: ratio": [part / one]})
+    return out
+
+
+def entry_one(dev) -> dict:
+    """This process's port: the entry points that ``chip_smoke.py``
+    phases 4, 8, 10 and 11 time, at their default settings, each called
+    once to warm and then three times: ``rmcl_ell`` on phase 8's s14
+    graph (5 iterations, plan included: the STATIC route's call),
+    ``rmcl`` in scan mode on s14 and on ``tests/tdatas/tdata.snap`` (5
+    iterations, the default route of ``nrmcl``; host clock),
+    ``rmcl_scan`` at s14 margin 2.5 (5 iterations, ms an iteration by
+    CUDA events, as phase 11), the warm ``spgemm_ell`` on s14 (host
+    clock a call, median of 10), and ``corpus``' ``ell`` row on s14
+    (its timed ms) and ``run_partitioned`` with 4 groups (its timed ms,
+    and its peak device memory above what was allocated before it)."""
+    import numpy as np
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.cli import corpus
+    from sparse_matrix_with_flops_tpu_torch.formats import COO
+    from sparse_matrix_with_flops_tpu_torch.io import load_coo
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl, rmcl_init
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_esc import spgemm_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    rm = importlib.import_module(f"{PKG}.models.rmcl")
+    re_ = importlib.import_module(f"{PKG}.models.rmcl_ell")
+    _build.library()
+    g = rmat_csr(14, edge_factor=8, seed=7)
+    rp, ci, v = g.to_numpy()
+    n = g.rows
+    coo = COO.from_numpy(np.repeat(np.arange(n), np.diff(rp)), ci, v, n, n,
+                         capacity=ci.size + n, device=dev)
+    tdata = load_coo(os.path.join(sys.path[0], "tests", "tdatas", "tdata.snap"),
+                     is_trans=True, extra_capacity=2**20, device=dev)
+    mgt = rmcl_init(coo)
+    pc, cc = rm.plan_capacities(mgt, mgt, 2.5)
+    mtc = mgt.with_capacity(cc)
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random")
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def events(fn):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e)
+
+    def warm_spgemm():
+        plan = plan_ell(a, a)
+        for _ in range(2):
+            spgemm_ell(a, a, plan)
+        return statistics.median(wall(lambda: spgemm_ell(a, a, plan)) for _ in range(10))
+
+    def partitioned():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rec = corpus.run_partitioned("s14", a, 4)
+        torch.cuda.synchronize()
+        return rec["ms"], (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    cases = {
+        "rmcl_ell s14 5 iterations ms": lambda: wall(
+            lambda: re_.rmcl_ell(coo, max_iters=5, S=128, max_tile=8192)),
+        "rmcl scan s14 5 iterations ms": lambda: wall(
+            lambda: rmcl(rmcl_init(coo), max_iters=5, mode="scan")),
+        "rmcl scan tdata 5 iterations ms": lambda: wall(
+            lambda: rmcl(rmcl_init(tdata), max_iters=5, mode="scan")),
+        "rmcl_scan s14 margin 2.5 ms an iteration": lambda: events(
+            lambda: rm.rmcl_scan(mgt, mtc, pc, cc, 5)) / 5,
+        "spgemm_ell s14 warm ms": warm_spgemm,
+        "corpus ell s14 ms": lambda: corpus.run_one("s14", a, "ell")["ms"],
+    }
+    out = {}
+    for label, fn in cases.items():
+        fn()
+        out[label] = [fn() for _ in range(3)]
+    part = [partitioned() for _ in range(3)]
+    out["corpus run_partitioned s14 4 groups ms"] = [p[0] for p in part]
+    out["corpus run_partitioned s14 4 groups peak MiB"] = [p[1] for p in part]
+    return out
+
+
 def step(roots, mode: str = "step") -> None:
     rows = []
     for root in roots:
@@ -409,7 +646,9 @@ def step(roots, mode: str = "step") -> None:
         rows.append((root, json.loads(res.stdout.strip().splitlines()[-1])))
         print(f"{root}: " + "; ".join(
             f"{k} {statistics.median(v):.3f} [{min(v):.3f}, {max(v):.3f}]"
-            for k, v in rows[-1][1].items()) + " ms", flush=True)
+            for k, v in rows[-1][1].items())
+              + {"peaks": " (MiB; ratios)", "entry": " (units as named)"}.get(mode, " ms"),
+              flush=True)
     print(json.dumps({f"{mode}_ms": rows}))
 
 
@@ -1125,8 +1364,9 @@ def cross_card(dev) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("accuracy", "step", "step-one", "kernels", "kernels-one",
-                                     "streams", "streams-one", "launch", "variants",
-                                     "cross-card", "processes", "processes-child"))
+                                     "streams", "streams-one", "peaks", "peaks-one", "entry",
+                                     "entry-one", "launch", "variants", "cross-card",
+                                     "processes", "processes-child", "capture"))
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--unpromoted", action="store_true")
     ap.add_argument("--root", default=HERE,
@@ -1145,13 +1385,14 @@ def main() -> int:
         return 0
     if args.what.endswith("-one"):
         sys.path.insert(0, args.roots[0])
-        one = {"step-one": step_one, "kernels-one": kernels_one, "streams-one": streams_one}
+        one = {"step-one": step_one, "kernels-one": kernels_one, "streams-one": streams_one,
+               "peaks-one": peaks_one, "entry-one": entry_one}
         print(json.dumps(one[args.what](dev)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    if args.what in ("step", "kernels", "streams"):
+    if args.what in ("step", "kernels", "streams", "peaks", "entry"):
         step(args.roots, args.what)
     elif args.what == "launch":
         sys.path.insert(0, root)
@@ -1163,6 +1404,9 @@ def main() -> int:
         return cross_card(dev)
     elif args.what == "processes":
         return processes()
+    elif args.what == "capture":
+        sys.path.insert(0, HERE)
+        capture_costs(dev)
     else:
         sys.path.insert(0, HERE)
         accuracy(dev, not args.unpromoted)

@@ -202,6 +202,20 @@ def raise_error(name: str, err: int) -> None:
     raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
+# every kernel wrapper of the port, in the order their modules register them
+WRAPPERS: list = []
+
+
+def counted(wrapper):
+    """Register a kernel wrapper: ``wrapper.launches`` counts the launches
+    of its kernel, one where the wrapper launches it.  A CUDA graph's
+    replay runs no Python, so it adds the launches it captured to these
+    counts itself (``utils/graphs.py``)."""
+    wrapper.launches = 0
+    WRAPPERS.append(wrapper)
+    return wrapper
+
+
 # (kernel, device index, stream) -> [zeroed int64 scratch, last epoch]
 _SCRATCH: dict = {}
 EPOCHS = (1 << 30) - 1  # epochs run 1 .. EPOCHS, then start again at 1

@@ -19,12 +19,15 @@ loop static:
   Mgt's hub block against the densified iterate rows they reference.
 
 ``rmcl_ell_scan`` keeps the iterate on the device for the whole run and
-the per-iteration statistics as tensors until the end.
+the per-iteration statistics as tensors until the end; on the card its
+step is a CUDA graph captured once a plan and replayed
+(``utils/graphs.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -39,6 +42,7 @@ from ..ops.sort_kernels import (
     sort_dedup_compact,
     sort_dedup_compact_plain,
 )
+from ..utils import graphs
 from ..utils.nphost import csr_host, repeat_idx
 
 # the hub matmul's dense iterate slab is kept under this many bytes
@@ -409,19 +413,41 @@ def _dense_huge(mgt: CSR, plan: RmclEllPlan):
     return a_d.view(h, plan.hub_kh)
 
 
+_HIST = (("nnz", INDEX_DTYPE), ("truncated_rows", INDEX_DTYPE), ("differs", QVALUE_DTYPE))
+
+
+def _scan_graph(plan: RmclEllPlan, a: CSR, a_dense_huge, mt_cols, mt_vals, length: int):
+    """The plan's captured step (the reference's jitted ``lax.scan``
+    body) for these inputs, loaded: static copies of Mgt and its hub
+    block, the iterate as the carry (``graphs.scan_body``)."""
+    ref = weakref.ref(plan)  # a strong one would keep the plan and its pool alive
+    ncols = a.ncols
+
+    def step(rp, ci, v, adh, cols, vals):
+        nc, nv, stats = rmcl_ell_step(ref(), CSR(rp, ci, v, ncols), adh, cols, vals)
+        return (nc, nv), stats
+
+    ins = (a.row_ptr, a.col_ind, a.values, a_dense_huge, mt_cols, mt_vals)
+    return graphs.scan_body(plan, "rmcl_ell_scan", ncols, ins, 2, _HIST, length, step)
+
+
 def rmcl_ell_scan(plan, a: CSR, a_dense_huge, mt_cols, mt_vals, max_iters: int):
-    """Device-resident loop over the fused step (the reference's
+    """Device-resident loop over the fused step (the reference's jitted
     ``lax.scan``): the iterate stays on the device, and the statistics
-    stay tensors, stacked per iteration at the end."""
-    hist = []
-    cols, vals = mt_cols, mt_vals
-    for _ in range(max_iters):
-        cols, vals, stats = rmcl_ell_step(plan, a, a_dense_huge, cols, vals)
-        hist.append(stats)
-    keys = ("nnz", "truncated_rows", "differs")
-    return cols, vals, {
-        k: torch.stack([h[k] for h in hist]) if hist else torch.zeros(0) for k in keys
-    }
+    stay tensors, one [max_iters] history each.
+
+    On the card the step is a CUDA graph kept on the plan: the first
+    call on a plan runs iteration 1 eagerly, captures the step and
+    replays it ``max_iters - 1`` times (one iteration captures nothing:
+    no replay would follow); a later call with inputs of the same shapes
+    replays every iteration.  On the CPU the same body runs eagerly.
+    Returns fresh tensors."""
+    if max_iters <= 0:
+        return mt_cols, mt_vals, {k: torch.zeros(0) for k, _ in _HIST}
+    _plan_tensors(plan, mt_cols.device)  # uploads, never inside a capture
+    g = _scan_graph(plan, a, a_dense_huge, mt_cols, mt_vals, max_iters)
+    (cols, vals), hist = graphs.run_scan(g, max_iters)
+    return cols, vals, hist
 
 
 def rmcl_ell(

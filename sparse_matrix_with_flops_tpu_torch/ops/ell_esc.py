@@ -22,19 +22,22 @@ the device:
    scan (kernel K4).
 
 Plan index arrays are uploaded once per (plan, device) and memoised on
-the plan.  Counts are scattered into buffers one slot longer than the
-rows, whose last slot takes what the reference dropped out of range.
+the plan, and so is the CUDA graph of the warm call (``spgemm_ell``).
+Counts are scattered into buffers one slot longer than the rows, whose
+last slot takes what the reference dropped out of range.
 """
 
 from __future__ import annotations
 
 import warnings
+import weakref
 
 import numpy as np
 import torch
 
 from ..config import INDEX_DTYPE, QVALUE_DTYPE, true_f32
 from ..formats.csr import CSR
+from ..utils import graphs
 from ..utils.nphost import repeat_idx
 from .ell_plan import EllPlan, _flat_layout, plan_ell
 from .scan_kernels import cumsum_i32
@@ -435,6 +438,25 @@ def spgemm_ell_tiled(a: CSR, b: CSR, plan: EllPlan | None = None):
     return TiledCSR(flat_c, flat_v, counts, flat_base, plan.ncols)
 
 
+def _warm_graph(a: CSR, b: CSR, plan: EllPlan, cap: int):
+    """The plan's captured warm body (the reference's jitted
+    ``_tiles_impl(fused_out_cap=cap)``) for these operands, loaded: its
+    outputs are C's arrays and nnz(C) (``graphs.bound``)."""
+    ins = (a.row_ptr, a.col_ind, a.values, b.row_ptr, b.col_ind, b.values)
+    ref = weakref.ref(plan)  # a strong one would keep the plan and its pool alive
+
+    def build(st):
+        sa, sb = CSR(*st[:3], a.ncols), CSR(*st[3:], b.ncols)
+
+        def body():
+            c, nnzc = _tiles_impl(sa, sb, ref(), fused_out_cap=cap)
+            return c.row_ptr, c.col_ind, c.values, nnzc
+
+        return graphs.CapturedBody("spgemm_ell", body, st)
+
+    return graphs.bound(plan, "spgemm_ell", (cap, a.ncols, b.ncols), ins, build)
+
+
 def spgemm_ell(
     a: CSR,
     b: CSR,
@@ -448,18 +470,22 @@ def spgemm_ell(
     output to its bucket, which is cached on the plan: a later call runs
     both phases back to back with that capacity and then checks nnz(C)
     against it (the dense hub drops exact-zero products, so counts can
-    change with the values).  An overflowed capacity truncated the
-    output, which is discarded with a warning, and the call falls back
-    to the two-phase path.  ``exact=False`` uses the plan's bound."""
+    change with the values).  On the card that warm body is a CUDA graph
+    kept on the plan: captured by the first call that finds the bucket
+    cached (its own eager run first), replayed by every later call on
+    operands of the same shapes.  An overflowed capacity truncated the
+    output, which is discarded with a warning; the graph is dropped with
+    the bucket, and the call falls back to the two-phase path.
+    ``exact=False`` uses the plan's bound."""
     if plan is None:
         plan = plan_ell(a, b)
     vstart = _plan_tensors(plan, a.device)["vstart"]
     cached = getattr(plan, "_nnzc_cache", None)
     if out_cap is None and exact and cached is not None:
-        csr, nnzc = _tiles_impl(a, b, plan, fused_out_cap=cached)
-        nnzc = int(nnzc)
+        row_ptr, col_ind, values, nnzc = _warm_graph(a, b, plan, cached).run()
+        nnzc = int(nnzc)  # the one read
         if nnzc <= cached:
-            return csr
+            return CSR(row_ptr, col_ind, values, plan.ncols)
         warnings.warn(
             "spgemm_ell: fused nnz(C) bucket overflowed "
             f"(nnzc={nnzc} > cap={cached}); the fused output was "
@@ -467,6 +493,7 @@ def spgemm_ell(
             RuntimeWarning,
             stacklevel=2,
         )
+        graphs.drop(plan, "spgemm_ell")
         object.__setattr__(plan, "_nnzc_cache", None)
     flat_c, flat_v, counts, flat_base = _tiles_impl(a, b, plan)
     if out_cap is None and not exact:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check_tensor, current_stream, launch, on_card, stream_scratch
+from .._build import check_tensor, counted, current_stream, launch, on_card, stream_scratch
 
 TILE = 8192  # words a CTA of the CUDA scan takes (kTile in csrc/cumsum_i32.cu)
 
@@ -40,6 +40,7 @@ def like_aligned(x: torch.Tensor) -> torch.Tensor:
     return torch.empty(x.shape[0] + o, dtype=x.dtype, device=x.device)[o:]
 
 
+@counted
 def cumsum_i32(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of a 1-D contiguous int32 tensor."""
     check_tensor(x, "cumsum_i32", torch.int32, 1)
@@ -55,6 +56,3 @@ def cumsum_i32(x: torch.Tensor) -> torch.Tensor:
            stream=stream)
     cumsum_i32.launches += 1
     return out
-
-
-cumsum_i32.launches = 0

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check_tensor, launch, on_card
+from .._build import check_tensor, counted, launch, on_card
 from ..config import INDEX_DTYPE
 
 # K9 gives a run a warp of its own when the stream holds at least this
@@ -94,6 +94,7 @@ def run_sums_plain(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     return torch.segment_reduce(values, "sum", offsets=offsets.long(), unsafe=True)
 
 
+@counted
 def run_sums(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """Sums of the contiguous runs ``values[offsets[i]:offsets[i + 1]]``
     of a 1-D f32 stream, each added left to right in run-local order
@@ -119,9 +120,6 @@ def run_sums(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
            int(values.shape[0] >= WARP_RUN_SLOTS * runs))
     run_sums.launches += 1
     return out
-
-
-run_sums.launches = 0
 
 
 RUN_BLOCK = 32  # values a block of blocked_run_sums

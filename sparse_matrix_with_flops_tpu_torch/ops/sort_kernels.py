@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check_tensor, launch, on_card
+from .._build import check_tensor, counted, launch, on_card
 
 # K1 holds a row of (int32, f32) pairs in shared memory: 8 bytes a lane.
 # Up to 16384 lanes (128 KB) a row runs on one block; 32768 lanes
@@ -61,6 +61,7 @@ def sort_dedup_compact_plain(
     return key, torch.where(key < ncols, val, 0.0)
 
 
+@counted
 def sort_dedup_compact(
     tc: torch.Tensor, tv: torch.Tensor, ncols: int, presorted: int = 1
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -94,9 +95,6 @@ def sort_dedup_compact(
     return kout, vout
 
 
-sort_dedup_compact.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # K2: dense rows -> compacted nonzero lanes
 # ---------------------------------------------------------------------------
@@ -113,6 +111,7 @@ def compact_nonzero_rows_plain(
     return key, torch.where(key < ncols, out, 0.0)
 
 
+@counted
 def compact_nonzero_rows(
     vals: torch.Tensor, ncols: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -132,9 +131,6 @@ def compact_nonzero_rows(
         )
         compact_nonzero_rows.launches += 1
     return kout, vout
-
-
-compact_nonzero_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +160,7 @@ def window_gather_plain(
     return tuple(outs)
 
 
+@counted
 def window_gather(
     src_c: torch.Tensor, src_v: torch.Tensor, p0: torch.Tensor, w: int = 128,
     p1: torch.Tensor | None = None,
@@ -202,6 +199,3 @@ def window_gather(
     if p1 is None:
         return out[0], out[1]
     return out[0, :q0], out[1, :q0], out[0, q0:], out[1, q0:]
-
-
-window_gather.launches = 0

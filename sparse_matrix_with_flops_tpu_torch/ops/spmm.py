@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check_tensor, launch, on_card
+from .._build import check_tensor, counted, launch, on_card
 from ..config import QVALUE_DTYPE, true_f32
 from ..formats.bcsr import BCSR, SPMM_ROWS
 from ..formats.csr import CSR
@@ -39,6 +39,7 @@ def bcsr_spmm_plain(a: BCSR, b: torch.Tensor) -> torch.Tensor:
     return out[: a.nbrows].reshape(a.nbrows * a.br, n)[: a.rows]
 
 
+@counted
 def bcsr_spmm(
     a: BCSR, b: torch.Tensor, n_tile: int = 128, kernel: str = "xla"
 ) -> torch.Tensor:
@@ -95,9 +96,6 @@ def bcsr_spmm(
     )
     bcsr_spmm.launches += 1
     return c
-
-
-bcsr_spmm.launches = 0
 
 
 def csr_spmv(a: CSR, x: torch.Tensor) -> torch.Tensor:

@@ -51,7 +51,7 @@ import math
 
 import torch
 
-from .._build import check_tensor, current_stream, launch, on_card, query, stream_scratch
+from .._build import check_tensor, counted, current_stream, launch, on_card, query, stream_scratch
 from ..config import QVALUE_DTYPE, true_f32
 from . import collectives, peer
 
@@ -142,6 +142,7 @@ def _gather_grid(dev: torch.device, d: int, words: int) -> tuple:
     return _GRIDS[key]
 
 
+@counted
 def ring_all_gather(*xs: torch.Tensor, mesh=None):
     """All-gather the ranks' ``[lr, ...]`` blocks around the ring:
     ``[d, lr, ...] -> [d, d*lr, ...]`` in rotation order, for one or more
@@ -255,9 +256,6 @@ def _ring_all_gather_rank_launch(mesh, xs) -> list:
     landed = ps.view(0, ops * d * words)
     return [landed[op * d * words:(op + 1) * d * words].view(t.dtype).view(shape).clone()
             for op, t in enumerate(xs)]
-
-
-ring_all_gather.launches = 0
 
 
 def unrotate(g: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -389,6 +387,7 @@ def ring_matmul_plain(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tens
     return _ring_matmul_plain(a, b, RIGHT, mesh)
 
 
+@counted
 def ring_matmul(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """``C[me] = A[me] . B_full`` with B row-sharded: ``a`` [d, M, d*lr]
     (column block j multiplies shard j's block, owner-major), ``b``
@@ -408,9 +407,6 @@ def ring_matmul(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
     return c
 
 
-ring_matmul.launches = 0
-
-
 def _check_nt(n: int, nt: int) -> None:
     if nt <= 0 or n % nt:
         raise ValueError(f"N = {n} not a multiple of nt = {nt}")
@@ -424,6 +420,7 @@ def ring_matmul_tiled_plain(a: torch.Tensor, b: torch.Tensor, nt: int = 2048,
     return _ring_matmul_plain(a, b, LEFT, mesh)
 
 
+@counted
 def ring_matmul_tiled(a: torch.Tensor, b: torch.Tensor, nt: int = 2048,
                       mesh=None) -> torch.Tensor:
     """:func:`ring_matmul` over ``N / nt`` column tiles, blocks flowing
@@ -442,6 +439,3 @@ def ring_matmul_tiled(a: torch.Tensor, b: torch.Tensor, nt: int = 2048,
     if m and n:
         ring_matmul_tiled.launches += 1
     return c
-
-
-ring_matmul_tiled.launches = 0

@@ -50,6 +50,8 @@ from sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell import (
 )
 from sparse_matrix_with_flops_tpu_torch.utils.generate import banded_csr, rmat_csr
 
+from torch_port_util import same_bits
+
 RMCL = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl_ell")
 
 pytestmark = pytest.mark.cuda
@@ -1349,3 +1351,193 @@ def test_ring_densify_equals_the_accumulating_index_put_on_card(dev):
                            accumulate=True)
             assert torch.equal(hub_block(slot.long(), pos.long(), val, hmax, width), acc[:hmax])
 
+
+# ---- compiled programs: CUDA graphs of the warm SpGEMM and the static scan ----------
+def _launch_counts():
+    return {w.__name__: w.launches for w in _build.WRAPPERS}
+
+
+def _counted(fn):
+    """(result, launches by wrapper) of one call."""
+    before = _launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in _launch_counts().items() if n != before[k]}
+
+
+def _program(name, dev):
+    """(graph call on inputs x, eager run on inputs x, the two inputs,
+    the plan that keeps the graph) of one compiled program at an edge
+    size: the graph's first call runs eagerly and captures, later calls
+    replay."""
+    if name == "spgemm_ell":  # hub groups, split hub rows, W = 16 ... 512 bins
+        a = rmat_csr(10, edge_factor=8, seed=7, weights="random", device=dev)
+        plan = plan_ell(a, a, max_w=512)
+        assert plan.hub_groups and plan.vstart is not None
+        E.spgemm_ell(a, a, plan)  # two-phase: caches the nnz(C) bucket
+        cap = plan._nnzc_cache
+
+        def eager(x):
+            c, _ = E._tiles_impl(x, a, plan, fused_out_cap=cap)
+            return c
+
+        a2 = CSR(a.row_ptr, a.col_ind, 2.0 * a.values, a.ncols)
+        return (lambda x: E.spgemm_ell(x, a, plan)), eager, (a, a2), plan
+    if name == "rmcl_ell_scan":  # W = 128 ... 1024 bins and a hub row
+        t = _rmcl_graph(300, 0.02, (7,), 0).to(dev)
+        plan = RMCL.plan_rmcl_ell(t, S=128, max_tile=1024)
+        adh = RMCL._dense_huge(t, plan)
+        x0 = RMCL.mt_to_ell(t, 128)
+        x1 = RMCL.rmcl_ell_step(plan, t, adh, *x0)[:2]
+
+        def eager(x):
+            hist, (c, v) = [], x
+            for _ in range(4):
+                c, v, st = RMCL.rmcl_ell_step(plan, t, adh, c, v)
+                hist.append(st)
+            return c, v, {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+
+        return (lambda x: RMCL.rmcl_ell_scan(plan, t, adh, *x, 4)), eager, (x0, x1), plan
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", ["spgemm_ell", "rmcl_ell_scan"])
+def test_graph_replays_equal_the_eager_run(dev, name):
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    call, eager, (x0, x1), plan = _program(name, dev)
+    want, eager_launches = _counted(lambda: eager(x0))
+    first, _ = _counted(lambda: call(x0))  # eager first step or call, then capture
+    g = graphs.held(plan, name)
+    assert g is not None and g.graph is not None and g.pool_bytes > 0
+    assert sum(g.launches.values()) > 0
+    replays = g.replays
+    again, launches = _counted(lambda: call(x0))  # every step replayed
+    assert g.replays > replays
+    # the counters count the replayed kernels as the eager run counts its own
+    assert launches == eager_launches
+    assert same_bits(first, want) and same_bits(again, want)
+    # new inputs: the replay reads them (A's values doubled: C doubles exactly)
+    want1 = eager(x1)
+    got1 = call(x1)
+    torch.cuda.synchronize()
+    assert same_bits(got1, want1)
+    if name == "spgemm_ell":
+        assert torch.equal(got1.values, 2.0 * again.values)
+    assert same_bits(again, want)  # the earlier result, untouched
+
+
+def test_scan_lengths_share_one_graph_and_one_iteration_captures_nothing(dev):
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    t = _rmcl_graph(300, 0.02, (7,), 0).to(dev)
+    plan = RMCL.plan_rmcl_ell(t, S=128, max_tile=1024)
+    adh = RMCL._dense_huge(t, plan)
+    x0 = RMCL.mt_to_ell(t, 128)
+    eager = {}
+    for n in (1, 2, 5, 9):  # the eager loop of the step
+        hist, (c, v) = [], x0
+        for _ in range(n):
+            c, v, st = RMCL.rmcl_ell_step(plan, t, adh, c, v)
+            hist.append(st)
+        eager[n] = c, v, {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+    got = RMCL.rmcl_ell_scan(plan, t, adh, *x0, 1)
+    g = graphs.held(plan, "rmcl_ell_scan")
+    assert g.graph is None  # no replay would follow: nothing captured
+    assert same_bits(got, eager[1])
+    got = RMCL.rmcl_ell_scan(plan, t, adh, *x0, 5)
+    g = graphs.held(plan, "rmcl_ell_scan")
+    assert g.graph is not None and g.state["room"] == 8 and same_bits(got, eager[5])
+    got = RMCL.rmcl_ell_scan(plan, t, adh, *x0, 2)  # another length, the same graph
+    assert graphs.held(plan, "rmcl_ell_scan") is g and same_bits(got, eager[2])
+    got = RMCL.rmcl_ell_scan(plan, t, adh, *x0, 9)  # more than its histories hold
+    assert graphs.held(plan, "rmcl_ell_scan") is not g and same_bits(got, eager[9])
+    assert graphs.held(plan, "rmcl_ell_scan").state["room"] == 16
+    torch.cuda.synchronize()
+
+
+def test_graph_lives_and_dies_with_its_plan(dev):
+    import gc
+    import weakref
+
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    a = rmat_csr(10, edge_factor=8, seed=7, weights="random", device=dev)
+    plan = plan_ell(a, a, max_w=512)
+    for _ in range(3):
+        E.spgemm_ell(a, a, plan)  # two-phase, capture, replay
+    g = graphs.held(plan, "spgemm_ell")
+    assert g.graph is not None and g.replays == 1
+    torch.cuda.synchronize()
+    gone, alive = weakref.ref(g), weakref.ref(plan)
+    del plan, g
+    assert alive() is None and gone() is None  # no cycle holds them: freed at once
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def test_graph_bodies_make_no_host_read(dev):
+    # the static step and the warm SpGEMM body under sync debug mode "error"
+    # (the general step: test_rmcl_scan_makes_no_host_read)
+    t = _rmcl_graph(300, 0.02, (7,), 0).to(dev)
+    plan = RMCL.plan_rmcl_ell(t, S=128, max_tile=1024)
+    adh = RMCL._dense_huge(t, plan)
+    x0 = RMCL.mt_to_ell(t, 128)
+    RMCL._plan_tensors(plan, dev)  # the plan's uploads come first
+    a = rmat_csr(10, edge_factor=8, seed=7, weights="random", device=dev)
+    eplan = plan_ell(a, a, max_w=512)
+    E.spgemm_ell(a, a, eplan)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        RMCL.rmcl_ell_step(plan, t, adh, *x0)
+        E._tiles_impl(a, a, eplan, fused_out_cap=eplan._nnzc_cache)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_a_capture_out_of_memory_gives_the_cache_back_and_captures_again(dev):
+    # blocks cached outside any pool cannot serve a capture's private pool,
+    # and the allocator cannot free them inside a capture: the first
+    # attempt runs out of memory, the second (cache emptied) captures
+    from sparse_matrix_with_flops_tpu_torch.utils.graphs import CapturedBody
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n = int(torch.cuda.mem_get_info(dev)[0] * 0.6) // 4
+    x = torch.ones(1, device=dev)
+    big = torch.empty(n, dtype=torch.float32, device=dev)
+    del big  # 60% of the card, now cached outside any pool
+    g = CapturedBody("probe", lambda: torch.full((n,), 2.0, device=dev)[:1] * x, (x,))
+    assert torch.equal(g.run(), 2.0 * x)  # the eager run takes the cached block
+    assert g.graph is not None and g.pool_bytes >= 4 * n
+    assert torch.equal(g.run(), 2.0 * x) and g.replays == 1
+    del g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("breaks", ["item", "synchronize"])
+def test_a_failed_capture_raises_with_no_eager_fallback(dev, breaks):
+    # a host read raises in the eager run before capture (sync debug mode
+    # "error"); a device synchronize, which that mode does not flag, breaks
+    # the capture itself: either way the run raises and keeps no graph
+    from sparse_matrix_with_flops_tpu_torch.utils.graphs import CapturedBody
+
+    x = torch.arange(1024.0, device=dev)
+
+    def body():
+        y = x * 2
+        if breaks == "item":
+            y = y * y.sum().item()
+        else:
+            torch.cuda.synchronize()
+        return y
+
+    g = CapturedBody("probe", body, (x,))
+    with pytest.raises(RuntimeError, match="probe: .* failed"):
+        g.run()
+    assert g.graph is None and g.replays == 0
+    torch.cuda.synchronize()  # the card is still usable
+    assert float((x * 2).sum()) == 2.0 * 1023 * 1024 / 2

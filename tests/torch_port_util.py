@@ -3,6 +3,7 @@ package: the same host arrays go into both, and results come back as
 numpy arrays for comparison."""
 
 import numpy as np
+import torch
 
 from sparse_matrix_with_flops_tpu.config import ABS_TOL, REL_TOL
 from sparse_matrix_with_flops_tpu.formats.csr import CSR as JCSR
@@ -220,3 +221,17 @@ def assert_close_dense(got, want, a_dense, b):
     )
     bad = np.argwhere(np.abs(got - want) > bound)
     assert bad.size == 0, (bad[:5], got[tuple(bad[:5].T)], want[tuple(bad[:5].T)])
+
+
+def same_bits(x, y) -> bool:
+    """Bit for bit: tensors (f32 by their bits), port CSRs array by
+    array, and dicts, tuples and lists of them."""
+    if isinstance(x, TCSR):
+        return all(same_bits(getattr(x, k), getattr(y, k))
+                   for k in ("row_ptr", "col_ind", "values"))
+    if isinstance(x, dict):
+        return sorted(x) == sorted(y) and all(same_bits(x[k], y[k]) for k in x)
+    if isinstance(x, (tuple, list)):
+        return len(x) == len(y) and all(same_bits(a, b) for a, b in zip(x, y))
+    bits = (lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t)  # noqa: E731
+    return x.dtype == y.dtype and x.shape == y.shape and torch.equal(bits(x), bits(y))
