@@ -37,7 +37,8 @@
    semantics, the 5-iteration run against the port's own CPU run of the
    same plan, and the warm iteration timed;
 9. sharded R-MCL with D = 4 shards stacked on the card (``make_mesh``'s
-   default device), 3 iterations, all four exchanges: ``pallas_ring``
+   default device), 3 iterations, all four exchanges (each scan a CUDA
+   graph of its step, phase 16): ``pallas_ring``
    (K6) bit-equal to ``all_gather``, ``fused_ring`` (K8) against
    ``ring``, ``all_gather`` against single-chip ``rmcl_ell``; the warm
    iteration 2 of each exchange timed with CUDA events; K6 at D = 2, 4, 8
@@ -133,20 +134,23 @@
    ``parallel/weak_scaling.py``).  The ranks' launches add to the counts
    of the ``kernels`` line, and their per-rank cases to its ``cases``
    (the kernel's own numbers stay those of its stacked case).
-16. the compiled programs (``utils/graphs.py``): the warm ``spgemm_ell``
-   and ``rmcl_ell_scan`` run as CUDA graphs, captured once a plan and
-   replayed, through their normal entry points (so phases 4, 8, 10's
-   STATIC route and 14 run them too): the warm ``spgemm_ell`` on s14
-   (bit-equal to the eager warm body; a replay on A's values doubled
-   gives exactly twice C), ``rmcl_ell_scan`` on phase 8's graph (5
-   iterations) and on phase 14(b)'s planted graph (30 iterations, its
-   clusters and purity), each scan bit-equal to the eager loop of its
-   step, iterate and histories; eager and graph ms, capture ms, pool
-   bytes, peak memory and replays x launches a replay, in one ``phase
-   16`` JSON line.  A replay adds its captured launches to the counts.
-   The general ``rmcl_scan`` stays an eager loop: its step is bound by
-   the device, and a graph of it was measured as no gain
-   (``ring_probe.py capture``).
+16. the compiled programs (``utils/graphs.py``): the warm ``spgemm_ell``,
+   ``rmcl_ell_scan`` and the stacked ``sharded_rmcl_ell_scan`` run as
+   CUDA graphs, captured once a plan and replayed, through their normal
+   entry points (so phases 4, 8, 9, 10's STATIC route and 14 run them
+   too): the warm ``spgemm_ell`` on s14 (bit-equal to the eager warm
+   body; a replay on A's values doubled gives exactly twice C),
+   ``rmcl_ell_scan`` on phase 8's graph (5 iterations),
+   ``sharded_rmcl_ell_scan`` at D = 4 on phase 8's graph with each
+   exchange (5 iterations; a second call on the same plan with another
+   iterate equals its own eager loop) and ``rmcl_ell_scan`` on phase
+   14(b)'s planted graph (30 iterations, its clusters and purity), each
+   scan bit-equal to the eager loop of its step, iterate and histories;
+   eager and graph ms, capture ms, pool bytes, peak memory and replays x
+   launches a replay, in one ``phase 16`` JSON line.  A replay adds its
+   captured launches to the counts.  The general ``rmcl_scan`` stays an
+   eager loop: its step is bound by the device, and a graph of it was
+   measured as no gain (``ring_probe.py capture``).
 
 K9's records hold it bit for bit against its plain version on the CPU
 on every run_sums call of a path (captured in one call: general R-MCL
@@ -690,10 +694,10 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
         torch.where(cols0 >= n, plan4.n, cols0).reshape(4, plan4.lr, S),
         vals0.reshape(4, plan4.lr, S), "fused_ring")
     for ex in must:
-        ms = cuda_ms(torch, lambda ex=ex: PS._sharded_step(plan4, smgt4, arrays4, lc1, lv1, ex),
-                     reps=5, warm=1)
-        log(f"sharded_rmcl_ell s14 D=4 {ex} warm iteration 2: {ms:.3f} ms device "
-            f"(CUDA events) [{card}]")
+        step = lambda ex=ex: PS._sharded_step(plan4, smgt4, arrays4, lc1, lv1, ex)  # noqa: E731
+        ms = cuda_ms(torch, step, reps=5, warm=1)
+        log(f"sharded_rmcl_ell s14 D=4 {ex} warm iteration 2: {ms:.3f} ms (CUDA events, eager), "
+            f"{device_ms(torch, step, 3):.3f} ms of device time (torch.profiler) [{card}]")
     ka = profile_kernels(torch, lambda: PS._sharded_step(plan4, smgt4, arrays4, lc1, lv1, "ring"))
     log("sharded_rmcl_ell s14 D=4 ring iteration 2 under torch.profiler: " + breakdown(ka, 6))
     del plan4, arrays4, smgt4, lc1, lv1, ka
@@ -1596,13 +1600,15 @@ def same_bits(torch, x, y) -> bool:
 def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
     """Phase 16: the compiled programs, CUDA graphs captured once a plan
     and replayed through the normal entry points (``utils/graphs.py``):
-    the warm ``spgemm_ell`` on R-MAT s14 (phase 4's matrix, a fresh plan)
-    and ``rmcl_ell_scan`` on phase 8's graph (S = 128, 5 iterations) and
-    on phase 14(b)'s 65,536-node planted graph (30 iterations, clusters
-    and purity).  Each graph call is held bit for bit to the eager run of
-    the same body (the warm ``_tiles_impl``, a loop of the step), and the
-    SpGEMM replayed on A's values doubled must give exactly twice C.  For each program it
-    logs eager and graph ms (CUDA events, median of 15 after warm-up),
+    the warm ``spgemm_ell`` on R-MAT s14 (phase 4's matrix, a fresh plan),
+    ``rmcl_ell_scan`` on phase 8's graph (S = 128, 5 iterations), the
+    stacked ``sharded_rmcl_ell_scan`` at D = 4 on phase 8's graph with
+    each exchange (5 iterations, and a second call on another iterate)
+    and ``rmcl_ell_scan`` on phase 14(b)'s 65,536-node planted graph (30
+    iterations, clusters and purity).  Each graph call is held bit for
+    bit to the eager run of the same body (the warm ``_tiles_impl``, a
+    loop of the step), and the SpGEMM replayed on A's values doubled must
+    give exactly twice C.  For each program it logs eager and graph ms (CUDA events, median of 15 after warm-up),
     the capture's host ms, the graph's pool bytes, the peak device memory
     of an eager call, of the capturing call and of a replaying call, and
     replays x the launches a replay makes, counted by ``drive``."""
@@ -1620,6 +1626,9 @@ def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
 
     R = importlib.import_module(f"{PKG}.models.rmcl")
     RM = importlib.import_module(f"{PKG}.models.rmcl_ell")
+    PS = importlib.import_module(f"{PKG}.parallel.rmcl_ell")
+    from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh
+
     t_phase = time.perf_counter()
     failed = []
     report = {}
@@ -1706,9 +1715,39 @@ def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
             lambda: ell_eager(plan, mgt, a_d, cols0, vals0, 5),
             lambda: RM.rmcl_ell_scan(plan, mgt, a_d, cols0, vals0, 5),
             ("sort_dedup_compact",), iters=5)
-    del plan, a_d, cols0, vals0
+    del plan, a_d
 
-    # ---- 16c. rmcl_ell_scan on the 65,536-node planted graph ---------------
+    # ---- 16c. sharded_rmcl_ell_scan, D = 4 stacked, each exchange ----------
+    mesh = make_mesh(4, dev)
+    plan, arrays, smgt = PS.plan_sharded_rmcl_ell(mgt, 4, S=S15, max_tile=MT15)
+    x0 = (torch.where(cols0 >= mgt.rows, plan.n, cols0).reshape(4, plan.lr, S15),
+          vals0.reshape(4, plan.lr, S15))
+
+    def sharded_eager(x, ex, iters):
+        hist, (c, v) = [], x
+        for _ in range(iters):
+            c, v, st = PS._sharded_step(plan, smgt, arrays, c, v, ex, mesh)
+            hist.append(st)
+        return c, v, {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+
+    x1 = PS._sharded_step(plan, smgt, arrays, *x0, "all_gather", mesh)[:2]  # another iterate
+    for ex, kernels in (("ring", ()), ("all_gather", ()), ("pallas_ring", ("ring_all_gather",)),
+                        ("fused_ring", ("ring_matmul_tiled",))):
+        program(f"sharded_rmcl_ell_scan s14 D=4 {ex} 5 iterations", plan,
+                "sharded_rmcl_ell_scan", lambda ex=ex: sharded_eager(x0, ex, 5),
+                lambda ex=ex: PS.sharded_rmcl_ell_scan(mesh, plan, smgt, arrays, *x0, 5, ex),
+                ("sort_dedup_compact", *kernels), iters=5, reps=5)
+        again = PS.sharded_rmcl_ell_scan(mesh, plan, smgt, arrays, *x1, 5, ex)
+        own = same_bits(torch, again, sharded_eager(x1, ex, 5))
+        log(f"sharded_rmcl_ell_scan {ex}: a second call on the plan with another iterate "
+            f"{'==' if own else '!='} its own eager loop bit for bit")
+        if not own:
+            failed.append(f"sharded {ex}: a second call differs from its eager loop")
+        del again
+    del plan, arrays, smgt, x0, x1, cols0, vals0
+    torch.cuda.synchronize()
+
+    # ---- 16d. rmcl_ell_scan on the 65,536-node planted graph ---------------
     kc, cs, iters = 1024, 64, 30
     pcoo, planted = planted_partition_coo(kc, cs, p_in=0.3, p_out=8.0 / (kc * cs), seed=11)
     pmgt = R.rmcl_init(pcoo).make_ordered()

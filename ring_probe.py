@@ -92,18 +92,26 @@ written (a CTA a row with a block scan each 1024 lanes; a thread a
 lane), in a checkout that still has them, given as ``--root``.
 
 ``entry``: as ``step``, one fresh process a ROOT (give two in the order
-A B B A), the entry points that ``chip_smoke.py`` phases 4, 8, 10 and 11
-time, at their default settings: ``rmcl_ell`` (5 iterations, plan
+A B B A), the entry points that ``chip_smoke.py`` phases 4, 8, 9, 10 and
+11 time, at their default settings: ``rmcl_ell`` (5 iterations, plan
 included), ``rmcl`` in scan mode on s14 and on tdata, ``rmcl_scan`` at
-margin 2.5, the warm ``spgemm_ell``, and ``corpus``' ``ell`` and
-partitioned rows on s14 with the partitioned row's peak memory.
+margin 2.5, the warm ``spgemm_ell``, ``corpus``' ``ell`` and
+partitioned rows on s14 with the partitioned row's peak memory, and
+``sharded_rmcl_ell`` at D = 4 stacked with each exchange (5 iterations,
+plan included) with a digest of its result's bits (48 bits of a
+SHA-256 of the iterate and the histories, equal across trees when the
+bits are).
 
 ``capture``: what a CUDA graph costs and buys for the warm
-``spgemm_ell`` body, one ``rmcl_ell_step`` and one general
-``rmcl_one_step`` at ``chip_smoke.py`` phase 16's s14 sizes: eager and
-replay ms, ``utils/graphs.py``'s first run, capture ms and pool, a
-capture inside ``torch.cuda.graph`` for comparison, and the iterations
-after which a graph pays for its capture.
+``spgemm_ell`` body, one ``rmcl_ell_step``, one general
+``rmcl_one_step`` and one D = 4 stacked sharded step with each exchange
+at ``chip_smoke.py`` phase 16's s14 sizes: eager and replay ms,
+``utils/graphs.py``'s first run, capture ms and pool, a capture inside
+``torch.cuda.graph`` for comparison, and the iterations after which a
+graph pays for its capture; then the warm ``sharded_spgemm`` and
+``sharded_spgemm_ring`` at D = 4 on s14 (random weights), eager ms (CUDA
+events) beside their device time (torch.profiler), uncaptured: how far
+a graph could take them.
 
 ``--root ROOT`` (``launch``, ``variants``): import the port, and build
 the variants, from the checkout ROOT instead of this script's own.
@@ -443,11 +451,30 @@ def _one_step_bodies(dev) -> dict:
     re_._plan_tensors(splan, dev)
     pc, cc = rm.plan_capacities(mgt, mgt, 2.5)
     mtc = mgt.with_capacity(cc)
-    return {
+    bodies = {
         "spgemm_ell s14 warm": lambda: E._tiles_impl(a, a, eplan, fused_out_cap=cap),
         "rmcl_ell_step s14 S=128": lambda: re_.rmcl_ell_step(splan, mgt, a_d, cols0, vals0),
         "rmcl_one_step s14 margin 2.5": lambda: rm.rmcl_one_step(mgt, mtc, pc, cc),
     }
+    ps, mesh, pplan, arrays, smgt, x0 = sharded_state(dev, mgt, cols0, vals0)
+    for ex in EXCHANGES:
+        bodies[f"sharded step s14 D=4 {ex}"] = (
+            lambda ex=ex: ps._sharded_step(pplan, smgt, arrays, *x0, ex, mesh))
+    return bodies
+
+
+def sharded_state(dev, mgt, cols0, vals0):
+    """The D = 4 stacked static sharded scan's state on phase 8's graph, as
+    ``chip_smoke.py`` phases 9 and 16 build it: (module, mesh, plan,
+    arrays, smgt, initial iterate), the plan's uploads made."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh
+
+    ps = importlib.import_module(f"{PKG}.parallel.rmcl_ell")
+    plan, arrays, smgt = ps.plan_sharded_rmcl_ell(mgt, 4, S=128, max_tile=8192)
+    x0 = (cols0.masked_fill(cols0 >= mgt.rows, plan.n).reshape(4, plan.lr, 128),
+          vals0.reshape(4, plan.lr, 128))
+    ps._plan_tensors(plan, dev, range(4))  # the plan's uploads, never inside a capture
+    return ps, make_mesh(4, dev), plan, arrays, smgt, x0
 
 
 def capture_costs(dev) -> None:
@@ -497,7 +524,53 @@ def capture_costs(dev) -> None:
         print(f"{label}: " + "; ".join(f"{k} {v:.3f}" if v is not None else f"{k} none"
                                        for k, v in row.items()) + " [CUDA events; host clock "
               "for first run and captures]", flush=True)
+    report.update(sharded_spgemm_costs(dev))
     print(json.dumps({"capture": report}))
+
+
+def sharded_spgemm_costs(dev) -> dict:
+    """One warm ``sharded_spgemm`` and one warm ``sharded_spgemm_ring``
+    (plan passed) at D = 4 stacked on R-MAT s14 with random weights, the
+    caps of ``chip_smoke.py`` phase 13: eager ms (CUDA events, median of
+    5) and device ms (torch.profiler, a call of 5), not captured."""
+    import numpy as np
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_esc import spgemm_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, shard_csr
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import (
+        plan_spgemm_ring,
+        sharded_spgemm,
+        sharded_spgemm_ring,
+    )
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    d = 4
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random")
+    sa, mesh = shard_csr(a, d), make_mesh(d, dev)
+    rp, ci, _ = a.to_numpy()
+    n, lr = a.rows, sa.local_rows
+    elen = np.diff(rp).astype(np.int64)
+    rowf = np.bincount(np.repeat(np.arange(n), elen), weights=elen[ci], minlength=n)
+    crp = spgemm_ell(a, a, plan_ell(a, a)).row_ptr.cpu().numpy()
+    pc = int(rowf.reshape(d, lr).sum(axis=1).max())
+    oc = int(np.diff(crp).reshape(d, lr).sum(axis=1).max())
+    plan, ents = plan_spgemm_ring(sa, sa)
+    calls = {
+        "sharded_spgemm s14 D=4 warm": lambda: sharded_spgemm(mesh, sa, sa, pc, oc),
+        "sharded_spgemm_ring s14 D=4 warm": lambda: sharded_spgemm_ring(
+            mesh, sa, sa, out_cap=oc, plan=plan, step_ents=ents),
+    }
+    out = {}
+    for label, fn in calls.items():
+        eager = statistics.median(_times(torch, fn, reps=5))
+        dev_ms = device_ms(torch, fn, calls=5)
+        out[label] = {"eager ms": eager, "device ms": dev_ms}
+        print(f"{label}: eager {eager:.3f} ms (CUDA events, median of 5), device "
+              f"{dev_ms:.3f} ms (torch.profiler), {1 - dev_ms / eager:.1%} of the call not "
+              f"device time: not captured", flush=True)
+    return out
 
 
 def peaks_one(dev) -> dict:
@@ -629,7 +702,33 @@ def entry_one(dev) -> dict:
     part = [partitioned() for _ in range(3)]
     out["corpus run_partitioned s14 4 groups ms"] = [p[0] for p in part]
     out["corpus run_partitioned s14 4 groups peak MiB"] = [p[1] for p in part]
+    from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, sharded_rmcl_ell
+
+    mesh = make_mesh(4, dev)
+    for ex in EXCHANGES:
+        runs = []
+
+        def sharded(ex=ex):
+            runs.append(sharded_rmcl_ell(coo, mesh, max_iters=5, S=128, max_tile=8192,
+                                         exchange=ex))
+
+        sharded()
+        out[f"sharded_rmcl_ell s14 D=4 {ex} 5 iterations ms"] = [wall(sharded)
+                                                                for _ in range(3)]
+        out[f"sharded_rmcl_ell s14 D=4 {ex} digest"] = [digest(np, *r) for r in runs]
+        del runs
     return out
+
+
+def digest(np, csr, hist) -> float:
+    """48 bits of a SHA-256 of a result's bits (a CSR and a dict of numpy
+    histories), as a float that holds them exactly."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in (*csr.to_numpy(), *(hist[k] for k in sorted(hist))):
+        h.update(np.ascontiguousarray(x).tobytes())
+    return float(int(h.hexdigest()[:12], 16))
 
 
 def step(roots, mode: str = "step") -> None:

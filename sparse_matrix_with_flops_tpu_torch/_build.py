@@ -48,20 +48,20 @@ _SIGNATURES = {
     # host array of the operands' base addresses, ops, d, words, slice,
     # ctas, flags, epoch
     "smf_ring_all_gather": (_P, _I, _I, _L, _L, _I, _P, _I),
-    # a_ptrs, a_ptrs on the host, b_ptrs, buf_ptrs, c_ptrs, flags, TMA map
-    # scratch, d, m, lr, n
-    "smf_ring_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
+    # host array [4, d] of the ranks' A_rot, B, buffer and C addresses,
+    # flags, d, m, lr, n
+    "smf_ring_matmul": (_P, _P, _I, _I, _I, _I),
     # ... as smf_ring_matmul, then nt, slots
-    "smf_ring_matmul_tiled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I),
+    "smf_ring_matmul_tiled": (_P, _P, _I, _I, _I, _I, _I, _I),
     # one rank a launch: host array of the rank's operand blocks and every
     # rank's landing buffers, ops, d, rank, words, slice, ctas, flags, the
     # downstream rank's flags, epoch
     "smf_ring_all_gather_rank": (_P, _I, _I, _I, _L, _L, _I, _P, _P, _I),
-    # one rank a launch: a_ptrs, a_ptrs on the host, b_ptrs, buf_ptrs,
-    # c_ptrs, flags, the downstream rank's flags, TMA map scratch, d, m,
-    # lr, n, nt, slots, dir, rank, ranks sharing the card, epoch
-    "smf_ring_matmul_rank": (_P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I),
+    # one rank a launch: host array [4, d] of addresses as smf_ring_matmul's
+    # (every rank's buffer, this rank's A_rot, B and C), flags, the
+    # downstream rank's flags, d, m, lr, n, nt, slots, dir, rank, ranks
+    # sharing the card, epoch
+    "smf_ring_matmul_rank": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I),
     # values, offsets, offsets are int64, out, runs, warp_per_run
     "smf_run_sums": (_P, _P, _I, _P, _L, _I),
 }

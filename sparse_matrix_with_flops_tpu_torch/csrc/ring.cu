@@ -22,8 +22,7 @@
 // * stacked (smf_ring_all_gather, smf_ring_matmul, smf_ring_matmul_tiled):
 //   one cooperative launch runs all D ranks, blockIdx.y is the rank,
 //   gridDim.x CTAs work on one rank's region, and the pointers are the
-//   ranks' blocks of the stacked tensors (K6: in the launch's parameters;
-//   K7 / K8: a device array of D pointers per operand);
+//   ranks' blocks of the stacked tensors, in the launch's parameters;
 // * one rank a launch (smf_ring_all_gather_rank, smf_ring_matmul_rank):
 //   the grid is (gridDim.x, 1), the rank comes from the parameters, and
 //   the neighbour's buffers and flags are peer pointers (CUDA IPC
@@ -131,8 +130,15 @@
 //    form among resident CTAs.
 // 4. Co-residency.  A CTA takes up to 227 KB of dynamic shared memory:
 //    the attribute is set and the occupancy query is given that size
-//    before the grid is sized.
-// 5. Memory order.  The system-scope release/acquire of the flags stays.
+//    before the grid is sized (once a device and kernel instance).
+// 5. Nothing is copied to the card before a launch.  Every rank's base
+//    pointers and A's TMA maps (encoded on the host at each launch) are
+//    members of the kernel's __grid_constant__ parameter struct, as K6's
+//    pointers are, and the caller's flags are zeroed by a memset: a CUDA
+//    graph can capture the launch, and a replay reruns the memset.  The
+//    struct holds kMaxRanks ranks, as many as 32,764 bytes of parameters
+//    hold; the wrapper refuses more.
+// 6. Memory order.  The system-scope release/acquire of the flags stays.
 //    A forwarded tile is written by ordinary stores and read downstream
 //    by cp.async.cg, both generic-proxy operations, so no proxy fence is
 //    needed there; A, read by TMA, is never written in the launch.  The
@@ -150,7 +156,6 @@
 
 #include <cstdint>
 #include <type_traits>
-#include <vector>
 
 #include "hopper.cuh"
 
@@ -326,22 +331,33 @@ __global__ void __launch_bounds__(kGatherThreads)
 }
 
 // ---- K7 / K8 ----------------------------------------------------------
+// Ranks the launch's parameters hold: a rank takes a TMA map and four
+// pointers (160 bytes), and the struct may take 32,764 bytes (CUDA >= 12.1).
+constexpr int kMaxRanks = 204;
+constexpr int kMaxParamBytes = 32764;
+
+// The launch's parameters, a __grid_constant__ (TMA reads A's maps in
+// place): no pointer array or map is copied to the card before a launch.
 struct RingMatmul {
-  const float* const* a;  // [d] -> A_rot [M, d * lr], block k at cols k*lr
-  const float* const* b;  // [d] -> B [lr, N]
-  float* const* buf;      // [d] -> rotating buffer [slots, d - 1, lr, nt]
-  float* const* c;        // [d] -> C [M, N]
+  CUtensorMap amaps[kMaxRanks];  // [d] TMA maps of the ranks' A_rot (if tma)
+  const float* a[kMaxRanks];     // [d] A_rot [M, d * lr], block k at cols k*lr
+  const float* b[kMaxRanks];     // [d] B [lr, N]
+  float* buf[kMaxRanks];         // [d] rotating buffer [slots, d - 1, lr, nt]
+  float* c[kMaxRanks];           // [d] C [M, N]
   // [d, strips, d] arrivals, [d, strips] done, then [d] ready (one rank a
   // launch: this rank's flags; stacked: every rank's)
   int* flags;
   int* flags_dst;         // the downstream rank's flags (stacked: flags)
-  const CUtensorMap* amaps;  // [d] TMA maps of the ranks' A_rot, or null
   int d, m, lr, n, nt;
   int slots;  // N tiles the buffer holds; tile t uses slot t % slots
   int dir;  // +1: blocks flow to rank me + 1 (K7); -1: to me - 1 (K8)
   int rank;   // one rank a launch: the rank; stacked: -1 (blockIdx.y)
   int epoch;  // the tag the launch's flags carry
+  int tma;    // amaps hold the maps (else the producer loads A itself)
 };
+static_assert(sizeof(RingMatmul) <= kMaxParamBytes, "K7 / K8's parameters overflow");
+static_assert(sizeof(RingMatmul) + sizeof(CUtensorMap) + 4 * sizeof(void*) > kMaxParamBytes,
+              "kMaxRanks is not the most ranks the parameters hold");
 
 __device__ __forceinline__ int rank_of(const RingMatmul& p) {
   return p.rank < 0 ? static_cast<int>(blockIdx.y) : p.rank;
@@ -536,7 +552,7 @@ struct Ring {
 };
 
 // The producer warpgroup: loads stage after stage into the ring (A by
-// TMA when p.amaps is set, B by cp.async), and kLag stages behind, once
+// TMA when p.tma is set, B by cp.async), and kLag stages behind, once
 // a stage has landed, forwards its loaded B tile into the neighbour's
 // buffer and marks the stage full.  It waits for the ring flags; at the
 // end of a hop every loaded stage is published before the hop's flag is
@@ -559,13 +575,13 @@ struct Producer {
     const int k0 = (it - hop0) * kBK;
     const int depth = p.lr;
     const int me = rank_of(p);
-    if (p.amaps != nullptr) {
+    if (p.tma) {
       if (pt == 0) {  // the m64 tiles that hold rows of A
         const int boxes = min(W * TP, (h.rows + 63) / 64);
         mbar_expect(&ring.full[it % S], boxes * 64 * kBK * 4);
 #pragma unroll 1
         for (int j = 0; j < boxes; ++j)
-          tma_load(st + j * 64 * kBK, p.amaps + me, k0, h.m0 + j * 64, h.k,
+          tma_load(st + j * 64 * kBK, &p.amaps[me], k0, h.m0 + j * 64, h.k,
                    &ring.full[it % S]);
       }
     } else {
@@ -801,7 +817,7 @@ __device__ void consume(const RingMatmul& p, const Ring<W, TP>& ring) {
 
 template <int W, int TP>
 __global__ void __launch_bounds__(Tiling<W, TP>::kThreads, 1)
-    ring_matmul_kernel(RingMatmul p) {
+    ring_matmul_kernel(const __grid_constant__ RingMatmul p) {
   using Tl = Tiling<W, TP>;
   extern __shared__ __align__(1024) float smem[];
   Ring<W, TP> ring;
@@ -833,12 +849,11 @@ __global__ void __launch_bounds__(Tiling<W, TP>::kThreads, 1)
   }
 }
 
-// CTAs per rank: as many as are resident at once over the d ranks that
-// share the card (with ``smem`` bytes of dynamic shared memory each), at
-// most ``useful``; cudaErrorCooperativeLaunchTooLarge when not even one
-// CTA a rank fits.
-int grid_x(const void* kernel, int threads, int smem, int d, long long useful,
-           int& gx) {
+constexpr int kMaxDevices = 64;
+
+// CTAs of ``kernel`` resident on the current device at once, with ``smem``
+// bytes of dynamic shared memory each.
+int resident_ctas(const void* kernel, int threads, int smem, long long& out) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -847,7 +862,15 @@ int grid_x(const void* kernel, int threads, int smem, int d, long long useful,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  long long fit = static_cast<long long>(per_sm) * sms / d;
+  out = static_cast<long long>(per_sm) * sms;
+  return 0;
+}
+
+// CTAs per rank: as many of the ``resident`` CTAs as each of the d ranks
+// that share the card may take, at most ``useful``;
+// cudaErrorCooperativeLaunchTooLarge when not even one CTA a rank fits.
+int grid_x(long long resident, int d, long long useful, int& gx) {
+  long long fit = resident / d;
   if (fit > useful) fit = useful;
   if (fit < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   gx = static_cast<int>(fit);
@@ -875,18 +898,28 @@ int by_chunk(int m, F f) {
   }
 }
 
-// The kernel for p's row chunk, with its shared memory granted, and its
-// CTAs per rank when ``share`` ranks share the card.
+// The kernel for p's row chunk and its CTAs per rank when ``share`` ranks
+// share the card; its shared memory is granted and its resident CTAs
+// counted once a device.
 template <int W, int TP>
 int matmul_grid(const RingMatmul& p, int share, const void*& kernel, int& gx) {
   using Tl = Tiling<W, TP>;
+  static long long resident[kMaxDevices];
   kernel = reinterpret_cast<const void*>(ring_matmul_kernel<W, TP>);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Tl::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int e = resident_ctas(kernel, Tl::kThreads, Tl::kSmem, resident[dev]);
+    if (e != 0) return e;
+  }
   const long long strips =
       static_cast<long long>(p.n / p.nt) * ((p.nt + kBN - 1) / kBN);
-  return grid_x(kernel, Tl::kThreads, Tl::kSmem, share, strips, gx);
+  return grid_x(resident[dev], share, strips, gx);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -897,15 +930,14 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapFloatOOBfill);
 
 // TMA maps of each rank's A_rot [M, d lr] viewed as [d blocks, M, lr]
-// (box {kBK, 64, 1}: one m64 tile of one stage), written to ``maps`` on
-// ``stream``: every rank's (rank < 0, stacked), or rank ``rank``'s alone,
-// from its own A.  False (and no maps) when an A is not 16-byte aligned
-// or lr is not a multiple of 4: the kernel then loads A itself.
-int encode_amaps(const long long* a_host, int d, int rank, int m, int lr,
-                 CUtensorMap* maps, cudaStream_t stream, bool& ok) {
-  const int r0 = rank < 0 ? 0 : rank, r1 = rank < 0 ? d : rank + 1;
-  ok = lr % 4 == 0;
-  for (int r = r0; r < r1 && ok; ++r) ok = a_host[r] % 16 == 0;
+// (box {kBK, 64, 1}: one m64 tile of one stage) into p.amaps, on the host:
+// every rank's (rank < 0, stacked), or rank ``rank``'s alone, from its own
+// A.  p.tma stays 0 (no maps) when an A is not 16-byte aligned or lr is
+// not a multiple of 4: the kernel then loads A itself.
+int encode_amaps(RingMatmul& p) {
+  const int r0 = p.rank < 0 ? 0 : p.rank, r1 = p.rank < 0 ? p.d : p.rank + 1;
+  bool ok = p.lr > 0 && p.lr % 4 == 0;
+  for (int r = r0; r < r1 && ok; ++r) ok = reinterpret_cast<uintptr_t>(p.a[r]) % 16 == 0;
   if (!ok) return 0;
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
@@ -918,37 +950,43 @@ int encode_amaps(const long long* a_host, int d, int rank, int m, int lr,
       return static_cast<int>(cudaErrorNotSupported);
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  std::vector<CUtensorMap> host(r1 - r0);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(lr),
-                              static_cast<cuuint64_t>(m),
-                              static_cast<cuuint64_t>(d)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * lr * 4,
-                                 static_cast<cuuint64_t>(lr) * 4};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.lr),
+                              static_cast<cuuint64_t>(p.m),
+                              static_cast<cuuint64_t>(p.d)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(p.d) * p.lr * 4,
+                                 static_cast<cuuint64_t>(p.lr) * 4};
   const cuuint32_t box[3] = {kBK, 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   for (int r = r0; r < r1; ++r) {
-    if (encode(&host[r - r0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-               reinterpret_cast<void*>(a_host[r]), dims, strides, box, unit,
+    if (encode(&p.amaps[r], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+               const_cast<float*>(p.a[r]), dims, strides, box, unit,
                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  // from pageable memory: the call returns once ``host`` has been read
-  return static_cast<int>(cudaMemcpyAsync(maps + r0, host.data(),
-                                          host.size() * sizeof(CUtensorMap),
-                                          cudaMemcpyHostToDevice, stream));
+  p.tma = 1;
+  return 0;
 }
 
-int launch_matmul(RingMatmul p, const long long* a_host, void* maps,
-                  int share, cudaStream_t stream) {
-  bool tma = false;
-  if (p.lr > 0) {
-    const int err = encode_amaps(a_host, p.d, p.rank, p.m, p.lr,
-                                 static_cast<CUtensorMap*>(maps), stream, tma);
-    if (err != 0) return err;
+// The ranks' addresses into p: ``ptrs`` is a host array [4, d] of the
+// ranks' A_rot, B, rotating buffer and C (a row an operand).
+int fill_ranks(RingMatmul& p, const long long* ptrs, int d) {
+  if (d < 1 || d > kMaxRanks) return static_cast<int>(cudaErrorInvalidValue);
+  for (int r = 0; r < d; ++r) {
+    p.a[r] = reinterpret_cast<const float*>(ptrs[r]);
+    p.b[r] = reinterpret_cast<const float*>(ptrs[d + r]);
+    p.buf[r] = reinterpret_cast<float*>(ptrs[2 * d + r]);
+    p.c[r] = reinterpret_cast<float*>(ptrs[3 * d + r]);
   }
-  p.amaps = tma ? static_cast<const CUtensorMap*>(maps) : nullptr;
+  p.d = d;
+  return 0;
+}
+
+// The launch of p (32 KB: passed by address, copied once, into the launch).
+int launch_matmul(RingMatmul& p, int share, cudaStream_t stream) {
+  const int err = encode_amaps(p);
+  if (err != 0) return err;
   return by_chunk(p.m, [&](auto c) {
     using C = decltype(c);
     using Tl = Tiling<C::kW, C::kTP>;
@@ -969,8 +1007,11 @@ int launch_matmul(RingMatmul p, const long long* a_host, void* maps,
 // once (the whole grid must be, since ranks wait on each other);
 // cudaErrorCooperativeLaunchTooLarge when not even one a rank fits.
 extern "C" int smf_ring_all_gather_ctas(int d, int* ctas) {
-  return grid_x(reinterpret_cast<const void*>(ring_all_gather_kernel<kPtrsSmall>),
-                kGatherThreads, 0, d, 1LL << 30, *ctas);
+  long long resident = 0;
+  const int err = resident_ctas(
+      reinterpret_cast<const void*>(ring_all_gather_kernel<kPtrsSmall>), kGatherThreads, 0,
+      resident);
+  return err != 0 ? err : grid_x(resident, d, 1LL << 30, *ctas);
 }
 
 // bases: host array of 2 * ops addresses: operand op's input [d, words]
@@ -1061,60 +1102,62 @@ extern "C" int smf_ring_all_gather_rank(const long long* bases, int ops, int d,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// a, b, buf, c: device arrays of d pointers (A_rot [m, d * lr] with block
-// k = owner (me - k) mod d, B [lr, n], a [(d - 1) * lr * n] scratch
-// buffer, C [m, n]); a_host: the same d pointers of A_rot in host memory;
-// maps: device scratch of d * 128 bytes (64-byte aligned) for the TMA
-// maps; flags: zeroed int32[d * strips * (d + 1)], strips = ceil(n / 64).
-// K7: one N tile, blocks flow right.
-extern "C" int smf_ring_matmul(const float* const* a, const long long* a_host,
-                               const float* const* b, float* const* buf,
-                               float* const* c, int* flags, void* maps, int d,
-                               int m, int lr, int n, cudaStream_t stream) {
-  return launch_matmul(
-      RingMatmul{a, b, buf, c, flags, flags, nullptr, d, m, lr, n, n, 1, 1, -1, 1},
-      a_host, maps, d, stream);
+// ptrs: host array [4, d] of the ranks' addresses (1 <= d <= kMaxRanks):
+// A_rot [m, d * lr] with block k = owner (me - k) mod d, B [lr, n], a
+// [(d - 1) * lr * n] scratch buffer (0 when d = 1), C [m, n]; flags:
+// zeroed int32[d * strips * (d + 1)], strips = ceil(n / 64).  K7: one N
+// tile, blocks flow right.
+extern "C" int smf_ring_matmul(const long long* ptrs, int* flags, int d, int m, int lr,
+                               int n, cudaStream_t stream) {
+  RingMatmul p{};
+  const int err = fill_ranks(p, ptrs, d);
+  if (err != 0) return err;
+  p.flags = p.flags_dst = flags;
+  p.m = m, p.lr = lr, p.n = n, p.nt = n, p.slots = 1, p.dir = 1, p.rank = -1;
+  p.epoch = 1;
+  return launch_matmul(p, d, stream);
 }
 
 // As smf_ring_matmul over n / nt column tiles (n % nt == 0), blocks
-// flowing left (A_rot block k = owner (me + k) mod d); buf: [slots *
-// (d - 1) * lr * nt] a rank, tile t in slot t % slots (slots >= 1);
+// flowing left (A_rot block k = owner (me + k) mod d); a rank's buffer:
+// [slots * (d - 1) * lr * nt], tile t in slot t % slots (slots >= 1);
 // flags: zeroed int32[d * strips * (d + 1)], strips = (n / nt) *
 // ceil(nt / 64).  K8.
-extern "C" int smf_ring_matmul_tiled(const float* const* a,
-                                     const long long* a_host,
-                                     const float* const* b, float* const* buf,
-                                     float* const* c, int* flags, void* maps,
-                                     int d, int m, int lr, int n, int nt,
-                                     int slots, cudaStream_t stream) {
+extern "C" int smf_ring_matmul_tiled(const long long* ptrs, int* flags, int d, int m,
+                                     int lr, int n, int nt, int slots,
+                                     cudaStream_t stream) {
   if (nt <= 0 || n % nt != 0 || slots < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_matmul(
-      RingMatmul{a, b, buf, c, flags, flags, nullptr, d, m, lr, n, nt, slots, -1, -1, 1},
-      a_host, maps, d, stream);
+  RingMatmul p{};
+  const int err = fill_ranks(p, ptrs, d);
+  if (err != 0) return err;
+  p.flags = p.flags_dst = flags;
+  p.m = m, p.lr = lr, p.n = n, p.nt = nt, p.slots = slots, p.dir = -1, p.rank = -1;
+  p.epoch = 1;
+  return launch_matmul(p, d, stream);
 }
 
 // One rank of K7 (dir = 1, nt = n, slots = 1) or K8 (dir = -1) a launch.
-// a, b, buf, c: device arrays of d pointers as in the stacked entries, of
-// which the launch reads a[rank], b[rank], c[rank], buf[rank] and the
-// downstream rank's buf[(rank + dir) mod d] (a peer pointer); a_host: d
-// host pointers, of which a_host[rank] is read (the TMA map is built from
-// this rank's A alone); flags / flags_dst: this rank's and the downstream
-// rank's int32[d * strips * (d + 1) + d], zeroed once; share: the ranks
-// that share this card (the grid takes 1 / share of its resident CTAs);
-// epoch: the count of launches on the flags, >= 1, the same on every rank.
-extern "C" int smf_ring_matmul_rank(const float* const* a, const long long* a_host,
-                                    const float* const* b, float* const* buf,
-                                    float* const* c, int* flags, int* flags_dst,
-                                    void* maps, int d, int m, int lr, int n, int nt,
-                                    int slots, int dir, int rank, int share, int epoch,
-                                    cudaStream_t stream) {
+// ptrs: as in the stacked entries, of which the launch reads this rank's
+// A_rot, B and C (the other ranks' may be 0), its buffer and the
+// downstream rank's, (rank + dir) mod d (a peer pointer); A's TMA map is
+// built from this rank's A alone.  flags / flags_dst: this rank's and the
+// downstream rank's int32[d * strips * (d + 1) + d], zeroed once; share:
+// the ranks that share this card (the grid takes 1 / share of its
+// resident CTAs); epoch: the count of launches on the flags, >= 1, the
+// same on every rank.
+extern "C" int smf_ring_matmul_rank(const long long* ptrs, int* flags, int* flags_dst, int d,
+                                    int m, int lr, int n, int nt, int slots, int dir,
+                                    int rank, int share, int epoch, cudaStream_t stream) {
   if (nt <= 0 || n % nt != 0 || slots < 1 || (dir != 1 && dir != -1) || rank < 0 ||
       rank >= d || share < 1 || epoch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_matmul(
-      RingMatmul{a, b, buf, c, flags, flags_dst, nullptr, d, m, lr, n, nt, slots, dir,
-                 rank, epoch},
-      a_host, maps, share, stream);
+  RingMatmul p{};
+  const int err = fill_ranks(p, ptrs, d);
+  if (err != 0) return err;
+  p.flags = flags;
+  p.flags_dst = flags_dst;
+  p.m = m, p.lr = lr, p.n = n, p.nt = nt, p.slots = slots, p.dir = dir, p.rank = rank;
+  p.epoch = epoch;
+  return launch_matmul(p, share, stream);
 }
-

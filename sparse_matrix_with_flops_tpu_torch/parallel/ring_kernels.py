@@ -37,7 +37,10 @@ mesh: the twin over the group's all-gather of the blocks).
 
 Each launch is cooperative, with as many CTAs a rank as are resident
 at once; when not even one a rank fits (d above the card's resident
-CTAs), the launch is refused and the wrapper raises.  K7 and K8 run on
+CTAs), the launch is refused and the wrapper raises.  A launch copies
+nothing to the card first: the ranks' pointers (and K7 / K8's TMA maps
+of A) travel in the kernel's parameters, so a CUDA graph can capture
+every launch of a stacked call.  K7 and K8 run on
 the tensor cores in three TF32 passes (x = hi + lo, hi.hi + hi.lo +
 lo.hi), each 16-deep stage's sum added into f32 with round-to-nearest,
 as accurate as their twins, true-f32 ``torch.matmul`` calls
@@ -57,7 +60,9 @@ from . import collectives, peer
 
 RIGHT, LEFT = 1, -1  # direction the blocks flow: to rank me + 1 or me - 1
 STRIP_COLS = 64  # columns a CTA of K7 / K8 owns (kBN in csrc/ring.cu): one flag set a strip
-TMA_MAP_BYTES = 128  # sizeof(CUtensorMap): K7 / K8 load each rank's A through one
+# ranks K7 / K8's launch parameters hold (kMaxRanks in csrc/ring.cu): a rank's
+# TMA map and four pointers, 160 bytes, in 32,764 bytes of parameters
+MAX_MATMUL_RANKS = 204
 # N tiles K8's rotating buffer holds, in turn: a CTA waits for the
 # neighbour to have read tile t - 2 before it writes tile t there
 RING_SLOTS = 2
@@ -78,20 +83,17 @@ def _rotate_cols(a: torch.Tensor, lr: int, direction: int, ranks=None) -> torch.
     rows, m = a.shape[:2]
     d = a.shape[2] // lr
     own = _owners(d, direction, a.device)
-    if ranks is not None:
-        own = own[list(ranks)]
+    if ranks is not None:  # a slice: an index list would be uploaded
+        own = own[ranks[0]:ranks[-1] + 1]
     blocks = a.view(rows, m, d, lr)
     idx = own[:, None, :, None].expand(rows, m, d, lr)
     return torch.gather(blocks, 2, idx).reshape(rows, m, d * lr)
 
 
-def _ptrs(tensors, device) -> torch.Tensor:
-    """Device array of the tensors' base pointers (int64)."""
-    return _ptr_array([t.data_ptr() for t in tensors], device)
-
-
-def _ptr_array(addresses, device) -> torch.Tensor:
-    return torch.tensor(addresses, dtype=torch.int64, device=device)
+def _blocks(x: torch.Tensor) -> list:
+    """The addresses of the rank blocks of a stacked [d, ...] tensor."""
+    step = x.stride(0) * x.element_size()
+    return [x.data_ptr() + r * step for r in range(x.shape[0])]
 
 
 def _one_rank(mesh) -> bool:
@@ -266,7 +268,9 @@ def unrotate(g: torch.Tensor, mesh=None) -> torch.Tensor:
     d = mesh.num_shards if mesh is not None else g.shape[0]
     lr = g.shape[1] // d
     blocks = g.view(g.shape[0], d, lr, *g.shape[2:])
-    pos = _owners(d, RIGHT, g.device)[ranks]  # position of owner j: (me - j) mod d
+    # position of owner j: (me - j) mod d (the held ranks are contiguous: a
+    # slice, where an index list would be an upload)
+    pos = _owners(d, RIGHT, g.device)[ranks[0]:ranks[-1] + 1]
     rows = torch.arange(g.shape[0], device=g.device)[:, None]
     return blocks[rows, pos].reshape(g.shape)
 
@@ -286,6 +290,9 @@ def _check_matmul(a: torch.Tensor, b: torch.Tensor, name: str, mesh=None) -> tup
             f"[d, M, d*lr] and [d, lr, N] (one rank a process: [1, M, d*lr] "
             f"and [1, lr, N])"
         )
+    if d > MAX_MATMUL_RANKS:
+        raise ValueError(f"{name}: {d} ranks exceed the {MAX_MATMUL_RANKS} that the "
+                         f"kernel's launch parameters hold")
     return d, m, lr, n
 
 
@@ -297,7 +304,7 @@ def _ring_matmul_twin(a_rot, b, direction: int, ranks=None) -> torch.Tensor:
     d = b.shape[0]
     rows, m, _ = a_rot.shape
     lr, n = b.shape[1:]
-    own = _owners(d, direction, b.device).tolist()
+    own = [[(me - direction * k) % d for k in range(d)] for me in range(d)]  # _owners
     out = torch.zeros((rows, m, n), dtype=QVALUE_DTYPE, device=b.device)
     for i, me in enumerate(range(d) if ranks is None else ranks):
         for k in range(d):
@@ -333,14 +340,9 @@ def _ring_matmul_launch(name, a_rot, b, d, m, lr, n, nt):
                 for _ in range(d)]
     strips = tiles * -(-nt // STRIP_COLS)
     flags = torch.zeros(d * strips * (d + 1), dtype=torch.int32, device=dev)
-    ptrs = [_ptrs(t, dev) for t in (a_rot, b, bufs, c)]  # alive past the launch
-    a_host = _ptrs(a_rot, "cpu")  # the kernel's TMA maps of A are made from these
-    maps = torch.empty((d, TMA_MAP_BYTES), dtype=torch.uint8, device=dev)
-    args = [
-        ptrs[0].data_ptr(), a_host.data_ptr(), ptrs[1].data_ptr(),
-        ptrs[2].data_ptr() if bufs else 0, ptrs[3].data_ptr(), flags.data_ptr(),
-        maps.data_ptr(), d, m, lr, n,
-    ]
+    ptrs = (ctypes.c_longlong * (4 * d))(
+        *_blocks(a_rot), *_blocks(b), *([t.data_ptr() for t in bufs] or [0]), *_blocks(c))
+    args = [ctypes.addressof(ptrs), flags.data_ptr(), d, m, lr, n]
     if tiled:
         args += [nt, slots]
     launch(name, dev, *args)
@@ -365,18 +367,15 @@ def _ring_matmul_rank_launch(mesh, a, b, d, m, lr, n, nt, direction):
     ps = peer.peer_buffers(mesh, ("ring_matmul", direction, lr, n, nt), land + 4 * flag_ints)
     dst = (me + direction) % d
 
-    def mine(address):  # a device array of d pointers, this rank's set
-        return _ptr_array([address if r == me else 0 for r in range(d)], dev)
+    def mine(address):  # d addresses, this rank's set
+        return [address if r == me else 0 for r in range(d)]
 
-    ptrs = [mine(a_rot.data_ptr()), mine(b.data_ptr()),
-            _ptr_array([ps.ptr(r) for r in range(d)], dev), mine(c.data_ptr())]
-    a_host = torch.tensor([a_rot.data_ptr() if r == me else 0 for r in range(d)],
-                          dtype=torch.int64)
-    maps = torch.empty((d, TMA_MAP_BYTES), dtype=torch.uint8, device=dev)
+    ptrs = (ctypes.c_longlong * (4 * d))(
+        *mine(a_rot.data_ptr()), *mine(b.data_ptr()), *[ps.ptr(r) for r in range(d)],
+        *mine(c.data_ptr()))
     launch(
-        "smf_ring_matmul_rank", dev, ptrs[0].data_ptr(), a_host.data_ptr(),
-        ptrs[1].data_ptr(), ptrs[2].data_ptr(), ptrs[3].data_ptr(), ps.ptr(me) + land,
-        ps.ptr(dst) + land, maps.data_ptr(), d, m, lr, n, nt, slots, direction, me,
+        "smf_ring_matmul_rank", dev, ctypes.addressof(ptrs), ps.ptr(me) + land,
+        ps.ptr(dst) + land, d, m, lr, n, nt, slots, direction, me,
         peer.card_share(mesh), ps.next_epoch(),
     )
     return c

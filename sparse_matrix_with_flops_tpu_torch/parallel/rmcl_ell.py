@@ -29,11 +29,18 @@ its rank.  The exchanges and the statistics' sums go through
 with the sums added in the stacked path's order), and K6 / K8 launch one
 rank at a time on a process mesh, so a rank's iterate and statistics
 are bit for bit the stacked path's at the same D.
+
+On a stacked mesh on the card the scan's step is a CUDA graph captured
+once a plan and replayed (``utils/graphs.py``), the counterpart of the
+reference's jitted ``shard_map`` of a ``lax.scan``; the step reads the
+plan's index arrays from uploads made once a plan (:func:`_plan_tensors`)
+and makes no host read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -42,6 +49,7 @@ from ..config import INDEX_DTYPE, QVALUE_DTYPE, true_f32
 from ..formats.coo import COO
 from ..formats.csr import CSR
 from ..models.rmcl_ell import (
+    _HIST,
     _dedup_tile,
     _ell_drift_sq,
     _hub_dense_products,
@@ -51,6 +59,7 @@ from ..models.rmcl_ell import (
     ell_to_csr,
     mt_to_ell,
 )
+from ..utils import graphs
 from ..utils.nphost import concat_ranges, fast_repeat
 from . import collectives
 from .mesh import ShardMesh
@@ -273,6 +282,22 @@ def plan_sharded_rmcl_ell(mgt: CSR, num_shards: int, S: int = 128, max_tile: int
     return plan, arrays, smgt
 
 
+def _plan_tensors(plan: ShardedRmclPlan, device: torch.device, ranks) -> dict:
+    """The plan's index arrays that the step reads, on ``device``, for the
+    held ``ranks`` (contiguous): uploaded once per (plan, device, ranks),
+    never inside a step."""
+    cache = plan.__dict__.setdefault("_dev", {})
+    key = (str(device), tuple(ranks))
+    if key not in cache:
+        up = lambda x: torch.from_numpy(np.asarray(x, np.int64)).to(device)  # noqa: E731
+        cache[key] = {
+            "hub_krows": up(plan.hub_krows),
+            "hub_owner_cols": up(plan.hub_owner_cols.reshape(-1)),
+            "hub_owner_loc": up(plan.hub_owner_loc[ranks[0]:ranks[-1] + 1]),
+        }
+    return cache[key]
+
+
 def _segments_gathered(plan, a_rp, a_ci, a_v, g_cols, g_vals):
     """One shard's per-entry segments from a fully gathered [n, S]
     iterate, plus a sentinel segment."""
@@ -374,9 +399,8 @@ def fused_hub_operands(plan, arrays, lc, lv, mesh=None):
     n, lr = plan.n, plan.lr
     held = lc.shape[0]
     lrk, dev = plan.hub_lrk, lc.device
-    ranks = collectives.local_ranks(mesh, held)
-    flat = torch.from_numpy(plan.hub_owner_cols.reshape(-1).astype(np.int64)).to(dev)
-    hol = torch.from_numpy(plan.hub_owner_loc[ranks].astype(np.int64)).to(dev)
+    pt = _plan_tensors(plan, dev, collectives.local_ranks(mesh, held))
+    flat, hol = pt["hub_owner_cols"], pt["hub_owner_loc"]
     a_u = arrays["a_dense_u"]
     a_cols = torch.where(flat >= 0, a_u[:, :, flat.clamp(0, plan.hub_kh - 1)], 0.0)
     ntile = min(2048, 1 << (n - 1).bit_length())
@@ -461,9 +485,10 @@ def _sharded_step(plan, smgt, arrays, lc, lv, exchange: str, mesh=None):
         seg_c = [s[0] for s in segs]
         seg_v = [s[1] for s in segs]
         if plan.hmax:
+            pt = _plan_tensors(plan, lc.device, collectives.local_ranks(mesh, held))
             c_h = [
                 _hub_dense_products(arrays["a_dense_u"][i], gc, gv, n,
-                                    krows=plan.hub_krows, khp=plan.hub_kh)
+                                    krows=pt["hub_krows"], khp=plan.hub_kh)
                 for i, (gc, gv) in enumerate(views)
             ]
     out_c, out_v, nnz, trunc, d2, n2 = [], [], [], [], [], []
@@ -489,6 +514,44 @@ def _sharded_step(plan, smgt, arrays, lc, lv, exchange: str, mesh=None):
     return torch.stack(out_c), torch.stack(out_v), stats
 
 
+def _flat_arrays(arrays) -> tuple:
+    """(layout, tensors): the tensors of ``arrays`` in order, its lists
+    flattened; :func:`_unflat_arrays` rebuilds the dict from them."""
+    layout, flat = [], []
+    for k, v in arrays.items():
+        layout.append((k, len(v) if isinstance(v, list) else None))
+        flat += v if isinstance(v, list) else [v]
+    return tuple(layout), flat
+
+
+def _unflat_arrays(layout, flat) -> dict:
+    out, i = {}, 0
+    for k, size in layout:
+        out[k] = flat[i] if size is None else list(flat[i:i + size])
+        i += 1 if size is None else size
+    return out
+
+
+def _scan_graph(mesh, plan, smgt, arrays, cols, vals, exchange: str, length: int):
+    """The plan's captured step (the reference's jitted ``shard_map`` of
+    a ``lax.scan``) for these inputs, loaded: static copies of Mgt's
+    shards and of every plan array, the iterate as the carry
+    (``graphs.scan_body``)."""
+    ref = weakref.ref(plan)  # a strong one would keep the plan and its pool alive
+    layout, flat = _flat_arrays(arrays)
+    meta = (smgt.ncols, smgt.global_rows, smgt.shards, smgt.rank)
+
+    def step(rp, ci, v, *rest):
+        sm = ShardedCSR(rp, ci, v, *meta)
+        nc, nv, stats = _sharded_step(ref(), sm, _unflat_arrays(layout, rest[:-2]), *rest[-2:],
+                                      exchange, mesh)
+        return (nc, nv), stats
+
+    ins = (smgt.row_ptr, smgt.col_ind, smgt.values, *flat, cols, vals)
+    static = (exchange, plan.n, plan.S, plan.lr, plan.num_shards, layout, meta)
+    return graphs.scan_body(plan, "sharded_rmcl_ell_scan", static, ins, 2, _HIST, length, step)
+
+
 def sharded_rmcl_ell_scan(
     mesh: ShardMesh,
     plan: ShardedRmclPlan,
@@ -502,21 +565,35 @@ def sharded_rmcl_ell_scan(
     """Device-resident multi-shard loop; ``mt_cols/vals`` are the held
     shards' [L, lr, S] (all D stacked; this rank's one on a process
     mesh).  Returns (cols, vals, stats history of tensors, the same on
-    every rank)."""
+    every rank).
+
+    On a stacked mesh on the card the step is a CUDA graph kept on the
+    plan, with every exchange: the first call on a plan runs iteration 1
+    eagerly, captures the step and replays it ``max_iters - 1`` times
+    (one iteration captures nothing); a later call with inputs of the
+    same shapes and the same exchange replays every iteration.  On the
+    CPU the same body runs eagerly over the caller's tensors.  On a
+    process mesh the scan is an eager loop of the step: its K6 / K8
+    epochs come from a host counter and its exchanges are
+    ``torch.distributed`` calls.  Returns fresh tensors."""
     if exchange not in EXCHANGES:
         raise ValueError(f"exchange must be one of {EXCHANGES}, got {exchange!r}")
-    if mt_cols.shape[0] != len(collectives.local_ranks(mesh)) or plan.num_shards != \
-            mesh.num_shards:
+    held = collectives.local_ranks(mesh)
+    if mt_cols.shape[0] != len(held) or plan.num_shards != mesh.num_shards:
         raise ValueError("iterate, plan and mesh disagree on the shard count")
-    hist = []
-    cols, vals = mt_cols, mt_vals
-    for _ in range(max_iters):
-        cols, vals, stats = _sharded_step(plan, smgt, arrays, cols, vals, exchange, mesh)
-        hist.append(stats)
-    keys = ("nnz", "truncated_rows", "differs")
-    return cols, vals, {
-        k: torch.stack([h[k] for h in hist]) if hist else torch.zeros(0) for k in keys
-    }
+    if max_iters <= 0:
+        return mt_cols, mt_vals, {k: torch.zeros(0) for k, _ in _HIST}
+    _plan_tensors(plan, mt_cols.device, held)  # uploads, never inside a capture
+    if collectives.is_process(mesh):
+        hist = []
+        cols, vals = mt_cols, mt_vals
+        for _ in range(max_iters):
+            cols, vals, stats = _sharded_step(plan, smgt, arrays, cols, vals, exchange, mesh)
+            hist.append(stats)
+        return cols, vals, {k: torch.stack([h[k] for h in hist]) for k, _ in _HIST}
+    g = _scan_graph(mesh, plan, smgt, arrays, mt_cols, mt_vals, exchange, max_iters)
+    (cols, vals), hist = graphs.run_scan(g, max_iters)
+    return cols, vals, hist
 
 
 def sharded_rmcl_ell(

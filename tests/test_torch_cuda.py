@@ -37,6 +37,7 @@ from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import (
 )
 from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, sharded_rmcl_ell
 from sparse_matrix_with_flops_tpu_torch.parallel.ring_kernels import (
+    MAX_MATMUL_RANKS,
     ring_all_gather,
     ring_all_gather_plain,
     ring_matmul,
@@ -53,6 +54,7 @@ from sparse_matrix_with_flops_tpu_torch.utils.generate import banded_csr, rmat_c
 from torch_port_util import same_bits
 
 RMCL = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl_ell")
+PS = importlib.import_module("sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell")
 
 pytestmark = pytest.mark.cuda
 
@@ -875,21 +877,83 @@ def test_ring_matmul_tiled_refuses_n_not_a_multiple_of_nt(dev):
 @pytest.mark.parametrize("which", ["all_gather", "matmul", "tiled"])
 def test_ring_grid_too_large_for_co_residency_raises(dev, which):
     # every CTA must be resident at once: with more ranks than the card
-    # holds CTAs (at most 2048 threads on each SM, 256 a CTA), not even
-    # one CTA a rank fits, the launch is refused, the wrapper raises and
-    # nothing hangs
+    # holds CTAs, not even one CTA a rank fits, the launch is refused, the
+    # wrapper raises and nothing hangs.  K6: at most 2048 threads on each
+    # SM, 256 a CTA; K7 / K8 at M = 300: one CTA of 221 KB of shared
+    # memory an SM, so one rank more than the SMs (within the ranks their
+    # launch parameters hold)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    d = 8 * sms + 1
+    d = 8 * sms + 1 if which == "all_gather" else sms + 1
+    assert which == "all_gather" or d <= MAX_MATMUL_RANKS
     with pytest.raises(RuntimeError):
         if which == "all_gather":
             ring_all_gather(torch.zeros((d, 1, 1), dtype=torch.int32, device=dev))
         else:
-            a, b = _ring_operands(d, 1, 1, 1, 1, dev)
+            a, b = _ring_operands(d, 300, 1, 1, 1, dev)
             if which == "matmul":
                 ring_matmul(a, b)
             else:
                 ring_matmul_tiled(a, b, nt=1)
     torch.cuda.synchronize()  # the device is still usable
+
+
+def test_ring_matmul_at_the_most_ranks_the_launch_parameters_hold(dev):
+    # every rank's pointers and TMA map travel in the launch's parameters:
+    # MAX_MATMUL_RANKS ranks run (at M = 1, two CTAs an SM), one more is
+    # refused by the wrapper before any launch
+    for d in (MAX_MATMUL_RANKS, MAX_MATMUL_RANKS + 1):
+        a, b = _ring_operands(d, 1, 4, 64, d, dev)
+        calls = ((ring_matmul, lambda: ring_matmul(a, b), lambda: ring_matmul_plain(a, b)),
+                 (ring_matmul_tiled, lambda: ring_matmul_tiled(a, b, 64),
+                  lambda: ring_matmul_tiled_plain(a, b, 64)))
+        for counter, fn, twin in calls:
+            before = counter.launches
+            if d > MAX_MATMUL_RANKS:
+                with pytest.raises(ValueError, match="launch parameters hold"):
+                    fn()
+                assert counter.launches == before
+                continue
+            got = fn()
+            bound = 1e-7 + 1e-4 * torch.matmul(a.abs(), b.abs().reshape(d * 4, 64))
+            want = twin()
+            torch.cuda.synchronize()
+            assert counter.launches == before + 1
+            assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
+
+
+def test_k7_and_k8_replay_in_a_cuda_graph_with_new_inputs(dev):
+    # K7 / K8 at the D = 4 main path's M and nt, captured once and replayed
+    # on refilled inputs: the launches copy nothing to the card (the eager
+    # run before the capture is under sync debug mode "error"), each replay
+    # equals an eager call bit for bit and its twin within the bar, and
+    # each replay counts one launch of each
+    from sparse_matrix_with_flops_tpu_torch.utils.graphs import CapturedBody
+
+    a, b = _ring_operands(4, 297, 512, 4096, 13, dev)
+    g = CapturedBody("ring matmuls", lambda: (ring_matmul(a, b), ring_matmul_tiled(a, b, 2048)),
+                     (a, b))
+    gen = torch.Generator().manual_seed(14)
+    first = g.run()  # eager, then captured
+    assert g.graph is not None
+    assert g.launches == {ring_matmul: 1, ring_matmul_tiled: 1}
+    for i in range(3):
+        if i:
+            g.load(torch.randn(a.shape, generator=gen).to(dev),
+                   torch.randn(b.shape, generator=gen).to(dev))
+        before = (ring_matmul.launches, ring_matmul_tiled.launches)
+        got = g.run()
+        assert (ring_matmul.launches, ring_matmul_tiled.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+        eager = (ring_matmul(a, b), ring_matmul_tiled(a, b, 2048))
+        twins = (ring_matmul_plain(a, b), ring_matmul_tiled_plain(a, b, 2048))
+        torch.cuda.synchronize()
+        bound = 1e-7 + 1e-4 * torch.matmul(a.abs(), b.abs().reshape(4 * 512, 4096))
+        for x, y, t in zip(got, eager, twins):
+            assert torch.equal(x, y)
+            assert bool(((x - t).abs() <= bound).all()), float((x - t).abs().max())
+        if not i:
+            assert all(torch.equal(x, y) for x, y in zip(got, first))
+    torch.cuda.synchronize()
 
 
 def _rmcl_graph(n, p, hubs, seed):
@@ -1398,17 +1462,47 @@ def _program(name, dev):
             return c, v, {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
 
         return (lambda x: RMCL.rmcl_ell_scan(plan, t, adh, *x, 4)), eager, (x0, x1), plan
+    if name.startswith("sharded_rmcl_ell_scan"):  # D = 4 stacked, hub rows
+        ex = name.split()[1]
+        mesh, plan, arrays, smgt, x0 = _sharded_case(dev)
+        x1 = PS._sharded_step(plan, smgt, arrays, *x0, ex, mesh)[:2]
+
+        def eager(x):
+            hist, (c, v) = [], x
+            for _ in range(4):
+                c, v, st = PS._sharded_step(plan, smgt, arrays, c, v, ex, mesh)
+                hist.append(st)
+            return c, v, {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+
+        return ((lambda x: PS.sharded_rmcl_ell_scan(mesh, plan, smgt, arrays, *x, 4, ex)),
+                eager, (x0, x1), plan)
     raise ValueError(name)
 
 
-@pytest.mark.parametrize("name", ["spgemm_ell", "rmcl_ell_scan"])
+def _sharded_case(dev):
+    """(mesh, plan, arrays, smgt, initial iterate) of the D = 4 stacked
+    sharded scan on the card: W = 128 ... 1024 bins and two hub rows."""
+    t = _rmcl_graph(256, 0.03, (5, 130), 1)
+    plan, arrays, smgt = sharded_plan(t.to(dev), 4, S=128, max_tile=1024)
+    assert plan.hmax > 0
+    cols, vals = RMCL.mt_to_ell(t.to(dev), 128)
+    x0 = (torch.where(cols >= t.ncols, plan.n, cols).reshape(4, plan.lr, 128),
+          vals.reshape(4, plan.lr, 128))
+    return make_mesh(4, dev), plan, arrays, smgt, x0
+
+
+SHARDED = [f"sharded_rmcl_ell_scan {ex}" for ex in ("ring", "all_gather", "pallas_ring",
+                                                     "fused_ring")]
+
+
+@pytest.mark.parametrize("name", ["spgemm_ell", "rmcl_ell_scan"] + SHARDED)
 def test_graph_replays_equal_the_eager_run(dev, name):
     from sparse_matrix_with_flops_tpu_torch.utils import graphs
 
     call, eager, (x0, x1), plan = _program(name, dev)
     want, eager_launches = _counted(lambda: eager(x0))
     first, _ = _counted(lambda: call(x0))  # eager first step or call, then capture
-    g = graphs.held(plan, name)
+    g = graphs.held(plan, name.split()[0])
     assert g is not None and g.graph is not None and g.pool_bytes > 0
     assert sum(g.launches.values()) > 0
     replays = g.replays
@@ -1477,8 +1571,13 @@ def test_graph_lives_and_dies_with_its_plan(dev):
 
 
 def test_graph_bodies_make_no_host_read(dev):
-    # the static step and the warm SpGEMM body under sync debug mode "error"
-    # (the general step: test_rmcl_scan_makes_no_host_read)
+    # the static step, the warm SpGEMM body and the sharded step of each
+    # exchange under sync debug mode "error" (the general step:
+    # test_rmcl_scan_makes_no_host_read)
+    mesh, splan, arrays, smgt, x0s = _sharded_case(dev)
+    PS._plan_tensors(splan, dev, range(4))  # the plan's uploads come first
+    for ex in ("ring", "all_gather", "pallas_ring", "fused_ring"):  # builds, sizes grids
+        PS._sharded_step(splan, smgt, arrays, *x0s, ex, mesh)
     t = _rmcl_graph(300, 0.02, (7,), 0).to(dev)
     plan = RMCL.plan_rmcl_ell(t, S=128, max_tile=1024)
     adh = RMCL._dense_huge(t, plan)
@@ -1492,6 +1591,8 @@ def test_graph_bodies_make_no_host_read(dev):
     try:
         RMCL.rmcl_ell_step(plan, t, adh, *x0)
         E._tiles_impl(a, a, eplan, fused_out_cap=eplan._nnzc_cache)
+        for ex in ("ring", "all_gather", "pallas_ring", "fused_ring"):
+            PS._sharded_step(splan, smgt, arrays, *x0s, ex, mesh)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
