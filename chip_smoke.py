@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main path once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root, one card
+    python3 chip_smoke.py --digests ROOT   # the stream paths' digests of checkout ROOT
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``sparse_matrix_with_flops_tpu_torch/csrc``;
@@ -152,6 +153,16 @@
    eager loop: its step is bound by the device, and a graph of it was
    measured as no gain (``ring_probe.py capture``).
 
+Phases 11-13 also hold ``ops/segments.last_marked`` (the segment
+expansion behind ``repeat_segments``: unique-target scatters and K4
+scans) bit for bit against ``repeat_segments_plain`` (the max-scatter
+and ``torch.cummax``) on every caller's full-size input of their paths,
+fail if ``torch.cummax`` is called or its scan kernel runs on those
+paths, and hold the general scan, binned s14 and the dynamic sharded
+scan to the SHA-256 digests that the tree before ``last_marked`` and
+the dump regions gave (``DIGESTS_BEFORE``; ``python3 chip_smoke.py
+--digests ROOT`` prints the digests of the port in checkout ROOT).
+
 K9's records hold it bit for bit against its plain version on the CPU
 on every run_sums call of a path (captured in one call: general R-MCL
 step 1 in phase 11, binned s14's huge rows in phase 12, the sharded
@@ -250,6 +261,19 @@ print(json.dumps({"prefault_ms": (t1 - t0) * 1e3, "cold_ms": (t2 - t1) * 1e3,
                   "warm_ms": (t3 - t2) * 1e3, "heap": nphost._HEAP}))
 """
 
+
+# the three stream paths' results (``stream_digests``) as the tree before
+# last_marked and the dump regions computed them on an H100 (``chip_smoke.py
+# --digests ROOT`` on that checkout); phases 11-13 hold theirs to them
+DIGESTS_BEFORE = {
+    "general rmcl_scan": "5870064abf6f13b3de18873d64b6768a8e63a03b8703b34ac724e09b1569d1a5",
+    "spgemm_binned": "a45bd188ede46f850aa18706c0136c1a572f66233c8cfa7460d933c161bf0140",
+    "sharded_rmcl_scan": "7af3a47c56dee0653cb701df3b9f867ed32c587b727268f54db6a8c1d158a478",
+}
+# the scan kernel of torch.cummax on the card (values with indices)
+CUMMAX_KERNEL = "_with_indices"
+# modules whose repeat_segments calls phases 11-13 capture
+REPEAT_CALLERS = ("ops.spgemm", "parallel.spgemm", "parallel.rmcl")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor cores
@@ -907,6 +931,7 @@ def general_rmcl_phase(torch, np, sp, dev, card, drive, record, coo, static5, cu
     ka = profile_kernels(torch, lambda: R.rmcl_one_step(mgt, mtc, pc, cc))
     log(f"rmcl_one_step s14 step 1 at margin {margin} under torch.profiler: "
         + breakdown(ka, 6))
+    no_cummax_kernel("phase 11", ka, failed)
     _, calls = capture_run_sums(lambda: R.rmcl_one_step(mgt, mtc, pc, cc))
     k9_cases(torch, f"general R-MCL s14 step 1 (margin {margin})", calls, record, cuda_ms,
              device_ms)
@@ -938,6 +963,7 @@ def general_rmcl_phase(torch, np, sp, dev, card, drive, record, coo, static5, cu
     e.synchronize()
     scan_ms = s.elapsed_time(e) / iters
     hist = {k: x.cpu().numpy() for k, x in hist.items()}
+    check_digest("general rmcl_scan", rmcl_digest(np, scan_mt, hist), failed)
     log(f"rmcl_scan s14 margin {margin}: no device-to-host read in {iters} steps "
         f"(sync debug mode \"error\"); {scan_ms:.3f} ms/iteration (CUDA events); nnz "
         f"{hist['nnz'].tolist()} flops {hist['flops'].tolist()} overflow "
@@ -1160,7 +1186,9 @@ def binned_phase(torch, np, sp, dev, card, a, ca, snap, drive, record, burst, ch
         f"{[(w, k) for (_, w), k in zip(plan.bins, rows)]}; {plan.huge_rows.size} huge rows "
         f"carry {plan.huge_product_cap} of {plan.product_cap} products")
     c = drive("s14 spgemm_binned", lambda: BN.spgemm_binned(a, a, plan),
-              ("sort_dedup_compact",))
+              ("sort_dedup_compact", "cumsum_i32"))
+    failed = []
+    check_digest("spgemm_binned", block_digest(np, c.row_ptr, c.col_ind, c.values), failed)
     if sort_dedup_compact.launches != plan.num_bins:
         raise AssertionError(f"phase 12: K1 launched {sort_dedup_compact.launches} times for "
                              f"{plan.num_bins} non-empty bins")
@@ -1190,6 +1218,9 @@ def binned_phase(torch, np, sp, dev, card, a, ca, snap, drive, record, burst, ch
     log(f"s14 spgemm_binned warm: {ms:.3f} ms (median of 9, CUDA events), "
         f"{2 * flops / ms / 1e6:.3f} GFLOPS [{card}]")
     log("s14 spgemm_binned, one call under torch.profiler: " + breakdown(ka, 8))
+    no_cummax_kernel("phase 12", ka, failed)
+    if failed:
+        raise AssertionError("phase 12: " + "; ".join(failed))
     _, calls = capture_run_sums(fn)
     k9_cases(torch, "s14 spgemm_binned (the huge rows)", calls, record, cuda_ms, device_ms)
     del c, ka, calls
@@ -1786,7 +1817,8 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_
     ``sharded_rmcl_adaptive`` against the single-card loop, and
     ``dryrun_multichip(4)``.  None of these modules launches a kernel of
     its own: their streams reach K9 through ``esc_compress`` and the
-    prune, and the dry run's static R-MCL reaches K1."""
+    prune and K4 through ``repeat_segments``, and the dry run's static
+    R-MCL reaches K1."""
     import importlib
 
     from sparse_matrix_with_flops_tpu_torch.config import ABS_TOL, REL_TOL
@@ -1971,7 +2003,8 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_
     try:
         s.record()
         smt3, hist = drive(f"sharded_rmcl_scan s14 D={d} {iters} iterations",
-                           lambda: PR.sharded_rmcl_scan(mesh, smgt, smt, pcs, ccs, iters), ())
+                           lambda: PR.sharded_rmcl_scan(mesh, smgt, smt, pcs, ccs, iters),
+                           ("cumsum_i32", "run_sums"))
         e.record()
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -1979,6 +2012,7 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_
     scan_ms = s.elapsed_time(e) / iters
     peak_scan = torch.cuda.max_memory_allocated() - base
     hist = {k: x.cpu().numpy() for k, x in hist.items()}
+    check_digest("sharded_rmcl_scan", rmcl_digest(np, smt3, hist), failed)
     log(f"sharded_rmcl_scan s14 D={d}: no device-to-host read in {iters} steps; "
         f"{scan_ms:.3f} ms/iteration (CUDA events); flops {hist['flops'].tolist()} nnz "
         f"{hist['nnz_mt'].tolist()} overflow {hist['overflow'].tolist()} differs "
@@ -1988,6 +2022,7 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_
         failed.append(f"sharded_rmcl_scan overflows at margin {margin}: raise the margin")
     ka = profile_kernels(torch, lambda: PR.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs))
     log(f"sharded_rmcl_step s14 D={d} step 1 under torch.profiler: " + breakdown(ka, 6))
+    no_cummax_kernel("phase 13", ka, failed)
     _, calls = capture_run_sums(lambda: PR.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs))
     k9_cases(torch, f"sharded_rmcl_step s14 D={d} step 1", calls, record, cuda_ms, device_ms)
     del calls
@@ -2139,6 +2174,162 @@ def rmcl_digest(np, out, hist) -> str:
         h.update(k.encode())
         h.update(np.ascontiguousarray(hist[k]).tobytes())
     return h.hexdigest()
+
+
+def hist_np(hist) -> dict:
+    return {k: x.cpu().numpy() for k, x in hist.items()}
+
+
+def stream_digests(torch, np, dev) -> dict:
+    """Digests of the three stream paths' results as phases 11-13 run
+    them: the general ``rmcl_scan`` on phase 8's graph at margin 2.5 (5
+    iterations, its iterate and histories), ``spgemm_binned`` of phase
+    4's s14 (C), and the dynamic ``sharded_rmcl_scan`` at D = 4 (3
+    iterations at margin 4.0 on the flops-balanced relabel)."""
+    import importlib
+
+    from sparse_matrix_with_flops_tpu_torch.ops import binned as BN
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    R = importlib.import_module(f"{PKG}.models.rmcl")
+    coo = phase8_graph(torch, np, dev)[0]
+    mt0 = R.rmcl_init(coo)
+    pc, cc = R.plan_capacities(mt0, mt0, 2.5)
+    out, hist = R.rmcl_scan(mt0.deep_copy(), mt0.with_capacity(cc), pc, cc, 5)
+    got = {"general rmcl_scan": rmcl_digest(np, out, hist_np(hist))}
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)
+    c = BN.spgemm_binned(a, a, BN.plan_bins(a, a))
+    got["spgemm_binned"] = block_digest(np, c.row_ptr, c.col_ind, c.values)
+    del out, c
+    mesh, smgt, smt, pcs, ccs = dynamic_scan_inputs(torch, np, dev, mt0, 4)
+    PR = importlib.import_module(f"{PKG}.parallel.rmcl")
+    out, hist = PR.sharded_rmcl_scan(mesh, smgt, smt, pcs, ccs, 3)
+    got["sharded_rmcl_scan"] = rmcl_digest(np, out, hist_np(hist))
+    return got
+
+
+def dynamic_scan_inputs(torch, np, dev, mt0, d: int, margin: float = 4.0):
+    """Phase 13's dynamic scan inputs from ``rmcl_init`` of phase 8's
+    graph: the mesh, the flops-balanced relabel sharded (Mgt, and Mt at
+    the shard capacity) and the per-shard caps of ``margin``."""
+    import importlib
+
+    from sparse_matrix_with_flops_tpu_torch.ops.flops import row_flops
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        flops_balanced_permutation,
+        make_mesh,
+        shard_csr,
+    )
+
+    PR = importlib.import_module(f"{PKG}.parallel.rmcl")
+    perm = flops_balanced_permutation(row_flops(mt0, mt0).cpu().numpy(), d)
+    mtp = mt0.conjugate_permute(torch.from_numpy(perm))
+    flops1, _ = spgemm_upper_bounds(mtp, mtp)
+    smgt = shard_csr(mtp, d)
+    pcs, ccs = PR.plan_shard_capacities(smgt, flops1, margin=margin)
+    return make_mesh(d, dev), smgt, shard_csr(mtp, d, local_capacity=ccs), pcs, ccs
+
+
+def check_digest(label: str, got: str, failed: list) -> None:
+    """Log a path's digest; fail where the tree before the change gave
+    another."""
+    want = DIGESTS_BEFORE.get(label)
+    verdict = ("no digest recorded before the change" if want is None else
+               "== the digest before the change" if got == want else
+               f"!= the digest before the change, {want}")
+    log(f"digest {label}: {got} ({verdict})")
+    if want is not None and got != want:
+        failed.append(f"{label}: other bits than before the change")
+
+
+class RepeatSegmentsSpy:
+    """Within ``with``: every ``repeat_segments`` call of the port's
+    callers runs as it would, and the first call of each caller keeps a
+    copy of its inputs (copies on the device: no host read)."""
+
+    def __init__(self):
+        import importlib
+
+        self.mods = [importlib.import_module(f"{PKG}.{m}") for m in REPEAT_CALLERS]
+        self.calls = {}
+
+    def __enter__(self):
+        self.saved = [m.repeat_segments for m in self.mods]
+        for m, fn in zip(self.mods, self.saved):
+            def spy(starts, valid, total, _name=m.__name__, _fn=fn):
+                if _name not in self.calls:
+                    self.calls[_name] = (starts.clone(), valid.clone(), total)
+                return _fn(starts, valid, total)
+            m.repeat_segments = spy
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in zip(self.mods, self.saved):
+            m.repeat_segments = fn
+
+
+def check_last_marked(torch, phase: str, calls: dict, failed: list) -> None:
+    """``last_marked`` against ``repeat_segments_plain`` (max-scatter and
+    running max) on each captured caller's input, element for element."""
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import (
+        last_marked,
+        repeat_segments_plain,
+    )
+
+    if not calls:
+        failed.append(f"{phase}: no repeat_segments call on the path")
+    for name, (starts, valid, total) in calls.items():
+        same = torch.equal(last_marked(starts, valid, total),
+                           repeat_segments_plain(starts, valid, total))
+        log(f"{phase}: last_marked {'==' if same else '!='} repeat_segments_plain on "
+            f"{name.rsplit('.', 2)[-2]}.{name.rsplit('.', 1)[-1]}'s input ({starts.shape[0]} "
+            f"segments, {int(valid.sum())} valid, {total} slots)")
+        if not same:
+            failed.append(f"{phase}: last_marked differs from repeat_segments_plain on "
+                          f"{name}'s input")
+
+
+def cummax_calls(torch, fn):
+    """``fn()`` with ``torch.cummax`` counting its calls: (result, calls)."""
+    real, n = torch.cummax, [0]
+
+    def spy(*a, **k):
+        n[0] += 1
+        return real(*a, **k)
+
+    torch.cummax = spy
+    try:
+        return fn(), n[0]
+    finally:
+        torch.cummax = real
+
+
+def no_cummax_kernel(phase: str, ka, failed: list) -> None:
+    """Fail where torch.cummax's scan kernel shows in a path's device
+    breakdown (``profile_kernels``)."""
+    ran = [k.key for k in ka if CUMMAX_KERNEL in k.key]
+    log(f"{phase}: torch.cummax's scan kernel {'in' if ran else 'not in'} the device "
+        f"breakdown")
+    if ran:
+        failed.append(f"{phase}: torch.cummax's kernel ran on the path")
+
+
+def stream_phase(torch, phase: str, fn):
+    """Run one of phases 11-13 with every ``repeat_segments`` caller's
+    first input kept and ``torch.cummax`` counted; then ``last_marked``
+    against its plain version on each kept input.  Fails where the
+    phase called ``torch.cummax``."""
+    failed = []
+    with RepeatSegmentsSpy() as spy:
+        out, calls = cummax_calls(torch, fn)
+    log(f"{phase}: torch.cummax called {calls} times")
+    if calls:
+        failed.append(f"torch.cummax called {calls} times")
+    check_last_marked(torch, phase, spy.calls, failed)
+    if failed:
+        raise AssertionError(f"{phase}: " + "; ".join(failed))
+    return out
 
 
 def same_sharded(torch, x, y) -> bool:
@@ -2740,6 +2931,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--digests"]:  # the stream paths' digests of another checkout
+        import numpy as np
+
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        print(json.dumps(stream_digests(torch, np, torch.device("cuda", 0))))
+        return 0
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke: {PKG}/ not found beside the script", file=sys.stderr)
         return 1
@@ -3366,21 +3563,23 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 11. general R-MCL and nrmcl from a graph file -------------------
-    tmp, snap = general_rmcl_phase(torch, np, sp, dev, card, drive, record, coo, static5,
-                                   cuda_ms, host_ms)
+    tmp, snap = stream_phase(torch, "phase 11", lambda: general_rmcl_phase(
+        torch, np, sp, dev, card, drive, record, coo, static5, cuda_ms, host_ms))
     del coo, static5
     torch.cuda.synchronize()
 
     # ---- 12. the binned engine, the partitioned driver, the command line -
     try:
-        binned_phase(torch, np, sp, dev, card, a, ca, snap, drive, record, burst, check_vals,
-                     scipy_check)
+        stream_phase(torch, "phase 12", lambda: binned_phase(
+            torch, np, sp, dev, card, a, ca, snap, drive, record, burst, check_vals,
+            scipy_check))
     finally:
         tmp.cleanup()
     torch.cuda.synchronize()
 
     # ---- 13. the rest of the distributed layer, D = 4 shards on the card -
-    distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_ms)
+    stream_phase(torch, "phase 13", lambda: distributed_phase(
+        torch, np, sp, dev, card, a, drive, record, cuda_ms, host_ms))
     torch.cuda.synchronize()
 
     # ---- 14. R-MCL on planted partitions, two sizes ----------------------

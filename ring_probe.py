@@ -6,6 +6,7 @@ K6-K8; K1, K2, K3 and K5 in ``kernels``).
     python3 ring_probe.py step ROOT [ROOT ...]
     python3 ring_probe.py kernels ROOT [ROOT ...]
     python3 ring_probe.py streams ROOT [ROOT ...]
+    python3 ring_probe.py split ROOT [ROOT ...]
     python3 ring_probe.py peaks ROOT [ROOT ...]
     python3 ring_probe.py entry ROOT [ROOT ...]
     python3 ring_probe.py launch [--root ROOT]
@@ -47,7 +48,23 @@ order A B B A), the stream paths whose run sums go through
 ``ops/segments.run_sums``: general R-MCL ``rmcl_scan`` on phase 11's
 s14 graph at margin 2.5 (3 iterations, per iteration), ``spgemm_binned``
 on s14 with random weights (warm), and one dynamic ``sharded_rmcl_step``
-at D = 4 as phase 13 runs it; CUDA events, median, min and max of 5.
+at D = 4 as phase 13 runs it, and the warm ``spgemm_ell`` on s14 (a
+graph replay, phases 4 and 16); CUDA events, median, min and max of 5.
+
+``split``: for each ROOT in turn, a fresh process profiles one call of
+each stream path with torch.profiler (CPU and CUDA activity, Python
+stacks) and splits its device time by the aten op that launched each
+kernel and the port's two innermost functions above the op (a
+function as its first line, the innermost first): general
+R-MCL step 1 on phase 11's s14 graph at margin 2.5 (``rmcl_one_step``),
+its drift (``differs`` of that step's iterate) and one ``rmcl_scan``
+iteration; ``spgemm_binned`` on s14 with random weights (warm); one
+dynamic ``sharded_rmcl_step`` at D = 4 as ``streams`` runs it, and its
+drift alone (``csr_frobenius_diff`` of each shard's old and new block);
+the warm ``spgemm_ell`` on s14 run eagerly (``_tiles_impl`` and
+``_assemble_body`` with the cached bucket, the body a graph replays).
+Each path prints its device total, its kernels, and its largest
+(op, line) entries; ``torch.cummax`` anywhere is named.
 
 ``peaks``: as ``step``, one fresh process a ROOT (give two in the order
 A B B A), ``chip_smoke.py`` phase 12's peak device memory of one cold
@@ -392,6 +409,8 @@ def streams_one(dev) -> dict:
     import torch
 
     from sparse_matrix_with_flops_tpu_torch.ops.binned import plan_bins, spgemm_binned
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_esc import spgemm_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
     from sparse_matrix_with_flops_tpu_torch.ops.flops import row_flops
     from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
     from sparse_matrix_with_flops_tpu_torch.parallel import (
@@ -423,7 +442,139 @@ def streams_one(dev) -> dict:
     mesh = make_mesh(4, dev)
     out["sharded_rmcl_step D=4"] = _times(
         torch, lambda: pr.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs), 5)
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random")
+    eplan = plan_ell(a, a)
+    spgemm_ell(a, a, eplan)  # caches the nnz(C) bucket: later calls replay a graph
+    out["spgemm_ell s14 warm"] = _times(torch, lambda: spgemm_ell(a, a, eplan), 5)
     return out
+
+
+def _op_split(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler (CPU and CUDA activity,
+    Python stacks): its device time in all, by kernel, and by (aten op,
+    the port's two innermost functions above it), each [name, ms, count],
+    largest first.  A session that recorded no device event is taken
+    again, up to three in all; then every list is empty."""
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA], with_stack=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels, ops = {}, {}
+        for ev in prof.events():
+            us = ev.self_device_time_total
+            if us <= 0:
+                continue
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                k = kernels.setdefault(ev.name[:70], [0.0, 0])
+            else:
+                # the op's Python stack where the profiler keeps one,
+                # else the Python function events it nests in
+                frames, up = list(ev.stack or ()), ev.cpu_parent
+                while up is not None:
+                    frames.append(up.name)
+                    up = up.cpu_parent
+                mine = [f[f.index(PKG) + len(PKG) + 1:] for f in frames
+                        if f"{PKG}/" in f and ".py(" in f]
+                site = " < ".join(mine[:2]) or "?"
+                k = ops.setdefault(f"{ev.name} @ {site}", [0.0, 0])
+            k[0] += us / 1e3
+            k[1] += 1
+        if kernels:
+            break
+
+    def rows(d):
+        return sorted(([n, ms, c] for n, (ms, c) in d.items()), key=lambda r: -r[1])
+
+    return {"device ms": sum(ms for ms, _ in kernels.values()), "kernels": rows(kernels),
+            "ops": rows(ops)}
+
+
+def split_one(dev) -> dict:
+    """This process's port: the device-time splits of ``split``."""
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
+    from sparse_matrix_with_flops_tpu_torch.ops.binned import plan_bins, spgemm_binned
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.flops import row_flops
+    from sparse_matrix_with_flops_tpu_torch.ops.metrics import csr_frobenius_diff, differs
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        flops_balanced_permutation,
+        make_mesh,
+        shard_csr,
+    )
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    rm = importlib.import_module(f"{PKG}.models.rmcl")
+    pr = importlib.import_module(f"{PKG}.parallel.rmcl")
+    _build.library()
+    mgt, _ = s14_state(dev)
+    out = {}
+    pc, cc = rm.plan_capacities(mgt, mgt, 2.5)
+    mtc = mgt.with_capacity(cc)
+    new, _ = rm.rmcl_one_step(mgt, mtc, pc, cc)
+    out["general step 1 (rmcl_one_step, margin 2.5)"] = _op_split(
+        torch, lambda: rm.rmcl_one_step(mgt, mtc, pc, cc))
+    out["general step 1's drift (differs)"] = _op_split(torch, lambda: differs(mtc, new))
+    out["rmcl_scan, 1 iteration"] = _op_split(
+        torch, lambda: rm.rmcl_scan(mgt, mtc, pc, cc, 1))
+    del mtc, new
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random")
+    plan = plan_bins(a, a)
+    out["spgemm_binned s14 warm"] = _op_split(torch, lambda: spgemm_binned(a, a, plan))
+    del plan
+    perm = flops_balanced_permutation(row_flops(mgt, mgt).cpu().numpy(), 4)
+    mtp = mgt.conjugate_permute(torch.from_numpy(perm))
+    flops1, _ = spgemm_upper_bounds(mtp, mtp)
+    smgt = shard_csr(mtp, 4)
+    pcs, ccs = pr.plan_shard_capacities(smgt, flops1, margin=4.0)
+    smt = shard_csr(mtp, 4, local_capacity=ccs)
+    mesh = make_mesh(4, dev)
+    snew, _ = pr.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs)
+    out["sharded_rmcl_step D=4"] = _op_split(
+        torch, lambda: pr.sharded_rmcl_step(mesh, smgt, smt, pcs, ccs))
+    out["sharded_rmcl_step D=4's drift (csr_frobenius_diff a shard)"] = _op_split(
+        torch, lambda: [csr_frobenius_diff(smt.local_block(i), snew.local_block(i))
+                        for i in range(4)])
+    del smgt, smt, snew
+    eplan = plan_ell(a, a)
+    E.spgemm_ell(a, a, eplan)  # caches the nnz(C) bucket
+    cap = eplan._nnzc_cache
+    out["spgemm_ell s14 warm body, eager"] = _op_split(
+        torch, lambda: E._tiles_impl(a, a, eplan, fused_out_cap=cap))
+    return out
+
+
+def split(roots) -> None:
+    rows = []
+    for root in roots:
+        root = os.path.abspath(root)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "split-one", root],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode:
+            print(res.stdout[-2000:], res.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"ring_probe split: {root} failed")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        rows.append((root, got))
+        for path, sp in got.items():
+            cm = sum(r[1] for r in sp["ops"] if "cummax" in r[0])
+            print(f"{root}: {path}: device {sp['device ms']:.3f} ms in "
+                  f"{sum(r[2] for r in sp['kernels'])} kernels; torch.cummax {cm:.3f} ms",
+                  flush=True)
+            print("  kernels: " + "; ".join(f"{n} x{c} {ms:.3f}" for n, ms, c in
+                                             sp["kernels"][:8]), flush=True)
+            print("  ops: " + "; ".join(f"{n} x{c} {ms:.3f}" for n, ms, c in
+                                         sp["ops"][:14]), flush=True)
+    out = os.path.join(HERE, "build", "ring_probe")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "split.json"), "w") as f:  # every op, not only the largest
+        json.dump({"split": rows}, f)
 
 
 def _one_step_bodies(dev) -> dict:
@@ -1463,7 +1614,8 @@ def cross_card(dev) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("accuracy", "step", "step-one", "kernels", "kernels-one",
-                                     "streams", "streams-one", "peaks", "peaks-one", "entry",
+                                     "streams", "streams-one", "split", "split-one",
+                                     "peaks", "peaks-one", "entry",
                                      "entry-one", "launch", "variants", "cross-card",
                                      "processes", "processes-child", "capture"))
     ap.add_argument("roots", nargs="*")
@@ -1485,7 +1637,7 @@ def main() -> int:
     if args.what.endswith("-one"):
         sys.path.insert(0, args.roots[0])
         one = {"step-one": step_one, "kernels-one": kernels_one, "streams-one": streams_one,
-               "peaks-one": peaks_one, "entry-one": entry_one}
+               "peaks-one": peaks_one, "entry-one": entry_one, "split-one": split_one}
         print(json.dumps(one[args.what](dev)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1493,6 +1645,8 @@ def main() -> int:
     print(smi, flush=True)
     if args.what in ("step", "kernels", "streams", "peaks", "entry"):
         step(args.roots, args.what)
+    elif args.what == "split":
+        split(args.roots)
     elif args.what == "launch":
         sys.path.insert(0, root)
         launch_costs(dev)

@@ -195,10 +195,11 @@ def spgemm_binned(a: CSR, b: CSR, plan: BinPlan) -> CSR:
         hrow, hcol, hval = esc_compress(
             hrow, hcol, hval, hflags, hseg, hnnz, sel.sum(), m, n, plan.huge_product_cap
         )
-        hcnt = torch.zeros(m + 1, dtype=INDEX_DTYPE, device=dev)
-        hcnt.index_add_(0, hrow.long(), torch.ones_like(hrow))
-        counts += hcnt
-        huge = (hrow, hcol, hval, exclusive_cumsum(hcnt[:m]))
+        # hrow is sorted, padding (row m) last: each row's run bounds
+        hoff = torch.searchsorted(hrow, torch.arange(m + 1, dtype=hrow.dtype, device=dev),
+                                  out_int32=True)
+        counts[:m] += hoff[1:] - hoff[:-1]
+        huge = (hrow, hcol, hval, hoff)
 
     # output assembly: each slot below out_cap is set once; targets at or
     # past it go to the dump slot out_cap, which is cut off

@@ -41,7 +41,7 @@ from ..utils import graphs
 from ..utils.nphost import repeat_idx
 from .ell_plan import EllPlan, _flat_layout, plan_ell
 from .scan_kernels import cumsum_i32
-from .segments import exclusive_cumsum
+from .segments import DUMP_SLOTS, dump_region, exclusive_cumsum, last_marked
 from .sort_kernels import (
     MAX_SORT_W,
     compact_nonzero_rows,
@@ -295,19 +295,13 @@ def _window_source(flat_c, flat_v, ncols: int):
 
 def _window_positions(counts, flat_base, starts, nwin: int):
     """Source position of every output window: ``k * W + d[r(k)]``, with
-    ``r(k)`` the last nonempty row starting at or before window k and
-    ``d`` its flat-to-CSR offset (max-scatter + running max)."""
-    m = counts.shape[0]
+    ``r(k)`` the last nonempty row starting at or before window k (a row
+    marks window ceil(start / W); ``starts`` is an exclusive cumsum, so
+    the marks are non-decreasing: ``last_marked``) and ``d`` its
+    flat-to-CSR offset."""
     nonempty = counts > 0
     d = torch.where(nonempty, flat_base - starts, 0)
-    rid = torch.arange(m, dtype=INDEX_DTYPE, device=counts.device)
-    cw = torch.where(nonempty, (starts + _WA - 1) // _WA, nwin).clamp(max=nwin)
-    rmax = torch.zeros(nwin + 1, dtype=INDEX_DTYPE, device=counts.device)
-    rmax.scatter_reduce_(
-        0, cw.long(), torch.where(nonempty, rid + 1, 0), reduce="amax"
-    )
-    rwin = torch.cummax(rmax[:nwin], 0).values
-    rwin = (rwin - 1).clamp(min=0).long()
+    rwin = last_marked((starts + _WA - 1) // _WA, nonempty, nwin).clamp(min=0).long()
     k = torch.arange(nwin, dtype=torch.int64, device=counts.device)
     return (k * _WA + d[rwin].long()).to(INDEX_DTYPE)
 
@@ -319,16 +313,16 @@ def _row_start_deltas(counts, starts, ocap: int):
     m = counts.shape[0]
     nonempty = counts > 0
     ds = torch.where(nonempty, starts, 0)
-    # forward fill of the last nonempty row's start (0 before the first)
-    last = torch.where(
-        nonempty, torch.arange(m, device=counts.device), -1
-    )
-    last = torch.cummax(last, 0).values
+    # forward fill of the last nonempty row's start (0 before the first):
+    # row i marks itself
+    rid = torch.arange(m, dtype=INDEX_DTYPE, device=counts.device)
+    last = last_marked(rid, nonempty, m)
     filled = torch.where(last >= 0, ds[last.clamp(min=0)], 0)
     prevs = torch.cat([filled.new_zeros(1), filled[:-1]])
-    dds = torch.zeros(ocap + 1, dtype=INDEX_DTYPE, device=counts.device)
-    tgt = torch.where(nonempty, starts, ocap).clamp(max=ocap).long()
-    dds.index_add_(0, tgt, torch.where(nonempty, ds - prevs, 0))
+    # nonempty rows start apart; the empty ones write to the dump region
+    dds = torch.zeros(ocap + DUMP_SLOTS, dtype=INDEX_DTYPE, device=counts.device)
+    tgt = torch.where(nonempty & (starts < ocap), starts.long(), dump_region(rid, ocap))
+    dds.scatter_(0, tgt, torch.where(nonempty, ds - prevs, 0).to(INDEX_DTYPE))
     return dds[:ocap]
 
 

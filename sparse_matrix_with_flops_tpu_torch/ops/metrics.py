@@ -3,7 +3,7 @@
 
 The reference's ``CSR::differs`` L2 drift (CSR.cc:213-240) and
 ``differsStats`` per-row-growth histogram (CSR.cc:381-415) as sparse
-reductions: a union of the two entry streams, one sort, a segment sum.
+reductions: a union of the two entry streams, one sort, a sum a segment.
 No host read: the R-MCL scan tracks them on the card.
 """
 
@@ -13,13 +13,16 @@ import torch
 
 from ..config import INDEX_DTYPE, QVALUE_DTYPE
 from ..formats.csr import CSR
-from .segments import segment_boundaries, segment_sum
+from .segments import DUMP_SLOTS, dump_region, segment_boundaries, segment_sum
 
 
 def csr_frobenius_diff(a: CSR, b: CSR) -> tuple[torch.Tensor, torch.Tensor]:
     """(||A − B||_F², ||A||_F²) over the union pattern, 0-d tensors.  Each
     (row, col) of two CSRs with unique columns a row holds at most two
-    entries, and a sum of two does not depend on its order."""
+    entries, adjacent after the sort: a segment's sum is its first entry
+    plus the next where that one continues it (a sum of two does not
+    depend on its order), stored once at the segment's index, so no
+    write is an atomic and none queues on a shared address."""
     rows = a.rows
     b = b.to(a.device)
     valid = torch.cat([a.entry_valid(), b.entry_valid()])
@@ -28,10 +31,17 @@ def csr_frobenius_diff(a: CSR, b: CSR) -> tuple[torch.Tensor, torch.Tensor]:
     v = torch.cat([a.values, -b.values]).to(QVALUE_DTYPE)
     order = torch.sort(r.long() * (max(a.ncols, b.ncols) + 1) + c.long(), stable=True).indices
     r, c, v = r[order], c[order], v[order]
+    n = r.shape[0]
     ok = r < rows
     flags = segment_boundaries(r, c, ok)
-    seg = torch.where(ok, torch.cumsum(flags, 0) - 1, r.shape[0])
-    sums = segment_sum(torch.where(ok, v, 0.0), seg, r.shape[0])
+    v = torch.where(ok, v, 0.0)
+    more = torch.cat([ok[1:] & ~flags[1:], ok.new_zeros(1)])  # the next entry continues
+    pair = v + torch.where(more, torch.cat([v[1:], v.new_zeros(1)]), 0.0)
+    q = torch.arange(n, device=r.device)
+    seg = torch.where(flags, torch.cumsum(flags, 0) - 1, dump_region(q, n))
+    sums = torch.zeros(n + DUMP_SLOTS, dtype=QVALUE_DTYPE, device=r.device)
+    sums.scatter_(0, seg, pair)
+    sums = sums[:n]
     a_sq = torch.where(a.entry_valid(), a.values**2, 0.0).sum()
     return (sums * sums).sum(), a_sq
 

@@ -31,7 +31,7 @@ from ..config import (
     QVALUE_DTYPE,
 )
 from ..formats.csr import CSR
-from .segments import blocked_run_sums, exclusive_cumsum, segment_max, segment_sum
+from .segments import blocked_run_sums, exclusive_cumsum, segment_max
 
 
 def compute_threshold(avg: torch.Tensor, rmax: torch.Tensor) -> torch.Tensor:
@@ -82,8 +82,9 @@ def inflate_prune_normalize_stream(
     order = torch.sort(key, stable=True).indices
     scol, sval = col[order], newval[order]
 
-    counts = segment_sum(keep.to(INDEX_DTYPE), seg, rows)
-    row_ptr = exclusive_cumsum(counts)
+    # survivors a row: the keep flags' prefix sum at the row's bounds
+    kept = exclusive_cumsum(keep.to(INDEX_DTYPE))
+    row_ptr = exclusive_cumsum(kept[roff[1:]] - kept[roff[:-1]])
     total = row_ptr[-1]
     overflow = total > out_cap
 

@@ -3,8 +3,17 @@
 The port of the JAX package's ``ops/segments.py``.  Results keep the
 reference's int32 index type.  JAX drops out-of-range scatters
 (``mode="drop"``, and the segment ops drop ids outside
-``[0, num_segments)``); torch raises, so every scatter here goes into a
-buffer one slot longer whose last slot takes those indices.
+``[0, num_segments)``); torch raises, so a scatter here goes into a
+buffer with a dump region of DUMP_SLOTS slots past its end, and the
+index of the q-th write that JAX would drop is ``n + q % DUMP_SLOTS``:
+on the card, writes to one address queue, and millions of padding
+writes on a single dump slot cost tens of ms.
+
+``last_marked`` is the reference's "scatter + running max" of
+``repeat_segments`` done with scatters whose targets are unique and an
+int32 scan (K4): ``torch.cummax`` walks a whole row from one thread
+block on the card.  ``repeat_segments_plain`` keeps the running max as
+the plain version the tests hold it against.
 
 ``run_sums`` launches K9 (``csrc/run_sums.cu``) for tensors on the card
 and runs ``run_sums_plain`` for tensors on the CPU.
@@ -16,10 +25,13 @@ import torch
 
 from .._build import check_tensor, counted, launch, on_card
 from ..config import INDEX_DTYPE
+from .scan_kernels import cumsum_i32
 
 # K9 gives a run a warp of its own when the stream holds at least this
 # many slots a run (row sums), else a lane (the products of one entry)
 WARP_RUN_SLOTS = 32
+# slots of a scatter's dump region: dropped writes spread over them
+DUMP_SLOTS = 4096
 
 
 def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -43,24 +55,74 @@ def entry_rows(row_ptr: torch.Tensor, capacity: int) -> torch.Tensor:
     return torch.where(q < row_ptr[-1], rid, rows)
 
 
+def dump_region(q: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 indices ``n + q % DUMP_SLOTS``: where a buffer of
+    ``n + DUMP_SLOTS`` slots takes the q-th dropped write."""
+    return n + q.long() % DUMP_SLOTS
+
+
 def _dump_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
-    """int64 scatter indices with every id outside ``[0, n)`` sent to the
-    dump slot ``n``."""
+    """int64 scatter indices into a buffer of ``n + DUMP_SLOTS`` slots:
+    every id outside ``[0, n)`` goes to the dump region."""
     ids = ids.long()
-    return torch.where((ids >= 0) & (ids < n), ids, n)
+    q = torch.arange(ids.shape[0], device=ids.device)
+    return torch.where((ids >= 0) & (ids < n), ids, dump_region(q, n))
 
 
-def repeat_segments(
+def last_marked(marks: torch.Tensor, valid: torch.Tensor, total: int) -> torch.Tensor:
+    """int32 [total]: for each position q, the largest s with ``valid[s]``
+    and ``marks[s] <= q``, or -1 where there is none.  The marks of the
+    valid entries must be non-negative and non-decreasing in s; marks at
+    or past ``total`` mark nothing.  This equals the running max of a
+    max-scatter of s at ``marks[s]`` (:func:`repeat_segments_plain`).
+
+    Done with unique scatter targets and scans: the valid entries are
+    compacted in order; of each run of equal marks below ``total`` only
+    the last (the largest s) writes, ``s + 1`` at its mark, and
+    subtracts the same at the next run's mark; the inclusive scan of
+    those deltas, less one, is the answer.  Writes with nowhere to go
+    land on distinct dump slots.  No host read."""
+    num, dev = marks.shape[0], marks.device
+    if total == 0 or num == 0:
+        return torch.full((total,), -1, dtype=INDEX_DTYPE, device=dev)
+    s = torch.arange(num, dtype=INDEX_DTYPE, device=dev)
+    c = cumsum_i32(valid.to(INDEX_DTYPE))
+    slot = torch.where(valid, c - 1, num + s).long()  # invalid: distinct dump slots
+    inside = valid & (marks >= 0) & (marks < total)
+    cm = torch.full((2 * num,), total, dtype=INDEX_DTYPE, device=dev)
+    cm.scatter_(0, slot, torch.where(inside, marks, total).to(INDEX_DTYPE))
+    cid = torch.zeros(2 * num, dtype=INDEX_DTYPE, device=dev)
+    cid.scatter_(0, slot, s + 1)
+    cm, cid = cm[:num], cid[:num]
+    nxt = torch.cat([cm[1:], cm.new_full((1,), total)])
+    last = (cm < total) & (nxt != cm)
+    dump = (total + s).long()
+    delta = torch.zeros(total + num, dtype=INDEX_DTYPE, device=dev)
+    delta.scatter_(0, torch.where(last, cm.long(), dump), cid)
+    delta.scatter_add_(0, torch.where(last & (nxt < total), nxt.long(), dump), -cid)
+    delta[:1] -= 1
+    return cumsum_i32(delta[:total])
+
+
+# the reference's name: output position q's segment is the last valid one
+# starting at or before q (``starts`` non-decreasing where valid, as
+# exclusive prefix sums are)
+repeat_segments = last_marked
+
+
+def repeat_segments_plain(
     starts: torch.Tensor, valid: torch.Tensor, total: int
 ) -> torch.Tensor:
-    """Map output position q in [0, total) to the segment it belongs to:
-    a max-scatter of segment ids at their (distinct, valid) starts, then
-    a running max.  Invalid segments scatter nothing."""
+    """:func:`repeat_segments` as the reference writes it: a max-scatter
+    of segment ids at their starts (one dump slot for the rest), then a
+    running max.  The plain version the tests compare against; no card
+    path calls it."""
     num = starts.shape[0]
     seg_plus1 = torch.where(
         valid, torch.arange(1, num + 1, dtype=INDEX_DTYPE, device=starts.device), 0
     ).to(INDEX_DTYPE)
-    idx = _dump_ids(torch.where(valid, starts, total), total)
+    idx = starts.long()
+    idx = torch.where(valid & (idx >= 0) & (idx < total), idx, total)
     marks = torch.zeros(total + 1, dtype=INDEX_DTYPE, device=starts.device)
     marks.scatter_reduce_(0, idx, seg_plus1, reduce="amax")
     return torch.cummax(marks[:total], 0).values - 1
@@ -81,7 +143,8 @@ def segment_sum(
 ) -> torch.Tensor:
     """``jax.ops.segment_sum``: per-segment sums, ids out of range dropped."""
     out = torch.zeros(
-        (num_segments + 1, *values.shape[1:]), dtype=values.dtype, device=values.device
+        (num_segments + DUMP_SLOTS, *values.shape[1:]), dtype=values.dtype,
+        device=values.device,
     )
     out.index_add_(0, _dump_ids(segment_ids, num_segments), values)
     return out[:num_segments]
@@ -154,7 +217,8 @@ def segment_max(
     """Per-segment maxima over a zero start (the reference's
     ``zeros().at[seg].max(v, mode="drop")``), ids out of range dropped."""
     out = torch.zeros(
-        (num_segments + 1, *values.shape[1:]), dtype=values.dtype, device=values.device
+        (num_segments + DUMP_SLOTS, *values.shape[1:]), dtype=values.dtype,
+        device=values.device,
     )
     out.scatter_reduce_(0, _dump_ids(segment_ids, num_segments), values, reduce="amax")
     return out[:num_segments]

@@ -23,7 +23,15 @@ import torch
 from ..config import INDEX_DTYPE, QVALUE_DTYPE
 from ..formats.csr import CSR
 from ..utils.nphost import csr_host
-from .segments import exclusive_cumsum, repeat_segments, run_sums, segment_boundaries
+from .segments import (
+    DUMP_SLOTS,
+    dump_region,
+    exclusive_cumsum,
+    repeat_segments,
+    run_sums,
+    segment_boundaries,
+    segment_sum,
+)
 
 
 class BView(NamedTuple):
@@ -78,6 +86,8 @@ def esc_expand_view(a: CSR, bv: BView, product_cap: int):
     ef = torch.where(valid, bv.row_count[safe_col], 0).to(INDEX_DTYPE)
     starts = exclusive_cumsum(ef)
     total = starts[-1]
+    # starts is an exclusive cumsum of ef >= 0 (non-decreasing) and a
+    # segment with products starts apart from the others
     p = repeat_segments(starts[:-1], valid & (ef > 0), product_cap)
     q = torch.arange(product_cap, dtype=INDEX_DTYPE, device=dev)
     pvalid = q < total
@@ -129,10 +139,13 @@ def esc_compress(prow, pcol, pval, flags, seg, nnzc, total, rows: int, ncols: in
     (``run_sums``), so the same stream gives the same bits on the card."""
     cap, dev = prow.shape[0], prow.device
     # each segment's first product; segments past nnz(C) start at the
-    # end of the valid products, and one dump slot takes the rest
-    start = torch.zeros(out_cap + 2, dtype=torch.int64, device=dev) + total.clamp(max=cap)
-    idx = torch.where(flags, seg.long(), out_cap + 1).clamp(max=out_cap + 1)
-    start.scatter_(0, idx, torch.arange(cap, device=dev))
+    # end of the valid products, and the dump region past slot out_cap
+    # takes the other products and the segments past it
+    start = torch.zeros(out_cap + 1 + DUMP_SLOTS, dtype=torch.int64, device=dev)
+    start += total.clamp(max=cap)
+    q = torch.arange(cap, device=dev)
+    idx = torch.where(flags & (seg <= out_cap), seg.long(), dump_region(q, out_cap + 1))
+    start.scatter_(0, idx, q)
     cval = run_sums(pval, start[: out_cap + 1])
     live = torch.arange(out_cap, device=dev) < nnzc
     first = start[:out_cap].clamp(max=cap - 1)
@@ -170,9 +183,7 @@ def spgemm_symbolic(a: CSR, b: CSR, product_cap: int):
     order = _sort_pairs(prow, pcol)
     prow, pcol = prow[order], pcol[order]
     flags = segment_boundaries(prow, pcol, prow < m)
-    counts = torch.zeros(m + 1, dtype=INDEX_DTYPE, device=a.device)
-    counts.index_add_(0, prow.long(), flags.to(INDEX_DTYPE))  # row m: padding
-    row_ptr = exclusive_cumsum(counts[:m])
+    row_ptr = exclusive_cumsum(segment_sum(flags.to(INDEX_DTYPE), prow, m))
     return row_ptr, row_ptr[-1], total
 
 

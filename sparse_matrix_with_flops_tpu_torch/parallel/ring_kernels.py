@@ -290,10 +290,17 @@ def _check_matmul(a: torch.Tensor, b: torch.Tensor, name: str, mesh=None) -> tup
             f"[d, M, d*lr] and [d, lr, N] (one rank a process: [1, M, d*lr] "
             f"and [1, lr, N])"
         )
+    return d, m, lr, n
+
+
+def _check_matmul_ranks(d: int, name: str) -> None:
+    """The card launch's limit: every rank's pointers and A's TMA map
+    travel in one parameter struct of MAX_MATMUL_RANKS ranks, stacked
+    and one rank a launch alike (``fill_ranks`` in csrc/ring.cu).  The
+    plain version on the CPU has none."""
     if d > MAX_MATMUL_RANKS:
         raise ValueError(f"{name}: {d} ranks exceed the {MAX_MATMUL_RANKS} that the "
                          f"kernel's launch parameters hold")
-    return d, m, lr, n
 
 
 def _ring_matmul_twin(a_rot, b, direction: int, ranks=None) -> torch.Tensor:
@@ -392,10 +399,12 @@ def ring_matmul(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
     (column block j multiplies shard j's block, owner-major), ``b``
     [d, lr, N]; returns [d, M, N].  Block k is contracted at hop k,
     blocks flowing right.  On a process mesh each rank passes its own
-    rows, ``a`` [1, M, d*lr] and ``b`` [1, lr, N] (collective)."""
+    rows, ``a`` [1, M, d*lr] and ``b`` [1, lr, N] (collective).  On the
+    card, stacked or on a process mesh, d is at most MAX_MATMUL_RANKS."""
     d, m, lr, n = _check_matmul(a, b, "ring_matmul", mesh)
     if not on_card("ring_matmul", a, b):
         return ring_matmul_plain(a, b, mesh)
+    _check_matmul_ranks(d, "ring_matmul")
     if _one_rank(mesh):
         c = _ring_matmul_rank_launch(mesh, a, b, d, m, lr, n, n, RIGHT)
     else:
@@ -425,11 +434,13 @@ def ring_matmul_tiled(a: torch.Tensor, b: torch.Tensor, nt: int = 2048,
     """:func:`ring_matmul` over ``N / nt`` column tiles, blocks flowing
     left (the production hub contraction of ``exchange="fused_ring"``);
     ``N % nt == 0`` (pad B's columns with zeros).  On a process mesh each
-    rank passes its own rows, as for :func:`ring_matmul`."""
+    rank passes its own rows, as for :func:`ring_matmul`, and on the card
+    d is at most MAX_MATMUL_RANKS as there."""
     d, m, lr, n = _check_matmul(a, b, "ring_matmul_tiled", mesh)
     _check_nt(n, nt)
     if not on_card("ring_matmul_tiled", a, b):
         return ring_matmul_tiled_plain(a, b, nt, mesh)
+    _check_matmul_ranks(d, "ring_matmul_tiled")
     if _one_rank(mesh):
         c = _ring_matmul_rank_launch(mesh, a, b, d, m, lr, n, nt, LEFT)
     else:

@@ -217,6 +217,8 @@ def _regather(g: ShardedCSR, old, inv):
     ln = rpf[base + 1] - rpf[base]
     new_rp = torch.cat([ln.new_zeros(1), torch.cumsum(ln, 0).to(INDEX_DTYPE)])
     overflow = new_rp[-1] > lcap
+    # non-decreasing starts (a cumsum of ln >= 0); a nonempty row starts
+    # apart from the others
     p = repeat_segments(new_rp[:-1], ln > 0, lcap)
     slot = torch.arange(lcap, dtype=INDEX_DTYPE, device=old.device)
     pv = slot < new_rp[-1]

@@ -163,6 +163,8 @@ def _ring_step_products(a_rp0, a_ci0, a_v0, erow, blk_rp, blk_ci, blk_v, ids, ow
     cnt = torch.where(okid, blk_rp[loc + 1] - bs, 0).to(INDEX_DTYPE)
     starts = exclusive_cumsum(cnt)
     tot_k = starts[-1]
+    # non-decreasing starts (a cumsum of cnt >= 0); a segment with
+    # products starts apart from the others
     p = repeat_segments(starts[:-1], okid & (cnt > 0), pk)
     q = torch.arange(pk, dtype=INDEX_DTYPE, device=ids.device)
     pv = q < tot_k

@@ -1642,3 +1642,61 @@ def test_a_failed_capture_raises_with_no_eager_fallback(dev, breaks):
     assert g.graph is None and g.replays == 0
     torch.cuda.synchronize()  # the card is still usable
     assert float((x * 2).sum()) == 2.0 * 1023 * 1024 / 2
+
+
+@pytest.mark.parametrize("n,total", [(1000, 3000), (200_000, 1_000_003), (50_000, 40_000)])
+def test_last_marked_equals_the_running_max_on_card(dev, n, total):
+    # the repeat_segments of the ESC callers (exclusive-cumsum starts, the
+    # nonempty segments valid) and runs of equal marks (the window marks),
+    # on the card with no host read, against the max-scatter and cummax
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import (
+        last_marked,
+        repeat_segments_plain,
+    )
+
+    gen = torch.Generator().manual_seed(n)
+    counts = torch.randint(0, 6, (n,), generator=gen, dtype=torch.int32)
+    valid = (counts > 0) & (torch.rand(n, generator=gen) < 0.9)
+    starts = torch.cumsum(counts, 0).to(torch.int32) - counts
+    runs = torch.sort(torch.randint(0, total // 4 + 1, (n,), generator=gen)).values
+    for marks in (starts, runs.to(torch.int32)):
+        m, v = marks.to(dev), valid.to(dev)
+        before = cumsum_i32.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = last_marked(m, v, total)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert cumsum_i32.launches == before + 2
+        assert torch.equal(got, repeat_segments_plain(m, v, total))
+        assert torch.equal(got.cpu(), last_marked(marks, valid, total))
+
+
+def test_drift_keeps_its_bits_on_card(dev):
+    # each (row, col) segment of the union holds one or two entries, so the
+    # pair sums equal the float atomics' sums of the scatter-add form
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import plan_capacities, rmcl_one_step
+    from sparse_matrix_with_flops_tpu_torch.ops.metrics import csr_frobenius_diff
+    from sparse_matrix_with_flops_tpu_torch.ops.segments import segment_boundaries
+
+    mt0 = _rmcl_init_s12(dev)
+    pc, cc = plan_capacities(mt0, mt0, 2.5)
+    new, _ = rmcl_one_step(mt0, mt0.with_capacity(cc), pc, cc)
+
+    def scatter_add_form(a, b):
+        valid = torch.cat([a.entry_valid(), b.entry_valid()])
+        r = torch.where(valid, torch.cat([a.entry_rows(), b.entry_rows()]), a.rows)
+        c = torch.cat([a.col_ind, b.col_ind])
+        v = torch.cat([a.values, -b.values])
+        order = torch.sort(r.long() * (a.ncols + 1) + c.long(), stable=True).indices
+        r, c, v = r[order], c[order], v[order]
+        ok = r < a.rows
+        seg = torch.where(ok, torch.cumsum(segment_boundaries(r, c, ok), 0) - 1, r.shape[0])
+        sums = torch.zeros(r.shape[0] + 1, device=dev).index_add_(0, seg, torch.where(ok, v, 0.0))
+        sums = sums[: r.shape[0]]
+        return (sums * sums).sum(), torch.where(a.entry_valid(), a.values**2, 0.0).sum()
+
+    for a, b in ((mt0, new), (new, mt0)):
+        got, want = csr_frobenius_diff(a, b), scatter_add_form(a, b)
+        assert [float(x) for x in got] == [float(x) for x in want]

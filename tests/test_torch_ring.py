@@ -192,6 +192,17 @@ def test_ring_matmul_tiled_rejects_n_not_a_multiple_of_nt():
         RK.ring_matmul_tiled_plain(torch.from_numpy(a), torch.from_numpy(b), nt=0)
 
 
+@pytest.mark.parametrize("nt", [0, 2])
+def test_ring_matmul_on_the_cpu_takes_more_ranks_than_the_card_launch(nt):
+    # the card launch's rank limit is no limit of the plain version
+    d = RK.MAX_MATMUL_RANKS + 1
+    a, b = _operands(d, 2, 1, 4, seed=5)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    got = (RK.ring_matmul_tiled(at, bt, nt=nt) if nt else RK.ring_matmul(at, bt)).numpy()
+    want = a.astype(np.float64) @ b.reshape(d, 4).astype(np.float64)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 # ---- the kernels' 3xTF32 arithmetic, emulated -------------------------------------
 TERMS = {"lo_hi": (1, 0), "hi_lo": (0, 1), "hi_hi": (0, 0)}  # (a part, b part)
 THREE_PASS = ("lo_hi", "hi_lo", "hi_hi")
