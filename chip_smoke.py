@@ -38,8 +38,11 @@
    semantics, the 5-iteration run against the port's own CPU run of the
    same plan, and the warm iteration timed;
 9. sharded R-MCL with D = 4 shards stacked on the card (``make_mesh``'s
-   default device), 3 iterations, all four exchanges (each scan a CUDA
-   graph of its step, phase 16): ``pallas_ring``
+   default device), 3 iterations, all four exchanges (each call plans
+   afresh, so its scan captures a CUDA graph of its step only where 3
+   reaches the step's break-even count, ``utils/graphs.captures``: each
+   call logs whether it captured and the phase fails where that breaks
+   the rule): ``pallas_ring``
    (K6) bit-equal to ``all_gather``, ``fused_ring`` (K8) against
    ``ring``, ``all_gather`` against single-chip ``rmcl_ell``; the warm
    iteration 2 of each exchange timed with CUDA events; K6 at D = 2, 4, 8
@@ -71,8 +74,9 @@
    command line: ``classify_flops``, ``flops_stats`` and ``nnz_stats``
    of s14's A·A equal to a numpy recomputation; ``plan_bins`` and
    ``spgemm_binned`` on s14 against scipy, K1 launched once a non-empty
-   bin, bit-equal over calls, no host read in a warm call, timed (CUDA
-   events) with one call's device time by kernel; K1 at binned's
+   bin, bit-equal over calls, no host read in a warm call, its eager
+   body timed (CUDA events; phase 16 times its graph) with one call's
+   device time by kernel; K1 at binned's
    W = 4096 and W = 16 tiles against its twin; ``spgemm_ell_partitioned``
    (4 groups) on the band and on s14 against scipy, with s14's peak
    device memory beside one ``spgemm_ell`` call's; ``perf`` (esc,
@@ -85,7 +89,8 @@
    (plain torch, no kernel of its own): ``sharded_spgemm`` and
    ``sharded_spgemm_ring`` on phase 4's s14 in the natural layout
    against scipy, each bit-equal over two calls made with no host read,
-   timed, the ring's planner timed on the host; ``sharded_spgemm_2d`` at
+   timed (the ring's eager body; phase 16 times its graph), the ring's
+   planner timed on the host; ``sharded_spgemm_2d`` at
    (2, 2), each block against the same block of scipy's product; the
    dynamic ``sharded_rmcl_scan`` on phase 8's graph relabelled by the
    flops-balanced permutation, 3 iterations at ``plan_shard_capacities``
@@ -103,8 +108,9 @@
    label agreement; ``tools/bench_rmcl_scale.py``'s 1024 x 64 = 65,536
    nodes (p_out 8/n, seed 11, nnz(A) 1,825,520, S = 128): ``plan_rmcl_ell``
    ms, ms an iteration as the slope of CUDA-event medians at 2 and 6
-   iterations, iteration 1 against the f64 oracle, 30 iterations to
-   clusters at weight floor 0.05 with purity >= 0.95, and one stream step's
+   iterations (after the 30 below, which captured the step's graph),
+   iteration 1 against the f64 oracle, 30 iterations to clusters at
+   weight floor 0.05 with purity >= 0.95, and one stream step's
    run sums (K9) at that scale;
 15. one rank a process (the process mesh, ranks started as processes of
    this script with ``--rank-child``, each group under a wall-clock limit,
@@ -136,22 +142,31 @@
    of the ``kernels`` line, and their per-rank cases to its ``cases``
    (the kernel's own numbers stay those of its stacked case).
 16. the compiled programs (``utils/graphs.py``): the warm ``spgemm_ell``,
-   ``rmcl_ell_scan`` and the stacked ``sharded_rmcl_ell_scan`` run as
-   CUDA graphs, captured once a plan and replayed, through their normal
-   entry points (so phases 4, 8, 9, 10's STATIC route and 14 run them
-   too): the warm ``spgemm_ell`` on s14 (bit-equal to the eager warm
-   body; a replay on A's values doubled gives exactly twice C),
-   ``rmcl_ell_scan`` on phase 8's graph (5 iterations),
+   ``rmcl_ell_scan``, the stacked ``sharded_rmcl_ell_scan``, the warm
+   ``sharded_spgemm_ring`` (stacked, plan passed) and ``spgemm_binned``
+   run as CUDA graphs kept on their plans, through their normal entry
+   points (so phases 4, 14 and any caller past a program's break-even
+   count run them too).  A program captures at the call where the eager
+   runs already spent on its plan and key, plus the runs the call still
+   makes, reach its break-even count B (``graphs.BREAK_EVEN``); each
+   program here is driven on a fresh plan until it captures, and must
+   capture at call ceil(B / its iterations a call), each call bit-equal
+   to the eager run: the warm ``spgemm_ell`` on s14,
+   ``rmcl_ell_scan`` on phase 8's graph (5 iterations a call),
    ``sharded_rmcl_ell_scan`` at D = 4 on phase 8's graph with each
    exchange (5 iterations; a second call on the same plan with another
-   iterate equals its own eager loop) and ``rmcl_ell_scan`` on phase
-   14(b)'s planted graph (30 iterations, its clusters and purity), each
-   scan bit-equal to the eager loop of its step, iterate and histories;
-   eager and graph ms, capture ms, pool bytes, peak memory and replays x
-   launches a replay, in one ``phase 16`` JSON line.  A replay adds its
-   captured launches to the counts.  The general ``rmcl_scan`` stays an
-   eager loop: its step is bound by the device, and a graph of it was
-   measured as no gain (``ring_probe.py capture``).
+   iterate equals its own eager loop), ``sharded_spgemm_ring`` at D = 4
+   on phase 13's s14 with plan and caps passed, ``spgemm_binned`` on
+   phase 12's s14 (a fresh plan) and ``rmcl_ell_scan`` on phase 14(b)'s planted
+   graph (30 iterations, its clusters and purity); each scan bit-equal
+   to the eager loop of its step, iterate and histories; the SpGEMMs
+   replayed on A's values doubled must give exactly twice C; eager and
+   graph ms, capture ms, pool bytes, peak memory and replays x launches
+   a replay (K9 in the ring's and the binned graphs), in one ``phase
+   16`` JSON line.  A replay adds its captured launches to the counts.
+   The general ``rmcl_scan`` stays an eager loop: its step is bound by
+   the device, and a graph of it was measured as no gain
+   (``ring_probe.py capture``).
 
 Phases 11-13 also hold ``ops/segments.last_marked`` (the segment
 expansion behind ``repeat_segments``: unique-target scatters and K4
@@ -587,12 +602,14 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
         f"{[(d, int(r.size)) for d, r, _ in plan.bins]} hub rows "
         f"{plan.huge_rows.size} hub_kh {plan.hub_kh}"
     )
+    failed = []
     t0 = time.perf_counter()
-    out5, hist5 = drive(
+    (out5, hist5), made = captures_in(lambda: drive(
         "rmcl_ell s14 S=128 5 iterations",
         lambda: RM.rmcl_ell(coo, max_iters=5, S=S, max_tile=MT),
         ("sort_dedup_compact",),
-    )
+    ))
+    check_policy("rmcl_ell s14 5 iterations", "rmcl_ell_scan", 5, made, failed)
     log(f"rmcl_ell s14: 5 iterations with plan {time.perf_counter() - t0:.3f} s; "
         f"nnz {hist5['nnz'].tolist()} truncated {hist5['truncated_rows'].tolist()} "
         f"differs {hist5['differs'].tolist()}")
@@ -614,7 +631,6 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
         RM.sort_dedup_compact = k1
     log(f"R-MCL s14 step 1: K1 tiles (W, R, longest run) {seen}; longest run "
         f"{max((r for _, _, r in seen), default=0)} lanes")
-    failed = []
     # the same run one step at a time, keeping every iterate
     its = [(cols0, vals0)]
     for _ in range(5):
@@ -673,15 +689,16 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
     runs = {}
     for ex, kernels in must.items():
         t0 = time.perf_counter()
-        runs[ex] = drive(
+        runs[ex], made = captures_in(lambda ex=ex, kernels=kernels: drive(
             f"sharded_rmcl_ell s14 D=4 {ex} 3 iterations",
-            lambda ex=ex: sharded_rmcl_ell(coo, mesh, max_iters=3, S=S, max_tile=MT,
-                                           exchange=ex),
+            lambda: sharded_rmcl_ell(coo, mesh, max_iters=3, S=S, max_tile=MT, exchange=ex),
             kernels,
-        )
+        ))
         h = runs[ex][1]
         log(f"sharded {ex}: {time.perf_counter() - t0:.3f} s with plan; nnz "
             f"{h['nnz'].tolist()} differs {h['differs'].tolist()}")
+        check_policy(f"sharded_rmcl_ell s14 D=4 {ex}", "sharded_rmcl_ell_scan", 3, made,
+                     failed)
     (ag, hag), (pr, hpr) = runs["all_gather"], runs["pallas_ring"]
     same = (torch.equal(ag.row_ptr, pr.row_ptr) and torch.equal(ag.col_ind, pr.col_ind)
             and torch.equal(ag.values, pr.values)
@@ -1212,12 +1229,14 @@ def binned_phase(torch, np, sp, dev, card, a, ca, snap, drive, record, burst, ch
     log(f"nnz_stats s14 A·A: {nh.tolist()} == numpy's; classify_flops, flops_stats too")
     del c2, c3
     flops = plan.product_cap
-    fn = lambda: BN.spgemm_binned(a, a, plan)  # noqa: E731
+    # the eager body, whatever the plan's calls so far: phase 16 times the
+    # graph, and the run sums below are caught in Python
+    fn = lambda: BN._binned_impl(a, a, plan)  # noqa: E731
     ms = cuda_ms(torch, fn, reps=9)
     ka = profile_kernels(torch, fn)
-    log(f"s14 spgemm_binned warm: {ms:.3f} ms (median of 9, CUDA events), "
+    log(f"s14 spgemm_binned warm, eager body: {ms:.3f} ms (median of 9, CUDA events), "
         f"{2 * flops / ms / 1e6:.3f} GFLOPS [{card}]")
-    log("s14 spgemm_binned, one call under torch.profiler: " + breakdown(ka, 8))
+    log("s14 spgemm_binned, one eager call under torch.profiler: " + breakdown(ka, 8))
     no_cummax_kernel("phase 12", ka, failed)
     if failed:
         raise AssertionError("phase 12: " + "; ".join(failed))
@@ -1564,11 +1583,6 @@ def planted_phase(torch, np, sp, dev, card, drive, record, cuda_ms, device_ms):
     torch.cuda.synchronize()
     log(f"plan_rmcl_ell planted n={n} S={S}: {plan_ms:.1f} ms host; bins "
         f"{[(d, int(r.size)) for d, r, _ in plan.bins]} hub rows {plan.huge_rows.size} [{card}]")
-    walls = {k: cuda_ms(torch, lambda k=k: RM.rmcl_ell_scan(plan, mgt, a_d, cols0, vals0, k),
-                        reps=3, warm=1) for k in (2, 6)}
-    ms_iter = (walls[6] - walls[2]) / 4
-    log(f"rmcl_ell_scan planted n={n} S={S}: {ms_iter:.3f} ms/iteration (slope of CUDA-event "
-        f"medians, {walls[2]:.3f} ms at 2 and {walls[6]:.3f} ms at 6 iterations) [{card}]")
     c1, v1, _ = RM.rmcl_ell_step(plan, mgt, a_d, cols0, vals0)
     h0 = (cols0.cpu().numpy().astype(np.int64), vals0.cpu().numpy().astype(np.float64))
     oc, ov, near = oracle_step(np, sp, mgt, *h0, S)
@@ -1595,6 +1609,13 @@ def planted_phase(torch, np, sp, dev, card, drive, record, cuda_ms, device_ms):
         f"{kc} planted, purity {pur:.4f} at weight floor 0.05 (extraction {ext_s:.2f} s) [{card}]")
     if pur < 0.95:
         failed.append(f"planted n={n}: purity {pur:.4f} < 0.95")
+    # after the 30-iteration call, which captured the step's graph: both
+    # lengths replay it
+    walls = {k: cuda_ms(torch, lambda k=k: RM.rmcl_ell_scan(plan, mgt, a_d, cols0, vals0, k),
+                        reps=3, warm=1) for k in (2, 6)}
+    ms_iter = (walls[6] - walls[2]) / 4
+    log(f"rmcl_ell_scan planted n={n} S={S}: {ms_iter:.3f} ms/iteration (slope of CUDA-event "
+        f"medians, {walls[2]:.3f} ms at 2 and {walls[6]:.3f} ms at 6 iterations) [{card}]")
     del c30, v30, mt_fin, plan, a_d, cols0, vals0
 
     # one stream step at this scale: K9 on its products and row sums
@@ -1614,6 +1635,38 @@ def planted_phase(torch, np, sp, dev, card, drive, record, cuda_ms, device_ms):
         raise AssertionError("phase 14: " + "; ".join(failed))
 
 
+def captures_in(fn):
+    """(``fn()``, the names of the bodies it captured): a spy on
+    ``utils/graphs.CapturedBody._capture`` for the call."""
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    made, real = [], graphs.CapturedBody._capture
+
+    def spy(self):
+        made.append(self.name)
+        return real(self)
+
+    graphs.CapturedBody._capture = spy
+    try:
+        return fn(), made
+    finally:
+        graphs.CapturedBody._capture = real
+
+
+def check_policy(label: str, name: str, iters: int, made: list, failed: list) -> None:
+    """Log whether a call of ``iters`` runs on a fresh plan captured, and
+    fail where the capture policy says otherwise (it captures iff
+    ``iters`` reaches the program's break-even count)."""
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    b = graphs.BREAK_EVEN[name]
+    log(f"{label}: a call of {iters} iterations on a fresh plan "
+        f"{'captured' if made else 'captured nothing'} "
+        f"({name}'s break-even count B = {b})")
+    if bool(made) != (iters >= b) or any(m != name for m in made):
+        failed.append(f"{label}: captured {made} against the policy (B = {b})")
+
+
 def same_bits(torch, x, y) -> bool:
     """Bit for bit: tensors (f32 by their bits), CSRs array by array,
     dicts, tuples and lists of them."""
@@ -1629,26 +1682,40 @@ def same_bits(torch, x, y) -> bool:
 
 
 def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
-    """Phase 16: the compiled programs, CUDA graphs captured once a plan
-    and replayed through the normal entry points (``utils/graphs.py``):
-    the warm ``spgemm_ell`` on R-MAT s14 (phase 4's matrix, a fresh plan),
-    ``rmcl_ell_scan`` on phase 8's graph (S = 128, 5 iterations), the
-    stacked ``sharded_rmcl_ell_scan`` at D = 4 on phase 8's graph with
-    each exchange (5 iterations, and a second call on another iterate)
-    and ``rmcl_ell_scan`` on phase 14(b)'s 65,536-node planted graph (30
-    iterations, clusters and purity).  Each graph call is held bit for
-    bit to the eager run of the same body (the warm ``_tiles_impl``, a
-    loop of the step), and the SpGEMM replayed on A's values doubled must
-    give exactly twice C.  For each program it logs eager and graph ms (CUDA events, median of 15 after warm-up),
-    the capture's host ms, the graph's pool bytes, the peak device memory
-    of an eager call, of the capturing call and of a replaying call, and
-    replays x the launches a replay makes, counted by ``drive``."""
+    """Phase 16: the compiled programs, CUDA graphs kept on a plan and
+    replayed through the normal entry points (``utils/graphs.py``), each
+    on a fresh plan driven by calls until the capture policy captures
+    (at call ceil(B / iterations a call), B its break-even count): the
+    warm ``spgemm_ell`` on R-MAT s14 (phase 4's matrix), ``rmcl_ell_scan``
+    on phase 8's graph (S = 128, 5 iterations a call), the stacked
+    ``sharded_rmcl_ell_scan`` at D = 4 on phase 8's graph with each
+    exchange (5 iterations, and a second call on another iterate), the
+    warm ``sharded_spgemm_ring`` at D = 4 on phase 13's s14 (plan and
+    caps passed), the warm ``spgemm_binned`` on phase 12's s14 and
+    ``rmcl_ell_scan`` on phase 14(b)'s 65,536-node planted graph (30
+    iterations, clusters and purity).  Each call is held bit for bit to
+    the eager run of the same body (the warm ``_tiles_impl``, a loop of
+    the step, ``_ring_impl``, ``_binned_impl``), and each SpGEMM replayed
+    on A's values doubled must give exactly twice C.  For each program
+    it logs eager and graph ms (CUDA events, median of 15 after
+    warm-up), B and the call that captured, the capture's host ms, the
+    graph's pool bytes, the peak device memory of an eager call, of the
+    capturing call and of a replaying call, and replays x the launches a
+    replay makes, counted by ``drive``."""
+    import dataclasses
     import importlib
 
     from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR
     from sparse_matrix_with_flops_tpu_torch.models.clusters import cluster_sizes, extract_clusters
+    from sparse_matrix_with_flops_tpu_torch.ops import binned as BN
     from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
     from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.parallel import shard_csr
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import (
+        _ring_impl,
+        plan_spgemm_ring,
+        sharded_spgemm_ring,
+    )
     from sparse_matrix_with_flops_tpu_torch.utils import graphs
     from sparse_matrix_with_flops_tpu_torch.utils.generate import (
         cluster_purity,
@@ -1674,21 +1741,31 @@ def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
 
     def program(label, owner, name, eager, call, must, iters=1, reps=15):
         """One compiled program: eager and graph results, bits, times,
-        memory, capture and replays."""
+        memory, the call that captured, and replays."""
         want, peak_e = peak_gib(eager)
-        first, peak_c = peak_gib(call)  # the eager first run, then the capture
-        g = graphs.held(owner, name)
-        if g is None or g.graph is None:
-            raise AssertionError(f"phase 16: {label} kept no graph")
+        b = graphs.BREAK_EVEN[name]
+        expect = -(-b // iters)  # the policy's capturing call on a fresh plan
+        ok = True
+        for k in range(1, expect + 1):  # eager calls, then the eager run and the capture
+            first, peak_c = peak_gib(call)
+            ok = ok and same_bits(torch, first, want)
+            g = graphs.held(owner, name)
+            if g is not None and g.graph is not None:
+                break
+        if g is None or g.graph is None or k != expect:
+            raise AssertionError(f"phase 16: {label} kept no graph at call {k}; the policy "
+                                 f"captures at call {expect} (B = {b}, {iters} a call)")
+        del first
         replays0 = g.replays
         got, peak_r = peak_gib(lambda: drive(f"{label} (graph replays)", call, must))
         per_call = g.replays - replays0
-        ok = same_bits(torch, first, want) and same_bits(torch, got, want)
+        ok = ok and same_bits(torch, got, want)
         eager_ms = cuda_ms(torch, eager, reps=reps, warm=1)
         graph_ms = cuda_ms(torch, call, reps=reps, warm=1)
         rec = {
             "eager_ms": eager_ms, "graph_ms": graph_ms, "iterations": iters,
             "eager_ms_per_iteration": eager_ms / iters, "graph_ms_per_iteration": graph_ms / iters,
+            "break_even": b, "captured_at_call": k, "eager_runs": g.spent,
             "capture_ms": g.capture_ms, "pool_bytes": g.pool_bytes,
             "peak_gib": {"eager": peak_e, "capturing call": peak_c, "replaying call": peak_r},
             "replays_a_call": per_call,
@@ -1698,7 +1775,8 @@ def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
         report[label] = rec
         log(f"{label}: eager {eager_ms:.3f} ms, graph {graph_ms:.3f} ms "
             f"({eager_ms / iters:.3f} / {graph_ms / iters:.3f} ms an iteration, CUDA events, "
-            f"median of {reps}); capture {g.capture_ms:.1f} ms host; pool "
+            f"median of {reps}); B = {b}, captured at call {k} of {iters} "
+            f"({g.spent} eager runs); capture {g.capture_ms:.1f} ms host; pool "
             f"{g.pool_bytes / 2**20:.1f} MiB; peak GiB eager {peak_e:.3f}, capturing call "
             f"{peak_c:.3f}, replaying call {peak_r:.3f}; {per_call} replays x "
             f"{rec['launches_a_replay']} a call; graph {'==' if ok else '!='} eager bit for "
@@ -1720,17 +1798,44 @@ def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
                 lambda: E.spgemm_ell(a, a, plan),
                 ("sort_dedup_compact", "compact_nonzero_rows", "window_gather", "cumsum_i32"))
     a2 = CSR(a.row_ptr, a.col_ind, 2.0 * a.values, a.ncols)
-    c2 = E.spgemm_ell(a2, a, plan)  # a replay on new inputs
-    torch.cuda.synchronize()
-    doubled = (torch.equal(c2.row_ptr, c.row_ptr) and torch.equal(c2.col_ind, c.col_ind)
-               and torch.equal(c2.values, 2.0 * c.values))
-    log(f"spgemm_ell s14 warm graph replayed on A's values doubled: C's values "
-        f"{'exactly' if doubled else 'NOT'} doubled, structure kept")
-    if not doubled:
-        failed.append("spgemm_ell: the replay on 2A did not give exactly 2C")
-    del c, c2, a2, plan
 
-    # ---- 16b. rmcl_ell_scan on phase 8's graph -----------------------------
+    def doubled(label, c, c2):
+        torch.cuda.synchronize()
+        ok = (torch.equal(c2.row_ptr, c.row_ptr) and torch.equal(c2.col_ind, c.col_ind)
+              and torch.equal(c2.values, 2.0 * c.values))
+        log(f"{label} graph replayed on A's values doubled: C's values "
+            f"{'exactly' if ok else 'NOT'} doubled, structure kept")
+        if not ok:
+            failed.append(f"{label}: the replay on 2A did not give exactly 2C")
+
+    doubled("spgemm_ell s14 warm", c, E.spgemm_ell(a2, a, plan))  # a replay on new inputs
+    n, d = a.rows, 4
+    oc = int(torch.diff(c.row_ptr).reshape(d, n // d).sum(1).max())  # phase 13's out_cap
+    del c, plan
+
+    # ---- 16b. the warm sharded_spgemm_ring, D = 4 stacked, on s14 ---------
+    sa, mesh = shard_csr(a, d), make_mesh(d, dev)
+    rplan, ents = plan_spgemm_ring(sa, sa)
+    c, _ = program("sharded_spgemm_ring s14 D=4 warm", rplan, "sharded_spgemm_ring",
+                   lambda: _ring_impl(mesh, rplan.step_prod_caps, sa, sa, ents, oc),
+                   lambda: sharded_spgemm_ring(mesh, sa, sa, out_cap=oc, plan=rplan,
+                                               step_ents=ents),
+                   ("cumsum_i32", "run_sums"))
+    sa2 = dataclasses.replace(sa, values=2.0 * sa.values)
+    doubled("sharded_spgemm_ring s14 D=4 warm", c,
+            sharded_spgemm_ring(mesh, sa2, sa, out_cap=oc, plan=rplan, step_ents=ents)[0])
+    del c, sa, sa2, rplan, ents, mesh
+
+    # ---- 16c. the warm spgemm_binned on s14 --------------------------------
+    bplan = BN.plan_bins(a, a)
+    c = program("spgemm_binned s14 warm", bplan, "spgemm_binned",
+                lambda: BN._binned_impl(a, a, bplan), lambda: BN.spgemm_binned(a, a, bplan),
+                ("sort_dedup_compact", "cumsum_i32", "run_sums"))
+    doubled("spgemm_binned s14 warm", c, BN.spgemm_binned(a2, a, bplan))
+    del c, a2, bplan
+    torch.cuda.synchronize()
+
+    # ---- 16d. rmcl_ell_scan on phase 8's graph -----------------------------
     def ell_eager(plan, mgt, a_d, cols, vals, iters):
         hist = []
         for _ in range(iters):
@@ -1748,7 +1853,7 @@ def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
             ("sort_dedup_compact",), iters=5)
     del plan, a_d
 
-    # ---- 16c. sharded_rmcl_ell_scan, D = 4 stacked, each exchange ----------
+    # ---- 16e. sharded_rmcl_ell_scan, D = 4 stacked, each exchange ----------
     mesh = make_mesh(4, dev)
     plan, arrays, smgt = PS.plan_sharded_rmcl_ell(mgt, 4, S=S15, max_tile=MT15)
     x0 = (torch.where(cols0 >= mgt.rows, plan.n, cols0).reshape(4, plan.lr, S15),
@@ -1778,7 +1883,7 @@ def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
     del plan, arrays, smgt, x0, x1, cols0, vals0
     torch.cuda.synchronize()
 
-    # ---- 16d. rmcl_ell_scan on the 65,536-node planted graph ---------------
+    # ---- 16f. rmcl_ell_scan on the 65,536-node planted graph ---------------
     kc, cs, iters = 1024, 64, 30
     pcoo, planted = planted_partition_coo(kc, cs, p_in=0.3, p_out=8.0 / (kc * cs), seed=11)
     pmgt = R.rmcl_init(pcoo).make_ordered()
@@ -1835,6 +1940,7 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_
     )
     from sparse_matrix_with_flops_tpu_torch.parallel import rmcl as PR
     from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import (
+        _ring_impl,
         plan_spgemm_ring,
         sharded_spgemm,
         sharded_spgemm_ring,
@@ -1937,10 +2043,10 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_
         failed.append("sharded SpGEMM: a second call gave other bits")
     del again, ring2
     sh_ms = cuda_ms(torch, lambda: sharded_spgemm(mesh, sa, sa, pc, oc), reps=5, warm=1)
-    ring_ms = cuda_ms(torch, lambda: sharded_spgemm_ring(mesh, sa, sa, out_cap=oc, plan=plan,
-                                                         step_ents=ents), reps=5, warm=1)
+    ring_ms = cuda_ms(torch, lambda: _ring_impl(mesh, plan.step_prod_caps, sa, sa, ents, oc),
+                      reps=5, warm=1)  # the eager body: phase 16 times the graph
     log(f"sharded_spgemm s14 D={d} warm: {sh_ms:.3f} ms; sharded_spgemm_ring {ring_ms:.3f} "
-        f"ms (CUDA events, median of 5); peak device memory of the first call "
+        f"ms, eager body (CUDA events, median of 5); peak device memory of the first call "
         f"{peak_spgemm / 2**30:.3f} GiB above its inputs [{card}]")
     del c1, c2, info, info2, plan, ents
     torch.cuda.synchronize()
@@ -2979,6 +3085,7 @@ def main() -> int:
         csr_spmm_dense,
         csr_spmv,
     )
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
     from sparse_matrix_with_flops_tpu_torch.utils.generate import (
         banded_csr,
         rmat_csr,
@@ -3326,7 +3433,10 @@ def main() -> int:
     card = smi[0]
     plan = plan_ell(a, a)
     E.spgemm_ell(a, a, plan)  # caches the nnz(C) bucket
-    E.spgemm_ell(a, a, plan)  # captures the warm call's CUDA graph
+    for _ in range(graphs.BREAK_EVEN["spgemm_ell"]):  # warm calls up to the graph's capture
+        E.spgemm_ell(a, a, plan)
+    if graphs.held(plan, "spgemm_ell").graph is None:
+        raise AssertionError("phase 4: the warm s14 spgemm_ell kept no graph")
     s14_warm = host_ms(torch, lambda: E.spgemm_ell(a, a, plan), 10)
     s14_cold = host_ms(torch, lambda: spgemm_auto(a, a), 3)
     bplan = plan_block(ca, ca)

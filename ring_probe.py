@@ -109,26 +109,35 @@ written (a CTA a row with a block scan each 1024 lanes; a thread a
 lane), in a checkout that still has them, given as ``--root``.
 
 ``entry``: as ``step``, one fresh process a ROOT (give two in the order
-A B B A), the entry points that ``chip_smoke.py`` phases 4, 8, 9, 10 and
-11 time, at their default settings: ``rmcl_ell`` (5 iterations, plan
-included), ``rmcl`` in scan mode on s14 and on tdata, ``rmcl_scan`` at
-margin 2.5, the warm ``spgemm_ell``, ``corpus``' ``ell`` and
-partitioned rows on s14 with the partitioned row's peak memory, and
-``sharded_rmcl_ell`` at D = 4 stacked with each exchange (5 iterations,
-plan included) with a digest of its result's bits (48 bits of a
-SHA-256 of the iterate and the histories, equal across trees when the
-bits are).
+A B B A), the entry points that ``chip_smoke.py`` phases 4, 8, 9, 10,
+11 and 12 time, at their default settings: ``rmcl_ell`` (5 iterations,
+plan included), ``rmcl`` in scan mode on s14 and on tdata, ``rmcl_scan``
+at margin 2.5, the warm ``spgemm_ell``, ``corpus``' ``ell`` and
+partitioned rows on s14 with the partitioned row's peak memory,
+``perf --kernel binned`` on s14 written as a SNAP file (its printed
+ms), and ``sharded_rmcl_ell`` at D = 4 stacked with each exchange, at
+phase 9's 3 iterations and at 5 (plan included), with a digest of the
+5-iteration result's bits (48 bits of a SHA-256 of the iterate and the
+histories, equal across trees when the bits are).
 
-``capture``: what a CUDA graph costs and buys for the warm
-``spgemm_ell`` body, one ``rmcl_ell_step``, one general
-``rmcl_one_step`` and one D = 4 stacked sharded step with each exchange
-at ``chip_smoke.py`` phase 16's s14 sizes: eager and replay ms,
-``utils/graphs.py``'s first run, capture ms and pool, a capture inside
-``torch.cuda.graph`` for comparison, and the iterations after which a
-graph pays for its capture; then the warm ``sharded_spgemm`` and
-``sharded_spgemm_ring`` at D = 4 on s14 (random weights), eager ms (CUDA
-events) beside their device time (torch.profiler), uncaptured: how far
-a graph could take them.
+``capture``: what a CUDA graph costs and buys, the source of
+``utils/graphs.BREAK_EVEN``.  For the warm ``spgemm_ell`` body, one
+``rmcl_ell_step``, one general ``rmcl_one_step`` and one D = 4 stacked
+sharded step with each exchange at ``chip_smoke.py`` phase 16's s14
+sizes: eager and replay ms, ``utils/graphs.py``'s first run, capture ms
+and pool (five captures, the median), a capture inside
+``torch.cuda.graph`` for comparison; for the warm ``sharded_spgemm_ring``
+(D = 4, plan passed) and ``spgemm_binned`` on s14 (random weights),
+through their entry points: the eager body's ms, the calls the capture
+policy took to capture, capture ms (five captures, the graph dropped
+between) and pool, and the replaying call's ms.  Then the iterations or
+calls after which each graph pays for its capture, 1 + capture / (eager
+- replay), none where the replay saves nothing, and for each of the five
+programs the count rounded up beside the table in ``utils/graphs.py``.
+Last, the warm ``sharded_spgemm`` and ring bodies at D = 4 and
+``sharded_spgemm_2d`` on a (2, 2) stacked mesh, eager ms (CUDA events)
+beside their device time (torch.profiler), uncaptured: how far a graph
+could take them.
 
 ``--root ROOT`` (``launch``, ``variants``): import the port, and build
 the variants, from the checkout ROOT instead of this script's own.
@@ -150,6 +159,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "sparse_matrix_with_flops_tpu_torch"
 EXCHANGES = ("fused_ring", "ring", "all_gather", "pallas_ring")
+CAPTURES = 5  # captures a body in ``capture``: one capture's host time spreads widely
 
 
 def _edit(src: str, old: str, new: str) -> str:
@@ -629,16 +639,12 @@ def sharded_state(dev, mgt, cols0, vals0):
 
 
 def capture_costs(dev) -> None:
-    """What a CUDA graph costs and buys, for the three step bodies of
-    ``_one_step_bodies``: the eager body and the replay (CUDA events,
-    median of 5 after a warm run, with the replay's clones of the
-    outputs), the host ms of ``utils/graphs.py``'s first run (the eager
-    run, then the capture by ``capture_begin`` / ``capture_end``), its
-    ``capture_ms`` and pool, the host ms of a capture of the same body
-    inside ``torch.cuda.graph`` (which synchronizes, collects garbage and
-    empties the allocator's cache on entry), and the iterations after
-    which the graph pays for its capture: 1 + capture / (eager - replay),
-    none where the replay saves nothing."""
+    """What a CUDA graph costs and buys (the module docstring's
+    ``capture``): eager and replay ms by CUDA events (median of 5 after a
+    warm run, the replay with its clones of the outputs), capture ms by
+    the host clock, the median of ``CAPTURES`` captures."""
+    import math
+
     import torch
 
     from sparse_matrix_with_flops_tpu_torch import _build
@@ -646,17 +652,29 @@ def capture_costs(dev) -> None:
 
     _build.library()
     report = {}
+
+    def show(label, row, runs):
+        report[label] = row
+        print(f"{label}: " + "; ".join(f"{k} {v:.3f}" if v is not None else f"{k} none"
+                                       for k, v in row.items())
+              + f"; captures {', '.join(f'{c:.3f}' for c in runs)} ms [CUDA events; host "
+              "clock for first run and captures]", flush=True)
+
     for label, body in _one_step_bodies(dev).items():
         body()
         torch.cuda.synchronize()
         eager = statistics.median(_times(torch, body, reps=5))
-        # nothing to load: the body reads its inputs in place
-        g = graphs.CapturedBody(label, body, (torch.empty(0, device=dev),))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        g.run()
-        torch.cuda.synchronize()
-        first = (time.perf_counter() - t0) * 1e3
+        runs = []
+        for _ in range(CAPTURES):
+            # nothing to load: the body reads its inputs in place; a body no
+            # program names captures at its first run
+            g = graphs.CapturedBody(label, body, (torch.empty(0, device=dev),))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.run()
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3 if not runs else first
+            runs.append(g.capture_ms)
         replay = statistics.median(_times(torch, g.run, reps=5))
         old = torch.cuda.CUDAGraph()
         torch.cuda.synchronize()
@@ -664,37 +682,89 @@ def capture_costs(dev) -> None:
         with torch.cuda.graph(old):
             body()
         old_ms = (time.perf_counter() - t0) * 1e3
-        saved = eager - replay
-        row = {"eager ms": eager, "replay ms": replay, "first run ms": first,
-               "capture ms": g.capture_ms, "pool MiB": g.pool_bytes / 2**20,
-               "torch.cuda.graph capture ms": old_ms,
-               "break-even iterations": 1 + g.capture_ms / saved if saved > 0 else None}
+        saved, cap = eager - replay, statistics.median(runs)
+        show(label, {"eager ms": eager, "replay ms": replay, "first run ms": first,
+                     "capture ms": cap, "pool MiB": g.pool_bytes / 2**20,
+                     "torch.cuda.graph capture ms": old_ms,
+                     "break-even iterations": 1 + cap / saved if saved > 0 else None}, runs)
         del old, g
         torch.cuda.synchronize()
-        report[label] = row
-        print(f"{label}: " + "; ".join(f"{k} {v:.3f}" if v is not None else f"{k} none"
-                                       for k, v in row.items()) + " [CUDA events; host clock "
-              "for first run and captures]", flush=True)
+    for label, (name, plan, call, eager_body) in _one_shot_programs(dev).items():
+        eager_body()
+        torch.cuda.synchronize()
+        eager = statistics.median(_times(torch, eager_body, reps=5))
+        runs, calls = [], []
+        for _ in range(CAPTURES):
+            graphs.drop(plan, name)  # and with it the count of eager calls
+            torch.cuda.synchronize()
+            for k in range(1, graphs.BREAK_EVEN[name] + 1):
+                call()
+                g = graphs.held(plan, name)
+                if g.graph is not None:
+                    break
+            else:
+                raise SystemExit(f"ring_probe capture: {name} captured nothing in {k} calls")
+            torch.cuda.synchronize()
+            runs.append(g.capture_ms)
+            calls.append(k)
+        replay = statistics.median(_times(torch, call, reps=5))
+        saved, cap = eager - replay, statistics.median(runs)
+        show(label, {"eager ms": eager, "replay ms": replay, "calls to capture": calls[0],
+                     "capture ms": cap, "pool MiB": g.pool_bytes / 2**20,
+                     "break-even calls": 1 + cap / saved if saved > 0 else None}, runs)
+        graphs.drop(plan, name)
+        torch.cuda.synchronize()
+
+    def count(*labels):
+        bs = [report[k].get("break-even iterations", report[k].get("break-even calls"))
+              for k in labels]
+        return None if None in bs else max(math.ceil(b) for b in bs)
+
+    measured = {
+        "spgemm_ell": count("spgemm_ell s14 warm"),
+        "rmcl_ell_scan": count("rmcl_ell_step s14 S=128"),
+        "sharded_rmcl_ell_scan": count(*(f"sharded step s14 D=4 {ex}" for ex in EXCHANGES)),
+        "sharded_spgemm_ring": count("sharded_spgemm_ring s14 D=4 warm"),
+        "spgemm_binned": count("spgemm_binned s14 warm"),
+        "rmcl_scan (eager, no graph)": count("rmcl_one_step s14 margin 2.5"),
+    }
+    print("break-even counts, rounded up (none: the replay saves nothing): "
+          + json.dumps(measured) + "; utils/graphs.BREAK_EVEN " + json.dumps(graphs.BREAK_EVEN),
+          flush=True)
     report.update(sharded_spgemm_costs(dev))
-    print(json.dumps({"capture": report}))
+    print(json.dumps({"capture": report, "break_even": measured}))
 
 
-def sharded_spgemm_costs(dev) -> dict:
-    """One warm ``sharded_spgemm`` and one warm ``sharded_spgemm_ring``
-    (plan passed) at D = 4 stacked on R-MAT s14 with random weights, the
-    caps of ``chip_smoke.py`` phase 13: eager ms (CUDA events, median of
-    5) and device ms (torch.profiler, a call of 5), not captured."""
+def _one_shot_programs(dev) -> dict:
+    """label -> (program name, plan, the entry point's warm call, the eager
+    body) of the warm ``sharded_spgemm_ring`` (D = 4 stacked, plan and
+    caps passed) and ``spgemm_binned`` on R-MAT s14 with random weights."""
+    ops_binned = importlib.import_module(f"{PKG}.ops.binned")
+    spg = importlib.import_module(f"{PKG}.parallel.spgemm")
+    a, mesh, sa, rplan, ents, _, oc = _ring_state(dev)
+    bplan = ops_binned.plan_bins(a, a)
+    return {
+        "sharded_spgemm_ring s14 D=4 warm": (
+            "sharded_spgemm_ring", rplan,
+            lambda: spg.sharded_spgemm_ring(mesh, sa, sa, out_cap=oc, plan=rplan,
+                                            step_ents=ents),
+            lambda: spg._ring_impl(mesh, rplan.step_prod_caps, sa, sa, ents, oc)),
+        "spgemm_binned s14 warm": (
+            "spgemm_binned", bplan, lambda: ops_binned.spgemm_binned(a, a, bplan),
+            lambda: ops_binned._binned_impl(a, a, bplan)),
+    }
+
+
+def _ring_state(dev):
+    """R-MAT s14 (random weights), the D = 4 stacked mesh, A sharded, the
+    ring's plan and step entries, and phase 13's per-shard caps: (a,
+    mesh, sa, plan, ents, product cap, out cap)."""
     import numpy as np
-    import torch
 
     from sparse_matrix_with_flops_tpu_torch.ops.ell_esc import spgemm_ell
     from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
     from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, shard_csr
-    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import (
-        plan_spgemm_ring,
-        sharded_spgemm,
-        sharded_spgemm_ring,
-    )
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import plan_spgemm_ring
     from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
 
     d = 4
@@ -708,10 +778,45 @@ def sharded_spgemm_costs(dev) -> dict:
     pc = int(rowf.reshape(d, lr).sum(axis=1).max())
     oc = int(np.diff(crp).reshape(d, lr).sum(axis=1).max())
     plan, ents = plan_spgemm_ring(sa, sa)
+    return a, mesh, sa, plan, ents, pc, oc
+
+
+def sharded_spgemm_costs(dev) -> dict:
+    """One warm ``sharded_spgemm`` and one warm ring body (``_ring_impl``
+    with the plan) at D = 4 stacked on R-MAT s14 with random weights, the
+    caps of ``chip_smoke.py`` phase 13, and one ``sharded_spgemm_2d`` on
+    a (2, 2) stacked mesh (a block's caps its most products): eager ms
+    (CUDA events, median of 5) and device ms (torch.profiler, a call of
+    5), not captured."""
+    import numpy as np
+    import torch
+
+    from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, shard_csr
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import _ring_impl, sharded_spgemm
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm2d import (
+        shard_csr_2d,
+        sharded_spgemm_2d,
+    )
+
+    a, mesh, sa, plan, ents, pc, oc = _ring_state(dev)
+    nx = ny = 2
+    mesh2, sa2 = make_mesh((nx, ny), dev), shard_csr(a, nx)
+    b2 = shard_csr_2d(a, nx, ny)
+    rp, ci, _ = a.to_numpy()
+    n, stripe = a.rows, b2[3]
+    erow = np.repeat(np.arange(n), np.diff(rp))
+    pc2 = 1
+    for y in range(ny):
+        sel = (ci >= y * stripe) & (ci < (y + 1) * stripe)
+        blen = np.bincount(erow[sel], minlength=n)
+        rf = np.bincount(erow, weights=blen[ci], minlength=n)
+        pc2 = max(pc2, int(rf.reshape(nx, -1).sum(axis=1).max()))
     calls = {
         "sharded_spgemm s14 D=4 warm": lambda: sharded_spgemm(mesh, sa, sa, pc, oc),
-        "sharded_spgemm_ring s14 D=4 warm": lambda: sharded_spgemm_ring(
-            mesh, sa, sa, out_cap=oc, plan=plan, step_ents=ents),
+        "sharded_spgemm_ring s14 D=4 warm, eager body": lambda: _ring_impl(
+            mesh, plan.step_prod_caps, sa, sa, ents, oc),
+        "sharded_spgemm_2d s14 (2, 2) warm": lambda: sharded_spgemm_2d(mesh2, sa2, *b2, pc2,
+                                                                       pc2),
     }
     out = {}
     for label, fn in calls.items():
@@ -767,21 +872,30 @@ def peaks_one(dev) -> dict:
 
 def entry_one(dev) -> dict:
     """This process's port: the entry points that ``chip_smoke.py``
-    phases 4, 8, 10 and 11 time, at their default settings, each called
-    once to warm and then three times: ``rmcl_ell`` on phase 8's s14
+    phases 4, 8, 9, 10, 11 and 12 time, at their default settings, each
+    called once to warm and then three times: ``rmcl_ell`` on phase 8's s14
     graph (5 iterations, plan included: the STATIC route's call),
     ``rmcl`` in scan mode on s14 and on ``tests/tdatas/tdata.snap`` (5
     iterations, the default route of ``nrmcl``; host clock),
     ``rmcl_scan`` at s14 margin 2.5 (5 iterations, ms an iteration by
     CUDA events, as phase 11), the warm ``spgemm_ell`` on s14 (host
-    clock a call, median of 10), and ``corpus``' ``ell`` row on s14
-    (its timed ms) and ``run_partitioned`` with 4 groups (its timed ms,
-    and its peak device memory above what was allocated before it)."""
+    clock a call, median of 10), ``corpus``' ``ell`` row on s14 (its
+    timed ms), ``perf --kernel binned`` on phase 11's SNAP file of the
+    s14 graph (its printed ms: the median of its 5 timed calls after one
+    warm call, each call with a fresh plan's first calls), and
+    ``run_partitioned`` with 4 groups (its timed ms, and its peak device
+    memory above what was allocated before it); then ``sharded_rmcl_ell``
+    at D = 4 with each exchange, 3 iterations (phase 9's calls) and 5,
+    plan included, host clock."""
+    import contextlib
+    import io
+    import tempfile
+
     import numpy as np
     import torch
 
     from sparse_matrix_with_flops_tpu_torch import _build
-    from sparse_matrix_with_flops_tpu_torch.cli import corpus
+    from sparse_matrix_with_flops_tpu_torch.cli import corpus, perf
     from sparse_matrix_with_flops_tpu_torch.formats import COO
     from sparse_matrix_with_flops_tpu_torch.io import load_coo
     from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl, rmcl_init
@@ -826,6 +940,23 @@ def entry_one(dev) -> dict:
             spgemm_ell(a, a, plan)
         return statistics.median(wall(lambda: spgemm_ell(a, a, plan)) for _ in range(10))
 
+    tmp = tempfile.TemporaryDirectory()
+    snap = os.path.join(tmp.name, "rmat_s14.snap")
+    nnz = int(coo.nnz)
+    r, c, v = (x[:nnz].cpu().numpy() for x in (coo.row, coo.col, coo.val))
+    with open(snap, "w") as f:  # chip_smoke.py phase 11's file
+        f.write(f"# R-MAT s14, edge factor 8, seed 7\n{coo.nrows} {nnz}\n")
+        f.write("\n".join(f"{b} {a} {x:.9g}" for a, b, x in zip(r, c, v)) + "\n")
+
+    def perf_binned():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = perf.main(["-i", snap, "--kernel", "binned"])
+        line = buf.getvalue().splitlines()[-1]
+        if rc or not line.startswith("binned spgemm: "):
+            raise SystemExit(f"ring_probe entry: perf --kernel binned: {line}")
+        return float(line.split()[2])
+
     def partitioned():
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -845,6 +976,7 @@ def entry_one(dev) -> dict:
             lambda: rm.rmcl_scan(mgt, mtc, pc, cc, 5)) / 5,
         "spgemm_ell s14 warm ms": warm_spgemm,
         "corpus ell s14 ms": lambda: corpus.run_one("s14", a, "ell")["ms"],
+        "perf --kernel binned s14 ms": perf_binned,
     }
     out = {}
     for label, fn in cases.items():
@@ -857,6 +989,11 @@ def entry_one(dev) -> dict:
 
     mesh = make_mesh(4, dev)
     for ex in EXCHANGES:
+        three = lambda ex=ex: wall(lambda: sharded_rmcl_ell(  # noqa: E731
+            coo, mesh, max_iters=3, S=128, max_tile=8192, exchange=ex))
+        three()
+        out[f"sharded_rmcl_ell s14 D=4 {ex} 3 iterations ms"] = [three() for _ in range(3)]
+    for ex in EXCHANGES:
         runs = []
 
         def sharded(ex=ex):
@@ -868,6 +1005,7 @@ def entry_one(dev) -> dict:
                                                                 for _ in range(3)]
         out[f"sharded_rmcl_ell s14 D=4 {ex} digest"] = [digest(np, *r) for r in runs]
         del runs
+    tmp.cleanup()
     return out
 
 

@@ -20,7 +20,8 @@ loop static:
 
 ``rmcl_ell_scan`` keeps the iterate on the device for the whole run and
 the per-iteration statistics as tensors until the end; on the card its
-step is a CUDA graph captured once a plan and replayed
+step is a CUDA graph kept on the plan, captured once the iterations run
+on it reach the step's break-even count, and replayed
 (``utils/graphs.py``).
 """
 
@@ -436,12 +437,13 @@ def rmcl_ell_scan(plan, a: CSR, a_dense_huge, mt_cols, mt_vals, max_iters: int):
     ``lax.scan``): the iterate stays on the device, and the statistics
     stay tensors, one [max_iters] history each.
 
-    On the card the step is a CUDA graph kept on the plan: the first
-    call on a plan runs iteration 1 eagerly, captures the step and
-    replays it ``max_iters - 1`` times (one iteration captures nothing:
-    no replay would follow); a later call with inputs of the same shapes
-    replays every iteration.  On the CPU the same body runs eagerly.
-    Returns fresh tensors."""
+    On the card the step is a CUDA graph kept on the plan, under
+    ``utils/graphs.captures``: a call whose iterations, with those
+    already run eagerly on the plan, reach the step's break-even count
+    runs iteration 1 eagerly, captures the step and replays it
+    ``max_iters - 1`` times; a shorter one stays eager; a later call
+    with inputs of the same shapes replays every iteration.  On the CPU
+    the same body runs eagerly.  Returns fresh tensors."""
     if max_iters <= 0:
         return mt_cols, mt_vals, {k: torch.zeros(0) for k, _ in _HIST}
     _plan_tensors(plan, mt_cols.device)  # uploads, never inside a capture

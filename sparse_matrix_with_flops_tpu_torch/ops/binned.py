@@ -24,18 +24,23 @@ Every slot of C receives one value, so the output is written with
 indexed sets, never float atomics: two calls on the card give the same
 bits.  The plan is host numpy (the reference copies its bin boundaries
 back to launch kernels, flops.cu:171); its row ids are uploaded once per
-(plan, device), so a warm call reads nothing back from the card.
+(plan, device), so a warm call reads nothing back from the card, and on
+the card the call is a CUDA graph kept on the plan (``utils/graphs.py``),
+the counterpart of the reference's ``spgemm_binned`` jitted with the
+plan static.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
 
 from ..config import INDEX_DTYPE, QVALUE_DTYPE
 from ..formats.csr import CSR
+from ..utils import graphs
 from ..utils.nphost import csr_host, segment_sums
 from .flops import row_flops
 from .segments import exclusive_cumsum
@@ -162,9 +167,38 @@ def spgemm_binned(a: CSR, b: CSR, plan: BinPlan) -> CSR:
     :func:`.spgemm.spgemm` (ordered rows, summed duplicates, products that
     cancel to 0.0 kept).  C's capacity is ``plan.out_cap``; entries past
     it are dropped and ``row_ptr`` is clipped to it, as in the
-    reference."""
+    reference.
+
+    On the card the call is a CUDA graph kept on the plan, captured by
+    the call that reaches its break-even count of calls on operands of
+    those shapes (``utils/graphs.captures``) and replayed by every later
+    one; the plan's uploads come first, never inside a capture."""
     if a.ncols != b.rows:
         raise ValueError(f"inner dimensions differ: {a.ncols} != {b.rows}")
+    _plan_tensors(plan, a.device)
+    return CSR(*_binned_graph(a, b, plan).run(), b.ncols)
+
+
+def _binned_graph(a: CSR, b: CSR, plan: BinPlan):
+    """The plan's captured body for these operands, loaded: static
+    copies of A's and B's arrays; its outputs are C's (``graphs.bound``)."""
+    ins = (a.row_ptr, a.col_ind, a.values, b.row_ptr, b.col_ind, b.values)
+    ref = weakref.ref(plan)  # a strong one would keep the plan and its pool alive
+
+    def build(st):
+        sa, sb = CSR(*st[:3], a.ncols), CSR(*st[3:], b.ncols)
+
+        def body():
+            c = _binned_impl(sa, sb, ref())
+            return c.row_ptr, c.col_ind, c.values
+
+        return graphs.CapturedBody("spgemm_binned", body, st)
+
+    return graphs.bound(plan, "spgemm_binned", (a.ncols, b.ncols, plan.out_cap), ins, build)
+
+
+def _binned_impl(a: CSR, b: CSR, plan: BinPlan) -> CSR:
+    """The body of :func:`spgemm_binned`."""
     m, n, dev = a.rows, b.ncols, a.device
     out_cap = plan.out_cap
     pt = _plan_tensors(plan, dev)

@@ -465,9 +465,10 @@ def spgemm_ell(
     both phases back to back with that capacity and then checks nnz(C)
     against it (the dense hub drops exact-zero products, so counts can
     change with the values).  On the card that warm body is a CUDA graph
-    kept on the plan: captured by the first call that finds the bucket
-    cached (its own eager run first), replayed by every later call on
-    operands of the same shapes.  An overflowed capacity truncated the
+    kept on the plan: captured by the warm call that reaches its
+    break-even count of warm calls on operands of those shapes
+    (``utils/graphs.captures``; its own eager run first), replayed by
+    every later one.  An overflowed capacity truncated the
     output, which is discarded with a warning; the graph is dropped with
     the bucket, and the call falls back to the two-phase path.
     ``exact=False`` uses the plan's bound."""

@@ -30,8 +30,9 @@ with the sums added in the stacked path's order), and K6 / K8 launch one
 rank at a time on a process mesh, so a rank's iterate and statistics
 are bit for bit the stacked path's at the same D.
 
-On a stacked mesh on the card the scan's step is a CUDA graph captured
-once a plan and replayed (``utils/graphs.py``), the counterpart of the
+On a stacked mesh on the card the scan's step is a CUDA graph kept on
+the plan, captured once the iterations run on it reach the step's
+break-even count, and replayed (``utils/graphs.py``), the counterpart of the
 reference's jitted ``shard_map`` of a ``lax.scan``; the step reads the
 plan's index arrays from uploads made once a plan (:func:`_plan_tensors`)
 and makes no host read.
@@ -568,10 +569,12 @@ def sharded_rmcl_ell_scan(
     every rank).
 
     On a stacked mesh on the card the step is a CUDA graph kept on the
-    plan, with every exchange: the first call on a plan runs iteration 1
-    eagerly, captures the step and replays it ``max_iters - 1`` times
-    (one iteration captures nothing); a later call with inputs of the
-    same shapes and the same exchange replays every iteration.  On the
+    plan, with every exchange, under ``utils/graphs.captures``: a call
+    whose iterations, with those already run eagerly on the plan with
+    this exchange, reach the step's break-even count runs iteration 1
+    eagerly, captures the step and replays it ``max_iters - 1`` times; a
+    shorter one stays eager; a later call with inputs of the same shapes
+    and the same exchange replays every iteration.  On the
     CPU the same body runs eagerly over the caller's tensors.  On a
     process mesh the scan is an eager loop of the step: its K6 / K8
     epochs come from a host counter and its exchanges are

@@ -14,7 +14,10 @@ all-gather and send / receive.  C's values are the fixed-order run sums
 of ``esc_compress`` where the reference scatter-adds: two calls give the
 same bits on the card, and a rank's block equals the stacked path's
 block.  With capacities (and, for the ring, a plan) passed in, a call
-makes no device-to-host read, as the reference runs under ``jit``.
+makes no device-to-host read, as the reference runs under ``jit``; on a
+stacked mesh on the card the ring's warm body is then a CUDA graph kept
+on its plan (``utils/graphs.py``), the counterpart of the jitted
+``_ring_impl``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ..config import INDEX_DTYPE, QVALUE_DTYPE
 from ..formats.csr import CSR
 from ..ops.segments import entry_rows, exclusive_cumsum, repeat_segments
 from ..ops.spgemm import bview_from_blocks, esc_compress, esc_expand_view, esc_sort
+from ..utils import graphs
 from . import collectives
 from .mesh import ROW_AXIS, ShardMesh
 from .sharded import ShardedCSR
@@ -178,8 +182,8 @@ def _ring_step_products(a_rp0, a_ci0, a_v0, erow, blk_rp, blk_ci, blk_v, ids, ow
     return rows, cols, vals, tot_k
 
 
-def _ring_impl(mesh, plan: RingPlan, a: ShardedCSR, b: ShardedCSR, step_ents, out_cap: int):
-    _check_mesh(mesh, a, b)
+def _ring_impl(mesh, caps: tuple, a: ShardedCSR, b: ShardedCSR, step_ents, out_cap: int):
+    """The ring's body: ``caps`` the plan's per-step product counts."""
     d, lr, ncols = a.num_shards, b.local_rows, b.ncols
     cap = a.local_capacity
     ranks = collectives.local_ranks(mesh)
@@ -192,7 +196,7 @@ def _ring_impl(mesh, plan: RingPlan, a: ShardedCSR, b: ShardedCSR, step_ents, ou
             *streams, tot_k = _ring_step_products(
                 a.row_ptr[i], a.col_ind[i], a.values[i], erows[i],
                 blk_rp[i], blk_ci[i], blk_v[i], step_ents[k][me], (me - k) % d, lr,
-                plan.step_prod_caps[k], ncols,
+                caps[k], ncols,
             )
             parts[i].append(streams)
             totals[i] = totals[i] + tot_k
@@ -206,6 +210,28 @@ def _ring_impl(mesh, plan: RingPlan, a: ShardedCSR, b: ShardedCSR, step_ents, ou
                                              out_cap)
         outs.append((row_ptr, ccol, cval, totals[i], nnzc))
     return _stack_result(outs, ncols, a)
+
+
+def _ring_graph(mesh, plan: RingPlan, a: ShardedCSR, b: ShardedCSR, step_ents, out_cap: int):
+    """The plan's captured warm body (the reference's jitted
+    ``_ring_impl``) for these operands, loaded: static copies of A's and
+    B's stacked arrays and of the step entries; its outputs are C's
+    stacked arrays and the per-shard flops and nnz (``graphs.bound``)."""
+    ins = (a.row_ptr, a.col_ind, a.values, b.row_ptr, b.col_ind, b.values, *step_ents)
+    caps = plan.step_prod_caps
+
+    def build(st):
+        sa = ShardedCSR(*st[:3], a.ncols, a.global_rows, a.shards, a.rank)
+        sb = ShardedCSR(*st[3:6], b.ncols, b.global_rows, b.shards, b.rank)
+
+        def body():
+            c, info = _ring_impl(mesh, caps, sa, sb, st[6:], out_cap)
+            return c.row_ptr, c.col_ind, c.values, info["flops"], info["nnz"]
+
+        return graphs.CapturedBody("sharded_spgemm_ring", body, st)
+
+    return graphs.bound(plan, "sharded_spgemm_ring", (out_cap, b.ncols, a.num_shards), ins,
+                        build)
 
 
 def sharded_spgemm_ring(
@@ -227,7 +253,17 @@ def sharded_spgemm_ring(
 
     ``product_cap`` is accepted for API compatibility; stream sizes come
     from the planner.  With a prebuilt (plan, step_ents) the call makes
-    no device-to-host read."""
+    no device-to-host read, and on a stacked mesh on the card its body
+    is a CUDA graph kept on the plan, captured by the call that reaches
+    its break-even count of calls on operands of those shapes
+    (``utils/graphs.captures``) and replayed by every later one.  A call
+    that plans, and a process mesh (its ``ppermute`` is a
+    ``torch.distributed`` send / receive), stay eager."""
+    _check_mesh(mesh, a, b)
     if plan is None:
         plan, step_ents = plan_spgemm_ring(a, b, mesh)
-    return _ring_impl(mesh, plan, a, b, step_ents, int(out_cap))
+    elif not collectives.is_process(mesh):
+        rp, ci, v, flops, nnzc = _ring_graph(mesh, plan, a, b, step_ents, int(out_cap)).run()
+        return (ShardedCSR(rp, ci, v, b.ncols, a.global_rows, a.shards, a.rank),
+                {"flops": flops, "nnz": nnzc})
+    return _ring_impl(mesh, plan.step_prod_caps, a, b, step_ents, int(out_cap))

@@ -3,9 +3,11 @@ the JAX package's jitted programs (``jax.jit`` of a ``lax.scan``, the
 jitted warm ``_tiles_impl``).
 
 A :class:`CapturedBody` holds a body function and the static tensors it
-reads.  On the card its first run runs the body eagerly and then
-captures it; every later run replays the capture.  A graph and its
-memory pool belong to a plan (:func:`bound` keeps them in the plan's
+reads.  On the card it runs the body eagerly until one policy,
+:func:`captures`, says that the replays to come repay a capture; that
+run is eager too and then captures the body, and every later run
+replays the capture.  A graph and its memory pool belong to a plan
+(:func:`bound` keeps them in the plan's
 ``__dict__``, as the plans' device uploads are kept) and are freed with
 it: there is no global cache.  A body refers to its plan through a weak
 reference, so that the plan, its graphs and their pools go as soon as
@@ -29,6 +31,35 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # device index -> the side stream captures run on (a capture may not run
 # on the legacy default stream)
 _SIDE: dict = {}
+
+# The break-even count of each program: the runs on one key after which
+# its graph has paid for its capture, 1 + capture / (eager - replay)
+# rounded up (``ring_probe.py capture`` at R-MAT s14 on an NVIDIA H100
+# 80GB HBM3, 700.00 W power limit), the median of three runs' counts:
+# one capture's host time spreads widely, from run to run too.  The
+# sharded scan's count is the largest of its four exchanges'.  A program
+# whose replay saves nothing keeps no graph (the general ``rmcl_scan``);
+# a body not named here (a probe) captures at its first run.
+BREAK_EVEN = {
+    "spgemm_ell": 15,  # runs: 15, 17, 7
+    "rmcl_ell_scan": 7,  # runs: 7, 7, 6
+    "sharded_rmcl_ell_scan": 12,  # runs: 15, 5, 12
+    "sharded_spgemm_ring": 5,  # runs: 5, 8, 5
+    "spgemm_binned": 22,  # runs: 20, 24, 22
+}
+
+
+def captures(spent: int, left: int, b: int) -> bool:
+    """The capture policy of a body that holds no graph: capture at this
+    run when the eager runs already spent on its key (``spent``) and the
+    runs its call still makes, this one included (``left``), reach the
+    break-even count ``b``.  So a scan of ``b`` or more iterations
+    captures at its first, a shorter one on a fresh key captures nothing,
+    repeated short calls capture once their eager runs add up, and a
+    one-shot program (``left`` 1) captures at its ``b``-th call on a key:
+    the ski-rental rule, under which no caller pays more than about twice
+    the cheaper of always eager and capturing at once."""
+    return spent + left >= b
 
 
 def _clone(x):
@@ -64,11 +95,12 @@ class CapturedBody:
     shapes it was traced at.  ``state`` holds other static tensors of the
     caller (a scan's carried iterate and history).
 
-    The first :meth:`run` on the card runs the body eagerly under
+    On the card :meth:`run` counts the eager runs it makes (``spent``)
+    and runs the body eagerly until :func:`captures` says to capture.
+    The capturing run runs the body eagerly under
     ``torch.cuda.set_sync_debug_mode("error")``: that run builds the
     kernels, the cuBLAS handles and the allocator's blocks, and its
-    result is the run's own.  Then, unless the caller says no replay
-    will follow (``capture=False``), the body is captured on a side
+    result is the run's own.  Then the body is captured on a side
     stream into a private memory pool, by ``capture_begin`` /
     ``capture_end`` alone: no device synchronize and no emptying of the
     allocator's cache first, so a capture costs about the host time of
@@ -98,6 +130,7 @@ class CapturedBody:
         self.pool_bytes = 0
         self.capture_ms = 0.0
         self.replays = 0
+        self.spent = 0  # eager runs on the card
 
     def load(self, *values: torch.Tensor) -> None:
         """Copy a call's inputs into the static ones (same shapes and
@@ -110,19 +143,22 @@ class CapturedBody:
                                  f"{tuple(src.shape)}, the plan's {dst.dtype} {tuple(dst.shape)}")
             dst.copy_(src)
 
-    def run(self, capture: bool = True):
+    def run(self, left: int = 1):
         """The body's outputs: replayed where a graph is held; else the
-        body run eagerly, and on the card captured after that run when
-        ``capture``."""
+        body run eagerly, and on the card captured after that run where
+        :func:`captures` says so, ``left`` the runs this call still
+        makes, this one included."""
         if self.graph is not None:
             self.graph.replay()
             self.replays += 1
             for w, n in self.launches.items():
                 w.launches += n
             return _clone(self.outputs)
-        if self.device.type != "cuda" or not capture:
+        if self.device.type != "cuda":
             return self.body()
-        return self._capture()
+        take = captures(self.spent, left, BREAK_EVEN.get(self.name, 1))
+        self.spent += 1
+        return self._capture() if take else self.body()
 
     def _capture(self):
         prev = torch.cuda.get_sync_debug_mode()
@@ -187,7 +223,8 @@ def signature(*tensors: torch.Tensor) -> tuple:
     return tuple((tuple(t.shape), t.dtype) for t in tensors)
 
 
-def bound(owner, name: str, static, inputs, build, carried: int = 0) -> CapturedBody:
+def bound(owner, name: str, static, inputs, build, carried: int = 0,
+          fits=None) -> CapturedBody:
     """The body ``name`` for ``inputs``, ready to run: ``build(buffers)``
     makes the :class:`CapturedBody` that reads ``buffers`` in place of
     the inputs.
@@ -196,10 +233,12 @@ def bound(owner, name: str, static, inputs, build, carried: int = 0) -> Captured
     key of the device, the inputs' shapes and dtypes and ``static`` (the
     static arguments, as a jitted function's cache key): it is built over
     static copies of the inputs when the owner holds none for this key
-    (replacing one made for another key), and each call's inputs are
-    copied into them.  On the CPU it is built over the caller's tensors,
-    the last ``carried`` of them cloned (the body writes those), and
-    nothing is kept."""
+    (replacing one made for another key, whose count of eager runs goes
+    with it) or when the one it holds does not ``fits`` this call (the
+    new one keeps the key's count), and each call's inputs are copied
+    into them.  On the CPU it is built over the caller's tensors, the
+    last ``carried`` of them cloned (the body writes those), and nothing
+    is kept."""
     dev = inputs[0].device
     if dev.type != "cuda":
         cut = len(inputs) - carried
@@ -207,9 +246,11 @@ def bound(owner, name: str, static, inputs, build, carried: int = 0) -> Captured
     key = (str(dev), signature(*inputs), static)
     slot = owner.__dict__.setdefault("_graphs", {})
     hit = slot.get(name)
-    if hit is None or hit[0] != key:
+    if hit is None or hit[0] != key or (fits is not None and not fits(hit[1])):
+        spent = hit[1].spent if hit is not None and hit[0] == key else 0
         slot.pop(name, None)  # the old graph and its pool go first
         slot[name] = hit = (key, build([torch.empty_like(t) for t in inputs]))
+        hit[1].spent = spent
     hit[1].load(*inputs)
     return hit[1]
 
@@ -239,9 +280,6 @@ def scan_body(owner, name: str, static, inputs, carried: int, hist, length: int,
     when a call needs more room than its histories have (they grow to
     the next power of two)."""
     room = length if inputs[0].device.type != "cuda" else 1 << (length - 1).bit_length()
-    kept = held(owner, name)
-    if kept is not None and kept.state["room"] < length:
-        drop(owner, name)
 
     def build(bufs):
         dev = bufs[0].device
@@ -259,18 +297,20 @@ def scan_body(owner, name: str, static, inputs, carried: int, hist, length: int,
         return CapturedBody(name, body, bufs,
                             {"hist": hists, "it": it, "carried": carried, "room": room})
 
-    return bound(owner, name, static, inputs, build, carried)
+    return bound(owner, name, static, inputs, build, carried,
+                 fits=lambda g: g.state["room"] >= length)
 
 
 def run_scan(g: CapturedBody, length: int):
     """``length`` iterations of the scan ``g``, its inputs loaded: on the
-    card the first run on a new graph is eager and then captures, unless
-    it is the last iteration (no replay would follow), and every later
-    iteration replays.  Returns the final carry and the histories, fresh
+    card a held graph replays every iteration; else the call captures at
+    its first iteration or not at all (:func:`captures` sees the same
+    sum at every iteration of a call), and replays the rest after a
+    capture.  Returns the final carry and the histories, fresh
     tensors."""
     g.state["it"].zero_()
     for i in range(length):
-        g.run(capture=i + 1 < length)
+        g.run(left=length - i)
     carry = g.inputs[-g.state["carried"]:]
     hist = {k: h[:length] for k, h in g.state["hist"].items()}
     if g.device.type == "cuda":  # the graph's own buffers: the next call rewrites them

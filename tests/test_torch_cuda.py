@@ -1432,8 +1432,44 @@ def _counted(fn):
 def _program(name, dev):
     """(graph call on inputs x, eager run on inputs x, the two inputs,
     the plan that keeps the graph) of one compiled program at an edge
-    size: the graph's first call runs eagerly and captures, later calls
-    replay."""
+    size: calls on the plan run eagerly until the policy captures
+    (``_until_captured``), later calls replay."""
+    if name == "sharded_spgemm_ring":  # D = 4 stacked, the plan passed
+        import dataclasses
+
+        from sparse_matrix_with_flops_tpu_torch.parallel import shard_csr
+        from sparse_matrix_with_flops_tpu_torch.parallel import spgemm as PSP
+
+        a = rmat_csr(10, edge_factor=8, seed=7, weights="random", device=dev)
+        sa, mesh = shard_csr(a, 4), make_mesh(4, dev)
+        plan, ents = PSP.plan_spgemm_ring(sa, sa)
+        rp, ci, _ = a.to_numpy()
+        elen = np.diff(rp).astype(np.int64)
+        rowf = np.bincount(np.repeat(np.arange(a.rows), elen), weights=elen[ci],
+                           minlength=a.rows)
+        oc = int(rowf.reshape(4, -1).sum(axis=1).max())  # a shard's products bound its C
+
+        def arrays(out):
+            c, info = out
+            return c.row_ptr, c.col_ind, c.values, info["flops"], info["nnz"]
+
+        def eager(x):
+            return arrays(PSP._ring_impl(mesh, plan.step_prod_caps, x, sa, ents, oc))
+
+        def call(x):
+            return arrays(PSP.sharded_spgemm_ring(mesh, x, sa, out_cap=oc, plan=plan,
+                                                  step_ents=ents))
+
+        return call, eager, (sa, dataclasses.replace(sa, values=2.0 * sa.values)), plan
+    if name == "spgemm_binned":  # W = 16 ... 256 bins and huge rows (run sums)
+        from sparse_matrix_with_flops_tpu_torch.ops import binned as BIN
+
+        a = rmat_csr(10, edge_factor=8, seed=7, weights="random", device=dev)
+        plan = BIN.plan_bins(a, a, widths=(16, 64, 256))
+        assert plan.huge_rows.size > 0
+        a2 = CSR(a.row_ptr, a.col_ind, 2.0 * a.values, a.ncols)
+        return ((lambda x: BIN.spgemm_binned(x, a, plan)),
+                (lambda x: BIN._binned_impl(x, a, plan)), (a, a2), plan)
     if name == "spgemm_ell":  # hub groups, split hub rows, W = 16 ... 512 bins
         a = rmat_csr(10, edge_factor=8, seed=7, weights="random", device=dev)
         plan = plan_ell(a, a, max_w=512)
@@ -1495,58 +1531,104 @@ SHARDED = [f"sharded_rmcl_ell_scan {ex}" for ex in ("ring", "all_gather", "palla
                                                      "fused_ring")]
 
 
-@pytest.mark.parametrize("name", ["spgemm_ell", "rmcl_ell_scan"] + SHARDED)
+def _until_captured(call, plan, name):
+    """Calls on one plan until the capture policy captures (at most the
+    program's break-even count of them): every call's result, in order."""
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    outs = []
+    for _ in range(graphs.BREAK_EVEN[name]):
+        outs.append(call())
+        g = graphs.held(plan, name)
+        if g is not None and g.graph is not None:
+            return outs
+    raise AssertionError(f"{name}: no capture in {len(outs)} calls")
+
+
+@pytest.mark.parametrize("name", ["spgemm_ell", "rmcl_ell_scan", "sharded_spgemm_ring",
+                                  "spgemm_binned"] + SHARDED)
 def test_graph_replays_equal_the_eager_run(dev, name):
     from sparse_matrix_with_flops_tpu_torch.utils import graphs
 
     call, eager, (x0, x1), plan = _program(name, dev)
+    prog = name.split()[0]
     want, eager_launches = _counted(lambda: eager(x0))
-    first, _ = _counted(lambda: call(x0))  # eager first step or call, then capture
-    g = graphs.held(plan, name.split()[0])
+    # eager calls, then the one that runs eagerly and captures
+    firsts, _ = _counted(lambda: _until_captured(lambda: call(x0), plan, prog))
+    g = graphs.held(plan, prog)
     assert g is not None and g.graph is not None and g.pool_bytes > 0
     assert sum(g.launches.values()) > 0
     replays = g.replays
     again, launches = _counted(lambda: call(x0))  # every step replayed
     assert g.replays > replays
     # the counters count the replayed kernels as the eager run counts its own
+    # (K9 too, where the body sums runs)
     assert launches == eager_launches
-    assert same_bits(first, want) and same_bits(again, want)
+    if prog in ("sharded_spgemm_ring", "spgemm_binned"):
+        assert eager_launches.get("run_sums", 0) > 0 and eager_launches.get("cumsum_i32", 0) > 0
+    assert all(same_bits(f, want) for f in firsts) and same_bits(again, want)
     # new inputs: the replay reads them (A's values doubled: C doubles exactly)
     want1 = eager(x1)
     got1 = call(x1)
     torch.cuda.synchronize()
     assert same_bits(got1, want1)
-    if name == "spgemm_ell":
+    if name in ("spgemm_ell", "spgemm_binned"):
         assert torch.equal(got1.values, 2.0 * again.values)
+    elif name == "sharded_spgemm_ring":
+        assert torch.equal(got1[2], 2.0 * again[2])
     assert same_bits(again, want)  # the earlier result, untouched
 
 
 def test_scan_lengths_share_one_graph_and_one_iteration_captures_nothing(dev):
+    # the capture policy on the static scan: a call below the break-even
+    # count B captures nothing, a call of B captures at its first
+    # iteration, repeated short calls capture once their eager iterations
+    # reach B, and one graph serves several lengths, rebuilt (its count
+    # kept) when a call needs more room than its histories have; every
+    # result bit-equal to the eager loop
     from sparse_matrix_with_flops_tpu_torch.utils import graphs
 
+    b = graphs.BREAK_EVEN["rmcl_ell_scan"]
+    room = 1 << (b - 1).bit_length()
+    short = max(1, (b - 1) // 2)  # a call below B
     t = _rmcl_graph(300, 0.02, (7,), 0).to(dev)
-    plan = RMCL.plan_rmcl_ell(t, S=128, max_tile=1024)
-    adh = RMCL._dense_huge(t, plan)
     x0 = RMCL.mt_to_ell(t, 128)
+
+    def fresh():
+        plan = RMCL.plan_rmcl_ell(t, S=128, max_tile=1024)
+        return plan, RMCL._dense_huge(t, plan)
+
+    plan, adh = fresh()
     eager = {}
-    for n in (1, 2, 5, 9):  # the eager loop of the step
+    for n in sorted({1, 2, short, b, room + 1}):  # the eager loop of the step
         hist, (c, v) = [], x0
         for _ in range(n):
             c, v, st = RMCL.rmcl_ell_step(plan, t, adh, c, v)
             hist.append(st)
         eager[n] = c, v, {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
-    got = RMCL.rmcl_ell_scan(plan, t, adh, *x0, 1)
-    g = graphs.held(plan, "rmcl_ell_scan")
-    assert g.graph is None  # no replay would follow: nothing captured
-    assert same_bits(got, eager[1])
-    got = RMCL.rmcl_ell_scan(plan, t, adh, *x0, 5)
-    g = graphs.held(plan, "rmcl_ell_scan")
-    assert g.graph is not None and g.state["room"] == 8 and same_bits(got, eager[5])
-    got = RMCL.rmcl_ell_scan(plan, t, adh, *x0, 2)  # another length, the same graph
-    assert graphs.held(plan, "rmcl_ell_scan") is g and same_bits(got, eager[2])
-    got = RMCL.rmcl_ell_scan(plan, t, adh, *x0, 9)  # more than its histories hold
-    assert graphs.held(plan, "rmcl_ell_scan") is not g and same_bits(got, eager[9])
-    assert graphs.held(plan, "rmcl_ell_scan").state["room"] == 16
+
+    def scan(plan, adh, n):
+        got = RMCL.rmcl_ell_scan(plan, t, adh, *x0, n)
+        assert same_bits(got, eager[n])
+        return graphs.held(plan, "rmcl_ell_scan")
+
+    g = scan(plan, adh, 1)  # one iteration on a fresh plan: nothing captured
+    assert g.graph is None and g.spent == 1
+    plan, adh = fresh()
+    g = scan(plan, adh, b)  # a call of B: captured at its first iteration
+    assert g.graph is not None and g.spent == 1 and g.replays == b - 1
+    assert g.state["room"] == room
+    assert scan(plan, adh, 2) is g  # another length, the same graph
+    assert g.replays == b + 1
+    g2 = scan(plan, adh, room + 1)  # more than its histories hold: rebuilt, the count kept
+    assert g2 is not g and g2.graph is not None and g2.state["room"] == 2 * room
+    assert g2.spent == 2
+    plan, adh = fresh()
+    calls = -(-b // short)
+    for k in range(1, calls + 1):  # short calls: the one that reaches B captures
+        g = scan(plan, adh, short)
+        assert (g.graph is not None) == (k == calls)
+    assert g.spent == (calls - 1) * short + 1
     torch.cuda.synchronize()
 
 
@@ -1558,8 +1640,9 @@ def test_graph_lives_and_dies_with_its_plan(dev):
 
     a = rmat_csr(10, edge_factor=8, seed=7, weights="random", device=dev)
     plan = plan_ell(a, a, max_w=512)
-    for _ in range(3):
-        E.spgemm_ell(a, a, plan)  # two-phase, capture, replay
+    # two-phase, warm calls up to the capture (the break-even count), a replay
+    for _ in range(2 + graphs.BREAK_EVEN["spgemm_ell"]):
+        E.spgemm_ell(a, a, plan)
     g = graphs.held(plan, "spgemm_ell")
     assert g.graph is not None and g.replays == 1
     torch.cuda.synchronize()

@@ -5,10 +5,13 @@ history written at a device-side index) against the JAX package's
 jitted ``rmcl_ell_scan`` and against the eager loop of its step, bit
 for bit, at several lengths; the same for the stacked sharded scan
 (``parallel/rmcl_ell.sharded_rmcl_ell_scan``, D = 2 and 4, each
-exchange); the warm ``spgemm_ell``; a second call on one plan with other
-inputs; results and inputs that a later call leaves alone; and a capture
-guard, the CPU's stand-in for a capture: each body run with every host
-read and upload patched to raise.  The general
+exchange); the warm ``spgemm_ell``, the warm ``sharded_spgemm_ring``
+(plan passed, D = 2 and 4) and ``spgemm_binned``: a second call on one
+plan with other inputs; results and inputs that a later call leaves
+alone; a capture guard, the CPU's stand-in for a capture: each body run
+with every host read and upload patched to raise; and the capture
+policy (``graphs.captures``), as a function and driven through
+``run_scan`` and one-shot runs with the capture stubbed.  The general
 ``rmcl_scan`` is an eager loop (its graph was measured as no gain); it
 takes the same second-call and guard cases.  The card's own checks
 (replay against eager, capture failures, launch counts, a graph kept
@@ -19,7 +22,9 @@ The JAX dedup is routed through its Pallas kernel in interpret mode
 ``assert_same_ell``: columns exact, values within the comparators (1e-7
 abs or 1e-3 rel), ties at the S cut allowed (C6)."""
 
+import dataclasses
 import importlib
+import types
 import weakref
 
 import numpy as np
@@ -34,9 +39,11 @@ from sparse_matrix_with_flops_tpu_torch.models.rmcl import (
     rmcl_one_step,
     rmcl_scan,
 )
+from sparse_matrix_with_flops_tpu_torch.ops import binned as BIN
 from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
 from sparse_matrix_with_flops_tpu_torch.ops.metrics import differs as csr_differs
-from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh
+from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, shard_csr
+from sparse_matrix_with_flops_tpu_torch.parallel import spgemm as PSP
 from sparse_matrix_with_flops_tpu_torch.utils import graphs
 
 from torch_port_util import (
@@ -202,6 +209,29 @@ def test_sharded_rmcl_ell_scan_graph_form_equals_the_eager_loop(exchange, iters)
     assert all(h.shape == (iters,) for h in got[2].values())
 
 
+# ---- the one-shot SpGEMMs: the ring (plan passed) and the binned ------------------
+def _ring_case(d):
+    """(mesh, A sharded, plan, step entries, per-shard out cap) of a ring
+    SpGEMM A·A on ``d`` stacked shards, with a hub row."""
+    a = port_csr(_graph(40, 0.15, (3,), seed=5))
+    sa = shard_csr(a, d)
+    plan, ents = PSP.plan_spgemm_ring(sa, sa)
+    return make_mesh(d, "cpu"), sa, plan, ents, a.rows * a.ncols
+
+
+def _ring_arrays(out):
+    c, info = out
+    return c.row_ptr, c.col_ind, c.values, info
+
+
+def _binned_case():
+    """A and its binned plan for A·A: W = 128 and 256 bins and a huge row."""
+    a = port_csr(_graph(96, 0.1, (7,), seed=3))
+    plan = BIN.plan_bins(a, a, widths=(128, 256))
+    assert plan.huge_rows.size > 0 and plan.num_bins == 2
+    return a, plan
+
+
 # ---- a second call on one plan: its own inputs, the first result and inputs kept --
 def _calls(program):
     """Two calls on one plan with different inputs: (first result, second
@@ -231,6 +261,27 @@ def _calls(program):
         first = rmcl_scan(mgt, mt, pc, cc, 3)
         second = rmcl_scan(mgt, mt1, pc, cc, 3)
         return first, second, _general_eager(mgt, mt1, pc, cc, 3), ins, before
+    if program.startswith("sharded_spgemm_ring"):
+        mesh, sa, plan, ents, per = _ring_case(int(program.split()[1]))
+        ins = (sa.row_ptr, sa.col_ind, sa.values, ents)
+        before = _snapshot(ins)
+        first = _ring_arrays(PSP.sharded_spgemm_ring(mesh, sa, sa, out_cap=per, plan=plan,
+                                                     step_ents=ents))
+        sa2 = dataclasses.replace(sa, values=2.0 * sa.values)
+        second = _ring_arrays(PSP.sharded_spgemm_ring(mesh, sa2, sa, out_cap=per, plan=plan,
+                                                      step_ents=ents))
+        assert graphs.held(plan, "sharded_spgemm_ring") is None  # the CPU keeps no graph
+        rp, ci, v, info = first
+        return first, second, (rp, ci, 2.0 * v, info), ins, before
+    if program == "spgemm_binned":
+        a, plan = _binned_case()
+        before = _snapshot((a,))
+        first = BIN.spgemm_binned(a, a, plan)
+        a2 = CSR(a.row_ptr, a.col_ind, 2.0 * a.values, a.ncols)
+        second = BIN.spgemm_binned(a2, a, plan)
+        assert graphs.held(plan, "spgemm_binned") is None  # the CPU keeps no graph
+        return ((first,), (second,), (CSR(first.row_ptr, first.col_ind, 2.0 * first.values,
+                                          first.ncols),), (a,), before)
     a = port_csr(_graph(96, 0.1, (7,), seed=3))
     plan = E.plan_ell(a, a)
     E.spgemm_ell(a, a, plan)  # two-phase: caches the nnz(C) bucket
@@ -253,8 +304,12 @@ def _snapshot(x):
     return x.clone()
 
 
+ONE_SHOT = ["sharded_spgemm_ring 2", "sharded_spgemm_ring 4", "spgemm_binned"]
+
+
 @pytest.mark.parametrize("program",
-                         ["rmcl_ell_scan", "rmcl_scan", "spgemm_ell", "sharded_rmcl_ell_scan"])
+                         ["rmcl_ell_scan", "rmcl_scan", "spgemm_ell", "sharded_rmcl_ell_scan"]
+                         + ONE_SHOT)
 def test_a_second_call_on_one_plan_takes_its_own_inputs(program):
     first, second, want, ins, before = _calls(program)
     kept = _snapshot(first)
@@ -281,11 +336,18 @@ HOST_READS = {
 
 
 @pytest.mark.parametrize("program", ["rmcl_ell_scan", "rmcl_scan", "spgemm_ell"]
-                         + [f"sharded_rmcl_ell_scan {ex}" for ex in EXCHANGES])
+                         + [f"sharded_rmcl_ell_scan {ex}" for ex in EXCHANGES] + ONE_SHOT)
 def test_capture_guard_bodies_make_no_host_read(program, monkeypatch):
     # the body that a card captures, built (plan uploads first) before the
     # guard goes on; the general scan is eager: the whole call is guarded
-    if program.startswith("sharded"):
+    if program.startswith("sharded_spgemm_ring"):
+        mesh, sa, plan, ents, per = _ring_case(int(program.split()[1]))
+        run = PSP._ring_graph(mesh, plan, sa, sa, ents, per).body
+    elif program == "spgemm_binned":
+        a, plan = _binned_case()
+        BIN._plan_tensors(plan, a.device)
+        run = BIN._binned_graph(a, a, plan).body
+    elif program.startswith("sharded"):
         mesh, plan, arrays, smgt, (c0, v0), _ = _sharded_case(4)
         TP._plan_tensors(plan, c0.device, range(4))
         run = TP._scan_graph(mesh, plan, smgt, arrays, c0, v0, program.split()[1], 2).body
@@ -310,6 +372,77 @@ def test_capture_guard_bodies_make_no_host_read(program, monkeypatch):
         torch.ones(1).item()  # the guard is on
     run()  # a step (the scan: two), or a warm call, with every read refused
     run()
+
+
+# ---- the capture policy ------------------------------------------------------------
+@pytest.mark.parametrize("spent,left,b,want", [
+    (0, 1, 4, False),  # a 1-iteration call on a fresh key
+    (0, 3, 4, False),  # a call one short of B
+    (0, 4, 4, True),  # a call of exactly B: at its first iteration
+    (0, 30, 4, True),
+    (2, 1, 4, False),  # a one-shot program's third call
+    (3, 1, 4, True),  # ... and its B-th
+    (3, 3, 4, True),  # a second short call, once the first has spent 3
+    (0, 1, 1, True),  # a body with no count of its own (a probe): at once
+])
+def test_capture_policy_decision(spent, left, b, want):
+    assert graphs.captures(spent, left, b) is want
+
+
+def _stub_card(monkeypatch, name, b, carried=False):
+    """A body that counts its eager runs, seen as on the card, with the
+    capture stubbed: it records the capture, and a replay runs nothing
+    (the replay equals its eager run, which the card tests check)."""
+    monkeypatch.setitem(graphs.BREAK_EVEN, name, b)
+    log = {"eager": 0, "captured at": None}
+
+    def capture(self):
+        log["captured at"] = log["eager"]
+        out = self.body()
+        self.graph = types.SimpleNamespace(replay=lambda: None)
+        self.outputs = out
+        return out
+
+    monkeypatch.setattr(graphs.CapturedBody, "_capture", capture)
+    x = torch.zeros(1)
+
+    def body():
+        log["eager"] += 1
+        return x + 1
+
+    state = {"it": torch.zeros(1, dtype=torch.int64), "hist": {}, "carried": 1, "room": 64}
+    g = graphs.CapturedBody(name, body, (x,), state if carried else None)
+    g.device = torch.device("cuda")  # the policy's side of run(); nothing reaches a card
+    return g, log
+
+
+@pytest.mark.parametrize("length,b,call", [
+    (1, 4, 4), (3, 4, 2), (3, 7, 3), (4, 4, 1), (9, 4, 1), (2, 16, 8), (5, 16, 4)])
+def test_scans_capture_at_the_call_that_reaches_b(monkeypatch, length, b, call):
+    # calls of ``length`` iterations on one key: call k captures, at its
+    # first iteration, iff (k - 1) * length + length >= b; a capture never
+    # comes later in a call, and every iteration after it replays
+    g, log = _stub_card(monkeypatch, "probe scan", b, carried=True)
+    for k in range(1, call + 1):
+        before = log["eager"]
+        graphs.run_scan(g, length)
+        if k < call:
+            assert g.graph is None and log["eager"] == before + length
+    assert log["captured at"] == (call - 1) * length  # the call's first iteration
+    assert g.spent == (call - 1) * length + 1 and g.replays == length - 1
+    graphs.run_scan(g, length)  # a later call replays every iteration
+    assert g.replays == 2 * length - 1 and g.spent == (call - 1) * length + 1
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 16])
+def test_one_shot_programs_capture_at_their_b_th_call(monkeypatch, b):
+    g, log = _stub_card(monkeypatch, "probe one-shot", b)
+    for k in range(1, b + 1):
+        assert torch.equal(g.run(), torch.ones(1))
+        assert (g.graph is not None) == (k == b)
+    assert log["captured at"] == b - 1 and g.replays == 0
+    g.run()
+    assert g.replays == 1 and log["eager"] == b
 
 
 # ---- the mechanism ------------------------------------------------------------------
