@@ -138,7 +138,21 @@
    rank, the checks of (b), the (2, 2) 2-D mesh at D = 4, and weak
    scaling on the process group (on one card it logs that it did not
    run); then weak scaling stacked at D = 1, 2 and 4 (R-MAT s14 to s16,
-   ``parallel/weak_scaling.py``).  The ranks' launches add to the counts
+   ``parallel/weak_scaling.py``).  In every group the process mesh's
+   compiled programs (``child_graphs``): for each exchange, on one plan,
+   the eager loop of the step, a scan call one short of the break-even
+   count B (no capture), a call of B (a capture at its first iteration)
+   and a call that replays every iteration, each bit-equal to the eager
+   loop and to the stacked D path's digest; no host read (sync debug
+   mode "error") in an eager step or a replaying call, under gloo as
+   under NCCL; the warm ``sharded_spgemm_ring`` with its plan captured at
+   call B and replayed, bit-equal to the first call and to the stacked
+   path; each peer set's epoch counter read after every stage, every
+   rank's readings equal (the counters on the card move in step across
+   eager calls and replays); per-rank eager, replay and capture ms, pool
+   and reserved bytes under the group's label.  K6 serves every
+   exchange there (the statistics' sums, and the exchange itself on the
+   peer route).  The ranks' launches add to the counts
    of the ``kernels`` line, and their per-rank cases to its ``cases``
    (the kernel's own numbers stay those of its stacked case).
 16. the compiled programs (``utils/graphs.py``): the warm ``spgemm_ell``,
@@ -2224,13 +2238,15 @@ def distributed_phase(torch, np, sp, dev, card, a, drive, record, cuda_ms, host_
 # ---- 15. one rank a process ------------------------------------------------------
 EXCHANGES = ("all_gather", "pallas_ring", "ring", "fused_ring")
 # the kernels a process-mesh run of each exchange must launch on the card
+# (K6 in each: the statistics' sums and, but for pallas_ring's own K6,
+# the exchange take the peer route)
 EXCHANGE_KERNELS = {
-    "all_gather": ("sort_dedup_compact",),
+    "all_gather": ("ring_all_gather", "sort_dedup_compact"),
     "pallas_ring": ("ring_all_gather", "sort_dedup_compact"),
-    "ring": ("sort_dedup_compact",),
-    "fused_ring": ("ring_matmul_tiled", "sort_dedup_compact"),
+    "ring": ("ring_all_gather", "sort_dedup_compact"),
+    "fused_ring": ("ring_all_gather", "ring_matmul_tiled", "sort_dedup_compact"),
 }
-RANK_LIMIT_S = {"a": 240, "b": 300, "c": 300}  # a phase 15 group's wall clock
+RANK_LIMIT_S = {"a": 300, "b": 360, "c": 360}  # a phase 15 group's wall clock
 # how each group's per-rank times are labelled
 RANK_LABEL = {"a": "world size 1 under NCCL, one card",
               "b": "two processes time-sharing one card, not a cross-card figure",
@@ -2621,11 +2637,15 @@ def rank_child(argv) -> int:
         coo, mgt, cols0, vals0 = phase8_graph(torch, np, mesh.device)
         if mode == "a":
             child_world_one(torch, np, mesh, rep, counted, coo, mgt, cols0, vals0)
+            child_graphs(torch, np, mesh, rep, counted, mgt, cols0, vals0, mode)
+            want = graph_digests(torch, np, mesh.device, mgt, cols0, vals0, 1)
+            check_graph_reports(f"15{mode}", [rep], want, rep["failed"], rep["log"].append)
             del coo, mgt, cols0, vals0
             child_dynamic_one(torch, np, mesh, rep, timed)
         else:
             child_rmcl(torch, np, mesh, rep, counted, coo, mode)
             child_kernels(torch, np, mesh, rep, counted, mgt, cols0, vals0, mode)
+            child_graphs(torch, np, mesh, rep, counted, mgt, cols0, vals0, mode)
             del coo, mgt, cols0, vals0
             torch.cuda.empty_cache()
             rep["dynamic"] = dynamic_paths(torch, np, mesh, timed, M.make_mesh)
@@ -2892,6 +2912,247 @@ def child_kernels(torch, np, mesh, rep, counted, mgt, cols0, vals0, mode):
                     path=False)
 
 
+def scan_lengths() -> tuple:
+    """Phase 15's process-mesh scan lengths: a call one short of the
+    program's break-even count B (it stays eager) and a call of B on the
+    same plan (it captures at its first iteration, the plan's eager runs
+    and its own reaching B)."""
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    b = max(graphs.BREAK_EVEN["sharded_rmcl_ell_scan_process"], 2)
+    return b - 1, b
+
+
+def scan_block_digest(np, cols, vals, hist, r: int) -> str:
+    """Digest of rank ``r``'s iterate block of a held [L, lr, S] iterate
+    (L = 1: this rank's; r indexes the stack) and the histories."""
+    return block_digest(np, cols[r:r + 1], vals[r:r + 1], *(hist[k] for k in sorted(hist)))
+
+
+def graph_digests(torch, np, dev, mgt, cols0, vals0, d: int) -> dict:
+    """The stacked D = d path's digests of what phase 15's process-mesh
+    programs compute, one a rank: the static scan of ``scan_lengths()[1]``
+    iterations with each exchange (rank r's block and the histories) and
+    the ring SpGEMM of phase 4's s14 (rank r's block of C)."""
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        make_mesh,
+        plan_sharded_rmcl_ell,
+        shard_csr,
+        sharded_rmcl_ell_scan,
+        sharded_spgemm_ring,
+    )
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import plan_spgemm_ring
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    stacked, n = make_mesh(d, dev), mgt.rows
+    length = scan_lengths()[1]
+    plan, arrays, smgt = plan_sharded_rmcl_ell(mgt, d, S=S15, max_tile=MT15, mesh=stacked)
+    c0 = torch.where(cols0 >= n, plan.n, cols0).reshape(d, plan.lr, S15)
+    v0 = vals0.reshape(d, plan.lr, S15)
+    want = {}
+    for ex in EXCHANGES:
+        c, v, hist = sharded_rmcl_ell_scan(stacked, plan, smgt, arrays, c0, v0, length, ex)
+        want[ex] = [scan_block_digest(np, c, v, hist, r) for r in range(d)]
+    del plan, arrays, smgt
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)  # phase 4's s14
+    oc = spgemm_upper_bounds(a, a)[1]
+    sa = shard_csr(a, stacked)
+    rplan, ents = plan_spgemm_ring(sa, sa)
+    c = sharded_spgemm_ring(stacked, sa, sa, out_cap=oc, plan=rplan, step_ents=ents)[0]
+    want["spgemm_ring"] = [block_digest(np, c.row_ptr[r:r + 1], c.col_ind[r:r + 1],
+                                        c.values[r:r + 1]) for r in range(d)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return want
+
+
+def child_graphs(torch, np, mesh, rep, counted, mgt, cols0, vals0, mode):
+    """15(a-c): the process mesh's compiled programs.  For each exchange,
+    on one plan: the eager loop of the step (``scan_lengths()[1]``
+    iterations, ms an iteration by CUDA events), a scan call short of B
+    (no capture), a call of B (a capture at its first iteration, the
+    eager loop's bits), a call that replays every iteration (ms an
+    iteration, the same bits), and the eager step once more (iteration
+    1's bits); no host read (sync debug mode "error") in an eager step or
+    in a replaying call.  Then the warm ``sharded_spgemm_ring`` on phase
+    4's s14 with its plan, called until it captures (call B) and once
+    more, every call bit-equal to the first.  Each peer set's epoch
+    counter is read after every stage (the parent holds the ranks'
+    readings equal: the counters move in step).  The digests go to
+    ``rep["graph"]``, the per-rank ms, capture ms and pool to the log."""
+    import importlib
+
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        peer,
+        plan_sharded_rmcl_ell,
+        shard_csr,
+        sharded_rmcl_ell_scan,
+    )
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import (
+        _ring_impl,
+        plan_spgemm_ring,
+        ring_name,
+        sharded_spgemm_ring,
+    )
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    PS = importlib.import_module("sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell")
+    d, me, n = mesh.num_shards, mesh.rank, mgt.rows
+    tag, label = f"15{mode} rank {me}", RANK_LABEL[mode]
+    name = PS.scan_name(mesh)
+    short, length = scan_lengths()
+    out = rep.setdefault("graph", {"counters": []})
+    fail = rep["failed"].append
+
+    def counters(stage):
+        torch.cuda.synchronize()
+        out["counters"].append(
+            [stage, {repr(k[1]): int(ps.counter) for k, ps in peer._SETS.items()}])
+
+    def events(fn):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        res = fn()
+        e.record()
+        e.synchronize()
+        return res, s.elapsed_time(e)
+
+    plan, arrays, smgt = plan_sharded_rmcl_ell(mgt, d, S=S15, max_tile=MT15, mesh=mesh)
+    c0 = torch.where(cols0 >= n, plan.n, cols0).reshape(d, plan.lr, S15)[me:me + 1].contiguous()
+    v0 = vals0.reshape(d, plan.lr, S15)[me:me + 1].contiguous()
+    out["scan"] = {}
+    for ex in EXCHANGES:
+        def eager(iters, ex=ex):
+            hist, cols, vals = [], c0, v0
+            for _ in range(iters):
+                cols, vals, stats = PS._sharded_step(plan, smgt, arrays, cols, vals, ex, mesh)
+                hist.append(stats)
+            return cols, vals, {k: torch.stack([h[k] for h in hist]) for k, _ in PS._HIST}
+
+        def scan(iters, ex=ex):
+            return sharded_rmcl_ell_scan(mesh, plan, smgt, arrays, c0, v0, iters, ex)
+
+        counters(f"{ex}: before")
+        loop, eager_ms = events(lambda: eager(length))
+        want = scan_block_digest(np, *loop, 0)
+        one = scan_block_digest(np, *eager(1), 0)
+        counters(f"{ex}: after the eager loop")
+        made = captures_in(lambda: scan(short))[1]
+        if made or graphs.held(plan, name).graph is not None:
+            fail(f"{tag} {ex}: a call of {short} iterations short of B captured")
+        got, made = counted(f"process-mesh scan {ex} {length} iterations, capturing ({label})",
+                            lambda: captures_in(lambda: scan(length)),
+                            EXCHANGE_KERNELS[ex])
+        g = graphs.held(plan, name)
+        if made != [name] or g.graph is None:
+            fail(f"{tag} {ex}: the call of B = {length} iterations captured {made}")
+        counters(f"{ex}: after the capturing call")
+        again, replay_ms = events(lambda: counted(
+            f"process-mesh scan {ex} {length} iterations, replayed ({label})",
+            lambda: scan(length), EXCHANGE_KERNELS[ex]))
+        counters(f"{ex}: after the replays")
+        step_read = host_reads(torch, lambda: PS._sharded_step(plan, smgt, arrays, c0, v0, ex,
+                                                               mesh))
+        replay_read = host_reads(torch, lambda: scan(length))
+        last = scan_block_digest(np, *eager(1), 0)
+        counters(f"{ex}: after another eager call")
+        digests = [scan_block_digest(np, *x, 0) for x in (got, again)]
+        out["scan"][ex] = digests[0]
+        same = digests == [want, want] and last == one
+        rep["log"].append(
+            f"{tag} process-mesh scan {ex}: captured at iteration 1 of a call of {length} (after "
+            f"{short} eager), replays {'==' if same else '!='} the eager loop bit for bit; eager "
+            f"{eager_ms / length:.3f} ms an iteration, replayed {replay_ms / length:.3f} ms an "
+            f"iteration (CUDA events, a whole call), capture {g.capture_ms:.1f} ms, pool "
+            f"{g.pool_bytes / 2**20:.1f} MiB, reserved {torch.cuda.memory_reserved() / 2**30:.2f} "
+            f"GiB; host read: eager step {'yes' if step_read else 'none'}, replay "
+            f"{'yes' if replay_read else 'none'} ({label})")
+        if not same:
+            fail(f"{tag} process-mesh scan {ex}: the replays differ from the eager loop")
+        if step_read or replay_read:
+            fail(f"{tag} process-mesh scan {ex}: a host read in the step (eager "
+                 f"{step_read}, replayed {replay_read})")
+    del plan, arrays, smgt
+    graphs.drop_process_graphs()
+    torch.cuda.empty_cache()
+    # the warm ring SpGEMM, its plan passed
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=mesh.device)
+    oc = spgemm_upper_bounds(a, a)[1]
+    sa = shard_csr(a, mesh)
+    rplan, ents = plan_spgemm_ring(sa, sa, mesh)
+    b = graphs.BREAK_EVEN[ring_name(mesh)]
+
+    def ring():
+        return sharded_spgemm_ring(mesh, sa, sa, out_cap=oc, plan=rplan, step_ents=ents)[0]
+
+    counters("ring SpGEMM: before")
+    first, made_at = ring(), None
+    eager_ms = events(lambda: _ring_impl(mesh, rplan.step_prod_caps, sa, sa, ents, oc))[1]
+    calls = [first]
+    for k in range(2, max(b, 2) + 1):
+        c, made = captures_in(ring)
+        calls.append(c)
+        if made:
+            made_at = k
+    counters("ring SpGEMM: after the capturing call")
+    c, replay_ms = events(lambda: counted(f"process-mesh ring SpGEMM s14, replayed ({label})",
+                                          ring, ("ring_all_gather",) if d > 1 else ()))
+    calls.append(c)
+    counters("ring SpGEMM: after a replay")
+    body_read = host_reads(torch, lambda: _ring_impl(mesh, rplan.step_prod_caps, sa, sa, ents,
+                                                     oc))
+    replay_read = host_reads(torch, ring)
+    g = graphs.held(rplan, ring_name(mesh))
+    same = all(same_sharded(torch, x, first) for x in calls)
+    out["spgemm_ring"] = block_digest(np, first.row_ptr, first.col_ind, first.values)
+    rep["log"].append(
+        f"{tag} process-mesh ring SpGEMM s14: captured at call {made_at} (B = {b}), every call "
+        f"{'==' if same else '!='} the first bit for bit; eager body {eager_ms:.3f} ms, replayed "
+        f"call {replay_ms:.3f} ms (CUDA events), capture {g.capture_ms:.1f} ms, pool "
+        f"{g.pool_bytes / 2**20:.1f} MiB; host read: eager body "
+        f"{'yes' if body_read else 'none'}, replay {'yes' if replay_read else 'none'} ({label})")
+    if made_at != max(b, 2) or not same or body_read or replay_read:
+        fail(f"{tag} process-mesh ring SpGEMM: captured at call {made_at} (B = {b}), same "
+             f"{same}, host read eager {body_read} replayed {replay_read}")
+    del rplan, ents, calls, first, c, g
+    graphs.drop_process_graphs()
+    torch.cuda.empty_cache()
+
+
+def check_graph_reports(phase, reports, want, failed, say) -> None:
+    """The ranks' ``rep["graph"]``: each rank's scan and ring digests
+    against the stacked path's (``graph_digests``), and every rank's
+    epoch counters equal at every stage, advancing from stage to stage."""
+    for r, rep in enumerate(reports):
+        got = rep.get("graph", {})
+        for what in (*EXCHANGES, "spgemm_ring"):
+            mine = got.get(what) if what == "spgemm_ring" else got.get("scan", {}).get(what)
+            same = mine == want[what][r]
+            say(f"{phase} process-mesh {'ring SpGEMM' if what == 'spgemm_ring' else 'scan ' + what} "
+                f"rank {r}: {'==' if same else '!='} the stacked D={len(reports)} path bit for "
+                f"bit")
+            if not same:
+                failed.append(f"{phase} rank {r} process-mesh {what}: differs from the stacked "
+                              f"path")
+    stages = [rep.get("graph", {}).get("counters", []) for rep in reports]
+    in_step = all(s == stages[0] for s in stages) and bool(stages[0])
+    # every stage launches K6 or K8 on the sets but the first of a program
+    # (and the ring SpGEMM's at W = 1: a ppermute of one rank moves nothing)
+    moved = all(sum(b[1].values()) > sum(a[1].values())
+                for a, b in zip(stages[0], stages[0][1:])
+                if not b[0].endswith("before") and (len(reports) > 1 or not b[0].startswith("ring SpGEMM")))
+    say(f"{phase} epoch counters: {len(stages[0])} readings, the ranks' "
+        f"{'equal' if in_step else 'unequal'} at every one, "
+        f"{'advancing' if moved else 'not advancing'} between them; last "
+        f"{stages[0][-1] if stages[0] else None}")
+    if not (in_step and moved):
+        failed.append(f"{phase}: the ranks' epoch counters are not in step")
+
+
 def run_ranks(mode: str, world: int) -> list:
     """Start ``world`` ranks of ``mode`` (``chip_smoke.py --rank-child``),
     wait for them under RANK_LIMIT_S, kill any still running; each rank's
@@ -3004,8 +3265,13 @@ def rank_group(torch, np, dev, coo, mode, d, take, failed):
                              lambda s: make_mesh(s, dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    _, mgt, cols0, vals0 = phase8_graph(torch, np, dev)
+    want_graph = graph_digests(torch, np, dev, mgt, cols0, vals0, d)
+    del mgt, cols0, vals0
+    torch.cuda.empty_cache()
     reports = run_ranks(mode, d)
     take(mode, reports)
+    check_graph_reports(f"15{mode}", reports, want_graph, failed, log)
     for path, by_shard in want_dyn.items():
         for r, rep in enumerate(reports):
             got = rep.get("dynamic", {}).get(path, {})

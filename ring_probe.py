@@ -13,7 +13,7 @@ K6-K8; K1, K2, K3 and K5 in ``kernels``).
     python3 ring_probe.py variants [--root ROOT] [NAME ...]
     python3 ring_probe.py cross-card          # a machine with 2 or more cards
     python3 ring_probe.py processes
-    python3 ring_probe.py capture
+    python3 ring_probe.py capture [process | one-rank | cross-card]
 
 ``accuracy``: K8 and its plain twin on the D = 2 and D = 4 hub operands
 of the sharded R-MCL loop on R-MAT s14 (the operands ``chip_smoke.py``
@@ -138,6 +138,27 @@ Last, the warm ``sharded_spgemm`` and ring bodies at D = 4 and
 ``sharded_spgemm_2d`` on a (2, 2) stacked mesh, eager ms (CUDA events)
 beside their device time (torch.profiler), uncaptured: how far a graph
 could take them.
+
+``capture process``: the same for the process mesh's two programs,
+ranks as processes of this script (``capture-rank``): two processes on
+card 0 under gloo (``capture one-rank``: a process mesh of one rank
+under NCCL, W = 1; ``capture cross-card``: one card a rank under NCCL,
+D = min(cards, 4)).  Each rank: the static sharded step of phase 8's
+graph (S = 128) with each exchange and the warm ring SpGEMM of R-MAT
+s14 (random weights, plan passed), eager ms by CUDA events (median of
+5), capture ms (``CAPTURES`` captures of a process body, whose first
+run is eager), replay ms; then the break-even count of each program, the
+largest over the ranks and, for the scan, over the exchanges, beside
+``utils/graphs.BREAK_EVEN``'s ``_process`` entries, and the share of
+the eager step a replay saves (under 5%: the program keeps no graph).
+
+``entry`` also runs, for each ROOT, ``chip_smoke.py`` phase 15's entry
+points on two processes time-sharing card 0 under gloo (``entry-rank``,
+that ROOT's port): ``sharded_rmcl_ell`` with each exchange, 3
+iterations, plan included; ``sharded_rmcl_ell_scan`` of 8 iterations on
+a plan that has run one such call; the warm ``sharded_spgemm_ring``
+(plan passed, after 8 calls); wall ms of rank 0 (host clock), three
+calls each after one, and the digests of the results' bits.
 
 ``--root ROOT`` (``launch``, ``variants``): import the port, and build
 the variants, from the checkout ROOT instead of this script's own.
@@ -1032,6 +1053,8 @@ def step(roots, mode: str = "step") -> None:
             print(res.stdout[-2000:], res.stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"ring_probe {mode}: {root} failed")
         rows.append((root, json.loads(res.stdout.strip().splitlines()[-1])))
+        if mode == "entry":  # phase 15's entry points, two processes on card 0
+            rows[-1][1].update(_rank_group("entry-rank", [root], 2, "entry")[0])
         print(f"{root}: " + "; ".join(
             f"{k} {statistics.median(v):.3f} [{min(v):.3f}, {max(v):.3f}]"
             for k, v in rows[-1][1].items())
@@ -1527,6 +1550,267 @@ def variants(dev, names, root: str = HERE) -> None:
                  + " ms" if name.startswith("K3") else ""), flush=True)
 
 
+def _rank_group(what: str, args: list, world: int, tag: str, limit: int = 600) -> list:
+    """Run ``world`` ranks of ``ring_probe.py WHAT ... RANK WORLD STORE OUT``
+    to their end or ``limit`` seconds; each rank's JSON report (a missing
+    one raises with the rank's output)."""
+    d = os.path.join(HERE, "build", "probe_ranks", tag)
+    os.makedirs(d, exist_ok=True)
+    store = os.path.join(d, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    procs = []
+    for r in range(world):
+        logf = open(os.path.join(d, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), what, *args, str(r), str(world), store,
+             os.path.join(d, f"rank{r}.json")], stdout=logf, stderr=subprocess.STDOUT), logf))
+    t0 = time.time()
+    for p, _ in procs:
+        try:
+            p.wait(max(1, limit - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+    out = []
+    for r, (p, logf) in enumerate(procs):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        logf.close()
+        path = os.path.join(d, f"rank{r}.json")
+        if p.returncode or not os.path.exists(path):
+            with open(os.path.join(d, f"rank{r}.log")) as f:
+                raise SystemExit(f"ring_probe {what}: rank {r} exited {p.returncode}:\n"
+                                 f"{f.read()[-4000:]}")
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _join(rank: int, world: int, store: str, backend: str):
+    """This rank's process mesh: the group joined through ``store``."""
+    import datetime
+
+    from sparse_matrix_with_flops_tpu_torch.parallel import mesh as M
+
+    M.init_distributed(backend=backend, init_method=f"file://{store}", rank=rank,
+                       world_size=world, timeout=datetime.timedelta(seconds=300))
+    return M.process_mesh()
+
+
+def _rank_state(torch, np, mesh):
+    """Phase 8's graph planned on the process mesh (S = 128, max_tile
+    8192) and this rank's initial block: (plan, arrays, smgt, c0, v0);
+    R-MAT s14 with random weights sharded, its ring plan and out cap:
+    (sa, plan, ents, oc)."""
+    import chip_smoke
+
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_upper_bounds
+    from sparse_matrix_with_flops_tpu_torch.parallel import plan_sharded_rmcl_ell, shard_csr
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import plan_spgemm_ring
+    from sparse_matrix_with_flops_tpu_torch.utils.generate import rmat_csr
+
+    d, me = mesh.num_shards, mesh.rank
+    _, mgt, cols0, vals0 = chip_smoke.phase8_graph(torch, np, mesh.device)
+    plan, arrays, smgt = plan_sharded_rmcl_ell(mgt, d, S=128, max_tile=8192, mesh=mesh)
+    c0 = torch.where(cols0 >= mgt.rows, plan.n, cols0).reshape(d, plan.lr, 128)[me:me + 1]
+    v0 = vals0.reshape(d, plan.lr, 128)[me:me + 1]
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=mesh.device)
+    oc = spgemm_upper_bounds(a, a)[1]
+    sa = shard_csr(a, mesh)
+    rplan, ents = plan_spgemm_ring(sa, sa, mesh)
+    return (plan, arrays, smgt, c0.contiguous(), v0.contiguous()), (sa, rplan, ents, oc)
+
+
+def capture_rank(mode, rank, world, store, res) -> None:
+    """One rank of ``capture process`` / ``capture cross-card`` (see the
+    module's docstring)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.parallel import peer
+    from sparse_matrix_with_flops_tpu_torch.parallel import spgemm as spg
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    _build.library()
+    mesh = _join(rank, world, store, "gloo" if mode == "process" else "nccl")
+    dev = mesh.device
+    ps = importlib.import_module(f"{PKG}.parallel.rmcl_ell")
+    (plan, arrays, smgt, c0, v0), (sa, rplan, ents, oc) = _rank_state(torch, np, mesh)
+    out = {}
+    for ex in EXCHANGES:
+        def body(ex=ex):
+            return ps._sharded_step(plan, smgt, arrays, c0, v0, ex, mesh)
+
+        body()  # makes the peer sets
+        torch.cuda.synchronize()
+        eager = statistics.median(_times(torch, body, reps=5))
+        runs = []
+        for _ in range(CAPTURES):
+            g = graphs.CapturedBody(f"probe {ex}", body, (torch.empty(0, device=dev),),
+                                    process=True)
+            g.run()  # eager: a process body's first run
+            g.run()  # the capture
+            torch.cuda.synchronize()
+            runs.append(g.capture_ms)
+        replay = statistics.median(_times(torch, g.run, reps=5))
+        out[f"sharded step s14 D={world} {ex}"] = {
+            "eager ms": eager, "replay ms": replay, "capture ms": statistics.median(runs),
+            "captures": runs, "pool MiB": g.pool_bytes / 2**20}
+        del g
+        graphs.drop_process_graphs()
+    name = spg.ring_name(mesh)
+    eager_body = lambda: spg._ring_impl(mesh, rplan.step_prod_caps, sa, sa, ents, oc)  # noqa: E731
+    call = lambda: spg.sharded_spgemm_ring(mesh, sa, sa, out_cap=oc, plan=rplan,  # noqa: E731
+                                           step_ents=ents)
+    eager_body()
+    eager = statistics.median(_times(torch, eager_body, reps=5))
+    runs, calls = [], []
+    for _ in range(CAPTURES):
+        graphs.drop(rplan, name)
+        for k in range(1, max(graphs.BREAK_EVEN[name], 2) + 1):
+            call()
+            g = graphs.held(rplan, name)
+            if g.graph is not None:
+                break
+        torch.cuda.synchronize()
+        runs.append(g.capture_ms)
+        calls.append(k)
+    replay = statistics.median(_times(torch, call, reps=5))
+    out[f"ring SpGEMM s14 D={world} warm"] = {
+        "eager ms": eager, "replay ms": replay, "capture ms": statistics.median(runs),
+        "captures": runs, "calls to capture": calls, "pool MiB": g.pool_bytes / 2**20}
+    del g
+    graphs.drop(rplan, name)
+    out["reserved GiB"] = torch.cuda.memory_reserved() / 2**30
+    import torch.distributed as dist
+
+    peer.close_all()
+    dist.destroy_process_group()
+    with open(res, "w") as f:
+        json.dump(out, f)
+
+
+def process_capture_costs(mode: str) -> None:
+    """``capture process`` / ``capture cross-card``: every rank's costs and
+    the break-even counts (see the module's docstring)."""
+    import math
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    _build.library()  # built once, before the ranks start
+    world = {"process": 2, "one-rank": 1}.get(mode, min(torch.cuda.device_count(), 4))
+    if mode == "cross-card" and world < 2:
+        raise SystemExit("ring_probe capture cross-card: needs more than one card")
+    label = {"process": "two processes time-sharing one card, not a cross-card figure",
+             "one-rank": "a process mesh of one rank (W = 1, NCCL), one card"}.get(
+                 mode, f"one card a rank, {world} cards")
+    reports = _rank_group("capture-rank", [mode], world, f"capture_{mode}")
+    counts, saved = {}, {}
+    for r, rep in enumerate(reports):
+        for key, row in rep.items():
+            if not isinstance(row, dict):
+                print(f"rank {r} {key}: {row:.2f}", flush=True)
+                continue
+            gain = row["eager ms"] - row["replay ms"]
+            b = 1 + row["capture ms"] / gain if gain > 0 else None
+            prog = ("sharded_rmcl_ell_scan_process" if key.startswith("sharded step")
+                    else "sharded_spgemm_ring_process")
+            counts.setdefault(prog, []).append(b)
+            saved.setdefault(prog, []).append(gain / row["eager ms"])
+            print(f"rank {r} {key}: " + "; ".join(
+                f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in row.items()
+                if k != "captures") + f"; captures {', '.join(f'{c:.3f}' for c in row['captures'])}"
+                f"; saved {gain / row['eager ms']:.1%}; break-even "
+                f"{'none' if b is None else f'{b:.2f}'} [{label}; CUDA events, host clock "
+                "for captures]", flush=True)
+    measured = {k: (None if None in v or min(saved[k]) < 0.05 else max(math.ceil(b) for b in v))
+                for k, v in counts.items()}
+    print(f"break-even counts, rounded up, the largest over ranks and exchanges (none: a "
+          f"replay saves under 5% somewhere) [{label}]: " + json.dumps(measured)
+          + "; utils/graphs.BREAK_EVEN " + json.dumps(
+              {k: graphs.BREAK_EVEN.get(k) for k in measured}), flush=True)
+    print(json.dumps({"capture_process": reports, "break_even": measured, "label": label}))
+
+
+def _digest48(hexdigest: str) -> float:
+    """48 bits of a hex digest, as a float that holds them exactly (as
+    :func:`digest`)."""
+    return float(int(hexdigest[:12], 16))
+
+
+def entry_rank(root, rank, world, store, res) -> None:
+    """One rank of ``entry``'s process-mesh part, the port of ``root``
+    (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, root)
+    sys.path.insert(1, HERE)
+    from sparse_matrix_with_flops_tpu_torch import _build
+    from sparse_matrix_with_flops_tpu_torch.parallel import (
+        peer,
+        sharded_rmcl_ell,
+        sharded_rmcl_ell_scan,
+        sharded_spgemm_ring,
+    )
+
+    import chip_smoke
+
+    _build.library()
+    mesh = _join(rank, world, store, "gloo")
+    (plan, arrays, smgt, c0, v0), (sa, rplan, ents, oc) = _rank_state(torch, np, mesh)
+    coo = chip_smoke.phase8_graph(torch, np, mesh.device)[0]
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, r
+
+    out = {}
+    for ex in EXCHANGES:
+        cases = {
+            f"sharded_rmcl_ell s14 D={world} {ex} 3 iterations ms": lambda ex=ex: sharded_rmcl_ell(
+                coo, mesh, max_iters=3, S=128, max_tile=8192, exchange=ex),
+            f"warm sharded_rmcl_ell_scan D={world} {ex} 8 iterations ms":
+                lambda ex=ex: sharded_rmcl_ell_scan(mesh, plan, smgt, arrays, c0, v0, 8, ex),
+        }
+        for label, fn in cases.items():
+            wall(fn)
+            runs = [wall(fn) for _ in range(3)]
+            out[label] = [t for t, _ in runs]
+            res_ = runs[-1][1]
+            if isinstance(res_[0], torch.Tensor):
+                arrs = (res_[0], res_[1], *(res_[2][k] for k in sorted(res_[2])))
+            else:
+                arrs = (*(x for x in (res_[0].row_ptr, res_[0].col_ind, res_[0].values)),
+                        *(torch.as_tensor(res_[1][k]) for k in sorted(res_[1])))
+            out[label.replace(" ms", " digest")] = [_digest48(chip_smoke.block_digest(np, *arrs))]
+    ring = lambda: sharded_spgemm_ring(mesh, sa, sa, out_cap=oc, plan=rplan,  # noqa: E731
+                                       step_ents=ents)[0]
+    for _ in range(8):
+        ring()
+    runs = [wall(ring) for _ in range(3)]
+    out[f"warm sharded_spgemm_ring s14 D={world} ms"] = [t for t, _ in runs]
+    c = runs[-1][1]
+    out[f"warm sharded_spgemm_ring s14 D={world} digest"] = [
+        _digest48(chip_smoke.block_digest(np, c.row_ptr, c.col_ind, c.values))]
+    import torch.distributed as dist
+
+    peer.close_all()
+    dist.destroy_process_group()
+    with open(res, "w") as f:
+        json.dump(out, f)
+
+
 def processes_child(mode, rank, world, store, res) -> None:
     """One rank of ``processes`` (see the module's docstring)."""
     import torch
@@ -1755,7 +2039,8 @@ def main() -> int:
                                      "streams", "streams-one", "split", "split-one",
                                      "peaks", "peaks-one", "entry",
                                      "entry-one", "launch", "variants", "cross-card",
-                                     "processes", "processes-child", "capture"))
+                                     "processes", "processes-child", "capture",
+                                     "capture-rank", "entry-rank"))
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--unpromoted", action="store_true")
     ap.add_argument("--root", default=HERE,
@@ -1768,9 +2053,11 @@ def main() -> int:
         print("ring_probe: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    if args.what == "processes-child":
-        processes_child(args.roots[0], int(args.roots[1]), int(args.roots[2]), args.roots[3],
-                        args.roots[4])
+    if args.what in ("processes-child", "capture-rank", "entry-rank"):
+        child = {"processes-child": processes_child, "capture-rank": capture_rank,
+                 "entry-rank": entry_rank}[args.what]
+        child(args.roots[0], int(args.roots[1]), int(args.roots[2]), args.roots[3],
+              args.roots[4])
         return 0
     if args.what.endswith("-one"):
         sys.path.insert(0, args.roots[0])
@@ -1795,6 +2082,8 @@ def main() -> int:
         return cross_card(dev)
     elif args.what == "processes":
         return processes()
+    elif args.what == "capture" and args.roots:
+        process_capture_costs(args.roots[0])
     elif args.what == "capture":
         sys.path.insert(0, HERE)
         capture_costs(dev)

@@ -55,13 +55,13 @@ _SIGNATURES = {
     "smf_ring_matmul_tiled": (_P, _P, _I, _I, _I, _I, _I, _I),
     # one rank a launch: host array of the rank's operand blocks and every
     # rank's landing buffers, ops, d, rank, words, slice, ctas, flags, the
-    # downstream rank's flags, epoch
-    "smf_ring_all_gather_rank": (_P, _I, _I, _I, _L, _L, _I, _P, _P, _I),
+    # downstream rank's flags, the set's epoch counter, hops
+    "smf_ring_all_gather_rank": (_P, _I, _I, _I, _L, _L, _I, _P, _P, _P, _I),
     # one rank a launch: host array [4, d] of addresses as smf_ring_matmul's
     # (every rank's buffer, this rank's A_rot, B and C), flags, the
     # downstream rank's flags, d, m, lr, n, nt, slots, dir, rank, ranks
-    # sharing the card, epoch
-    "smf_ring_matmul_rank": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I),
+    # sharing the card, the set's epoch counter
+    "smf_ring_matmul_rank": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # values, offsets, offsets are int64, out, runs, warp_per_run
     "smf_run_sums": (_P, _P, _I, _P, _L, _I),
 }

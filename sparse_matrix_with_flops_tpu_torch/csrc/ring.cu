@@ -46,17 +46,30 @@
 // launch captured into a CUDA graph gets flags of its own that the graph
 // zeroes); K7 / K8's caller zeroes their flags before every launch and
 // passes epoch 1.  One rank a launch, each rank's flags live beside its
-// landing buffers in its peer allocation, zeroed once, and the epoch is
-// the count of launches on that allocation, which every rank advances in
-// step (each launch is collective).  Two more waits make launches of
-// separate processes safe, since a rank's stream no longer orders its
-// neighbours' launches: (1) at entry, CTA 0 of every rank raises its
-// `ready` flag, and no CTA writes into its downstream neighbour's
-// buffers before that neighbour's ready flag carries this epoch (the
-// neighbour's stream is then done with the buffers' previous contents);
-// (2) K6 waits for its last block to land before the launch ends (the
-// stacked launch's end covers it).  K7 / K8 read their last block inside
-// the launch, so they need no such wait.
+// landing buffers in its peer allocation, zeroed once, and the epoch comes
+// from the card: a launch is given a pointer to an int32 counter of its
+// set (the last launch's epoch, 0 at first), every CTA reads it at entry
+// and takes epoch = counter % kEpochs + 1, and the entry point enqueues,
+// right after the launch, a one-thread kernel that stores that epoch into
+// the counter (a launch never writes its own counter: its CTAs may still
+// be reading it).  So a CUDA graph that captured the launch and its
+// advance gives every replay a new epoch, and eager launches and replays
+// can interleave on one counter.  Every rank of a set runs the same
+// sequence of launches on it (each launch is collective), so the ranks'
+// counters move in step.  (Zeroing the flags in a graph node instead, as
+// stacked launches do, would race across processes: a rank could zero a
+// flag that its neighbour has already raised for this replay.)  Two more
+// waits make launches of separate processes safe, since a rank's stream
+// no longer orders its neighbours' launches: (1) at entry, CTA 0 of every
+// rank raises its `ready` flag, and no CTA writes into its downstream
+// neighbour's buffers before that neighbour's ready flag carries this
+// epoch (the neighbour's stream is then done with the buffers' previous
+// contents); (2) K6 waits for its last block to land before the launch
+// ends (the stacked launch's end covers it).  K7 / K8 read their last
+// block inside the launch, so they need no such wait.  K6 one rank a
+// launch takes a number of hops: d - 1 is the all-gather, 1 is
+// ppermute(i -> i + 1) (the rank's own block 0 and the upstream rank's
+// block 1 land), the same copies and flag walk cut short.
 //
 // K6 moves d blocks a rank (at D = 4 on R-MAT s14, [4096, 128] 4-byte
 // blocks of cols and vals: 16.8 MB in, 67 MB out), so it is bound by
@@ -196,6 +209,19 @@ __device__ __forceinline__ void wait_epoch(int* flag, int epoch) {
   }
 }
 
+// Epochs run 1 .. kEpochs, then start again at 1 (_build.EPOCHS).
+constexpr int kEpochs = (1 << 30) - 1;
+
+// The epoch of a launch: the caller's, or (one rank a launch) the one
+// after the last epoch stored in ``counter``.  The counter was written by
+// an earlier kernel on the stream: read it from L2.
+__device__ __forceinline__ int launch_epoch(const int* counter, int epoch) {
+  return counter ? __ldcg(counter) % kEpochs + 1 : epoch;
+}
+
+// Stores the epoch of the launch before it on the stream into ``counter``.
+__global__ void advance_epoch(int* counter) { *counter = *counter % kEpochs + 1; }
+
 // ---- K6 ---------------------------------------------------------------
 constexpr int kGatherThreads = 256;
 // rank pointers an operand list of the launch's parameters holds (ops * d):
@@ -219,8 +245,10 @@ struct Gather {
   int* flags_dst;         // the downstream rank's flags (stacked: flags)
   long long words;        // 4-byte words of a block
   long long slice;        // words of each block a CTA owns, a multiple of 4
-  int d, ops, epoch;
+  const int* counter;     // one rank a launch: the set's epoch counter; stacked: null
+  int d, ops, epoch;      // epoch: stacked only (one rank a launch: from counter)
   int rank;               // one rank a launch: the rank; stacked: -1
+  int hops;               // blocks that land past block 0 (stacked: d - 1)
 };
 
 // Threads t < T of a group copy ``len`` words from ``src`` to ``dst`` (and
@@ -277,7 +305,8 @@ __device__ void copy_slice(const unsigned* src, unsigned* dst, unsigned* dst2,
 // into the downstream rank's block k + 1.  Stacked, the last block, d - 1,
 // is read by no hop, so no flag announces it; one rank a launch, a last
 // round raises and waits for it, so that the launch ends only once the
-// rank's blocks have all landed.  One rank a launch, the CTA first waits
+// rank's blocks have all landed: blocks 1 .. hops, hops = d - 1 for the
+// all-gather, 1 for a ppermute.  One rank a launch, the CTA first waits
 // for the downstream rank's ready flag (raised by its CTA 0 at entry).  A
 // flag holds the epoch of the launch that last raised it, so flags are
 // never cleared.
@@ -286,6 +315,7 @@ __global__ void __launch_bounds__(kGatherThreads)
     ring_all_gather_kernel(const __grid_constant__ Gather<P> p) {
   const int me = p.rank < 0 ? static_cast<int>(blockIdx.y) : p.rank, d = p.d;
   const int dst = me + 1 == d ? 0 : me + 1;
+  const int epoch = launch_epoch(p.counter, p.epoch);
   const long long lo = blockIdx.x * p.slice;
   const long long len = lo < p.words ? min(p.slice, p.words - lo) : 0;
   // flag (rank, k) of CTA i: flags[(rank * (d - 1) + k - 1) * gridDim.x + i]
@@ -296,8 +326,8 @@ __global__ void __launch_bounds__(kGatherThreads)
     if (threadIdx.x == 0) {
       const long long ready = d * (d - 1LL) * stride;  // [d] after the arrivals
       if (blockIdx.x == 0)
-        Flag(p.flags[ready + me]).store(p.epoch, cuda::std::memory_order_release);
-      wait_epoch<32>(p.flags_dst + ready + dst, p.epoch);
+        Flag(p.flags[ready + me]).store(epoch, cuda::std::memory_order_release);
+      wait_epoch<32>(p.flags_dst + ready + dst, epoch);
     }
     __syncthreads();
   }
@@ -311,17 +341,18 @@ __global__ void __launch_bounds__(kGatherThreads)
     copy_slice(p.in[r + me] + lo, p.out[r + me] + lo,
                d > 1 ? p.out[r + dst] + p.words + lo : nullptr, len, false, t, gsize);
   }
-  const int hops = p.rank < 0 ? d - 1 : d;  // one rank a launch: block d - 1 too
-  for (int k = 1; k < hops; ++k) {
+  // one rank a launch: a last round for block hops
+  const int rounds = p.rank < 0 ? p.hops : p.hops + 1;
+  for (int k = 1; k < rounds; ++k) {
     __syncthreads();  // the slice of hop k - 1 is stored
     // the barrier orders the CTA's stores before thread 0's system-scope
     // release, and its acquire before the CTA's loads of the next hop
     if (threadIdx.x == 0) {
-      Flag(theirs[k * stride]).store(p.epoch, cuda::std::memory_order_release);
-      wait_epoch<32>(&mine[k * stride], p.epoch);
+      Flag(theirs[k * stride]).store(epoch, cuda::std::memory_order_release);
+      wait_epoch<32>(&mine[k * stride], epoch);
     }
     __syncthreads();
-    if (k + 1 == d) break;  // the last block is forwarded by no hop
+    if (k == p.hops) break;  // the last block is forwarded by no hop
     for (int op = g; op < p.ops && g < groups; op += groups) {
       const int r = op * d;
       copy_slice(p.out[r + me] + k * p.words + lo,
@@ -348,11 +379,12 @@ struct RingMatmul {
   // launch: this rank's flags; stacked: every rank's)
   int* flags;
   int* flags_dst;         // the downstream rank's flags (stacked: flags)
+  const int* counter;     // one rank a launch: the set's epoch counter; stacked: null
   int d, m, lr, n, nt;
   int slots;  // N tiles the buffer holds; tile t uses slot t % slots
   int dir;  // +1: blocks flow to rank me + 1 (K7); -1: to me - 1 (K8)
   int rank;   // one rank a launch: the rank; stacked: -1 (blockIdx.y)
-  int epoch;  // the tag the launch's flags carry
+  int epoch;  // the tag the launch's flags carry (stacked; else from counter)
   int tma;    // amaps hold the maps (else the producer loads A itself)
 };
 static_assert(sizeof(RingMatmul) <= kMaxParamBytes, "K7 / K8's parameters overflow");
@@ -651,6 +683,7 @@ struct Producer {
 
   __device__ void run() {
     const int d = p.d, me = rank_of(p);
+    const int epoch = launch_epoch(p.counter, p.epoch);
     const int dst = ((me + p.dir) % d + d) % d;
     const Walk wk(p);
     const long long arrivals = static_cast<long long>(d) * wk.strips * d;
@@ -665,8 +698,8 @@ struct Producer {
       int* ready = done + static_cast<long long>(d) * wk.strips;  // [d]
       int* ready_dst = done_dst + static_cast<long long>(d) * wk.strips;
       if (pt == 0 && blockIdx.x == 0)
-        Flag(ready[me]).store(p.epoch, cuda::std::memory_order_release);
-      producer_wait_for(ready_dst + dst, p.epoch, pt);
+        Flag(ready[me]).store(epoch, cuda::std::memory_order_release);
+      producer_wait_for(ready_dst + dst, epoch, pt);
     }
     for (int s = blockIdx.x; s < wk.strips; s += gridDim.x) {
       const int t = s / wk.spt;
@@ -677,7 +710,7 @@ struct Producer {
       if (d > 1 && s >= p.slots * wk.spt)
         producer_wait_for(&done_dst[static_cast<long long>(dst) * wk.strips + s -
                                     p.slots * wk.spt],
-                          p.epoch, pt);
+                          epoch, pt);
       h.width = min(kBN, p.nt - c0);
       for (h.m0 = 0; h.m0 < p.m; h.m0 += Tl::kBM) {
         h.rows = min(Tl::kBM, p.m - h.m0);
@@ -691,7 +724,7 @@ struct Producer {
               flush();
               producer_wait_for(
                   &arrive[(static_cast<long long>(me) * wk.strips + s) * d + h.k],
-                  p.epoch, pt);
+                  epoch, pt);
             }
             h.b = own + slot + (h.k - 1) * blk + c0;
             h.ldb = p.nt;
@@ -711,12 +744,12 @@ struct Producer {
           if (fwd)
             producer_signal(
                 &arrive_dst[(static_cast<long long>(dst) * wk.strips + s) * d + h.k + 1],
-                p.epoch, pt);
+                epoch, pt);
         }
       }
       // every read of this rank's buffer for strip s has landed
       if (d > 1)
-        producer_signal(&done[static_cast<long long>(me) * wk.strips + s], p.epoch, pt);
+        producer_signal(&done[static_cast<long long>(me) * wk.strips + s], epoch, pt);
     }
   }
 };
@@ -1048,6 +1081,7 @@ extern "C" int smf_ring_all_gather(const long long* bases, int ops, int d,
     p.ops = ops;
     p.epoch = epoch;
     p.rank = -1;
+    p.hops = d - 1;
     void* args[] = {&p};
     return static_cast<int>(cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(ring_all_gather_kernel<P>), dim3(ctas, d),
@@ -1058,23 +1092,35 @@ extern "C" int smf_ring_all_gather(const long long* bases, int ops, int d,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The one-thread advance of ``counter`` after a launch of one rank, on
+// the launch's stream (after a failed launch: that launch's error).
+static int advance(int err, int* counter, cudaStream_t stream) {
+  if (err != 0) return err;
+  advance_epoch<<<1, 1, 0, stream>>>(counter);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One rank of K6 a launch.  bases: host array of ops + ops * d addresses:
 // this rank's block [words] of operand op at [op], and rank r's landing
-// buffer of operand op, [d, words], at [ops + op * d + r] (peer pointers
-// but for r = rank; the launch writes rank's and the downstream rank's);
-// ctas, slice: as smf_ring_all_gather, the same on every rank (ctas at
-// most smf_ring_all_gather_ctas(ranks sharing the card)); flags /
+// buffer of operand op, [hops + 1, words], at [ops + op * d + r] (peer
+// pointers but for r = rank; the launch writes rank's and the downstream
+// rank's); ctas, slice: as smf_ring_all_gather, the same on every rank
+// (ctas at most smf_ring_all_gather_ctas(ranks sharing the card)); flags /
 // flags_dst: this rank's and the downstream rank's int32[d * (d - 1) *
-// ctas + d], zeroed once; epoch: the count of launches on them, >= 1,
-// the same on every rank.  Returns the cudaError_t of the launch.
+// ctas + d], zeroed once; counter: this rank's int32 epoch counter of the
+// set (the epoch of its last launch, 0 at first), which every rank
+// advances in step; hops: d - 1 (the all-gather: block k from rank
+// (rank - k) mod d) or any 1 <= hops < d (blocks 0 .. hops land; 1 is
+// ppermute(i -> i + 1)), 0 when d = 1.  Enqueues the launch, then the
+// counter's advance.  Returns the cudaError_t of the launches.
 extern "C" int smf_ring_all_gather_rank(const long long* bases, int ops, int d,
                                         int rank, long long words, long long slice,
                                         int ctas, int* flags, int* flags_dst,
-                                        int epoch, cudaStream_t stream) {
+                                        int* counter, int hops, cudaStream_t stream) {
   const int n = ops * d;
   if (ops < 1 || d < 1 || rank < 0 || rank >= d || words < 1 || slice < 1 ||
-      slice % 4 != 0 || ctas < 1 || epoch < 1 ||
-      static_cast<long long>(ctas) * slice < words)
+      slice % 4 != 0 || ctas < 1 || counter == nullptr || hops > d - 1 ||
+      hops < (d > 1 ? 1 : 0) || static_cast<long long>(ctas) * slice < words)
     return static_cast<int>(cudaErrorInvalidValue);
   auto run = [&](auto tag) {
     constexpr int P = decltype(tag)::value;
@@ -1086,16 +1132,18 @@ extern "C" int smf_ring_all_gather_rank(const long long* bases, int ops, int d,
     }
     p.flags = flags;
     p.flags_dst = flags_dst;
+    p.counter = counter;
     p.words = words;
     p.slice = slice;
     p.d = d;
     p.ops = ops;
-    p.epoch = epoch;
     p.rank = rank;
+    p.hops = hops;
     void* args[] = {&p};
-    return static_cast<int>(cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(ring_all_gather_kernel<P>), dim3(ctas, 1),
-        dim3(kGatherThreads), args, 0, stream));
+    return advance(static_cast<int>(cudaLaunchCooperativeKernel(
+                       reinterpret_cast<const void*>(ring_all_gather_kernel<P>), dim3(ctas, 1),
+                       dim3(kGatherThreads), args, 0, stream)),
+                   counter, stream);
   };
   if (n <= kPtrsSmall) return run(std::integral_constant<int, kPtrsSmall>{});
   if (n <= kPtrsLarge) return run(std::integral_constant<int, kPtrsLarge>{});
@@ -1144,20 +1192,20 @@ extern "C" int smf_ring_matmul_tiled(const long long* ptrs, int* flags, int d, i
 // built from this rank's A alone.  flags / flags_dst: this rank's and the
 // downstream rank's int32[d * strips * (d + 1) + d], zeroed once; share:
 // the ranks that share this card (the grid takes 1 / share of its
-// resident CTAs); epoch: the count of launches on the flags, >= 1, the
-// same on every rank.
+// resident CTAs); counter: as smf_ring_all_gather_rank's.  Enqueues the
+// launch, then the counter's advance.
 extern "C" int smf_ring_matmul_rank(const long long* ptrs, int* flags, int* flags_dst, int d,
                                     int m, int lr, int n, int nt, int slots, int dir,
-                                    int rank, int share, int epoch, cudaStream_t stream) {
+                                    int rank, int share, int* counter, cudaStream_t stream) {
   if (nt <= 0 || n % nt != 0 || slots < 1 || (dir != 1 && dir != -1) || rank < 0 ||
-      rank >= d || share < 1 || epoch < 1)
+      rank >= d || share < 1 || counter == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   RingMatmul p{};
   const int err = fill_ranks(p, ptrs, d);
   if (err != 0) return err;
   p.flags = flags;
   p.flags_dst = flags_dst;
+  p.counter = counter;
   p.m = m, p.lr = lr, p.n = n, p.nt = nt, p.slots = slots, p.dir = dir, p.rank = rank;
-  p.epoch = epoch;
-  return launch_matmul(p, share, stream);
+  return advance(launch_matmul(p, share, stream), counter, stream);
 }

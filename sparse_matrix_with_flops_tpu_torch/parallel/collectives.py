@@ -25,6 +25,16 @@ process mesh.
   all-gather takes card tensors, but its send / receive do not (in torch
   2.11 a card tensor given to them aborts the process: gloo writes from
   the device pointer as if it were host memory).
+
+The peer route: the compiled programs of ``parallel/rmcl_ell.py`` and
+``parallel/spgemm.py`` move a process mesh's card tensors through
+kernel K6 launched one rank at a time on CUDA IPC peer pointers
+(``ring_kernels.peer_all_gather``, ``peer_ppermute`` for a shift of 1,
+and :func:`psums` here): no ``torch.distributed`` call and no host round
+trip, so a CUDA graph can capture the exchange.  The bytes moved are the
+same, so the results keep their bits.  Every other caller (the dynamic
+layer, the 2-D SpGEMM, plan-time gathers) and tensors on the CPU take
+the group's calls above.
 """
 
 from __future__ import annotations
@@ -104,3 +114,24 @@ def psum(mesh, x: torch.Tensor, axis: str | None = None, dtype=None) -> torch.Te
     ``dtype`` (``torch.sum``'s default when None), on every mesh kind
     (the stacked path's bits)."""
     return all_gather(mesh, x, axis).sum(dtype=dtype)
+
+
+def psums(mesh, xs) -> list:
+    """``[psum(mesh, x) for x in xs]`` in one gather, on the peer route:
+    on a process mesh the values (each [L], of 4- or 8-byte dtypes) go out
+    as the int32 words of one block, and each is summed in its own dtype
+    over the shard axis in shard order, as :func:`psum` adds it (the same
+    bits)."""
+    if not is_process(mesh):
+        return [psum(mesh, x) for x in xs]
+    from .ring_kernels import peer_all_gather
+
+    # a trailing axis of stride 1 (a value's own stride may be any: a size-1 axis)
+    words = torch.cat([x.reshape(-1).unsqueeze(-1).view(torch.int32) for x in xs], 1)
+    every = peer_all_gather(words, mesh=mesh)[0]  # [D, words]
+    out, at = [], 0
+    for x in xs:
+        w = x.element_size() // 4
+        out.append(every[:, at:at + w].contiguous().reshape(-1).view(x.dtype).sum())
+        at += w
+    return out

@@ -16,12 +16,21 @@ fixed, so a plan makes each set once and reuses it every iteration):
   handles (a process cannot open its own: it keeps its own pointer);
 * ``ptr(r)`` is rank r's allocation as this process maps it: rank
   ``me`` reaches rank ``dst`` only through that pointer;
-* ``next_epoch()`` tags each launch's flags: every rank counts the
-  launches on its set, and since each launch is collective the counts
-  advance in step, so every rank of a launch passes the same epoch and
-  no flag is ever cleared.
+* ``counter`` is the set's epoch counter on the card (an int32 of this
+  rank's own, 0 at first): a launch passes its pointer, every CTA takes
+  the launch's epoch from it and the launch's entry point enqueues its
+  advance right after the launch (``csrc/ring.cu``).  Every rank runs
+  the same sequence of launches on a set (each launch is collective), so
+  the counters advance in step, every rank of a launch tags its flags
+  with the same epoch, and no flag is ever cleared.  A CUDA graph that
+  captured launches on a set takes a new epoch at every replay, so
+  eager launches and replays interleave on one set.
 
-:func:`close_all` unmaps every opened handle and frees every allocation;
+A set is made eagerly, never inside a capture (it is collective and reads
+the handles back): :func:`peer_buffers` raises, naming the set, if a
+capture would need a new one.  :func:`close_all` drops every CUDA graph of
+a process-mesh program (``utils/graphs.py``: the graphs hold the sets'
+pointers), then unmaps every opened handle and frees every allocation;
 call it before ``torch.distributed.destroy_process_group``.  The sets are
 kept per (mesh, kernel, shape) until then.
 """
@@ -80,23 +89,22 @@ class PeerBuffers:
             _build.call("smf_peer_open", dev, ctypes.addressof(h), ctypes.addressof(p))
             self._ptrs.append(p.value)
             self._opened.append(p.value)
-        self._launches = 0
+        self.counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._views: dict = {}
 
     def ptr(self, rank: int) -> int:
         """Rank ``rank``'s allocation as this process maps it."""
         return self._ptrs[rank]
 
-    def next_epoch(self) -> int:
-        """The epoch of this set's next launch (1, 2, ..., then 1 again)."""
-        self._launches = self._launches % _build.EPOCHS + 1
-        return self._launches
-
     def view(self, offset: int, numel: int, dtype=torch.int32) -> torch.Tensor:
         """This rank's allocation from byte ``offset`` as a 1-D tensor (a
-        view: valid until :func:`close_all`)."""
-        typestr = {torch.int32: "<i4", torch.float32: "<f4"}[dtype]
-        return torch.as_tensor(_DeviceArray(self._own + offset, numel, typestr),
-                               device=self.device)
+        view, made once: valid until :func:`close_all`)."""
+        key = (offset, numel, dtype)
+        if key not in self._views:
+            typestr = {torch.int32: "<i4", torch.float32: "<f4"}[dtype]
+            self._views[key] = torch.as_tensor(
+                _DeviceArray(self._own + offset, numel, typestr), device=self.device)
+        return self._views[key]
 
     def close(self) -> None:
         for p in self._opened:
@@ -125,9 +133,14 @@ def card_share(mesh) -> int:
 
 
 def peer_buffers(mesh, key: tuple, nbytes: int) -> PeerBuffers:
-    """The set for ``key`` on ``mesh``, made (collectively) on first use."""
+    """The set for ``key`` on ``mesh``, made (collectively) on first use;
+    inside a CUDA graph capture a set not yet made raises."""
     k = (mesh, key)
     if k not in _SETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"peer set {key} of rank {mesh.rank} is not made yet: a capture cannot make "
+                "it (it is collective); run the body eagerly once first")
         _SETS[k] = PeerBuffers(mesh, nbytes)
     return _SETS[k]
 
@@ -139,16 +152,20 @@ def agree_min(mesh, value: int) -> int:
 
 
 def close_all() -> None:
-    """Unmap every opened peer allocation, then free this process's own
-    (collective: every rank of the group calls it; the card is
-    synchronised and the group waits between the two steps, so no rank
-    frees memory that a peer still maps or a launch still writes)."""
+    """Drop every process-mesh CUDA graph, unmap every opened peer
+    allocation, then free this process's own (collective: every rank of
+    the group calls it; the card is synchronised and the group waits
+    between the steps, so no rank frees memory that a peer still maps, a
+    launch still writes or a graph could replay into)."""
+    from ..utils import graphs
+
     _SHARE.clear()
     if not _SETS:
         return
     sets = list(_SETS.values())
     _SETS.clear()
     torch.cuda.synchronize(sets[0].device)
+    graphs.drop_process_graphs()
     dist.barrier()
     for s in sets:
         s.close()

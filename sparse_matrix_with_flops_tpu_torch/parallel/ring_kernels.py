@@ -15,9 +15,13 @@ kernels (``csrc/ring.cu``) in one of two modes, after the mesh
   rank's blocks (a leading axis of 1) and launches its part alone; the
   neighbour's landing buffer and flags are CUDA IPC peer pointers
   (``parallel/peer.py``, allocated once per kernel and shape), the flags
-  carry an epoch that every rank advances in step, and each launch takes
-  the share of the card's resident CTAs left by the ranks that share
-  the card.  The grid's size is agreed by every rank once.
+  carry an epoch that the card takes from the set's counter and advances
+  after each launch (every rank in step), so a CUDA graph may capture
+  the launch, and each launch takes the share of the card's resident
+  CTAs left by the ranks that share the card.  The grid's size is agreed
+  by every rank once.  K6 one rank a launch also serves the process
+  mesh's collectives on card tensors where a program asks for the peer
+  route (:func:`peer_all_gather`, :func:`peer_ppermute`: one hop).
 
 Every wait on a flag is bounded (30 s of the card's clock, then a trap):
 a rank that never arrives fails the launch instead of hanging the card.
@@ -210,6 +214,9 @@ def _rank_gather_grid(mesh, words: int) -> tuple:
     rank's (CTA i of every rank must own the same slice), agreed once."""
     key = (mesh, words)
     if key not in _RANK_GRIDS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"K6's grid for {words} words is not agreed yet: a capture "
+                               "cannot agree it (it is collective); run the body eagerly first")
         share = peer.card_share(mesh)
         ctas = peer.agree_min(mesh, query("smf_ring_all_gather_ctas", mesh.device, share))
         slice_ = max(-(-words // ctas), MIN_SLICE)
@@ -224,40 +231,111 @@ def _landing_bytes(nbytes: int) -> int:
 
 
 def _ring_all_gather_rank_launch(mesh, xs) -> list:
-    """K6 one rank a launch: this rank's landing buffer (where its own
-    block 0 and the upstream rank's forwards land) is its peer
-    allocation; the result is copied out of it, so that the next launch
-    may overwrite it."""
+    """K6 one rank a launch, every hop: ``[1, lr, ...] -> [1, d*lr, ...]``
+    for each operand, copied out of the landing buffer (one copy for
+    all), so that the next launch may overwrite it."""
     x = xs[0]
-    dev, ops = x.device, len(xs)
+    d = mesh.num_shards
+    shape = (1, d * x.shape[1], *x.shape[2:])
+    words = math.prod(x.shape[1:])
+    if not words:
+        return [torch.empty(shape, dtype=t.dtype, device=x.device) for t in xs]
+    landed = _rank_gather_launch(mesh, [t.reshape(1, words) for t in xs], words,
+                                 d - 1).clone()
+    return [landed[op].view(t.dtype).view(shape) for op, t in enumerate(xs)]
+
+
+def _rank_gather_launch(mesh, xs, words: int, hops: int) -> torch.Tensor:
+    """One K6 launch of this rank on the operands ``xs`` (each [1, words]
+    of a 4-byte dtype): this rank's landing buffer, int32 [ops, hops + 1,
+    words], block k from rank (me - k) mod d (a view of the peer
+    allocation, valid until the next launch on the set).  The launch
+    reads its epoch from the set's counter on the card and enqueues the
+    counter's advance, so a CUDA graph may capture it."""
+    dev, ops = xs[0].device, len(xs)
     d, me = mesh.num_shards, mesh.rank
-    lr = x.shape[1]
-    shape = (1, d * lr, *x.shape[2:])
     if ops * d > MAX_RANK_POINTERS:
         raise ValueError(
             f"ring_all_gather: {ops} operands x {d} ranks exceed the "
             f"{MAX_RANK_POINTERS} rank pointers a launch's parameters hold"
         )
-    words = math.prod(x.shape[1:])
-    if not words:
-        return [torch.empty(shape, dtype=t.dtype, device=dev) for t in xs]
     ctas, slice_ = _rank_gather_grid(mesh, words)
-    block = d * words * 4  # one operand's landing buffer, in bytes
+    block = (hops + 1) * words * 4  # one operand's landing buffer, in bytes
     land = _landing_bytes(ops * block)
     flag_ints = d * (d - 1) * ctas + d
-    ps = peer.peer_buffers(mesh, ("ring_all_gather", ops, words), land + 4 * flag_ints)
+    ps = peer.peer_buffers(mesh, ("ring_all_gather", ops, words, hops),
+                           land + 4 * flag_ints)
     dst = (me + 1) % d
     bases = (ctypes.c_longlong * (ops + ops * d))(
         *[t.data_ptr() for t in xs],
         *[ps.ptr(r) + op * block for op in range(ops) for r in range(d)])
     launch(
         "smf_ring_all_gather_rank", dev, ctypes.addressof(bases), ops, d, me, words, slice_,
-        ctas, ps.ptr(me) + land, ps.ptr(dst) + land, ps.next_epoch(),
+        ctas, ps.ptr(me) + land, ps.ptr(dst) + land, ps.counter.data_ptr(), hops,
     )
     ring_all_gather.launches += 1
-    landed = ps.view(0, ops * d * words)
-    return [landed[op * d * words:(op + 1) * d * words].view(t.dtype).view(shape).clone()
-            for op, t in enumerate(xs)]
+    return ps.view(0, ops * (hops + 1) * words).view(ops, hops + 1, words)
+
+
+def _as_words(xs) -> tuple:
+    """(operands, words): the blocks ``xs`` (each [1, ...], 4- or 8-byte
+    dtypes) as int32 [1, words] operands of one K6 launch: the blocks
+    themselves, viewed, when they share a shape and a 4-byte dtype, else
+    the rows of one zeroed [ops, 1, words] tensor holding each block's
+    bytes (a copy each)."""
+    flat = [x.contiguous().reshape(-1).unsqueeze(-1).view(torch.int32).reshape(1, -1)
+            for x in xs]
+    words = max(f.shape[1] for f in flat)
+    if all(f.shape[1] == words and x.element_size() == 4 for f, x in zip(flat, xs)):
+        return flat, words
+    staged = torch.zeros((len(xs), 1, words), dtype=torch.int32, device=xs[0].device)
+    for i, f in enumerate(flat):
+        staged[i, :, :f.shape[1]] = f
+    return list(staged), words
+
+
+def _from_words(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Blocks ``w`` (int32 [n, words], contiguous rows) of operand ``x``'s
+    dtype and block shape ``x.shape[1:]``: [n, *x.shape[1:]]."""
+    n = w.shape[0]
+    used = x[0].numel() * x.element_size() // 4
+    return w[:, :used].contiguous().reshape(-1).view(x.dtype).reshape(n, *x.shape[1:])
+
+
+def _peer_route(mesh, xs) -> bool:
+    """Whether the blocks ``xs`` of a process mesh travel through K6 (on
+    the card) or through ``torch.distributed`` (the plain version, on the
+    CPU)."""
+    return on_card("ring_all_gather", *xs) and _one_rank(mesh)
+
+
+def peer_all_gather(*xs: torch.Tensor, mesh) -> list:
+    """``collectives.all_gather`` of one or more blocks in one K6 launch
+    on a process mesh (the peer route): each [1, ...] block of this rank
+    -> [D, ...], owner-major, the bytes of every rank's block as they are
+    (4- and 8-byte dtypes; blocks of other shapes travel packed).  On the
+    CPU, the group's all-gather of each block."""
+    if not _peer_route(mesh, xs):
+        return [collectives.all_gather(mesh, x) for x in xs]
+    d = mesh.num_shards
+    ws, words = _as_words(xs)
+    landed = _rank_gather_launch(mesh, ws, words, d - 1)  # rotation order
+    pos = _owners(d, RIGHT, landed.device)[mesh.rank]  # owner j at hop (me - j) mod d
+    owned = landed[:, pos]  # a copy: the landing buffer is the next launch's
+    return [_from_words(owned[i], x) for i, x in enumerate(xs)]
+
+
+def peer_ppermute(*xs: torch.Tensor, mesh) -> list:
+    """``collectives.ppermute(i -> i + 1)`` of one or more blocks in one
+    K6 launch of one hop on a process mesh (the peer route): rank me
+    receives rank (me - 1) mod D's blocks.  On the CPU, the group's send
+    and receive of each block."""
+    if not _peer_route(mesh, xs) or mesh.num_shards == 1:
+        return [collectives.ppermute(mesh, x, 1) for x in xs]
+    ws, words = _as_words(xs)
+    landed = _rank_gather_launch(mesh, ws, words, 1)
+    got = landed[:, 1].clone()  # [ops, words]: the upstream rank's blocks
+    return [_from_words(got[i:i + 1], x) for i, x in enumerate(xs)]
 
 
 def unrotate(g: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -383,7 +461,7 @@ def _ring_matmul_rank_launch(mesh, a, b, d, m, lr, n, nt, direction):
     launch(
         "smf_ring_matmul_rank", dev, ctypes.addressof(ptrs), ps.ptr(me) + land,
         ps.ptr(dst) + land, d, m, lr, n, nt, slots, direction, me,
-        peer.card_share(mesh), ps.next_epoch(),
+        peer.card_share(mesh), ps.counter.data_ptr(),
     )
     return c
 

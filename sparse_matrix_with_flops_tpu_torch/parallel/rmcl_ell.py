@@ -25,17 +25,21 @@ The per-shard body is written once, for the shards this process holds
 stacked mesh runs it for each of its D shards, a process mesh once, for
 its rank.  The exchanges and the statistics' sums go through
 ``parallel/collectives.py`` (the reference's ``all_gather``,
-``ppermute`` and ``psum``; on a process mesh ``torch.distributed``'s,
-with the sums added in the stacked path's order), and K6 / K8 launch one
-rank at a time on a process mesh, so a rank's iterate and statistics
-are bit for bit the stacked path's at the same D.
+``ppermute`` and ``psum``; on a process mesh on the card the peer route,
+K6 one rank a launch, and on the CPU ``torch.distributed``'s, with the
+sums added in the stacked path's order), and K6 / K8 launch one rank at
+a time on a process mesh, so a rank's iterate and statistics are bit
+for bit the stacked path's at the same D.
 
-On a stacked mesh on the card the scan's step is a CUDA graph kept on
-the plan, captured once the iterations run on it reach the step's
-break-even count, and replayed (``utils/graphs.py``), the counterpart of the
-reference's jitted ``shard_map`` of a ``lax.scan``; the step reads the
-plan's index arrays from uploads made once a plan (:func:`_plan_tensors`)
-and makes no host read.
+On the card the scan's step is a CUDA graph kept on the plan, captured
+once the iterations run on it reach the step's break-even count, and
+replayed (``utils/graphs.py``), the counterpart of the reference's
+jitted ``shard_map`` of a ``lax.scan``, on a stacked mesh and on a
+process mesh alike; the step reads the plan's index arrays from uploads
+made once a plan (:func:`_plan_tensors`) and makes no host read.  On a
+process mesh its exchanges and its statistics' sums take the peer route
+(K6 one rank a launch, ``ring_kernels.peer_all_gather`` /
+``peer_ppermute``), never ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -64,7 +68,13 @@ from ..utils import graphs
 from ..utils.nphost import concat_ranges, fast_repeat
 from . import collectives
 from .mesh import ShardMesh
-from .ring_kernels import ring_all_gather, ring_matmul_tiled, unrotate
+from .ring_kernels import (
+    peer_all_gather,
+    peer_ppermute,
+    ring_all_gather,
+    ring_matmul_tiled,
+    unrotate,
+)
 from .sharded import ShardedCSR, shard_csr
 
 EXCHANGES = ("ring", "all_gather", "pallas_ring", "fused_ring")
@@ -384,10 +394,9 @@ def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True, mesh=None):
                     part = torch.matmul(ab, md_me[i][idx.clamp(0, lr - 1)])
                 c_h[i] = c_h[i] + part
         if hmax:
-            c_h = collectives.ppermute(mesh, c_h, 1)  # i -> i + 1
+            c_h = peer_ppermute(c_h, mesh=mesh)[0]  # i -> i + 1
         if k + 1 < d:
-            block_c = collectives.ppermute(mesh, block_c, 1)
-            block_v = collectives.ppermute(mesh, block_v, 1)
+            block_c, block_v = peer_ppermute(block_c, block_v, mesh=mesh)
     return seg_c[:, : cap + 1], seg_v[:, : cap + 1], c_h
 
 
@@ -477,7 +486,7 @@ def _sharded_step(plan, smgt, arrays, lc, lv, exchange: str, mesh=None):
             g_c, g_v = (unrotate(g, mesh) for g in ring_all_gather(lc, lv, mesh=mesh))
             views = [(g_c[i], g_v[i]) for i in range(held)]
         else:  # the all-gathered iterate (stacked: the held shards themselves)
-            g_c, g_v = (collectives.all_gather(mesh, x).reshape(n, S) for x in (lc, lv))
+            g_c, g_v = (g.reshape(n, S) for g in peer_all_gather(lc, lv, mesh=mesh))
             views = [(g_c, g_v)] * held
         segs = [
             _segments_gathered(plan, a_rp[i], smgt.col_ind[i], smgt.values[i], gc, gv)
@@ -505,11 +514,11 @@ def _sharded_step(plan, smgt, arrays, lc, lv, exchange: str, mesh=None):
         ld2, ln2 = _ell_drift_sq(lc[i], lv[i], nc, nv, n)
         for acc, x in zip((out_c, out_v, nnz, trunc, d2, n2), (nc, nv, nz, tr, ld2, ln2)):
             acc.append(x)
-    d2 = collectives.psum(mesh, torch.stack(d2))
-    n2 = collectives.psum(mesh, torch.stack(n2))
+    # the four sums in one gather (on a process mesh: one K6 launch)
+    d2, n2, nnz, trunc = collectives.psums(mesh, [torch.stack(x) for x in (d2, n2, nnz, trunc)])
     stats = {
-        "nnz": collectives.psum(mesh, torch.stack(nnz)).to(INDEX_DTYPE),
-        "truncated_rows": collectives.psum(mesh, torch.stack(trunc)).to(INDEX_DTYPE),
+        "nnz": nnz.to(INDEX_DTYPE),
+        "truncated_rows": trunc.to(INDEX_DTYPE),
         "differs": torch.sqrt(d2) / torch.clamp(torch.sqrt(n2), min=1e-30),
     }
     return torch.stack(out_c), torch.stack(out_v), stats
@@ -550,7 +559,15 @@ def _scan_graph(mesh, plan, smgt, arrays, cols, vals, exchange: str, length: int
 
     ins = (smgt.row_ptr, smgt.col_ind, smgt.values, *flat, cols, vals)
     static = (exchange, plan.n, plan.S, plan.lr, plan.num_shards, layout, meta)
-    return graphs.scan_body(plan, "sharded_rmcl_ell_scan", static, ins, 2, _HIST, length, step)
+    process = collectives.is_process(mesh)
+    return graphs.scan_body(plan, scan_name(mesh), static, ins, 2, _HIST, length, step,
+                            process)
+
+
+def scan_name(mesh) -> str:
+    """The name of the sharded scan's program on ``mesh`` (its graph's
+    name on the plan and its ``graphs.BREAK_EVEN`` entry)."""
+    return "sharded_rmcl_ell_scan" + ("_process" if collectives.is_process(mesh) else "")
 
 
 def sharded_rmcl_ell_scan(
@@ -568,17 +585,22 @@ def sharded_rmcl_ell_scan(
     mesh).  Returns (cols, vals, stats history of tensors, the same on
     every rank).
 
-    On a stacked mesh on the card the step is a CUDA graph kept on the
-    plan, with every exchange, under ``utils/graphs.captures``: a call
-    whose iterations, with those already run eagerly on the plan with
-    this exchange, reach the step's break-even count runs iteration 1
-    eagerly, captures the step and replays it ``max_iters - 1`` times; a
-    shorter one stays eager; a later call with inputs of the same shapes
-    and the same exchange replays every iteration.  On the
-    CPU the same body runs eagerly over the caller's tensors.  On a
-    process mesh the scan is an eager loop of the step: its K6 / K8
-    epochs come from a host counter and its exchanges are
-    ``torch.distributed`` calls.  Returns fresh tensors."""
+    On the card the step is a CUDA graph kept on the plan, with every
+    exchange, under ``utils/graphs.captures``: a call whose iterations,
+    with those already run eagerly on the plan with this exchange, reach
+    the step's break-even count runs iteration 1 eagerly, captures the
+    step and replays it ``max_iters - 1`` times; a shorter one stays
+    eager; a later call with inputs of the same shapes and the same
+    exchange replays every iteration.  On a process mesh the same holds,
+    every rank deciding alike (``graphs.BREAK_EVEN`` of
+    ``sharded_rmcl_ell_scan_process``), except that a fresh plan's first
+    iteration never captures: it makes the peer sets of K6 / K8
+    (collectively), and the capture comes at iteration 2.  There the
+    step's exchanges and sums take the peer route
+    (``parallel/collectives.py``: K6 one rank a launch, epochs on the
+    card), so it makes no ``torch.distributed`` call and no host read.
+    On the CPU the same body runs eagerly over the caller's tensors, its
+    exchanges the group's calls.  Returns fresh tensors."""
     if exchange not in EXCHANGES:
         raise ValueError(f"exchange must be one of {EXCHANGES}, got {exchange!r}")
     held = collectives.local_ranks(mesh)
@@ -587,13 +609,6 @@ def sharded_rmcl_ell_scan(
     if max_iters <= 0:
         return mt_cols, mt_vals, {k: torch.zeros(0) for k, _ in _HIST}
     _plan_tensors(plan, mt_cols.device, held)  # uploads, never inside a capture
-    if collectives.is_process(mesh):
-        hist = []
-        cols, vals = mt_cols, mt_vals
-        for _ in range(max_iters):
-            cols, vals, stats = _sharded_step(plan, smgt, arrays, cols, vals, exchange, mesh)
-            hist.append(stats)
-        return cols, vals, {k: torch.stack([h[k] for h in hist]) for k, _ in _HIST}
     g = _scan_graph(mesh, plan, smgt, arrays, mt_cols, mt_vals, exchange, max_iters)
     (cols, vals), hist = graphs.run_scan(g, max_iters)
     return cols, vals, hist

@@ -14,10 +14,12 @@ all-gather and send / receive.  C's values are the fixed-order run sums
 of ``esc_compress`` where the reference scatter-adds: two calls give the
 same bits on the card, and a rank's block equals the stacked path's
 block.  With capacities (and, for the ring, a plan) passed in, a call
-makes no device-to-host read, as the reference runs under ``jit``; on a
-stacked mesh on the card the ring's warm body is then a CUDA graph kept
-on its plan (``utils/graphs.py``), the counterpart of the jitted
-``_ring_impl``.
+makes no device-to-host read, as the reference runs under ``jit``; on
+the card the ring's warm body is then a CUDA graph kept on its plan
+(``utils/graphs.py``), the counterpart of the jitted ``_ring_impl``, on
+a stacked mesh and on a process mesh alike: there the ring's
+``ppermute`` of B's three arrays takes the peer route (one K6 launch of
+one hop, ``ring_kernels.peer_ppermute``), not ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..ops.spgemm import bview_from_blocks, esc_compress, esc_expand_view, esc_s
 from ..utils import graphs
 from . import collectives
 from .mesh import ROW_AXIS, ShardMesh
+from .ring_kernels import peer_ppermute
 from .sharded import ShardedCSR
 
 
@@ -200,9 +203,8 @@ def _ring_impl(mesh, caps: tuple, a: ShardedCSR, b: ShardedCSR, step_ents, out_c
             )
             parts[i].append(streams)
             totals[i] = totals[i] + tot_k
-        if k + 1 < d:  # ppermute i -> i + 1
-            blk_rp, blk_ci, blk_v = (collectives.ppermute(mesh, x, 1)
-                                     for x in (blk_rp, blk_ci, blk_v))
+        if k + 1 < d:  # ppermute i -> i + 1 (a process mesh on the card: one K6 launch)
+            blk_rp, blk_ci, blk_v = peer_ppermute(blk_rp, blk_ci, blk_v, mesh=mesh)
     outs = []
     for i in range(len(ranks)):  # the step streams in step order
         prow, pcol, pval = (torch.cat(x) for x in zip(*parts[i]))
@@ -219,6 +221,8 @@ def _ring_graph(mesh, plan: RingPlan, a: ShardedCSR, b: ShardedCSR, step_ents, o
     stacked arrays and the per-shard flops and nnz (``graphs.bound``)."""
     ins = (a.row_ptr, a.col_ind, a.values, b.row_ptr, b.col_ind, b.values, *step_ents)
     caps = plan.step_prod_caps
+    process = collectives.is_process(mesh)
+    name = ring_name(mesh)
 
     def build(st):
         sa = ShardedCSR(*st[:3], a.ncols, a.global_rows, a.shards, a.rank)
@@ -228,10 +232,15 @@ def _ring_graph(mesh, plan: RingPlan, a: ShardedCSR, b: ShardedCSR, step_ents, o
             c, info = _ring_impl(mesh, caps, sa, sb, st[6:], out_cap)
             return c.row_ptr, c.col_ind, c.values, info["flops"], info["nnz"]
 
-        return graphs.CapturedBody("sharded_spgemm_ring", body, st)
+        return graphs.CapturedBody(name, body, st, process=process)
 
-    return graphs.bound(plan, "sharded_spgemm_ring", (out_cap, b.ncols, a.num_shards), ins,
-                        build)
+    return graphs.bound(plan, name, (out_cap, b.ncols, a.num_shards), ins, build)
+
+
+def ring_name(mesh) -> str:
+    """The name of the warm ring's program on ``mesh`` (its graph's name
+    on the plan and its ``graphs.BREAK_EVEN`` entry)."""
+    return "sharded_spgemm_ring" + ("_process" if collectives.is_process(mesh) else "")
 
 
 def sharded_spgemm_ring(
@@ -253,16 +262,16 @@ def sharded_spgemm_ring(
 
     ``product_cap`` is accepted for API compatibility; stream sizes come
     from the planner.  With a prebuilt (plan, step_ents) the call makes
-    no device-to-host read, and on a stacked mesh on the card its body
-    is a CUDA graph kept on the plan, captured by the call that reaches
-    its break-even count of calls on operands of those shapes
-    (``utils/graphs.captures``) and replayed by every later one.  A call
-    that plans, and a process mesh (its ``ppermute`` is a
-    ``torch.distributed`` send / receive), stay eager."""
+    no device-to-host read, and on the card its body is a CUDA graph
+    kept on the plan, captured by the call that reaches its break-even
+    count of calls on operands of those shapes (``utils/graphs.captures``;
+    on a process mesh every rank alike, never at a plan's first call,
+    which makes the peer set of its ``ppermute``) and replayed by every
+    later one.  A call that plans stays eager."""
     _check_mesh(mesh, a, b)
     if plan is None:
         plan, step_ents = plan_spgemm_ring(a, b, mesh)
-    elif not collectives.is_process(mesh):
+    else:
         rp, ci, v, flops, nnzc = _ring_graph(mesh, plan, a, b, step_ents, int(out_cap)).run()
         return (ShardedCSR(rp, ci, v, b.ncols, a.global_rows, a.shards, a.rank),
                 {"flops": flops, "nnz": nnzc})

@@ -15,6 +15,16 @@ the caller drops the plan.
 
 On the CPU nothing is captured or kept: :func:`bound` builds the body
 over the caller's own tensors and every run calls it.
+
+A program of a process mesh (one rank a process, ``parallel/peer.py``)
+runs on every rank at once, its K6 / K8 launches waiting on the other
+ranks' flags: every rank must capture at the same run, or a rank that
+replays would wait on a neighbour that runs eagerly until the flag wait
+traps.  So the policy reads only what every rank holds alike (the runs
+spent on a key and the runs left in the call), never a time.  Such a
+body's first run on the card is always eager (it makes the peer sets,
+collectively, which a capture cannot), and :func:`drop_process_graphs`
+frees every graph of such bodies before the sets are unmapped.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from __future__ import annotations
 import os
 import time
 import traceback
+import weakref
 
 import torch
 
@@ -31,6 +42,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # device index -> the side stream captures run on (a capture may not run
 # on the legacy default stream)
 _SIDE: dict = {}
+# the process-mesh bodies that hold a graph (their graphs hold peer pointers)
+_PROCESS = weakref.WeakSet()
 
 # The break-even count of each program: the runs on one key after which
 # its graph has paid for its capture, 1 + capture / (eager - replay)
@@ -39,14 +52,28 @@ _SIDE: dict = {}
 # one capture's host time spreads widely, from run to run too.  The
 # sharded scan's count is the largest of its four exchanges'.  A program
 # whose replay saves nothing keeps no graph (the general ``rmcl_scan``);
-# a body not named here (a probe) captures at its first run.
+# a body not named here (a probe) captures at its first run.  The
+# ``_process`` programs (the sharded scan and the warm ring SpGEMM on a
+# process mesh) take their counts from a process mesh of one rank on one
+# card (``ring_probe.py capture one-rank``: the layout of a rank that owns
+# its card).  On two processes time-sharing one card a replay saves -10%
+# to +18% of the eager step (the card, not the host, bounds both), so
+# there the graph barely repays its capture.
 BREAK_EVEN = {
     "spgemm_ell": 15,  # runs: 15, 17, 7
     "rmcl_ell_scan": 7,  # runs: 7, 7, 6
     "sharded_rmcl_ell_scan": 12,  # runs: 15, 5, 12
     "sharded_spgemm_ring": 5,  # runs: 5, 8, 5
     "spgemm_binned": 22,  # runs: 20, 24, 22
+    "sharded_rmcl_ell_scan_process": 27,  # runs: 27, 34, 18
+    "sharded_spgemm_ring_process": 25,  # runs: 25, 24, 40
 }
+
+
+def keeps(device) -> bool:
+    """Whether programs on ``device`` are kept and captured (the card),
+    or built over the caller's tensors and run eagerly (the CPU)."""
+    return device.type == "cuda"
 
 
 def captures(spent: int, left: int, b: int) -> bool:
@@ -111,6 +138,10 @@ class CapturedBody:
     card from the host, or a capture that fails, raises with the line
     that broke it: there is no eager fallback.
 
+    ``process``: a program of a process mesh (see the module): its first
+    run on the card never captures, and :func:`drop_process_graphs` can
+    release its graph.
+
     A replay runs no Python, so every replay adds the launches that the
     capture recorded to each kernel wrapper's ``launches``
     (``_build.WRAPPERS``); the capture itself launches nothing and
@@ -118,8 +149,9 @@ class CapturedBody:
     the graph's private pool, held while the graph lives; ``capture_ms``
     the host time of the capture."""
 
-    def __init__(self, name: str, body, inputs, state=None):
+    def __init__(self, name: str, body, inputs, state=None, process: bool = False):
         self.name = name
+        self.process = process  # a process-mesh program: first run eager, see the module
         self.body = body
         self.inputs = tuple(inputs)
         self.state = state
@@ -154,9 +186,10 @@ class CapturedBody:
             for w, n in self.launches.items():
                 w.launches += n
             return _clone(self.outputs)
-        if self.device.type != "cuda":
+        if not keeps(self.device):
             return self.body()
-        take = captures(self.spent, left, BREAK_EVEN.get(self.name, 1))
+        take = (captures(self.spent, left, BREAK_EVEN.get(self.name, 1))
+                and not (self.process and self.spent == 0))
         self.spent += 1
         return self._capture() if take else self.body()
 
@@ -216,6 +249,15 @@ class CapturedBody:
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.launches = {w: a - b for w, a, b in zip(wrappers, after, before) if a != b}
         self.graph, self.outputs = graph, outputs
+        if self.process:
+            _PROCESS.add(self)
+
+    def release(self) -> None:
+        """Free the graph and its pool; the next run is eager, as a fresh
+        body's first."""
+        self.graph = self.outputs = None
+        self.launches = {}
+        self.spent = 0
 
 
 def signature(*tensors: torch.Tensor) -> tuple:
@@ -240,7 +282,7 @@ def bound(owner, name: str, static, inputs, build, carried: int = 0,
     last ``carried`` of them cloned (the body writes those), and nothing
     is kept."""
     dev = inputs[0].device
-    if dev.type != "cuda":
+    if not keeps(dev):
         cut = len(inputs) - carried
         return build(list(inputs[:cut]) + [t.clone() for t in inputs[cut:]])
     key = (str(dev), signature(*inputs), static)
@@ -266,8 +308,16 @@ def drop(owner, name: str) -> None:
     owner.__dict__.get("_graphs", {}).pop(name, None)
 
 
+def drop_process_graphs() -> None:
+    """Free the graph of every process-mesh body (``parallel/peer.close_all``
+    calls it before the peer sets that the graphs point into go)."""
+    for body in list(_PROCESS):
+        body.release()
+    _PROCESS.clear()
+
+
 def scan_body(owner, name: str, static, inputs, carried: int, hist, length: int,
-              step) -> CapturedBody:
+              step, process: bool = False) -> CapturedBody:
     """The step of a scan (the counterpart of a jitted ``lax.scan``) for
     ``inputs``, ``static`` its static arguments, the last ``carried``
     inputs the carry.  ``step(*buffers)`` returns the carry's new values
@@ -275,11 +325,12 @@ def scan_body(owner, name: str, static, inputs, carried: int, hist, length: int,
     history (``hist``: (name, dtype) pairs) at a device-side iteration
     index, copies the carry back and advances the index.
 
-    The histories hold at least ``length`` iterations; the length is no
+    ``process``: a process-mesh program (:class:`CapturedBody`).  The
+    histories hold at least ``length`` iterations; the length is no
     part of the key: a graph kept for a shorter scan is dropped only
     when a call needs more room than its histories have (they grow to
     the next power of two)."""
-    room = length if inputs[0].device.type != "cuda" else 1 << (length - 1).bit_length()
+    room = length if not keeps(inputs[0].device) else 1 << (length - 1).bit_length()
 
     def build(bufs):
         dev = bufs[0].device
@@ -295,7 +346,8 @@ def scan_body(owner, name: str, static, inputs, carried: int, hist, length: int,
             it.add_(1)
 
         return CapturedBody(name, body, bufs,
-                            {"hist": hists, "it": it, "carried": carried, "room": room})
+                            {"hist": hists, "it": it, "carried": carried, "room": room},
+                            process)
 
     return bound(owner, name, static, inputs, build, carried,
                  fits=lambda g: g.state["room"] >= length)
@@ -313,6 +365,6 @@ def run_scan(g: CapturedBody, length: int):
         g.run(left=length - i)
     carry = g.inputs[-g.state["carried"]:]
     hist = {k: h[:length] for k, h in g.state["hist"].items()}
-    if g.device.type == "cuda":  # the graph's own buffers: the next call rewrites them
+    if keeps(g.device):  # the graph's own buffers: the next call rewrites them
         carry, hist = _clone(carry), {k: h.clone() for k, h in hist.items()}
     return tuple(carry), hist

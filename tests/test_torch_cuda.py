@@ -1783,3 +1783,132 @@ def test_drift_keeps_its_bits_on_card(dev):
     for a, b in ((mt0, new), (new, mt0)):
         got, want = csr_frobenius_diff(a, b), scatter_add_form(a, b)
         assert [float(x) for x in got] == [float(x) for x in want]
+
+
+# ---- one rank a process: epochs on the card, the peer route, graphs ---------------
+@pytest.fixture
+def one_rank(dev, tmp_path):
+    """A process mesh of one rank on the card (a gloo group of this
+    process alone); its peer sets closed and the group gone after."""
+    import torch.distributed as dist
+
+    from sparse_matrix_with_flops_tpu_torch.parallel import peer, process_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        yield process_mesh(device=dev)
+    finally:
+        peer.close_all()
+        dist.destroy_process_group()
+
+
+def _rank_ops(dev):
+    g = torch.Generator().manual_seed(9)
+    xc = torch.randint(0, 1 << 20, (1, 500, 128), generator=g, dtype=torch.int32).to(dev)
+    xv = torch.rand((1, 500, 128), generator=g).to(dev)
+    a = torch.rand((1, 150, 384), generator=g).to(dev)
+    b = torch.rand((1, 384, 4096), generator=g).to(dev)
+    return xc, xv, a, b
+
+
+def test_process_mesh_counters_wrap_across_eager_runs_and_replays(one_rank):
+    """W = 1: eager launches and replays of one CUDA graph of K6 and K8
+    interleave on the same peer sets, every result bit-equal to the first
+    eager run, and each set's counter on the card takes the next epoch at
+    every launch, wrapping at EPOCHS as the host counter did."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import peer
+
+    mesh = one_rank
+    dev = mesh.device
+    xc, xv, a, b = _rank_ops(dev)
+
+    def body():
+        return (*ring_all_gather(xc, xv, mesh=mesh), ring_matmul_tiled(a, b, 2048, mesh=mesh))
+
+    ref = body()
+    assert torch.equal(ref[0], ring_all_gather_plain(xc, mesh))
+    assert torch.equal(ref[1], ring_all_gather_plain(xv, mesh))
+    sets = list(peer._SETS.values())
+    assert len(sets) == 2 and all(int(ps.counter) == 1 for ps in sets)
+    for ps in sets:
+        ps.counter.fill_(_build.EPOCHS - 1)
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        outs = body()
+        graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(int(ps.counter) == _build.EPOCHS - 1 for ps in sets)  # a capture runs nothing
+    want = [_build.EPOCHS, 1, 2, 3, 4]
+    for step, counter in zip(("eager", "replay", "replay", "eager", "replay"), want):
+        if step == "replay":
+            graph.replay()
+            got = [o.clone() for o in outs]
+        else:
+            got = body()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, ref)), step
+        assert [int(ps.counter) for ps in sets] == [counter] * 2, step
+
+
+def test_one_hop_k6_equals_ppermutes_plain_route(dev, tmp_path):
+    """Two processes on card 0 under gloo (``torch_process_workers.
+    card_rank``): ``peer_ppermute`` (one hop), ``peer_all_gather`` and
+    the packed sums equal the group's own calls bit for bit; with every
+    set's counter two short of the wrap, eager runs and replays of one
+    graph of K6 and K8 interleave past it, bit-equal, the ranks' counters
+    in step."""
+    import json
+    import os
+    import time
+
+    import torch.multiprocessing as mp
+
+    import torch_process_workers as W
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=W.card_rank, args=(r, 2, str(tmp_path / "store"), str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + 180
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    stuck = [p for p in procs if p.is_alive()]
+    for p in stuck:
+        p.kill()
+        p.join()
+    errs = [open(tmp_path / f"rank{r}.err").read() for r in range(2)
+            if os.path.exists(tmp_path / f"rank{r}.err")]
+    assert not stuck and not errs, errs
+    for r in range(2):
+        out = json.loads((tmp_path / f"card{r}.json").read_text())
+        assert out["ppermute"] and out["all_gather"] and out["psums"], out
+        assert out["interleaved"] == [True] * 6, out
+        assert out["counters"] == [out["want_counter"]] * len(out["counters"]), out
+
+
+def test_close_all_drops_the_process_graphs_first(one_rank):
+    """A process-mesh body captured with K6 launches on a peer set:
+    ``close_all`` frees its graph before it unmaps the set, and the body's
+    next run is eager again (it makes a new set) with the same bits."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import peer
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    mesh = one_rank
+    xc, xv, _, _ = _rank_ops(mesh.device)
+    g = graphs.CapturedBody("probe process body", lambda: ring_all_gather(xc, xv, mesh=mesh),
+                            (xc,), process=True)
+    first = g.run()  # a process body's first run is eager: it makes the set
+    assert g.graph is None
+    g.run()
+    assert g.graph is not None
+    assert all(torch.equal(x, y) for x, y in zip(g.run(), first))
+    peer.close_all()
+    assert g.graph is None and g.spent == 0 and not peer._SETS
+    again = g.run()
+    assert g.graph is None and len(peer._SETS) == 1
+    assert all(torch.equal(x, y) for x, y in zip(again, first))

@@ -145,6 +145,17 @@ def test_psum_keeps_the_stacked_sum(run, key):
     assert W.same(stacked[key], np.asarray(want))
 
 
+def test_packed_psums_give_the_bits_of_separate_psums(run):
+    """Four statistics (f32 and int64) in one gather of int32 words, each
+    summed in its own dtype in shard order: the bits of four ``psum``
+    calls, on every rank and on the stacked mesh."""
+    world, _, ranks, stacked = run
+    _each_rank_equals_stacked(run, "psums")
+    for r in range(world):
+        assert W.same(ranks[r]["psums"], ranks[r]["psums/separate"])
+    assert [x.dtype for x in stacked["psums"]] == [np.float32, np.int64] * 2
+
+
 def test_axis_index_is_the_rank(run):
     world, _, ranks, _ = run
     for r in range(world):
@@ -171,6 +182,59 @@ def test_sharded_rmcl_ell_equals_the_stacked_path(run, case, exchange):
     """Iterate and statistics (differs, nnz, truncated rows) bit for bit,
     on every rank."""
     _each_rank_equals_stacked(run, f"rmcl/{case}/{exchange}")
+
+
+@pytest.mark.parametrize("exchange", W.EXCHANGES)
+@pytest.mark.parametrize("length", W.scan_lengths(), ids=["B-1", "B"])
+def test_scan_through_scan_body_equals_the_stacked_path(run, length, exchange):
+    """The process mesh's static scan, its step through
+    ``graphs.scan_body`` (the CUDA graph's body), on either side of the
+    emulated break-even count (``W.TEST_B``, the B of the capture
+    decisions below): iterate blocks and histories bit for bit."""
+    for key in (f"{W.BLOCK_PREFIX}{length}/{exchange}", f"scan_hist/{length}/{exchange}"):
+        _each_rank_equals_stacked(run, key)
+
+
+@pytest.mark.parametrize("exchange", W.EXCHANGES)
+def test_every_rank_makes_the_scan_capture_decisions_alike(run, exchange):
+    """The card's keeping emulated (B = ``W.TEST_B``): every rank takes
+    the same decision at every iteration; a plan's call short of B stays eager, a call that
+    reaches B on it captures at its first iteration, a fresh plan's call of
+    B at its second (its first makes the peer sets), and a later call
+    replays; the results are the eager scan's bits."""
+    world, _, ranks, _ = run
+    short, b = W.scan_lengths()
+    log = ranks[0][f"decisions/scan/{exchange}"]
+    for r in range(1, world):
+        assert ranks[r][f"decisions/scan/{exchange}"] == log
+    name = "sharded_rmcl_ell_scan_process"
+    # a capture's entry holds the eager runs spent on the key, its own included
+    assert [e for e in log if e[0] == "capture"] == [("capture", name, short + 1),
+                                                      ("capture", name, 2)]
+    assert sum(e[0] == "policy" for e in log) == short + 1 + 2  # replays ask nothing
+    for r in range(world):
+        got = ranks[r][f"decisions/scan/{exchange}/results"]
+        for run_, length in zip(got, (short, b, b, short)):
+            blocks = ranks[r][f"{W.BLOCK_PREFIX}{length}/{exchange}"]
+            hist = ranks[r][f"scan_hist/{length}/{exchange}"]
+            assert W.same(tuple(run_), (*blocks, *hist))
+
+
+def test_every_rank_makes_the_ring_capture_decisions_alike(run):
+    """The warm ring SpGEMM called B + 1 times on one plan, the card's
+    keeping emulated: the same decisions on every rank, the capture at
+    call B (never at a plan's first call), every call's blocks the
+    stacked path's."""
+    world, _, ranks, stacked = run
+    b = W.TEST_B
+    log = ranks[0]["decisions/ring"]
+    for r in range(1, world):
+        assert ranks[r]["decisions/ring"] == log
+    assert [e for e in log if e[0] == "capture"] == [
+        ("capture", "sharded_spgemm_ring_process", max(b, 2))]
+    for r in range(world):
+        want = W.row_of("spgemm_ring", stacked["spgemm_ring"], r)
+        assert all(W.same(tuple(c), want) for c in ranks[r]["decisions/ring/results"])
 
 
 @pytest.mark.parametrize("case,hub", [("hub", True), ("nohub", False)])

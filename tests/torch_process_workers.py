@@ -36,6 +36,19 @@ MESHES_2D = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
 # the 2-D SpGEMM's blocks); every other result is whole on every rank
 BLOCK_KEYS = ("shard", "spgemm", "spgemm_ring", "rmcl_scan", "rmcl_scan/jax", "next_flops/rf",
               "repartition/mgt", "repartition/mt")
+BLOCK_PREFIX = "scan_block/"  # the static scan's iterate blocks, by length and exchange
+
+
+# the break-even count B of both process-mesh programs in the emulation of
+# the card's keeping (:func:`capture_decisions`): on the CPU nothing is
+# captured, so the policy's arithmetic, not the card's count, is tested
+TEST_B = 3
+
+
+def scan_lengths() -> tuple:
+    """The static scan's lengths: one iteration short of the emulated
+    break-even count B and B itself."""
+    return TEST_B - 1, TEST_B
 
 
 def make_inputs(world: int, seed: int = 0) -> dict:
@@ -168,6 +181,130 @@ def spgemm_2d_cases(world: int, inp: dict, mesh_2d) -> dict:
     return out
 
 
+def scan_inputs(mesh, inp: dict):
+    """The static scan's plan, arrays, Mgt shards and initial iterate (the
+    held blocks) for the hub case of ``RMCL_CASES``, as
+    ``sharded_rmcl_ell`` builds them."""
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl_ell import mt_to_ell
+    from sparse_matrix_with_flops_tpu_torch.parallel import collectives as C
+    from sparse_matrix_with_flops_tpu_torch.parallel import plan_sharded_rmcl_ell
+
+    _, S, max_tile, _ = RMCL_CASES["hub"]
+    d = mesh.num_shards
+    mt0 = rmcl_init(_coo(inp["graph"])).make_ordered()
+    plan, arrays, smgt = plan_sharded_rmcl_ell(mt0, d, S=S, max_tile=max_tile, mesh=mesh)
+    cols, vals = mt_to_ell(mt0, S)
+    cols = torch.where(cols >= mt0.ncols, plan.n, cols)
+    held = C.local_ranks(mesh)
+    cut = slice(held[0], held[-1] + 1)
+    return (plan, arrays, smgt, cols.reshape(d, plan.lr, S)[cut].contiguous(),
+            vals.reshape(d, plan.lr, S)[cut].contiguous())
+
+
+def scan_cases(mesh, inp: dict) -> dict:
+    """The static ``sharded_rmcl_ell_scan`` (its step through
+    ``graphs.scan_body``) at the lengths of :func:`scan_lengths`, each
+    exchange on one plan: the held iterate blocks and the histories."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import sharded_rmcl_ell_scan
+
+    plan, arrays, smgt, c0, v0 = scan_inputs(mesh, inp)
+    out = {}
+    for length in scan_lengths():
+        for ex in EXCHANGES:
+            c, v, hist = sharded_rmcl_ell_scan(mesh, plan, smgt, arrays, c0, v0, length, ex)
+            out[f"{BLOCK_PREFIX}{length}/{ex}"] = (_np(c), _np(v))
+            out[f"scan_hist/{length}/{ex}"] = tuple(_np(hist[k]) for k in sorted(hist))
+    return out
+
+
+def psum_cases(mesh, x, counts) -> dict:
+    """Four sums (two f32, two int64 values a shard) in one packed gather
+    (``collectives.psums``) and as four ``psum`` calls."""
+    from sparse_matrix_with_flops_tpu_torch.parallel import collectives as C
+
+    xs = [x[:, 0, 0].contiguous(), counts, x[:, 2, 4].contiguous(), counts * 3 - 7]
+    return {"psums": tuple(_np(p) for p in C.psums(mesh, xs)),
+            "psums/separate": tuple(_np(C.psum(mesh, t)) for t in xs)}
+
+
+def capture_decisions(mesh, inp: dict) -> dict:
+    """The capture policy on the process mesh, with the card's keeping of
+    programs emulated on the CPU (``graphs.keeps`` true, a capture
+    stubbed: it logs the run it came at and replays by running the body
+    again into the captured outputs), every ``graphs.captures`` call
+    logged, both programs' B set to ``TEST_B``.  For each exchange of the
+    static scan: a fresh plan's call one iteration short of B (all eager), then a call of B on it (a capture at
+    its first iteration), and on another fresh plan a call of B (its
+    first iteration eager, the capture at its second) and one of B - 1
+    (all replayed); then the warm ring SpGEMM on one plan, B + 1 calls.
+    Returns each log and each result."""
+    import types
+
+    from sparse_matrix_with_flops_tpu_torch.parallel import shard_csr, sharded_rmcl_ell_scan
+    from sparse_matrix_with_flops_tpu_torch.parallel.spgemm import (
+        plan_spgemm_ring,
+        sharded_spgemm_ring,
+    )
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    log: list = []
+    keeps, captures, capture = graphs.keeps, graphs.captures, graphs.CapturedBody._capture
+
+    def logged(spent, left, b):
+        took = captures(spent, left, b)
+        log.append(("policy", spent, left, b, took))
+        return took
+
+    def stub(self):
+        log.append(("capture", self.name, self.spent))
+        out = self.body()
+        body, self.outputs = self.body, None if out is None else tuple(t.clone() for t in out)
+
+        def replay():
+            new = body()
+            for o, n in zip(self.outputs or (), new or ()):
+                o.copy_(n)
+
+        self.graph = types.SimpleNamespace(replay=replay)
+        return out
+
+    out = {}
+    table = dict(graphs.BREAK_EVEN)
+    graphs.BREAK_EVEN.update({"sharded_rmcl_ell_scan_process": TEST_B,
+                              "sharded_spgemm_ring_process": TEST_B})
+    graphs.keeps, graphs.captures, graphs.CapturedBody._capture = (lambda dev: True), logged, stub
+    try:
+        short, b = scan_lengths()
+        for ex in EXCHANGES:
+            del log[:]
+            plan, arrays, smgt, c0, v0 = scan_inputs(mesh, inp)
+            runs = [sharded_rmcl_ell_scan(mesh, plan, smgt, arrays, c0, v0, n, ex)
+                    for n in (short, b)]
+            plan, arrays, smgt, c0, v0 = scan_inputs(mesh, inp)
+            runs += [sharded_rmcl_ell_scan(mesh, plan, smgt, arrays, c0, v0, n, ex)
+                     for n in (b, short)]
+            out[f"decisions/scan/{ex}"] = list(log)
+            out[f"decisions/scan/{ex}/results"] = [
+                (_np(c), _np(v), *(_np(h[k]) for k in sorted(h))) for c, v, h in runs]
+        del log[:]
+        a = _csr(inp["a"])
+        sa = shard_csr(a, mesh)
+        plan, ents = plan_spgemm_ring(sa, sa, mesh)
+        ocap = _caps(a, inp["world"])[1]
+        calls = []
+        for _ in range(TEST_B + 1):
+            c, info = sharded_spgemm_ring(mesh, sa, sa, out_cap=ocap, plan=plan, step_ents=ents)
+            calls.append((*_sharded(c), _np(info["flops"]), _np(info["nnz"])))
+        out["decisions/ring"] = list(log)
+        out["decisions/ring/results"] = calls
+    finally:
+        graphs.keeps, graphs.captures, graphs.CapturedBody._capture = keeps, captures, capture
+        graphs.BREAK_EVEN.clear()
+        graphs.BREAK_EVEN.update(table)
+    return out
+
+
 def cases(mesh, inp: dict, rows, mesh_2d) -> dict:
     """Every case on ``mesh`` (stacked or process), with ``rows`` the
     shards the mesh's process holds and ``mesh_2d(shape)`` the 2-D mesh
@@ -189,6 +326,7 @@ def cases(mesh, inp: dict, rows, mesh_2d) -> dict:
     out["ppermute-1"] = _np(C.ppermute(mesh, x, -1))
     out["psum"] = _np(C.psum(mesh, x[:, 0, 0].contiguous()))
     out["psum_int"] = _np(C.psum(mesh, torch.from_numpy(inp["counts"])[rows]))
+    out.update(psum_cases(mesh, x, torch.from_numpy(inp["counts"])[rows]))
     out["axis_index"] = np.array([C.axis_index(mesh, i) for i in range(x.shape[0])])
     a = _csr(inp["a"])
     sa = shard_csr(a, mesh)
@@ -205,6 +343,7 @@ def cases(mesh, inp: dict, rows, mesh_2d) -> dict:
             res, hist = sharded_rmcl_ell(coo, mesh, max_iters=iters, S=S, max_tile=max_tile,
                                          exchange=ex)
             out[f"rmcl/{name}/{ex}"] = (*_sharded(res), *(hist[k] for k in sorted(hist)))
+    out.update(scan_cases(mesh, inp))
     if "jax_graph" in inp:  # the JAX comparison's graph, already row-stochastic
         res, hist = sharded_rmcl_ell(_csr(inp["jax_graph"]), mesh, max_iters=2, S=32,
                                      max_tile=256, exchange="all_gather")
@@ -240,6 +379,7 @@ def process_only(mesh, inp: dict) -> dict:
                   m2.axis_size("x"), m2.axis_size("y"))
     out["weak_scaling"] = weak_scaling_shape(weak_scaling_rmcl_ell(base_scale=WS_BASE,
                                                                    device="cpu"))
+    out.update(capture_decisions(mesh, inp))
     for label, arg in (("n != W", world + 1), ("nx*ny != W", (2, world))):
         try:
             make_mesh(arg, device="cpu")
@@ -292,13 +432,99 @@ def run_rank(rank: int, world: int, store: str, inputs: str, out_dir: str) -> No
         raise
 
 
+def card_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of ``tests/test_torch_cuda.py``'s pair of processes on
+    card 0 under gloo: the peer route (K6 one rank a launch: one hop for
+    ``ppermute``, every hop for the all-gather, the packed sums) against
+    the group's own calls; then every peer set's counter set two epochs
+    short of the wrap, and eager runs and replays of one CUDA graph of
+    K6 (one hop and every hop) and K8 interleaved past the wrap, each
+    bit-equal to the first eager run.  Writes ``card<r>.json`` (or
+    ``rank<r>.err``) into ``out_dir``."""
+    import json
+
+    try:
+        import torch.distributed as dist
+
+        from sparse_matrix_with_flops_tpu_torch import _build
+        from sparse_matrix_with_flops_tpu_torch.parallel import collectives as C
+        from sparse_matrix_with_flops_tpu_torch.parallel import peer, process_mesh
+        from sparse_matrix_with_flops_tpu_torch.parallel import ring_kernels as RK
+
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        dev = torch.device("cuda", 0)
+        mesh = process_mesh(device=dev)
+        g = torch.Generator().manual_seed(5)
+        blocks = [torch.randint(0, 1 << 20, (world, 300, 128), generator=g, dtype=torch.int32),
+                  torch.rand((world, 300, 128), generator=g),
+                  torch.randint(0, 1 << 20, (world, 77), generator=g, dtype=torch.int32),
+                  torch.randint(-(1 << 40), 1 << 40, (world, 5), generator=g,
+                                dtype=torch.int64)]
+        xs = [t[rank:rank + 1].to(dev) for t in blocks]
+        out = {}
+        same = lambda got, want: all(torch.equal(a, b) for a, b in zip(got, want))  # noqa: E731
+        out["ppermute"] = same(RK.peer_ppermute(*xs, mesh=mesh),
+                               [C.ppermute(mesh, x, 1) for x in xs])
+        out["all_gather"] = same(RK.peer_all_gather(*xs, mesh=mesh),
+                                 [C.all_gather(mesh, x) for x in xs])
+        sums = [xs[1][:, 0, 0].contiguous(), xs[3][:, 0].contiguous()]
+        out["psums"] = same(C.psums(mesh, sums), [C.psum(mesh, x) for x in sums])
+        a = torch.rand((world, 100, world * 256), generator=g)[rank:rank + 1].to(dev)
+        b = torch.rand((world, 256, 4096), generator=g)[rank:rank + 1].to(dev)
+
+        def body():
+            return (*RK.peer_ppermute(*xs[:3], mesh=mesh), *RK.peer_all_gather(*xs[:2],
+                                                                               mesh=mesh),
+                    RK.ring_matmul_tiled(a, b, 2048, mesh=mesh))
+
+        before = set(peer._SETS)
+        ref = body()  # eager: makes the body's sets
+        sets = [ps for k, ps in peer._SETS.items() if k not in before]
+        torch.cuda.synchronize()
+        dist.barrier()
+        start = _build.EPOCHS - 2
+        for ps in sets:
+            ps.counter.fill_(start)
+        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            outs = body()
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize()
+        dist.barrier()
+        ok = []
+        for step in ("eager", "replay", "eager", "replay", "replay", "eager"):
+            if step == "replay":
+                graph.replay()
+                got = [o.clone() for o in outs]
+            else:
+                got = body()
+            ok.append(same(got, ref))
+        torch.cuda.synchronize()
+        out["interleaved"] = ok
+        out["counters"] = [int(ps.counter) for ps in sets]
+        out["want_counter"] = (start - 1 + 6) % _build.EPOCHS + 1
+        del graph, outs
+        peer.close_all()
+        dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"card{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except Exception:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
 def row_of(key: str, value, rank: int):
     """The part of a stacked result that rank ``rank`` holds: blocks and
     per-shard arrays are cut to the rank's row (a 2-D SpGEMM's to its
     block ``[x, y]``, ``(x, y) = divmod(rank, ny)``); gathered results
     (the all-gather, unshard, the R-MCL iterates and statistics, the
     sums, the permutation, the dry run) are whole on every rank."""
-    if key in BLOCK_KEYS:
+    if key in BLOCK_KEYS or key.startswith(BLOCK_PREFIX):
         return tuple(x[rank:rank + 1] for x in value)
     if key.startswith("spgemm_2d/"):
         x, y = divmod(rank, int(key.split("x")[-1]))
