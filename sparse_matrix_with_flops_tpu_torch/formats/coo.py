@@ -96,16 +96,16 @@ class COO:
         n, cap, dev = self.nrows, self.capacity, self.device
         diag = self.valid() & (self.row == self.col)
         has_diag = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-        has_diag[torch.where(diag, self.row, n).long()] = True
+        has_diag.index_fill_(0, torch.where(diag, self.row, n).long(), True)
         missing = ~has_diag[:n]
         need = torch.cumsum(missing, 0).to(INDEX_DTYPE)  # inclusive
         total_new = need[-1] if n else torch.zeros((), dtype=INDEX_DTYPE, device=dev)
         slot = torch.where(missing, self.nnz + need - 1, cap).clamp(max=cap).long()
         ids = torch.arange(n, dtype=INDEX_DTYPE, device=dev)
 
-        def put(x, v):  # one dump slot past the capacity
+        def put(x, v):  # one dump slot past the capacity takes the rows not missing
             out = torch.cat([x, x.new_zeros(1)])
-            out[slot[missing]] = v[missing]
+            out[slot] = v
             return out[:cap]
 
         return COO(
@@ -152,12 +152,12 @@ class COO:
 
     def to_csr(self) -> CSR:
         """Ordered COO -> CSR (the triplet arrays become its padding too)."""
-        counts = torch.bincount(
-            torch.where(self.valid(), self.row, self.nrows).long(),
-            minlength=self.nrows + 1,
-        )[: self.nrows]
+        # a scatter, not torch.bincount, which reads its input's max from the card
+        idx = torch.where(self.valid(), self.row, self.nrows).long()
+        counts = torch.zeros(self.nrows + 1, dtype=INDEX_DTYPE, device=self.device)
+        counts.index_add_(0, idx, torch.ones_like(idx, dtype=INDEX_DTYPE))
         return CSR(
-            exclusive_cumsum(counts.to(INDEX_DTYPE)), self.col, self.val, self.ncols
+            exclusive_cumsum(counts[: self.nrows]), self.col, self.val, self.ncols
         )
 
     def transpose(self) -> "COO":

@@ -24,6 +24,7 @@ import torch
 
 from ..config import ABS_TOL, INDEX_DTYPE, QVALUE_DTYPE, resolve_device
 from ..ops.segments import entry_rows, exclusive_cumsum
+from ..utils.timing import TRACE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +100,9 @@ class CSR:
         pc[:nnz] = col_ind[:nnz]
         pv[:nnz] = values[:nnz]
         out = CSR(
-            row_ptr=torch.from_numpy(row_ptr.copy()).to(device),
-            col_ind=torch.from_numpy(pc).to(device),
-            values=torch.from_numpy(pv).to(device),
+            row_ptr=TRACE.host_write("csr.from_numpy", row_ptr.copy(), device),
+            col_ind=TRACE.host_write("csr.from_numpy", pc, device),
+            values=TRACE.host_write("csr.from_numpy", pv, device),
             ncols=int(ncols),
         )
         # the host arrays are authoritative: seed the planners' host-view
@@ -245,12 +246,12 @@ class CSR:
 
     def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Tight host arrays ``(row_ptr, col_ind[:nnz], values[:nnz])``."""
-        rp = self.row_ptr.cpu().numpy()
+        rp = TRACE.host_read("csr.to_numpy", self.row_ptr).numpy()
         nnz = int(rp[-1])
         return (
             rp,
-            self.col_ind[:nnz].cpu().numpy(),
-            self.values[:nnz].cpu().numpy(),
+            TRACE.host_read("csr.to_numpy", self.col_ind[:nnz]).numpy(),
+            TRACE.host_read("csr.to_numpy", self.values[:nnz]).numpy(),
         )
 
     def to_dense(self) -> torch.Tensor:

@@ -34,6 +34,7 @@ from ..utils.nphost import (
     fast_repeat,
     repeat_idx,
 )
+from ..utils.timing import TRACE
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -296,53 +297,59 @@ def block_spgemm_tiled(a: CSR, b: CSR, plan: BlockPlan) -> TiledCSR:
         )
         return out.index_add_(0, d["pair_c"], prod)
 
-    c_vals = pairs(d["a_lin"], av, d["b_lin"], bv)
-    c_struct = pairs(
-        d["a_lin"], torch.ones_like(av), d["b_lin"], torch.ones_like(bv)
-    )
+    with TRACE.span("block.values"):
+        c_vals = pairs(d["a_lin"], av, d["b_lin"], bv)
+    with TRACE.span("block.structure"):
+        c_struct = pairs(
+            d["a_lin"], torch.ones_like(av), d["b_lin"], torch.ones_like(bv)
+        )
 
     # extraction: [mbr, kmax] blocks -> [m_pad, W] dense rows -> lane sort
-    w = plan.kmax * bs
-    mbr = plan.bob.shape[0]
+    with TRACE.span("block.extract"):
+        w = plan.kmax * bs
+        mbr = plan.bob.shape[0]
 
-    def rows_of(blocks):
-        # [mbr, kmax, bs, bs] -> [mbr*bs, kmax*bs]
-        g = blocks[d["bob"]]
-        return g.permute(0, 2, 1, 3).reshape(mbr * bs, w)
+        def rows_of(blocks):
+            # [mbr, kmax, bs, bs] -> [mbr*bs, kmax*bs]
+            g = blocks[d["bob"]]
+            return g.permute(0, 2, 1, 3).reshape(mbr * bs, w)
 
-    vals_rows = rows_of(c_vals)
-    struct_rows = rows_of(c_struct)
-    colblk = d["colblk"]  # [mbr, kmax], -1 pads
-    lane = torch.arange(bs, device=a.device)
-    gcol = (colblk[:, :, None] * bs + lane).reshape(mbr, w)
-    gcol = torch.where(
-        (colblk >= 0)[:, :, None].expand(mbr, plan.kmax, bs).reshape(mbr, w),
-        gcol,
-        n,
-    )
-    gcol_rows = gcol.repeat_interleave(bs, dim=0)  # [mbr*bs, W]
-    keys = torch.where(
-        (struct_rows > 0) & (gcol_rows < n), gcol_rows, n
-    ).to(INDEX_DTYPE)
-    k2, order = torch.sort(keys, dim=1, stable=True)
-    v2 = torch.gather(vals_rows, 1, order)
-    k2, v2 = k2[:m], v2[:m]
-    counts = (k2 < n).sum(1, dtype=INDEX_DTYPE)
-    v2 = torch.where(k2 < n, v2, 0.0)
-    base = torch.arange(m, dtype=INDEX_DTYPE, device=a.device) * w
-    return TiledCSR(
-        flat_col=k2.reshape(-1),
-        flat_val=v2.reshape(-1),
-        counts=counts,
-        flat_base=base,
-        ncols=n,
-    )
+        vals_rows = rows_of(c_vals)
+        struct_rows = rows_of(c_struct)
+        colblk = d["colblk"]  # [mbr, kmax], -1 pads
+        lane = torch.arange(bs, device=a.device)
+        gcol = (colblk[:, :, None] * bs + lane).reshape(mbr, w)
+        gcol = torch.where(
+            (colblk >= 0)[:, :, None].expand(mbr, plan.kmax, bs).reshape(mbr, w),
+            gcol,
+            n,
+        )
+        gcol_rows = gcol.repeat_interleave(bs, dim=0)  # [mbr*bs, W]
+        keys = torch.where(
+            (struct_rows > 0) & (gcol_rows < n), gcol_rows, n
+        ).to(INDEX_DTYPE)
+        k2, order = torch.sort(keys, dim=1, stable=True)
+        v2 = torch.gather(vals_rows, 1, order)
+        k2, v2 = k2[:m], v2[:m]
+        counts = (k2 < n).sum(1, dtype=INDEX_DTYPE)
+        v2 = torch.where(k2 < n, v2, 0.0)
+        base = torch.arange(m, dtype=INDEX_DTYPE, device=a.device) * w
+        return TiledCSR(
+            flat_col=k2.reshape(-1),
+            flat_val=v2.reshape(-1),
+            counts=counts,
+            flat_base=base,
+            ncols=n,
+        )
 
 
 def block_spgemm(
     a: CSR, b: CSR, plan: BlockPlan | None = None, bs: int = 128
 ) -> CSR:
     """C = A·B as exact flat CSR via the dense-block path."""
-    if plan is None:
-        plan = plan_block(a, b, bs=bs)
-    return block_spgemm_tiled(a, b, plan).to_csr()
+    with TRACE.span("block"):
+        if plan is None:
+            plan = plan_block(a, b, bs=bs)
+        tiled = block_spgemm_tiled(a, b, plan)
+        with TRACE.span("block.assemble"):
+            return tiled.to_csr()

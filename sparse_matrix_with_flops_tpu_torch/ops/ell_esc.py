@@ -39,6 +39,7 @@ from ..config import INDEX_DTYPE, QVALUE_DTYPE, true_f32
 from ..formats.csr import CSR
 from ..utils import graphs
 from ..utils.nphost import repeat_idx
+from ..utils.timing import TRACE
 from .ell_plan import EllPlan, _flat_layout, plan_ell
 from .scan_kernels import cumsum_i32
 from .segments import DUMP_SLOTS, dump_region, exclusive_cumsum, last_marked
@@ -404,7 +405,7 @@ def _flat_assemble(
     """Shared flat-CSR export (also used by ``formats.tiled.TiledCSR``)."""
     if out_cap is None:
         if exact:
-            out_cap = _nnz_bucket(int(counts.sum()))
+            out_cap = _nnz_bucket(int(TRACE.host_read("assemble.nnz", counts.sum())))
         else:
             out_cap = int(counts.shape[0]) * ncols
     return _assemble_body(
@@ -472,34 +473,40 @@ def spgemm_ell(
     output, which is discarded with a warning; the graph is dropped with
     the bucket, and the call falls back to the two-phase path.
     ``exact=False`` uses the plan's bound."""
-    if plan is None:
-        plan = plan_ell(a, b)
-    vstart = _plan_tensors(plan, a.device)["vstart"]
-    cached = getattr(plan, "_nnzc_cache", None)
-    if out_cap is None and exact and cached is not None:
-        row_ptr, col_ind, values, nnzc = _warm_graph(a, b, plan, cached).run()
-        nnzc = int(nnzc)  # the one read
-        if nnzc <= cached:
-            return CSR(row_ptr, col_ind, values, plan.ncols)
-        warnings.warn(
-            "spgemm_ell: fused nnz(C) bucket overflowed "
-            f"(nnzc={nnzc} > cap={cached}); the fused output was "
-            "truncated and is discarded. Re-deriving two-phase.",
-            RuntimeWarning,
-            stacklevel=2,
-        )
-        graphs.drop(plan, "spgemm_ell")
-        object.__setattr__(plan, "_nnzc_cache", None)
-    flat_c, flat_v, counts, flat_base = _tiles_impl(a, b, plan)
-    if out_cap is None and not exact:
-        out_cap = plan.out_cap
-    if out_cap is None and exact:
-        out_cap = _nnz_bucket(int(counts.sum()))
-        object.__setattr__(plan, "_nnzc_cache", out_cap)
-    return _flat_assemble(
-        flat_c, flat_v, counts, flat_base, plan.ncols, out_cap, exact,
-        vstart=vstart,
-    )
+    with TRACE.span("ell"):
+        if plan is None:
+            plan = plan_ell(a, b)
+        vstart = _plan_tensors(plan, a.device)["vstart"]
+        cached = getattr(plan, "_nnzc_cache", None)
+        if out_cap is None and exact and cached is not None:
+            with TRACE.span("ell.load"):
+                warm = _warm_graph(a, b, plan, cached)
+            with TRACE.span("ell.replay"):
+                row_ptr, col_ind, values, nnzc = warm.run()
+            nnzc = int(TRACE.host_read("ell.nnzc", nnzc))  # the one read
+            if nnzc <= cached:
+                return CSR(row_ptr, col_ind, values, plan.ncols)
+            warnings.warn(
+                "spgemm_ell: fused nnz(C) bucket overflowed "
+                f"(nnzc={nnzc} > cap={cached}); the fused output was "
+                "truncated and is discarded. Re-deriving two-phase.",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            graphs.drop(plan, "spgemm_ell")
+            object.__setattr__(plan, "_nnzc_cache", None)
+        with TRACE.span("ell.tiles"):
+            flat_c, flat_v, counts, flat_base = _tiles_impl(a, b, plan)
+        if out_cap is None and not exact:
+            out_cap = plan.out_cap
+        if out_cap is None and exact:
+            out_cap = _nnz_bucket(int(TRACE.host_read("ell.nnz", counts.sum())))
+            object.__setattr__(plan, "_nnzc_cache", out_cap)
+        with TRACE.span("ell.assemble"):
+            return _flat_assemble(
+                flat_c, flat_v, counts, flat_base, plan.ncols, out_cap, exact,
+                vstart=vstart,
+            )
 
 
 def spgemm_ell_symbolic(a: CSR, b: CSR, plan: EllPlan | None = None):
