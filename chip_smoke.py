@@ -15,12 +15,17 @@
    alone (torch.profiler); K9 (``run_sums``) on an offset probe (3,000 runs
    of 1-4096 values moved by 0-7 slots: K9 gives every move the same bits,
    torch.segment_reduce does not) and bit for bit against its plain
-   version on the CPU;
+   version on the CPU; K10 (``hub_accumulate``) on Graph500 s16's first
+   hub group (the benchmark's matrix) against its plain version on the
+   card and, on a sample of items, bit for bit on the CPU, beside
+   ``torch.sparse.mm`` of the group's rows (cuSPARSE SpGEMM), then the
+   whole hub in one launch;
 4. runs ``spgemm_auto`` on R-MAT s14 (edge factor 8, seed 7, random
-   weights; routes ``ell``) and on the cant-class band
+   weights; routes ``ell``, its hub on K10) and on the cant-class band
    ``banded_csr(62451, 32)`` (routes ``block``), checks both products
    against scipy on the host, checks that the kernels were launched by
    that run, and times the warm multiply and the multiply with its plan;
+   a near-dense hub group takes the matmul route (K2);
 5. K1 at W = 32768 (the 2-CTA cluster kernel) against its twin on the
    s14 ``max_w=32768`` plan's widest bin, then ``spgemm_ell`` with that
    plan against scipy;
@@ -254,11 +259,16 @@ REPLACES = {
     "ring_matmul": "sparse_matrix_with_flops_tpu/parallel/pallas_ring.py:136",
     "ring_matmul_tiled": "sparse_matrix_with_flops_tpu/parallel/pallas_ring.py:254",
     "run_sums": "sparse_matrix_with_flops_tpu/ops/segments.py:106",
+    "hub_accumulate": "sparse_matrix_with_flops_tpu/ops/ell_esc.py:1382",
 }
-# K9 is the port's own kernel: the line it names is no pl.pallas_call
+# K9 and K10 are the port's own kernels: the lines they name are no
+# pl.pallas_call
 REPLACES_NOTE = {
     "run_sums": "no TPU kernel: the JAX package sums its runs with XLA's jax.ops.segment_sum "
                 "(plain XLA); K9 fixes the card's summation order to a run's own, left to right",
+    "hub_accumulate": "no TPU kernel: the JAX package's hub densifies A and B per column slab "
+                      "and multiplies them with XLA's f32 jnp.dot, then compacts (B2); K10 sums "
+                      "a sparse hub group's products alone, in A-entry order",
 }
 SOURCES = {
     "sort_dedup_compact": f"{PKG}/csrc/sort_dedup_compact.cu",
@@ -270,6 +280,7 @@ SOURCES = {
     "ring_matmul": f"{PKG}/csrc/ring.cu",
     "ring_matmul_tiled": f"{PKG}/csrc/ring.cu",
     "run_sums": f"{PKG}/csrc/run_sums.cu",
+    "hub_accumulate": f"{PKG}/csrc/hub_accumulate.cu",
 }
 PREFAULT_PROBE = """
 import json, sys, time
@@ -1470,6 +1481,124 @@ K9_LIBRARY = ("torch.segment_reduce(values, 'sum', offsets=..., unsafe=True): CU
               "K9's plain version")
 
 
+def k10_phase(torch, np, dev, record, burst, cuda_ms, device_ms):
+    """K10 at Graph500 s16's shapes (the benchmark's matrix): its first hub
+    group (the plan's own tables for that group alone) against the plain
+    version on the card (CUB's sums: values within the comparators) and,
+    on a sample of items, on the CPU (bit for bit); the whole hub in one
+    launch, as the warm call makes it; yardstick torch.sparse.mm (cuSPARSE)
+    of the group's hub rows by B, which the port never calls."""
+    from portbench.reference import generate
+
+    from sparse_matrix_with_flops_tpu_torch.config import ABS_TOL, REL_TOL
+    from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR
+    from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
+    from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
+    from sparse_matrix_with_flops_tpu_torch.ops.hub_kernels import (
+        hub_accumulate,
+        hub_accumulate_plain,
+    )
+
+    with open(os.path.join(ROOT, "portbench", "configs", "graph500-s16.json")) as f:
+        rp, ci, v = generate.matrix(json.load(f))
+    n = rp.shape[0] - 1
+    a = CSR.from_numpy(rp, ci, v, n, dev)
+    plan = plan_ell(a, a)
+    hub = E._plan_tensors(plan, dev)["hub"]
+    if hub["sparse"] is None or hub["dense"]:
+        raise AssertionError("phase 3: s16's hub groups are not all on K10")
+
+    def inputs(sp):
+        krow = sp["kmap"][sp["kofs"] + a.col_ind[sp["src"]].long()]
+        return (sp["meta"], krow, a.values[sp["src"]], sp["boff"], sp["bcol"],
+                a.values[sp["eorder"]])
+
+    def outputs(lanes):
+        return (torch.empty(lanes, dtype=torch.int32, device=dev),
+                torch.empty(lanes, dtype=torch.float32, device=dev),
+                torch.zeros(plan.v_rows + 1, dtype=torch.int32, device=dev))
+
+    def in_bytes(sp, lanes):
+        """Each input byte once, each output lane written once."""
+        return (sum(x.numel() * x.element_size() for x in inputs(sp)) + 8.0 * lanes
+                + 4.0 * sp["meta"].shape[0])
+
+    g = plan.hub_groups[0]
+    sp = E._sparse_hub_groups(plan, [0], dev)
+    ins = inputs(sp)
+    lanes = int(g.caps_rs.sum())
+    out, ref = outputs(lanes), outputs(lanes)
+    k10 = lambda: hub_accumulate(*ins, *out, n, sp["tile"], sp["warps"])  # noqa: E731
+    plain = lambda: hub_accumulate_plain(*ins, *ref, n)  # noqa: E731
+    k10()
+    plain()
+    torch.cuda.synchronize()
+    want = tuple(x.clone() for x in out)
+    if not (torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])):
+        raise AssertionError("K10 s16 group 0: columns or counts differ from the plain version")
+    err = (out[1].double() - ref[1].double()).abs()
+    if not bool((err <= torch.clamp(REL_TOL * ref[1].abs().double(), min=ABS_TOL)).all()):
+        raise AssertionError(f"K10 s16 group 0: values off the plain version's ({float(err.max())})")
+    # bit for bit against the CPU, on 2,000 items and the 3 longest
+    rng = np.random.default_rng(7)
+    items = sp["meta"].shape[0]
+    longest = torch.argsort(sp["meta"][:, 1] - sp["meta"][:, 0], descending=True)[:3].cpu()
+    pick = torch.cat([torch.from_numpy(rng.choice(items, 2000, replace=False)), longest])
+    meta = sp["meta"].cpu()[pick]
+    cap = meta[:, 6]
+    own = meta.clone()
+    own[:, 5] = torch.cumsum(cap, 0) - cap  # the sample's regions end to end
+    own[:, 9] = torch.arange(pick.numel())
+    cpu = (torch.empty(int(cap.sum()), dtype=torch.int32), torch.empty(int(cap.sum())),
+           torch.zeros(pick.numel(), dtype=torch.int32))
+    hub_accumulate_plain(own, *(x.cpu() for x in ins[1:]), *cpu, n)
+    owner = torch.repeat_interleave(torch.arange(pick.numel()), cap)
+    at = meta[:, 5][owner] + torch.arange(owner.numel()) - own[:, 5][owner]
+    if not (torch.equal(out[0].cpu()[at], cpu[0])
+            and torch.equal(out[1].cpu()[at].view(torch.int32), cpu[1].view(torch.int32))
+            and torch.equal(out[2].cpu()[meta[:, 9]], cpu[2])):
+        raise AssertionError("K10 s16 group 0: differs from the CPU's bits on the sample")
+    log(f"K10 s16 group 0: {items} items, {lanes} lanes, {g._products} products; the card equals "
+        f"the CPU bit for bit on {pick.numel()} items")
+
+    def same(got):
+        if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(got, want)):
+            raise AssertionError("K10: a call differs from the first")
+
+    burst("K10 s16 group 0", lambda: (k10(), out)[1], same, calls=5)
+    # yardstick: the group's hub rows of A by B in CSR, one cuSPARSE SpGEMM
+    rows = torch.from_numpy(g.rows.astype(np.int64)).to(dev)
+    lens = a.row_ptr[rows + 1] - a.row_ptr[rows]
+    crow = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+    sel = torch.from_numpy(g.src.astype(np.int64)).to(dev)
+    a_hub = torch.sparse_csr_tensor(crow, a.col_ind[sel].long(), a.values[sel], (rows.numel(), n))
+    b_csr = torch.sparse_csr_tensor(a.row_ptr.long(), a.col_ind.long(), a.values, (n, n))
+    lib = lambda: torch.sparse.mm(a_hub, b_csr)  # noqa: E731
+    record(
+        "hub_accumulate", f"s16 group 0: {rows.numel()} rows x {g.n_slabs} slabs of {g.slab}, "
+        f"tiles of {sp['tile']}, {lanes} lanes", 0.0,
+        cuda_ms(torch, k10, reps=7), cuda_ms(torch, plain, reps=3, warm=1),
+        bound(in_bytes(sp, lanes)), cuda_ms(torch, lib, reps=5, warm=1),
+        "torch.sparse.mm(A's hub rows as CSR, B as CSR): cuSPARSE SpGEMM, the same sums "
+        "in CSR form", dev_ms=device_ms(torch, k10, calls=5),
+    )
+    del ins, out, ref, want, a_hub, b_csr
+    # the whole hub, every group in one launch, as the warm call makes it
+    sp = hub["sparse"]
+    ins = inputs(sp)
+    lanes = hub["lanes"]
+    out = outputs(lanes)
+    full = lambda: hub_accumulate(*ins, *out, n, sp["tile"], sp["warps"])  # noqa: E731
+    ms, dev_ms = cuda_ms(torch, full, reps=7), device_ms(torch, full, calls=5)
+    kb = bound(in_bytes(sp, lanes))
+    log(f"K10 s16 whole hub: {sp['meta'].shape[0]} items, {lanes} lanes in one launch: "
+        f"{ms:.4f} ms, device {dev_ms:.4f} ms, bound {kb[0]:.4f} ms ({kb[1]}, {kb[0] / dev_ms:.1%})")
+    del ins, out, sp, plan, a
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def k9_cases(torch, label, calls, record, cuda_ms, device_ms):
     """K9 on a path's captured run_sums calls: each output bit-equal to
     the plain version on the CPU; against the plain version on the card
@@ -1810,7 +1939,7 @@ def compiled_phase(torch, np, dev, card, a, drive, cuda_ms):
 
     c = program("spgemm_ell s14 warm", plan, "spgemm_ell", warm_eager,
                 lambda: E.spgemm_ell(a, a, plan),
-                ("sort_dedup_compact", "compact_nonzero_rows", "window_gather", "cumsum_i32"))
+                ("sort_dedup_compact", "hub_accumulate", "window_gather", "cumsum_i32"))
     a2 = CSR(a.row_ptr, a.col_ind, 2.0 * a.values, a.ncols)
 
     def doubled(label, c, c2):
@@ -3366,7 +3495,7 @@ def main() -> int:
     )
 
     wrappers = kernel_wrappers()
-    ell_kernels = ("sort_dedup_compact", "compact_nonzero_rows", "window_gather", "cumsum_i32")
+    ell_kernels = ("sort_dedup_compact", "hub_accumulate", "window_gather", "cumsum_i32")
 
     # ---- 1. card -------------------------------------------------------
     smi = subprocess.run(
@@ -3492,7 +3621,8 @@ def main() -> int:
         )
     if not plan.hub_groups:
         raise AssertionError("the s14 plan has no hub group: K2 has no input")
-    g, _, _, _, vw, part = next(E._hub_products(a, a, plan, pt))
+    # K2's input: the s14 hub group densified (the matmul route's part)
+    g, _, _, vw, part = next(E._hub_products(a, a, plan, [E._dense_hub_group(plan, 0, dev)]))
     kk, kv = compact_nonzero_rows(part, vw)
     pk, pv = compact_nonzero_rows_plain(part, vw)
     torch.cuda.synchronize()
@@ -3605,6 +3735,8 @@ def main() -> int:
              cuda_ms, device_ms)
     del pvals, poff, want9
 
+    k10_phase(torch, np, dev, record, burst, cuda_ms, device_ms)
+
     # ---- 4. main path ----------------------------------------------------
     def scipy_check(x: CSR, c: CSR, what: str, positive: bool) -> None:
         """Structure exactly equal to scipy's pattern product; values
@@ -3684,6 +3816,18 @@ def main() -> int:
         raise AssertionError(f"s14 routed {kind} (fill {fill})")
     c = drive(f"s14 (routed ell, fill {fill:.4f})", lambda: spgemm_auto(a, a), ell_kernels)
     scipy_check(a, c, "s14", positive=True)
+    # a near-dense hub group takes the matmul route (K2 compacts it)
+    rng = np.random.default_rng(3)
+    nd = rng.random((600, 600), dtype=np.float32)
+    nd[rng.random((600, 600)) > 0.9] = 0.0
+    dn = CSR.from_dense(nd, device=dev)
+    dplan = plan_ell(dn, dn, max_w=1024)
+    if not dplan.hub_groups or E._plan_tensors(dplan, dev)["hub"]["sparse"] is not None:
+        raise AssertionError("the near-dense hub did not take the matmul route")
+    cd = drive("near-dense 600 x 600 hub (matmul route)", lambda: E.spgemm_ell(dn, dn, dplan),
+               ("compact_nonzero_rows",))
+    scipy_check(dn, cd, "near-dense hub", positive=True)
+    del dn, dplan, cd
 
     ca = banded_csr(62451, bandwidth=32, device=dev)
     kind, cfill = route(ca, ca)

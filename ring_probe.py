@@ -360,7 +360,7 @@ def ell_inputs(dev) -> dict:
     a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)
     plan = plan_ell(a, a)
     pt = E._plan_tensors(plan, dev)
-    _, _, _, _, vw, part = next(E._hub_products(a, a, plan, pt))
+    _, _, _, vw, part = next(E._hub_products(a, a, plan, [E._dense_hub_group(plan, 0, dev)]))
     flat_c, flat_v, counts, flat_base = E._tiles_impl(a, a, plan)
     ocap = -(-E._nnz_bucket(int(counts.sum())) // 128) * 128
     starts = exclusive_cumsum(counts)[:-1]

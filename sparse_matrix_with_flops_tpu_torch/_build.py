@@ -64,6 +64,9 @@ _SIGNATURES = {
     "smf_ring_matmul_rank": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # values, offsets, offsets are int64, out, runs, warp_per_run
     "smf_run_sums": (_P, _P, _I, _P, _L, _I),
+    # meta, items, krow, aval, boff, bcol, bval, out_c, out_v, counts, ncols,
+    # tile, warps
+    "smf_hub_accumulate": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I),
 }
 # C entries with no stream that write one int result through a pointer
 _QUERIES = {

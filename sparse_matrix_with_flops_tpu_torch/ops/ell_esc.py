@@ -13,8 +13,11 @@ the device:
 3. **sort / dedup / compact** per bin: kernel K1 up to ``MAX_SORT_W``
    lanes (the reference's ``PALLAS_MAX_SORT_W``, 32768), the plain sort
    above, chosen by width as the reference chooses its XLA branch;
-4. **dense hub** for rows too wide for any bin: densify A and B per
-   group and column slab, one f32 matmul, compact each row (kernel K2);
+4. **hub** for rows too wide for any bin, by group: a group whose
+   products fill less than ``HUB_SPARSE_BELOW`` of its dense volume
+   sums each (row, column slab) in a shared-memory accumulator and
+   compacts it into the flat stream (kernel K10); a denser one is
+   densified per column slab, multiplied in f32 and compacted (K2);
 5. **assembly**: counts -> row_ptr; 128-lane windows of the flat tile
    stream are gathered at each window's source position (kernel K3),
    the first slots of every row are repaired from an exact head gather,
@@ -41,6 +44,10 @@ from ..utils import graphs
 from ..utils.nphost import repeat_idx
 from ..utils.timing import TRACE
 from .ell_plan import EllPlan, _flat_layout, plan_ell
+from .hub_kernels import MAX_TILES as HUB_MAX_TILES
+from .hub_kernels import META as HUB_META
+from .hub_kernels import TILE as HUB_TILE
+from .hub_kernels import hub_accumulate
 from .scan_kernels import cumsum_i32
 from .segments import DUMP_SLOTS, dump_region, exclusive_cumsum, last_marked
 from .sort_kernels import (
@@ -53,6 +60,15 @@ from .sort_kernels import (
 
 _WA = 128  # assembly window width
 _HUB_ROW_CHUNK = 1024  # hub rows densified per matmul
+# a hub group whose products fill less than this share of its dense
+# volume (hg * khp * ncols) takes K10, the sparse accumulator; a denser
+# one the dense matmul.  Where the two routes' tile phases cross on an
+# H100 (700 W): Graph500 s12 at edge factors 16 to 1024 (power-law
+# groups, short B segments), K10 / matmul 0.62 at a fill of 5.9e-4, 0.73
+# at 4.1e-3, 0.92 at 1.6e-2, 1.09 at 2.9e-2, crossing near 2.1e-2;
+# uniform random 4096 x 4096 squares, 0.13 at 6.1e-5, 0.62 at 1.6e-2,
+# 0.85 at 3.1e-2, 1.40 at 6.3e-2, crossing near 3.9e-2.  The lower holds.
+HUB_SPARSE_BELOW = 2e-2
 
 
 def _upload(x: np.ndarray, device) -> torch.Tensor:
@@ -61,6 +77,127 @@ def _upload(x: np.ndarray, device) -> torch.Tensor:
 
 def _long(x: np.ndarray, device) -> torch.Tensor:
     return _upload(np.asarray(x, dtype=np.int64), device)
+
+
+def _hub_sparse(g, ncols: int) -> bool:
+    """Whether hub group ``g`` takes K10: its products fill less than
+    ``HUB_SPARSE_BELOW`` of its dense volume (``hg * khp * ncols``
+    multiply-adds of the matmul)."""
+    return g._products < HUB_SPARSE_BELOW * g.rows.size * g.khp * ncols
+
+
+def _virtual_starts(plan: EllPlan) -> np.ndarray:
+    return (
+        plan.vstart
+        if plan.vstart is not None
+        else np.arange(plan.rows + 1, dtype=np.int32)
+    )
+
+
+def _dense_hub_group(plan: EllPlan, gi: int, device) -> dict:
+    """Hub group ``gi``'s index arrays for the dense route: A's row
+    chunks, and per slab B's scatter positions and, per row chunk, the
+    virtual rows, the windows of each compacted row that its flat cap
+    keeps and where they go in the hub's part of the flat stream."""
+    g = plan.hub_groups[gi]
+    vst = _virtual_starts(plan)
+    lay = _flat_layout(plan)
+    hg = g.rows.size
+    hlens = np.diff(g.srp)
+    chunks = []
+    for h0 in range(0, hg, _HUB_ROW_CHUNK):
+        h1 = min(h0 + _HUB_ROW_CHUNK, hg)
+        e0, e1 = int(g.srp[h0]), int(g.srp[h1])
+        chunks.append(
+            (
+                h0,
+                h1 - h0,
+                _long(g.src[e0:e1], device),
+                _long(repeat_idx(hlens[h0:h1]), device),
+            )
+        )
+    slabs = []
+    nw_row = g.slab // _WA
+    for sl in range(g.n_slabs):
+        e0, e1 = int(g.sptr[sl]), int(g.sptr[sl + 1])
+        per_chunk = []
+        for h0, hc, _, _ in chunks:
+            ids = vst[g.rows[h0 : h0 + hc]].astype(np.int64) + sl
+            # pack each compacted row to its (row, slab) flat cap:
+            # the first cap // 128 windows of the row
+            caps = g.caps_rs[h0 : h0 + hc, sl].astype(np.int64)
+            swin = np.concatenate(
+                [np.zeros(0, np.int64)]
+                + [
+                    np.arange(cw // _WA, dtype=np.int64) + i * nw_row
+                    for i, cw in enumerate(caps)
+                ]
+            )
+            off = int(lay["flat_base"][ids[0]] - lay["huge_start"])
+            per_chunk.append((_long(ids, device), _long(swin, device), off))
+        slabs.append(
+            (_long(g.lin[e0:e1], device), _long(g.eorder[e0:e1], device),
+             per_chunk)
+        )
+    return {"gi": gi, "kmap": _long(g.kmap, device), "chunks": chunks, "slabs": slabs}
+
+
+def _sparse_hub_groups(plan: EllPlan, gis: list, device) -> dict | None:
+    """K10's arrays for hub groups ``gis`` (``ops/hub_kernels``): the
+    items, region-ordered (group, slab, row); the hub entries' A entry ids
+    and the offsets of their groups' kmaps; each group's kmap into its
+    segment table; the tables (one a (slab, tile), over the union rows)
+    concatenated with one final offset; B's tile-local columns and entry
+    ids in table order."""
+    if not gis:
+        return None
+    vst = _virtual_starts(plan)
+    lay = _flat_layout(plan)
+    metas, kmaps, srcs, kofs, boffs, bcols, eorders = [], [], [], [], [], [], []
+    ebase = kbase = bbase = tile_max = warps = 0
+    for gl, gi in enumerate(gis):
+        g = plan.hub_groups[gi]
+        kh = int(np.count_nonzero(g.kmap >= 0))
+        tile = max(min(g.slab, HUB_TILE), g.slab // HUB_MAX_TILES)
+        ntile = g.slab // tile  # tiles a slab: a warp each
+        lin = g.lin.astype(np.int64)
+        u, lc = lin // g.slab, lin % g.slab
+        sl = repeat_idx(np.diff(g.sptr), lin.size).astype(np.int64)
+        # a slab's entries keep union-row order: with one tile a slab the
+        # table keys are sorted already
+        key = (sl * ntile + lc // tile) * kh + u
+        order = np.argsort(key, kind="stable") if ntile > 1 else slice(None)
+        cnt = np.bincount(key, minlength=g.n_slabs * ntile * kh)
+        boffs.append(bbase + np.cumsum(cnt) - cnt)
+        bcols.append((lc % tile)[order].astype(np.int16))
+        eorders.append(g.eorder[order])
+        kmaps.append(np.where(g.kmap >= 0, kbase + g.kmap, 0).astype(np.int32))
+        srcs.append(g.src)
+        kofs.append(np.full(g.src.size, gl * g.kmap.size, np.int64))
+        s = np.arange(g.n_slabs, dtype=np.int64)[:, None]
+        vrow = vst[g.rows].astype(np.int64)[None, :] + s
+        fields = (
+            ebase + g.srp[:-1][None, :], ebase + g.srp[1:][None, :],
+            s * ntile * kh, kh, tile, lay["flat_base"][vrow] - lay["huge_start"],
+            g.caps_rs.T, s * g.slab, np.minimum(g.slab, plan.ncols - s * g.slab), vrow,
+        )
+        metas.append(np.stack(np.broadcast_arrays(*fields), -1).reshape(-1, HUB_META))
+        ebase += g.src.size
+        kbase += g.n_slabs * ntile * kh
+        bbase += key.size
+        tile_max = max(tile_max, tile)
+        warps = max(warps, ntile)
+    return {
+        "meta": _long(np.concatenate(metas), device),
+        "src": _long(np.concatenate(srcs), device),
+        "kofs": _long(np.concatenate(kofs), device),
+        "kmap": _upload(np.concatenate(kmaps), device),
+        "boff": _long(np.concatenate(boffs + [np.array([bbase])]), device),
+        "bcol": _upload(np.concatenate(bcols), device),
+        "eorder": _long(np.concatenate(eorders), device),
+        "tile": tile_max,
+        "warps": warps,
+    }
 
 
 def _plan_tensors(plan: EllPlan, device: torch.device) -> dict:
@@ -93,57 +230,22 @@ def _plan_tensors(plan: EllPlan, device: torch.device) -> dict:
                 _long(tile_ent, device),
             )
         )
-    vst = (
-        plan.vstart
-        if plan.vstart is not None
-        else np.arange(plan.rows + 1, dtype=np.int32)
-    )
-    hub = []
-    for g in plan.hub_groups:
-        hg = g.rows.size
-        hlens = np.diff(g.srp)
-        chunks = []
-        for h0 in range(0, hg, _HUB_ROW_CHUNK):
-            h1 = min(h0 + _HUB_ROW_CHUNK, hg)
-            e0, e1 = int(g.srp[h0]), int(g.srp[h1])
-            chunks.append(
-                (
-                    h0,
-                    h1 - h0,
-                    _long(g.src[e0:e1], device),
-                    _long(repeat_idx(hlens[h0:h1]), device),
-                )
-            )
-        slabs = []
-        nw_row = g.slab // _WA
-        for sl in range(g.n_slabs):
-            e0, e1 = int(g.sptr[sl]), int(g.sptr[sl + 1])
-            per_chunk = []
-            for h0, hc, _, _ in chunks:
-                ids = vst[g.rows[h0 : h0 + hc]].astype(np.int64) + sl
-                # pack each compacted row to its (row, slab) flat cap:
-                # the first cap // 128 windows of the row
-                caps = g.caps_rs[h0 : h0 + hc, sl].astype(np.int64)
-                swin = np.concatenate(
-                    [np.zeros(0, np.int64)]
-                    + [
-                        np.arange(cw // _WA, dtype=np.int64) + i * nw_row
-                        for i, cw in enumerate(caps)
-                    ]
-                )
-                per_chunk.append((_long(ids, device), _long(swin, device)))
-            slabs.append(
-                (_long(g.lin[e0:e1], device), _long(g.eorder[e0:e1], device),
-                 per_chunk)
-            )
-        hub.append(
-            {"kmap": _long(g.kmap, device), "chunks": chunks, "slabs": slabs}
-        )
+    sparse = [gi for gi, g in enumerate(plan.hub_groups) if _hub_sparse(g, plan.ncols)]
+    dense = [gi for gi in range(len(plan.hub_groups)) if gi not in sparse]
     lay = _flat_layout(plan)
     out = {
         "b_classes": b_classes,
         "bins": bins,
-        "hub": hub,
+        "hub": {
+            "lanes": int(lay["flat_total"] - lay["huge_start"]),
+            "sparse": _sparse_hub_groups(plan, sparse, device),
+            "dense": [_dense_hub_group(plan, gi, device) for gi in dense],
+            # the (row, slab) rows of each route, for the tracer's counters
+            "rows": tuple(
+                sum(plan.hub_groups[gi].caps_rs.size for gi in gis)
+                for gis in (sparse, dense)
+            ),
+        },
         "flat_base": _upload(lay["flat_base"].astype(np.int32), device),
         "vstart": (
             _long(plan.vstart, device) if plan.vstart is not None else None
@@ -200,14 +302,14 @@ def _bin_tiles(a: CSR, prod_c, prod_v, tile_src, tile_ent, w: int, chunk: int):
     return tc, tv
 
 
-def _hub_products(a: CSR, b: CSR, plan: EllPlan, dev: dict):
-    """Dense hub: per group, column slab and row chunk, yield
-    ``(group, group index, slab, chunk index, valid width, part)`` with
-    ``part = A_dense @ B_slab`` in true f32.  Each B slab is built, used
-    by every row chunk, then dropped."""
+def _hub_products(a: CSR, b: CSR, plan: EllPlan, groups: list):
+    """Dense hub: per group of ``groups`` (``_dense_hub_group``), column
+    slab and row chunk, yield ``(group, slab, its index arrays of the
+    chunk, valid width, part)`` with ``part = A_dense @ B_slab`` in true
+    f32.  Each B slab is built, used by every row chunk, then dropped."""
     k_rows = b.rows
-    for gi, g in enumerate(plan.hub_groups):
-        gd = dev["hub"][gi]
+    for gd in groups:
+        g = plan.hub_groups[gd["gi"]]
         a_ds = []
         for _, hc, src, rows_rep in gd["chunks"]:
             kcol = gd["kmap"][a.col_ind[src].long().clamp(0, k_rows - 1)]
@@ -215,58 +317,79 @@ def _hub_products(a: CSR, b: CSR, plan: EllPlan, dev: dict):
             a_d = torch.zeros(hc * g.khp, dtype=QVALUE_DTYPE, device=a.device)
             a_d.index_add_(0, rows_rep * g.khp + kcol, a.values[src])
             a_ds.append(a_d.view(hc, g.khp))
-        for sl, (lin, eorder, _) in enumerate(gd["slabs"]):
+        for sl, (lin, eorder, per_chunk) in enumerate(gd["slabs"]):
             bd = torch.zeros(g.khp * g.slab, dtype=QVALUE_DTYPE, device=b.device)
             bd[lin] = b.values[eorder]
             bd = bd.view(g.khp, g.slab)
             vw = int(min(g.slab, plan.ncols - sl * g.slab))
-            for ci, a_d in enumerate(a_ds):
+            for a_d, where in zip(a_ds, per_chunk):
                 with true_f32():
                     part = a_d @ bd
-                yield g, gi, sl, ci, vw, part
+                yield g, sl, where, vw, part
+
+
+def _hub_sparse_products(a: CSR, b: CSR, sp: dict, hc, hv, counts) -> None:
+    """Sparse hub (K10): every item of the K10 groups written into its
+    region of ``hc`` / ``hv`` and its count into ``counts``.  The hub
+    entries' table rows and A values, and B's values in table order, are
+    gathered here, since the values change from call to call."""
+    cols = a.col_ind[sp["src"]].long().clamp(0, b.rows - 1)
+    krow = sp["kmap"][sp["kofs"] + cols]
+    hub_accumulate(
+        sp["meta"], krow, a.values[sp["src"]], sp["boff"], sp["bcol"],
+        b.values[sp["eorder"]], hc, hv, counts, b.ncols, sp["tile"], sp["warps"],
+    )
 
 
 def _tiles_impl(a: CSR, b: CSR, plan: EllPlan, fused_out_cap: int | None = None):
-    """Phase 1: B-ELL build, row tiles, sort/dedup/compact, dense hub.
+    """Phase 1: B-ELL build, row tiles, sort/dedup/compact, hub.
 
     Returns ``(flat cols, flat vals, counts [v_rows], flat_base)``; with
     ``fused_out_cap`` the assembly runs at once with that capacity and
     ``(csr, nnz(C) tensor)`` is returned."""
     ncols, chunk, nv = plan.ncols, plan.chunk, plan.v_rows
     dev = _plan_tensors(plan, a.device)
+    lay = _flat_layout(plan)
+    total = int(lay["flat_total"])
     prod_c, prod_v = _b_ell_chunks(b, plan, dev)
     counts = torch.zeros(nv + 1, dtype=INDEX_DTYPE, device=a.device)
-    cols_parts, vals_parts = [], []
-    for w, rid, tile_src, tile_ent in dev["bins"]:
+    # the flat stream is built in place in the assembly's window source
+    # (``_window_source``'s buffers: cols, value bits, padded past the
+    # stream), each part at its layout offset
+    src = _stream_buffers(total, ncols, a.device)
+    fc, fv = src[0], src[1].view(QVALUE_DTYPE)
+    for (w, rid, tile_src, tile_ent), start in zip(dev["bins"], lay["bin_starts"]):
         tc, tv = _bin_tiles(a, prod_c, prod_v, tile_src, tile_ent, w, chunk)
         if w <= MAX_SORT_W:
             key, val = sort_dedup_compact(tc, tv, ncols, presorted=chunk)
         else:  # the reference's XLA branch (ell_esc.py:1247-1273)
             key, val = sort_dedup_compact_plain(tc, tv, ncols)
         counts[rid] = (key < ncols).sum(1, dtype=INDEX_DTYPE)
-        cols_parts.append(key.reshape(-1))
-        vals_parts.append(val.reshape(-1))
-    # NOTE: densification cannot represent explicit zeros, so products
-    # that cancel to exactly 0.0 are dropped for hub rows (the tile path
-    # keeps them)
-    for g, gi, sl, ci, vw, part in _hub_products(a, b, plan, dev):
-        key, val = compact_nonzero_rows(part, vw)
-        ids, swin = dev["hub"][gi]["slabs"][sl][2][ci]
-        counts[ids] = (key < vw).sum(1, dtype=INDEX_DTYPE)
-        keyg = torch.where(key < vw, key + sl * g.slab, ncols)
-        cols_parts.append(keyg.reshape(-1, _WA)[swin].reshape(-1))
-        vals_parts.append(val.reshape(-1, _WA)[swin].reshape(-1))
+        fc[start : start + key.numel()] = key.reshape(-1)
+        fv[start : start + val.numel()] = val.reshape(-1)
+    # the hub's part of the flat stream: each (row, slab) region filled
+    # by its group's route.  Both drop products that cancel to exactly
+    # 0.0 (the tile path keeps them): the dense route cannot represent an
+    # explicit zero, and K10 follows it
+    hub = dev["hub"]
+    if hub["lanes"]:
+        hc, hv = fc[lay["huge_start"] : total], fv[lay["huge_start"] : total]
+        if hub["sparse"] is not None:
+            _hub_sparse_products(a, b, hub["sparse"], hc, hv, counts)
+        for g, sl, (ids, swin, off), vw, part in _hub_products(a, b, plan, hub["dense"]):
+            key, val = compact_nonzero_rows(part, vw)
+            counts[ids] = (key < vw).sum(1, dtype=INDEX_DTYPE)
+            keyg = torch.where(key < vw, key + sl * g.slab, ncols)
+            n = swin.shape[0] * _WA
+            torch.index_select(keyg.view(-1, _WA), 0, swin, out=hc[off : off + n].view(-1, _WA))
+            torch.index_select(val.view(-1, _WA), 0, swin, out=hv[off : off + n].view(-1, _WA))
     counts = counts[:nv]
-    if cols_parts:
-        flat_c, flat_v = torch.cat(cols_parts), torch.cat(vals_parts)
-    else:
-        flat_c = torch.zeros(1, dtype=INDEX_DTYPE, device=a.device)
-        flat_v = torch.zeros(1, dtype=QVALUE_DTYPE, device=a.device)
+    flat_c, flat_v = fc[: max(total, 1)], fv[: max(total, 1)]
     flat_base = dev["flat_base"]
     if fused_out_cap is not None:
         csr = _assemble_body(
             flat_c, flat_v, counts, flat_base, ncols, fused_out_cap,
-            vstart=dev["vstart"],
+            vstart=dev["vstart"], src=src,
         )
         return csr, counts.sum()
     return flat_c, flat_v, counts, flat_base
@@ -282,13 +405,27 @@ def _roll_right(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx)
 
 
+def _stream_buffers(total: int, ncols: int, device):
+    """Empty window-source buffers for a flat stream of ``total`` lanes
+    (an empty stream counts as one lane ``(0, 0.0)``, as the reference's
+    does), the padding past it already written: int32 cols (pad
+    ``ncols``) and value bits (pad 0), whole windows plus two."""
+    t = max(total, 1)
+    tpad = -(-t // _WA) * _WA + 2 * _WA
+    fc = torch.empty(tpad, dtype=INDEX_DTYPE, device=device)
+    fvb = torch.empty(tpad, dtype=torch.int32, device=device)
+    fc[total:] = ncols
+    fvb[total:] = 0
+    if total == 0:
+        fc[0] = 0
+    return fc, fvb
+
+
 def _window_source(flat_c, flat_v, ncols: int):
     """The flat stream padded to whole windows plus two: int32 cols
     (pad ``ncols``) and value bits (pad 0)."""
     t = flat_c.shape[0]
-    tpad = -(-t // _WA) * _WA + 2 * _WA
-    fc = torch.full((tpad,), ncols, dtype=INDEX_DTYPE, device=flat_c.device)
-    fvb = torch.zeros(tpad, dtype=torch.int32, device=flat_c.device)
+    fc, fvb = _stream_buffers(t, ncols, flat_c.device)
     fc[:t] = flat_c
     fvb[:t] = flat_v.contiguous().view(torch.int32)
     return fc, fvb
@@ -328,7 +465,7 @@ def _row_start_deltas(counts, starts, ocap: int):
 
 
 def _assemble_body(
-    flat_c, flat_v, counts, flat_base, ncols: int, out_cap: int, vstart=None
+    flat_c, flat_v, counts, flat_base, ncols: int, out_cap: int, vstart=None, src=None
 ) -> CSR:
     """counts -> row_ptr; 128-lane window gathers build the flat CSR.
 
@@ -339,7 +476,9 @@ def _assemble_body(
     launch as the windows), rolled
     right by ``start % 128`` and added into the one or two windows it
     lands in, under disjoint masks.  A slot takes the repair iff it lies
-    within 128 of its row's start, which one long scan gives (K4)."""
+    within 128 of its row's start, which one long scan gives (K4).
+    ``src``: the stream's window source (``_window_source``), where the
+    caller built the stream in it."""
     w = _WA
     m = counts.shape[0]
     device = counts.device
@@ -350,7 +489,7 @@ def _assemble_body(
     nonempty = counts > 0
     starts = out_rp[:-1]
 
-    fc, fvb = _window_source(flat_c, flat_v, ncols)
+    fc, fvb = _window_source(flat_c, flat_v, ncols) if src is None else src
     wc, wvb, fix_c, fix_vb = window_gather(
         fc, fvb, _window_positions(counts, flat_base, starts, nwin), w,
         torch.where(nonempty, flat_base, 0).to(INDEX_DTYPE),
@@ -464,7 +603,7 @@ def spgemm_ell(
     ``exact=True`` reads nnz(C) back after the tile phase and sizes the
     output to its bucket, which is cached on the plan: a later call runs
     both phases back to back with that capacity and then checks nnz(C)
-    against it (the dense hub drops exact-zero products, so counts can
+    against it (the hub drops exact-zero products, so counts can
     change with the values).  On the card that warm body is a CUDA graph
     kept on the plan: captured by the warm call that reaches its
     break-even count of warm calls on operands of those shapes
@@ -476,7 +615,10 @@ def spgemm_ell(
     with TRACE.span("ell"):
         if plan is None:
             plan = plan_ell(a, b)
-        vstart = _plan_tensors(plan, a.device)["vstart"]
+        dev = _plan_tensors(plan, a.device)
+        vstart = dev["vstart"]
+        TRACE.count("ell.hub.sparse", dev["hub"]["rows"][0])
+        TRACE.count("ell.hub.dense", dev["hub"]["rows"][1])
         cached = getattr(plan, "_nnzc_cache", None)
         if out_cap is None and exact and cached is not None:
             with TRACE.span("ell.load"):

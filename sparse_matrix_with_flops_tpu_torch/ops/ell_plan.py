@@ -411,7 +411,12 @@ def _plan_hub_split(
 class HubGroup:
     """One dense-hub row group: its own B-row union (contraction space)
     and column-slab layout.  Grouping hub rows shrinks each group's
-    union, collapsing the dense contraction waste inside one plan."""
+    union, collapsing the dense contraction waste inside one plan.
+
+    ``_products`` (set by the planner, not a field: the reference's
+    groups have none) is the group's exact count of products, which the
+    port's hub route (``ops/ell_esc._hub_route``) weighs against the
+    group's dense volume."""
 
     rows: np.ndarray  # int32[hg] parent row ids, ascending
     src: np.ndarray  # int32[] A-entry ids of the rows, row-major
@@ -551,21 +556,21 @@ def _plan_hub_groups(hub_rows, rp, safe, brp, bci, N, K, rf):
             -(-vw // 128) * 128,
         )
         caps = np.minimum(caps, slab).astype(np.int32)
-        groups.append(
-            HubGroup(
-                rows=rows_g.astype(np.int32),
-                src=src_g.astype(np.int32),
-                srp=srp,
-                kmap=kmap,
-                khp=int(khp),
-                slab=int(slab),
-                n_slabs=int(n_slabs),
-                eorder=eo[order].astype(np.int32),
-                lin=lin.astype(np.int32),
-                sptr=sptr,
-                caps_rs=caps,
-            )
+        group = HubGroup(
+            rows=rows_g.astype(np.int32),
+            src=src_g.astype(np.int32),
+            srp=srp,
+            kmap=kmap,
+            khp=int(khp),
+            slab=int(slab),
+            n_slabs=int(n_slabs),
+            eorder=eo[order].astype(np.int32),
+            lin=lin.astype(np.int32),
+            sptr=sptr,
+            caps_rs=caps,
         )
+        object.__setattr__(group, "_products", int(flops_rs.sum()))
+        groups.append(group)
     return tuple(groups)
 
 

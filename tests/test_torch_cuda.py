@@ -1213,6 +1213,78 @@ def test_run_sums_replays_in_a_cuda_graph_with_new_inputs(dev):
             assert torch.equal(again, got)
 
 
+def _k10_case(case, dev):
+    """(a, b, plan) of a K10 case on the card: R-MAT s14's hub group
+    (one 16,384-wide slab, four tiles), or the slabbed pairs (an empty
+    (row, slab), a ragged last slab, a one-entry hub row, sums that
+    cancel to exactly 0.0)."""
+    import hub_cases as H
+
+    if case == "s14":
+        a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)
+        return a, a, plan_ell(a, a)
+    return H.slabbed_case(int(case.split()[-1]), dev)
+
+
+def _cpu(x: CSR) -> CSR:
+    return CSR(x.row_ptr.cpu(), x.col_ind.cpu(), x.values.cpu(), x.ncols)
+
+
+@pytest.mark.parametrize("case", ["s14", "slabbed 1", "slabbed 4"])
+def test_k10_equals_its_twin_on_the_cpu(dev, case, monkeypatch):
+    """K10 on the card against its plain version on the CPU, bit for bit:
+    the hub's whole part of the flat stream (every region, padding
+    included) and every hub row's count."""
+    from sparse_matrix_with_flops_tpu_torch.ops.hub_kernels import hub_accumulate
+
+    monkeypatch.setattr(E, "HUB_SPARSE_BELOW", float("inf"))
+    a, b, plan = _k10_case(case, dev)
+    assert plan.hub_groups and E._plan_tensors(plan, dev)["hub"]["dense"] == []
+    before, k2 = hub_accumulate.launches, compact_nonzero_rows.launches
+    got = E._tiles_impl(a, b, plan)
+    torch.cuda.synchronize()
+    assert hub_accumulate.launches == before + 1 and compact_nonzero_rows.launches == k2
+    want = E._tiles_impl(_cpu(a), _cpu(b), plan)
+    h = E._flat_layout(plan)["huge_start"]
+    assert torch.equal(got[0][h:].cpu(), want[0][h:])
+    assert torch.equal(got[1][h:].cpu().view(torch.int32), want[1][h:].view(torch.int32))
+    hub_rows = torch.from_numpy(np.flatnonzero(plan.row_bin == -2))
+    assert torch.equal(got[2].cpu()[hub_rows], want[2][hub_rows])
+    if case != "s14":  # the cancelling columns are dropped, as the dense hub drops them
+        import hub_cases as H
+
+        assert not bool((got[0][h:] >= H.CANCEL_LO).logical_and(got[0][h:] < b.ncols).any())
+
+
+def test_k10_warm_replay_equals_the_eager_run_with_fresh_values(dev):
+    """The warm spgemm_ell on R-MAT s14 (its hub on K10) as a CUDA graph:
+    each replay on fresh values of A bit-equal to the eager body on the
+    same values, and the eager body makes no host read."""
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    a = rmat_csr(14, edge_factor=8, seed=7, weights="random", device=dev)
+    plan = plan_ell(a, a)
+    hub = E._plan_tensors(plan, dev)["hub"]
+    assert hub["sparse"] is not None and hub["dense"] == []
+    E.spgemm_ell(a, a, plan)  # two-phase: caches the nnz(C) bucket
+    _until_captured(lambda: E.spgemm_ell(a, a, plan), plan, "spgemm_ell")
+    g = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(3):
+        x = CSR(a.row_ptr, a.col_ind, 1.0 - torch.rand(a.values.shape, generator=g, device=dev),
+                a.ncols)
+        replays = graphs.held(plan, "spgemm_ell").replays
+        got = E.spgemm_ell(x, a, plan)
+        assert graphs.held(plan, "spgemm_ell").replays == replays + 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            want, _ = E._tiles_impl(x, a, plan, fused_out_cap=plan._nnzc_cache)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert torch.equal(got.row_ptr, want.row_ptr) and torch.equal(got.col_ind, want.col_ind)
+        assert same_bits(got.values, want.values)
+
+
 def test_load_coo_lands_on_the_card_by_default(dev):
     from sparse_matrix_with_flops_tpu_torch.io import load_coo
 

@@ -7,6 +7,7 @@ import torch
 
 from sparse_matrix_with_flops_tpu.ops import ell_esc as J
 from sparse_matrix_with_flops_tpu.utils import generate as jgen
+from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR as TCSR
 from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as T
 from sparse_matrix_with_flops_tpu_torch.ops import ell_plan as TP
 from sparse_matrix_with_flops_tpu_torch.utils import generate as tgen
@@ -253,3 +254,93 @@ def test_bins_wider_than_k1_take_the_plain_sort(monkeypatch):
 
     # positive weights: no product cancels, so the oracle's structure is C's
     assert_same_csr(spgemm_dense_oracle(a, a), c)
+
+
+# ---------------------------------------------------------------------------
+# the hub's two routes: K10 (its twin here) and the dense matmul
+# ---------------------------------------------------------------------------
+def _graph500(scale: int, seed: int = 7):
+    """Graph500's graph on the CPU: R-MAT edges, labels permuted, each
+    edge stored both ways, duplicates merged; uniform (0, 1] values."""
+    import scipy.sparse as sps
+
+    rp, ci, _ = tgen.rmat_csr(scale, edge_factor=16, seed=seed, device="cpu").to_numpy()
+    n = rp.size - 1
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    src, dst = perm[np.repeat(np.arange(n), np.diff(rp))], perm[ci]
+    m = sps.csr_matrix((np.ones(2 * src.size), (np.r_[src, dst], np.r_[dst, src])), (n, n))
+    m.sum_duplicates()
+    m.sort_indices()
+    vals = (1.0 - rng.random(m.nnz)).astype(np.float32)
+    return TCSR.from_numpy(m.indptr, m.indices, vals, n, device="cpu")
+
+
+def _routed(monkeypatch, below):
+    """Every hub group on K10 (``below`` inf) or on the matmul (0)."""
+    monkeypatch.setattr(T, "HUB_SPARSE_BELOW", below)
+
+
+def test_k10_twin_matches_the_dense_hub_on_graph500_s12(monkeypatch):
+    a = _graph500(12)
+    got = {}
+    for below in (0.0, float("inf")):
+        _routed(monkeypatch, below)
+        plan = TP.plan_ell(a, a, max_w=1024)
+        assert plan.hub_groups
+        dev = T._plan_tensors(plan, torch.device("cpu"))["hub"]
+        assert (dev["sparse"] is None) == (below == 0.0)
+        got[below] = T.spgemm_ell(a, a, plan)
+    # the same pattern; sums in another order (the matmul's, A-entry order)
+    assert_same_csr(got[0.0], got[float("inf")])
+
+
+def test_hub_route_by_density(monkeypatch):
+    """A near-dense hub group takes the matmul (K2 compacts it), a sparse
+    one K10, by the share of its dense volume that its products fill."""
+    from sparse_matrix_with_flops_tpu_torch.ops.spgemm import spgemm_dense_oracle
+
+    calls = []
+    for name in ("hub_accumulate", "compact_nonzero_rows"):
+        real = getattr(T, name)
+        monkeypatch.setattr(T, name, lambda *a, real=real, name=name: (
+            calls.append(name), real(*a))[1])
+    rng = np.random.default_rng(3)
+    near_dense = (rng.random((300, 300)) < 0.9) * rng.random((300, 300))
+    for a, route in ((TCSR.from_dense(near_dense.astype(np.float32), device="cpu"),
+                      "compact_nonzero_rows"),
+                     (_graph500(11), "hub_accumulate")):
+        plan = TP.plan_ell(a, a, max_w=1024)
+        fill = [g._products / (g.rows.size * g.khp * plan.ncols) for g in plan.hub_groups]
+        assert fill and all((f < T.HUB_SPARSE_BELOW) == (route == "hub_accumulate")
+                            for f in fill)
+        calls.clear()
+        c = T.spgemm_ell(a, a, plan)
+        assert set(calls) == {route}
+        assert_same_csr(spgemm_dense_oracle(a, a), c)  # positive: no sum cancels
+
+
+@pytest.mark.parametrize("hubs", [1, 4])
+def test_k10_twin_sums_in_a_entry_order(monkeypatch, hubs):
+    """Every hub (row, slab) of the K10 route, bit for bit, against a
+    sequential Gustavson sum in f32: one-tile and two-tile slabs, an empty
+    (row, slab), a ragged last slab, a one-entry hub row, and sums that
+    cancel to exactly 0.0 (dropped)."""
+    import hub_cases as H
+
+    _routed(monkeypatch, float("inf"))
+    a_np, b_np, _, ncols = H.slabbed_pair(hubs)
+    a, b, plan = H.slabbed_case(hubs, "cpu")
+    (g,) = plan.hub_groups
+    assert g.caps_rs[:, 1].max() == 0 or g.caps_rs[:, 2].max() == 0  # an empty slab
+    assert ncols % g.slab and g.slab > T.HUB_TILE  # a ragged last slab, tiles of K10
+    flat_c, flat_v, counts, _ = T._tiles_impl(a, b, plan)
+    got = H.hub_regions(plan, flat_c, flat_v, counts)
+    assert len(got) == g.rows.size * g.n_slabs
+    for (r, s), (gc, gv) in got.items():
+        lo, hi = s * g.slab, min((s + 1) * g.slab, ncols)
+        wc, wv = H.sequential_row(a_np, b_np, r, lo, hi)
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_array_equal(gv.view(np.int32), wv.view(np.int32))
+        assert not (gc >= H.CANCEL_LO).any()  # summed to exactly 0.0: dropped
+    assert any(len(gc) == 0 for gc, _ in got.values())

@@ -17,6 +17,7 @@ import torch
 from sparse_matrix_with_flops_tpu_torch.config import _f32_switches, true_f32
 from sparse_matrix_with_flops_tpu_torch.formats import BCSR, MCSR, DenseMatrix
 from sparse_matrix_with_flops_tpu_torch.models import rmcl_ell
+from sparse_matrix_with_flops_tpu_torch.ops import ell_esc
 from sparse_matrix_with_flops_tpu_torch.ops.dispatch import route, spgemm_auto
 from sparse_matrix_with_flops_tpu_torch.ops.spmm import bcsr_spmm_plain
 from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh, sharded_rmcl_ell
@@ -123,8 +124,11 @@ CALLERS = {
 
 
 @pytest.mark.parametrize("case", list(CALLERS))
-def test_spgemm_auto_runs_true_f32_under_a_tf32_caller(tf32_caller, matmul_spy, case):
+def test_spgemm_auto_runs_true_f32_under_a_tf32_caller(tf32_caller, matmul_spy, case,
+                                                       monkeypatch):
     make, kind = CALLERS[case]
+    if kind == "ell":  # the hub's matmul route: a sparse group takes K10, no matmul
+        monkeypatch.setattr(ell_esc, "HUB_SPARSE_BELOW", 0.0)
     t = make()
     assert route(t, t)[0] == kind
     _spgemm(t)
