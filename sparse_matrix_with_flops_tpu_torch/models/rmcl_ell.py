@@ -23,10 +23,22 @@ the per-iteration statistics as tensors until the end; on the card its
 step is a CUDA graph kept on the plan, captured once the iterations run
 on it reach the step's break-even count, and replayed
 (``utils/graphs.py``).
+
+Spans and counters of the port's tracer (``utils.timing.TRACE``):
+``rmcl_ell`` (a job) with ``.init``, ``.plan``, ``.load``, ``.scan`` and
+``.read``; in each step run eagerly (never in one being captured, which
+runs no device work) ``rmcl_ell.step`` with ``.gather``, ``.tile``,
+``.select`` (one of each a chunk of a degree bin), ``.hub`` and
+``.drift``; on the host for every iteration, replays included, the
+counters ``rmcl_ell.lanes`` (the step's tile lanes, Σ R_b · D · S) and
+``rmcl_ell.hub_rows``; every read from the card through
+``TRACE.host_read`` (sites ``rmcl_ell.csr_host``, ``rmcl_ell.ordered``,
+``rmcl_ell.to_csr``, ``rmcl_ell.history``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 
@@ -45,10 +57,17 @@ from ..ops.sort_kernels import (
 )
 from ..utils import graphs
 from ..utils.nphost import csr_host, repeat_idx
+from ..utils.timing import TRACE
 
 # the hub matmul's dense iterate slab is kept under this many bytes
 # (the reference's 512 MB budget, models/rmcl_ell.py:240-242)
 _HUB_SLAB_BYTES = 1 << 29
+# a degree bin's product tiles are built and reduced in chunks of rows
+# whose tile pair (int32 columns, f32 values) stays under this many
+# bytes: the chunk's sort, prune and selection temporaries are a small
+# multiple of it, where a whole bin's were tens of GB at 2^19 rows
+_TILE_BYTES = 1 << 30
+_NULL = contextlib.nullcontext()
 
 
 def _pow2ceil(x: int) -> int:
@@ -82,7 +101,7 @@ def plan_rmcl_ell(
 ) -> RmclEllPlan:
     """Bin Mgt rows by degree class; ent_src holds each row's A-entry ids
     (sentinel -1 padding).  Host numpy, copied from the reference."""
-    rp, ci = csr_host(mgt)
+    rp, ci = csr_host(mgt, "rmcl_ell.csr_host")
     m = mgt.rows
     deg = np.diff(rp)
     # largest power-of-two degree class that fits the tile budget; rows
@@ -96,10 +115,8 @@ def plan_rmcl_ell(
         lo = d // 2 + 1 if d > 1 else 1
         sel = np.nonzero((deg >= lo) & (deg <= d))[0]
         if sel.size:
-            ent_src = np.full((sel.size, d), -1, dtype=np.int64)
-            for k in range(d):
-                has = deg[sel] > k
-                ent_src[has, k] = rp[sel[has]] + k
+            k = np.arange(d)
+            ent_src = np.where(k < deg[sel][:, None], rp[sel][:, None] + k, -1)
             bins.append(
                 (int(d), sel.astype(np.int32), ent_src.reshape(-1).astype(np.int32))
             )
@@ -140,7 +157,8 @@ def _plan_tensors(plan: RmclEllPlan, device: torch.device) -> dict:
     cache = plan.__dict__.setdefault("_dev", {})
     key = str(device)
     if key not in cache:
-        up = lambda x: torch.from_numpy(np.asarray(x, np.int64)).to(device)  # noqa: E731
+        # int32 on the wire (half the bytes), widened on the device
+        up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device).long()  # noqa: E731
         cache[key] = {
             "bins": [(d, up(rid), up(src)) for d, rid, src in plan.bins],
             "huge_rows": up(plan.huge_rows),
@@ -150,19 +168,71 @@ def _plan_tensors(plan: RmclEllPlan, device: torch.device) -> dict:
 
 
 def mt_to_ell(mt: CSR, S: int):
-    """Initial iterate: duplicate-sum + first-S truncation + renormalise
-    (host).  Establishes the ELL invariant every step keeps: each row's
-    columns sorted and unique.  Returns (cols int32, vals f32) [n, S] on
-    ``mt``'s device."""
-    rp, c_all = csr_host(mt)
+    """Initial iterate: duplicate-sum + first-S truncation + renormalise.
+    Establishes the ELL invariant every step keeps: each row's columns
+    sorted and unique.  Returns (cols int32, vals f32) [n, S] on
+    ``mt``'s device.
+
+    Rows already column-sorted and unique (an ``rmcl_init`` result, told
+    by one read of a flag) are laid out on the device; other input is
+    merged on the host, its duplicates summed in float64 in entry
+    order."""
+    rp_h, ci_h = csr_host(mt, "rmcl_ell.csr_host")
     n = mt.rows
-    nnz = int(rp[-1])
-    c = c_all[:nnz].astype(np.int64)
-    v = mt.values[:nnz].cpu().numpy().astype(np.float64)
-    # global (row, col) sort -> per-row unique prefix sums, all bulk ops
+    nnz = int(rp_h[-1])
+    dev = mt.device
+    rp = mt.row_ptr.long()
+    erow = torch.repeat_interleave(torch.arange(n, device=dev), rp[1:] - rp[:-1],
+                                   output_size=nnz)
+    c = mt.col_ind[:nnz].long()
+    key = erow * (mt.ncols + 1) + c
+    if nnz < 2 or bool(TRACE.host_read("rmcl_ell.ordered", (key[1:] > key[:-1]).all())):
+        rank = torch.arange(nnz, device=dev) - rp[erow]
+        at = torch.where(rank < S, erow * S + rank, n * S)  # slot n * S: the dropped
+        cols = torch.full((n * S + 1,), mt.ncols, dtype=INDEX_DTYPE, device=dev)
+        vals = torch.zeros(n * S + 1, dtype=QVALUE_DTYPE, device=dev)
+        cols[at] = c.to(INDEX_DTYPE)
+        vals[at] = mt.values[:nnz]
+        cols, vals = cols[:-1].view(n, S), vals[:-1].view(n, S)
+        s = _pairwise_row_sum(vals)[:, None]
+        return cols, torch.where(s > 0, vals / torch.clamp(s, min=1e-30), vals)
+    return _mt_to_ell_host(rp_h, ci_h[:nnz].astype(np.int64),
+                           TRACE.host_read("rmcl_ell.csr_host", mt.values[:nnz]).numpy(),
+                           n, mt.ncols, S, dev)
+
+
+def _pairwise_row_sum(x):
+    """Each row's float32 sum in NumPy's order (``pairwise_sum``: up to
+    128 lanes, eight running sums over blocks of 8 lanes, then the rest
+    one by one; above 128, the two halves), so that the device's first
+    iterate holds the bits of :func:`_mt_to_ell_host`'s."""
+    w = x.shape[1]
+    if w < 8:
+        res = torch.zeros_like(x[:, 0])
+        for i in range(w):
+            res = res + x[:, i]
+        return res
+    if w <= 128:
+        body = w - w % 8
+        r = x[:, :8]
+        for i in range(8, body, 8):
+            r = r + x[:, i:i + 8]
+        res = ((r[:, 0] + r[:, 1]) + (r[:, 2] + r[:, 3])) + ((r[:, 4] + r[:, 5])
+                                                             + (r[:, 6] + r[:, 7]))
+        for i in range(body, w):
+            res = res + x[:, i]
+        return res
+    half = w // 2 - (w // 2) % 8
+    return _pairwise_row_sum(x[:, :half]) + _pairwise_row_sum(x[:, half:])
+
+
+def _mt_to_ell_host(rp, c, v, n: int, ncols: int, S: int, device):
+    """:func:`mt_to_ell` of rows in any order, with duplicates: a global
+    (row, col) sort and per-row unique prefix sums, all bulk NumPy."""
+    nnz = c.shape[0]
     erow = repeat_idx(np.diff(rp), nnz).astype(np.int64)
-    order = np.argsort(erow * (mt.ncols + 1) + c, kind="stable")
-    re, ce, ve = erow[order], c[order], v[order]
+    order = np.argsort(erow * (ncols + 1) + c, kind="stable")
+    re, ce, ve = erow[order], c[order], v[order].astype(np.float64)
     first = np.ones(nnz, dtype=bool)
     first[1:] = (re[1:] != re[:-1]) | (ce[1:] != ce[:-1])
     seg = np.cumsum(first) - 1
@@ -177,29 +247,35 @@ def mt_to_ell(mt: CSR, S: int):
     np.cumsum(row_start, out=row_start)
     rank = np.arange(nseg, dtype=np.int64) - row_start[ur]
     keep = rank < S
-    cols = np.full((n, S), mt.ncols, np.int32)
+    cols = np.full((n, S), ncols, np.int32)
     vals = np.zeros((n, S), np.float32)
     cols[ur[keep], rank[keep]] = uc[keep].astype(np.int32)
     vals[ur[keep], rank[keep]] = uv[keep].astype(np.float32)
     s = vals.sum(axis=1, keepdims=True)
     vals = np.where(s > 0, vals / np.maximum(s, 1e-30), vals)
     return (
-        torch.from_numpy(cols).to(mt.device),
-        torch.from_numpy(np.ascontiguousarray(vals, np.float32)).to(mt.device),
+        torch.from_numpy(cols).to(device),
+        torch.from_numpy(np.ascontiguousarray(vals, np.float32)).to(device),
     )
 
 
 def ell_to_csr(cols, vals, ncols: int) -> CSR:
-    """Iterate back to CSR (host side, end of run), on the iterate's
-    device."""
-    device = cols.device if isinstance(cols, torch.Tensor) else "cpu"
-    cols_np = cols.cpu().numpy() if isinstance(cols, torch.Tensor) else np.asarray(cols)
-    vals_np = vals.cpu().numpy() if isinstance(vals, torch.Tensor) else np.asarray(vals)
-    n = cols_np.shape[0]
-    keep = cols_np < ncols
-    rp = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(keep.sum(axis=1), out=rp[1:])
-    return CSR.from_numpy(rp.astype(np.int32), cols_np[keep], vals_np[keep], ncols, device)
+    """Iterate back to a tight CSR (end of run), on the iterate's device
+    (numpy input: on the CPU): the lanes with a column below ``ncols``,
+    in row-major order, placed on the device; one read, of nnz."""
+    cols, vals = torch.as_tensor(cols), torch.as_tensor(vals)
+    n = cols.shape[0]
+    keep = cols < ncols
+    row_ptr = torch.zeros(n + 1, dtype=INDEX_DTYPE, device=cols.device)
+    torch.cumsum(keep.sum(dim=1), 0, dtype=INDEX_DTYPE, out=row_ptr[1:])
+    nnz = int(TRACE.host_read("rmcl_ell.to_csr", row_ptr[-1]))
+    keep = keep.reshape(-1)
+    at = torch.where(keep, torch.cumsum(keep, 0) - 1, nnz)  # slot nnz: the padding
+    col = torch.empty(nnz + 1, dtype=INDEX_DTYPE, device=cols.device)
+    val = torch.empty(nnz + 1, dtype=QVALUE_DTYPE, device=cols.device)
+    col[at] = cols.reshape(-1).to(INDEX_DTYPE)
+    val[at] = vals.reshape(-1).to(QVALUE_DTYPE)
+    return CSR(row_ptr, col[:nnz], val[:nnz], int(ncols))
 
 
 def _prune_select_lanes(key, uval, n: int, S: int):
@@ -325,17 +401,16 @@ def _ell_drift_sq(old_c, old_v, new_c, new_v, n: int):
     return (runs * runs).sum(), (old_v * old_v).sum()
 
 
-def _segments(a: CSR, mt_cols, mt_vals, n: int):
-    """Per-entry segments (one row gather of the iterate, scaled by the
-    entry's value) plus a sentinel segment at the end."""
-    S = mt_cols.shape[1]
-    safe_col = a.col_ind.long().clamp(0, n - 1)
-    ev = a.entry_valid()[:, None]
-    seg_c = torch.where(ev, mt_cols[safe_col], n)
-    seg_v = torch.where(ev, mt_vals[safe_col] * a.values[:, None], 0.0)
-    seg_c = torch.cat([seg_c, seg_c.new_full((1, S), n)])
-    seg_v = torch.cat([seg_v, seg_v.new_zeros((1, S))])
-    return seg_c, seg_v
+def _tile(a: CSR, mt_cols, mt_vals, src, n: int, width: int):
+    """The [R, width] product tile of the A entries ``src`` (-1: a
+    padding entry): entry e's S lanes are the iterate's row ``col_e``
+    scaled by its value, a padding entry's the sentinel (n, 0.0)."""
+    ok = (src >= 0)[:, None]
+    e = src.clamp(min=0)
+    col = a.col_ind[e].long().clamp(0, n - 1)
+    tc = torch.where(ok, mt_cols[col], n).reshape(-1, width)
+    tv = torch.where(ok, mt_vals[col] * a.values[e][:, None], 0.0).reshape(-1, width)
+    return tc, tv
 
 
 def _hub_rows(c_h, n: int, S: int):
@@ -346,48 +421,64 @@ def _hub_rows(c_h, n: int, S: int):
     return _prune_select_lanes(key, c_h, n, S)
 
 
+def _no_span(name: str):
+    return _NULL
+
+
 def rmcl_ell_step(plan: RmclEllPlan, a: CSR, a_dense_huge, mt_cols, mt_vals):
     """One fused iteration on the ELL iterate.  ``a_dense_huge`` is the
     dense block of Mgt's hub rows over the hub union ([H, hub_kh], from
-    :func:`_dense_huge`).  Returns (new cols, new vals, stats)."""
+    :func:`_dense_huge`).  Each degree bin goes in chunks of rows under
+    ``_TILE_BYTES`` (static shapes: the plan's bins fix them), the same
+    result as one whole-bin tile, bit for bit: every row is reduced on
+    its own.  Returns (new cols, new vals, stats)."""
     n, S = plan.n, plan.S
     dev = mt_cols.device
     pt = _plan_tensors(plan, dev)
-    seg_c, seg_v = _segments(a, mt_cols, mt_vals, n)
-    sent = seg_c.shape[0] - 1
+    # a step being captured runs no device work: it records no span
+    span = _no_span if dev.type == "cuda" and torch.cuda.is_current_stream_capturing() \
+        else TRACE.span
+    with span("rmcl_ell.step"):
+        new_cols = torch.full((n, S), n, dtype=INDEX_DTYPE, device=dev)
+        new_vals = torch.zeros((n, S), dtype=QVALUE_DTYPE, device=dev)
+        nnz_out = torch.zeros((), dtype=torch.int64, device=dev)
+        trunc_rows = torch.zeros((), dtype=torch.int64, device=dev)
+        for D, rid, src in pt["bins"]:
+            W = D * S
+            step = max(_TILE_BYTES // (8 * W), 1)
+            for r0 in range(0, rid.shape[0], step):
+                r1 = min(r0 + step, rid.shape[0])
+                with span("rmcl_ell.step.gather"):
+                    tc, tv = _tile(a, mt_cols, mt_vals, src[r0 * D:r1 * D], n, W)
+                with span("rmcl_ell.step.tile"):
+                    key2, uval = _dedup_tile(tc, tv, n, run=S)
+                del tc, tv
+                with span("rmcl_ell.step.select"):
+                    sc, sw, truncated = _prune_select_lanes(key2, uval, n, S)
+                del key2, uval
+                new_cols[rid[r0:r1]] = sc
+                new_vals[rid[r0:r1]] = sw
+                nnz_out += (sc < n).sum()
+                trunc_rows += truncated.sum()
 
-    new_cols = torch.full((n, S), n, dtype=INDEX_DTYPE, device=dev)
-    new_vals = torch.zeros((n, S), dtype=QVALUE_DTYPE, device=dev)
-    nnz_out = torch.zeros((), dtype=torch.int64, device=dev)
-    trunc_rows = torch.zeros((), dtype=torch.int64, device=dev)
-    for D, rid, src in pt["bins"]:
-        src = torch.where(src >= 0, src, sent)
-        W = D * S
-        tc = seg_c[src].reshape(-1, W)
-        tv = seg_v[src].reshape(-1, W)
-        key2, uval = _dedup_tile(tc, tv, n, run=S)
-        sc, sw, truncated = _prune_select_lanes(key2, uval, n, S)
-        new_cols[rid] = sc
-        new_vals[rid] = sw
-        nnz_out += (sc < n).sum()
-        trunc_rows += truncated.sum()
+        if plan.huge_rows.size:
+            # hub rows: dense matmul against the densified iterate,
+            # restricted to the union of iterate rows the hub references
+            with span("rmcl_ell.step.hub"):
+                c_h = _hub_dense_products(
+                    a_dense_huge, mt_cols, mt_vals, n, plan.hub_precision,
+                    krows=pt["hub_krows"], khp=plan.hub_kh,
+                )
+                sc, sw, truncated = _hub_rows(c_h, n, S)
+                new_cols[pt["huge_rows"]] = sc
+                new_vals[pt["huge_rows"]] = sw
+                nnz_out += (sc < n).sum()
+                trunc_rows += truncated.sum()
 
-    if plan.huge_rows.size:
-        # hub rows: dense matmul against the densified iterate, restricted
-        # to the union of iterate rows the hub references
-        c_h = _hub_dense_products(
-            a_dense_huge, mt_cols, mt_vals, n, plan.hub_precision,
-            krows=pt["hub_krows"], khp=plan.hub_kh,
-        )
-        sc, sw, truncated = _hub_rows(c_h, n, S)
-        new_cols[pt["huge_rows"]] = sc
-        new_vals[pt["huge_rows"]] = sw
-        nnz_out += (sc < n).sum()
-        trunc_rows += truncated.sum()
-
-    # convergence drift ||new - old||_F / ||old||_F on merged ELL rows
-    d2, n2 = _ell_drift_sq(mt_cols, mt_vals, new_cols, new_vals, n)
-    differs = torch.sqrt(d2) / torch.clamp(torch.sqrt(n2), min=1e-30)
+        # convergence drift ||new - old||_F / ||old||_F on merged ELL rows
+        with span("rmcl_ell.step.drift"):
+            d2, n2 = _ell_drift_sq(mt_cols, mt_vals, new_cols, new_vals, n)
+            differs = torch.sqrt(d2) / torch.clamp(torch.sqrt(n2), min=1e-30)
     stats = {
         "nnz": nnz_out.to(INDEX_DTYPE),
         "truncated_rows": trunc_rows.to(INDEX_DTYPE),
@@ -432,6 +523,11 @@ def _scan_graph(plan: RmclEllPlan, a: CSR, a_dense_huge, mt_cols, mt_vals, lengt
     return graphs.scan_body(plan, "rmcl_ell_scan", ncols, ins, 2, _HIST, length, step)
 
 
+def plan_lanes(plan: RmclEllPlan) -> int:
+    """The tile lanes of one step, Σ R_b · D · S over the degree bins."""
+    return sum(int(rid.size) * D * plan.S for D, rid, _ in plan.bins)
+
+
 def rmcl_ell_scan(plan, a: CSR, a_dense_huge, mt_cols, mt_vals, max_iters: int):
     """Device-resident loop over the fused step (the reference's jitted
     ``lax.scan``): the iterate stays on the device, and the statistics
@@ -447,6 +543,11 @@ def rmcl_ell_scan(plan, a: CSR, a_dense_huge, mt_cols, mt_vals, max_iters: int):
     if max_iters <= 0:
         return mt_cols, mt_vals, {k: torch.zeros(0) for k, _ in _HIST}
     _plan_tensors(plan, mt_cols.device)  # uploads, never inside a capture
+    if TRACE.on():  # from the plan, on the host: replays count too
+        lanes = plan_lanes(plan)
+        for _ in range(max_iters):
+            TRACE.count("rmcl_ell.lanes", lanes)
+            TRACE.count("rmcl_ell.hub_rows", int(plan.huge_rows.size))
     g = _scan_graph(plan, a, a_dense_huge, mt_cols, mt_vals, max_iters)
     (cols, vals), hist = graphs.run_scan(g, max_iters)
     return cols, vals, hist
@@ -466,12 +567,20 @@ def rmcl_ell(
     stats history dict of numpy arrays)."""
     from .rmcl import rmcl_init
 
-    mt0 = rmcl_init(graph) if isinstance(graph, COO) else graph
-    # the presorted dedup needs column-sorted rows; normalise once
-    mt0 = mt0.make_ordered()
-    plan = plan_rmcl_ell(mt0, S=S, max_tile=max_tile, hub_precision=hub_precision)
-    cols, vals = mt_to_ell(mt0, S)
-    a_d = _dense_huge(mt0, plan)
-    cols, vals, hist = rmcl_ell_scan(plan, mt0, a_d, cols, vals, max_iters)
-    out = ell_to_csr(cols, vals, mt0.ncols)
-    return out, {k: v.cpu().numpy() for k, v in hist.items()}
+    with TRACE.span("rmcl_ell"):
+        with TRACE.span("rmcl_ell.init"):
+            mt0 = rmcl_init(graph) if isinstance(graph, COO) else graph
+            # the presorted dedup needs column-sorted rows; normalise once
+            mt0 = mt0.make_ordered()
+        with TRACE.span("rmcl_ell.plan"):
+            plan = plan_rmcl_ell(mt0, S=S, max_tile=max_tile, hub_precision=hub_precision)
+        with TRACE.span("rmcl_ell.load"):
+            cols, vals = mt_to_ell(mt0, S)
+            a_d = _dense_huge(mt0, plan)
+            _plan_tensors(plan, mt0.device)
+        with TRACE.span("rmcl_ell.scan"):
+            cols, vals, hist = rmcl_ell_scan(plan, mt0, a_d, cols, vals, max_iters)
+        with TRACE.span("rmcl_ell.read"):
+            out = ell_to_csr(cols, vals, mt0.ncols)
+            hist = {k: TRACE.host_read("rmcl_ell.history", v).numpy() for k, v in hist.items()}
+    return out, hist

@@ -20,6 +20,8 @@ import sysconfig
 
 import numpy as np
 
+from .timing import TRACE
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 THP_SOURCE = os.path.join(_PKG, "native", "src", "thpalloc.c")
 THP_LIB = os.path.join(os.path.dirname(_PKG), "build", "torch_native", "_thpalloc.so")
@@ -152,16 +154,21 @@ def snap_chunks_arr(n: np.ndarray) -> np.ndarray:
     return np.where((p3 >= n) & (p3 < p2), p3, p2)
 
 
-def csr_host(csr) -> tuple[np.ndarray, np.ndarray]:
+def csr_host(csr, site: str | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Host views ``(row_ptr int64, col_ind int32)`` of a CSR, cached on
     the instance (the planners read the same arrays many times, and a
     CSR on the card would otherwise pay a device-to-host copy each
-    time)."""
+    time).  With ``site`` the two reads go through the port's tracer
+    (``TRACE.host_read(site, ...)``)."""
     cached = getattr(csr, "_host_rp_ci", None)
     if cached is not None:
         return cached
-    rp = csr.row_ptr.cpu().numpy().astype(np.int64)
-    ci = csr.col_ind.cpu().numpy().astype(np.int32, copy=False)
+    if site is None:
+        rp, ci = csr.row_ptr.cpu(), csr.col_ind.cpu()
+    else:
+        rp, ci = TRACE.host_read(site, csr.row_ptr), TRACE.host_read(site, csr.col_ind)
+    rp = rp.numpy().astype(np.int64)
+    ci = ci.numpy().astype(np.int32, copy=False)
     pair = (rp, ci)
     object.__setattr__(csr, "_host_rp_ci", pair)
     return pair
