@@ -19,7 +19,10 @@
    hub group (the benchmark's matrix) against its plain version on the
    card and, on a sample of items, bit for bit on the CPU, beside
    ``torch.sparse.mm`` of the group's rows (cuSPARSE SpGEMM), then the
-   whole hub in one launch;
+   whole hub in one launch; K11 (``prune_select``) on the LFR cell's
+   first-step tiles at W = 2,048 / 4,096 / 8,192 (one ``_TILE_BYTES``
+   chunk of each bin) bit for bit against its plain version on the card,
+   beside the two stable sorts it replaces;
 4. runs ``spgemm_auto`` on R-MAT s14 (edge factor 8, seed 7, random
    weights; routes ``ell``, its hub on K10) and on the cant-class band
    ``banded_csr(62451, 32)`` (routes ``block``), checks both products
@@ -260,8 +263,9 @@ REPLACES = {
     "ring_matmul_tiled": "sparse_matrix_with_flops_tpu/parallel/pallas_ring.py:254",
     "run_sums": "sparse_matrix_with_flops_tpu/ops/segments.py:106",
     "hub_accumulate": "sparse_matrix_with_flops_tpu/ops/ell_esc.py:1382",
+    "prune_select": "sparse_matrix_with_flops_tpu/models/rmcl_ell.py:182",
 }
-# K9 and K10 are the port's own kernels: the lines they name are no
+# K9, K10 and K11 are the port's own kernels: the lines they name are no
 # pl.pallas_call
 REPLACES_NOTE = {
     "run_sums": "no TPU kernel: the JAX package sums its runs with XLA's jax.ops.segment_sum "
@@ -269,6 +273,9 @@ REPLACES_NOTE = {
     "hub_accumulate": "no TPU kernel: the JAX package's hub densifies A and B per column slab "
                       "and multiplies them with XLA's f32 jnp.dot, then compacts (B2); K10 sums "
                       "a sparse hub group's products alone, in A-entry order",
+    "prune_select": "no TPU kernel: the JAX package selects each tile row's top S with XLA's "
+                    "lax.sort, by value and again by column; K11 prunes, radix-selects and "
+                    "renormalises a row in shared memory, with no sort",
 }
 SOURCES = {
     "sort_dedup_compact": f"{PKG}/csrc/sort_dedup_compact.cu",
@@ -281,6 +288,7 @@ SOURCES = {
     "ring_matmul_tiled": f"{PKG}/csrc/ring.cu",
     "run_sums": f"{PKG}/csrc/run_sums.cu",
     "hub_accumulate": f"{PKG}/csrc/hub_accumulate.cu",
+    "prune_select": f"{PKG}/csrc/prune_select.cu",
 }
 PREFAULT_PROBE = """
 import json, sys, time
@@ -545,6 +553,8 @@ NO_CALL = {
                           "and a left compaction take several torch calls",
     "compact_nonzero_rows": "none: torch.nonzero gives coordinates, not each row's "
                             "(cols, vals) packed left with sentinel padding",
+    "prune_select": "none: a row's threshold, its top S by value with ties to the lower "
+                    "column, in column order and renormalised, take several torch calls",
 }
 
 
@@ -632,7 +642,7 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
     (out5, hist5), made = captures_in(lambda: drive(
         "rmcl_ell s14 S=128 5 iterations",
         lambda: RM.rmcl_ell(coo, max_iters=5, S=S, max_tile=MT),
-        ("sort_dedup_compact",),
+        ("sort_dedup_compact", "prune_select"),
     ))
     check_policy("rmcl_ell s14 5 iterations", "rmcl_ell_scan", 5, made, failed)
     log(f"rmcl_ell s14: 5 iterations with plan {time.perf_counter() - t0:.3f} s; "
@@ -706,10 +716,10 @@ def rmcl_phases(torch, np, sp, dev, card, drive, record, burst, cuda_ms, host_ms
     if mesh.device != dev:
         raise AssertionError(f"make_mesh(4) is on {mesh.device}, not {dev}")
     must = {
-        "all_gather": ("sort_dedup_compact",),
-        "pallas_ring": ("ring_all_gather", "sort_dedup_compact"),
-        "ring": ("sort_dedup_compact",),
-        "fused_ring": ("ring_matmul_tiled", "sort_dedup_compact"),
+        "all_gather": ("sort_dedup_compact", "prune_select"),
+        "pallas_ring": ("ring_all_gather", "sort_dedup_compact", "prune_select"),
+        "ring": ("sort_dedup_compact", "prune_select"),
+        "fused_ring": ("ring_matmul_tiled", "sort_dedup_compact", "prune_select"),
     }
     runs = {}
     for ex, kernels in must.items():
@@ -1595,6 +1605,81 @@ def k10_phase(torch, np, dev, record, burst, cuda_ms, device_ms):
     log(f"K10 s16 whole hub: {sp['meta'].shape[0]} items, {lanes} lanes in one launch: "
         f"{ms:.4f} ms, device {dev_ms:.4f} ms, bound {kb[0]:.4f} ms ({kb[1]}, {kb[0] / dev_ms:.1%})")
     del ins, out, sp, plan, a
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def k11_phase(torch, np, dev, record, burst, cuda_ms, device_ms):
+    """K11 at the LFR cell's three tile widths (W 2,048 / 4,096 / 8,192):
+    the first ``_TILE_BYTES`` chunk of each degree bin of the first step
+    on the cell's graph (2^19 nodes, generator seed 7), K1 applied, as
+    the step hands it over; against its plain version on the card, bit
+    for bit, and beside the two stable sorts it replaces
+    (``_prune_select_lanes``).  No one PyTorch call computes the
+    function.  Bound: the valid lanes read (8 bytes each, the sentinel
+    tail never read) and the output rows written."""
+    import importlib
+
+    from portbench.reference import lfr
+
+    from sparse_matrix_with_flops_tpu_torch.formats.coo import COO
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
+    from sparse_matrix_with_flops_tpu_torch.ops.select_kernels import (
+        prune_select,
+        prune_select_plain,
+    )
+
+    RM = importlib.import_module(f"{PKG}.models.rmcl_ell")
+    with open(os.path.join(ROOT, "portbench", "configs", "lfr-524288.json")) as f:
+        rp, ci, _ = lfr.graph(json.load(f), seed=7)
+    n, S = rp.shape[0] - 1, 128
+    coo = COO.from_numpy(np.repeat(np.arange(n), np.diff(rp)), ci,
+                         np.ones(ci.shape[0], np.float32), n, n,
+                         capacity=ci.shape[0] + n, device=dev)
+    mt = rmcl_init(coo).make_ordered()
+    plan = RM.plan_rmcl_ell(mt, S=S, max_tile=8192)
+    cols, vals = RM.mt_to_ell(mt, S)
+    for d, rid, src in RM._plan_tensors(plan, dev)["bins"]:
+        w = d * S
+        r = min(max(RM._TILE_BYTES // (8 * w), 1), rid.shape[0])
+        tc, tv = RM._tile(mt, cols, vals, src[: r * d], n, w)
+        key, uval = RM._dedup_tile(tc, tv, n, run=S)
+        del tc, tv
+        rows = torch.arange(r, device=dev)
+        out = (torch.empty((r, S), dtype=torch.int32, device=dev),
+               torch.empty((r, S), device=dev), torch.zeros(2, dtype=torch.int64, device=dev))
+        k11 = lambda: prune_select(key, uval, n, S, rows, *out)  # noqa: E731
+        plain = lambda: prune_select_plain(key, uval, n, S)  # noqa: E731
+        k11()
+        want_c, want_v, trunc = plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(out[0], want_c)
+                and torch.equal(out[1].view(torch.int32), want_v.view(torch.int32))):
+            raise AssertionError(f"K11 W={w}: differs from the plain version's bits")
+        if out[2].tolist() != [int((want_c < n).sum()), int(trunc.sum())]:
+            raise AssertionError(f"K11 W={w}: counters {out[2].tolist()} off the plain version's")
+        first = tuple(x.clone() for x in out[:2])
+
+        def same(got, w=w, first=first):
+            if not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       for x, y in zip(got[:2], first)):
+                raise AssertionError(f"K11 W={w}: a call differs from the first")
+
+        burst(f"K11 W={w}", lambda: (k11(), out)[1], same, calls=5)
+        sorts = lambda: RM._prune_select_lanes(key, uval, n, S)  # noqa: E731
+        apart = int((sorts()[0] != want_c).any(dim=1).sum())
+        valid = int((key < n).sum())
+        record(
+            "prune_select", f"LFR 2^19 step 1, bin D={d}: W={w}, R={r}, {valid} valid lanes, "
+            f"{int(trunc.sum())} rows over S", 0.0, cuda_ms(torch, k11),
+            cuda_ms(torch, plain, reps=3, warm=1), bound(8.0 * (valid + r * S + r)),
+            NO_CALL["prune_select"], dev_ms=device_ms(torch, k11, calls=5),
+        )
+        log(f"K11 W={w}: the two stable sorts it replaces {cuda_ms(torch, sorts, reps=5):.4f} ms "
+            f"a chunk (device {device_ms(torch, sorts, calls=3):.4f} ms); rows whose columns "
+            f"differ from theirs: {apart} of {r}")
+        del key, uval, out, first, want_c, want_v, trunc
+    del coo, mt, plan, cols, vals
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -3736,6 +3821,7 @@ def main() -> int:
     del pvals, poff, want9
 
     k10_phase(torch, np, dev, record, burst, cuda_ms, device_ms)
+    k11_phase(torch, np, dev, record, burst, cuda_ms, device_ms)
 
     # ---- 4. main path ----------------------------------------------------
     def scipy_check(x: CSR, c: CSR, what: str, positive: bool) -> None:

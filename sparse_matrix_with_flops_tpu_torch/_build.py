@@ -67,6 +67,8 @@ _SIGNATURES = {
     # meta, items, krow, aval, boff, bcol, bval, out_c, out_v, counts, ncols,
     # tile, warps
     "smf_hub_accumulate": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I),
+    # key, uval, rows, out_c, out_v, counts, R, W, n, S, vec
+    "smf_prune_select": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
 }
 # C entries with no stream that write one int result through a pointer
 _QUERIES = {

@@ -60,7 +60,7 @@ from ..models.rmcl_ell import (
     _hub_dense_products,
     _hub_rows,
     _pow2ceil,
-    _prune_select_lanes,
+    _select_rows,
     ell_to_csr,
     mt_to_ell,
 )
@@ -443,21 +443,18 @@ def _local_step(plan, a_rp, row_ids, ent_src, huge_rows, seg_c, seg_v, c_h=None)
     sent = seg_c.shape[0] - 1
     new_cols = torch.full((lr + 1, S), n, dtype=INDEX_DTYPE, device=dev)
     new_vals = torch.zeros((lr + 1, S), dtype=QVALUE_DTYPE, device=dev)
-    nnz_out = torch.zeros((), dtype=torch.int64, device=dev)
-    trunc = torch.zeros((), dtype=torch.int64, device=dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)  # survivors, truncated rows
     for (dc, rpad), rid, src in zip(plan.bin_shapes, row_ids, ent_src):
         s = torch.where(src >= 0, src, sent).long()
         W = dc * S
         tc = seg_c[s].reshape(rpad, W)
         tv = seg_v[s].reshape(rpad, W)
         key2, uval = _dedup_tile(tc, tv, n, run=S)
-        sc, sw, truncated = _prune_select_lanes(key2, uval, n, S)
-        ok = rid >= 0
-        tgt = torch.where(ok, rid, lr).long()  # row lr: the dump
-        new_cols[tgt] = sc
-        new_vals[tgt] = sw
-        nnz_out += (ok[:, None] & (sc < n)).sum()
-        trunc += (ok & truncated).sum()
+        # row lr: the dump; a padding row's tile is all sentinel (the
+        # sentinel segment), so it writes (n, 0.0) and counts nothing
+        tgt = torch.where(rid >= 0, rid, lr).long()
+        _select_rows(key2, uval, n, S, tgt, new_cols, new_vals, counts)
+    nnz_out, trunc = counts[0], counts[1]
     if plan.hmax:
         sc, sw, truncated = _hub_rows(c_h, n, S)
         ok = huge_rows >= 0

@@ -1285,6 +1285,178 @@ def test_k10_warm_replay_equals_the_eager_run_with_fresh_values(dev):
         assert same_bits(got.values, want.values)
 
 
+K11_CASES = ["kept under S", "tie at the cut", "all sentinel", "narrower than S",
+             "sentinel tail"]
+
+
+def _k11_tile(rng, case, r, w, n, S):
+    """[r, w] compacted tile rows of one K11 case (K1's layout: valid
+    lanes first, column-sorted, then (n, 0.0)): a few large values among
+    many small ones (at most S kept); values from a pool of three (every
+    lane kept, a run of equal values across the S cut); no valid lane;
+    fewer valid lanes than S; valid prefixes ending anywhere, on and
+    beside the kernel's 1,024-lane rounds, the full width included."""
+    key = np.full((r, w), n, np.int32)
+    val = np.zeros((r, w), np.float32)
+    if case == "all sentinel":
+        return key, val
+    low, high = {"kept under S": (S + 1, w), "tie at the cut": (S + 50, w),
+                 "narrower than S": (1, S - 1), "sentinel tail": (1, w)}[case]
+    ends = rng.integers(low, high + 1, r)
+    if case == "sentinel tail":
+        ends[:8] = np.clip([w, w - 1, 1, 1023, 1024, 1025, 2048, w - 1024], 1, w)
+    for i, v in enumerate(ends):
+        key[i, :v] = np.sort(rng.choice(n, size=v, replace=False))
+        if case == "kept under S":  # 20-100 large lanes among small ones
+            big = rng.choice(v, size=min(v, int(rng.integers(20, 101))), replace=False)
+            x = 1e-4 * rng.random(v)
+            x[big] = 0.01 * (1.0 + 0.5 * rng.random(big.size))
+        elif case == "tie at the cut":
+            x = rng.choice([0.010, 0.0105, 0.011], size=v)
+        else:
+            x = 0.01 * rng.random(v)
+        val[i, :v] = x
+    return key, val
+
+
+def _k11_check(dev, key, val, n, S, rows=None):
+    """K11 on the card against its plain version on the card and on the
+    CPU, bit for bit; its counters against the plain version's; returns
+    the plain version's truncated flags."""
+    from sparse_matrix_with_flops_tpu_torch.ops.select_kernels import (
+        prune_select,
+        prune_select_plain,
+    )
+
+    r = key.shape[0]
+    kd, vd = key.to(dev), val.to(dev)
+    rows = torch.arange(r - 1, -1, -1, device=dev) if rows is None else rows
+    out_c = torch.full((r, S), -7, dtype=torch.int32, device=dev)
+    out_v = torch.full((r, S), float("nan"), device=dev)
+    counts = torch.tensor([5, 3], dtype=torch.int64, device=dev)
+    before = prune_select.launches
+    prune_select(kd, vd, n, S, rows, out_c, out_v, counts)
+    assert prune_select.launches == before + 1
+    want_c, want_v, trunc = prune_select_plain(kd, vd, n, S)
+    cpu = prune_select_plain(key.cpu(), val.cpu(), n, S)
+    torch.cuda.synchronize()
+    order = rows.cpu()
+    assert same_bits((out_c.cpu()[order], out_v.cpu()[order]), (want_c.cpu(), want_v.cpu()))
+    assert same_bits((want_c.cpu(), want_v.cpu(), trunc.cpu()), cpu)
+    assert counts.tolist() == [5 + int((want_c < n).sum()), 3 + int(trunc.sum())]
+    return trunc.cpu()
+
+
+@pytest.mark.parametrize("case", K11_CASES)
+@pytest.mark.parametrize("w", [2048, 4096, 8192])
+def test_k11_equals_its_plain_version(dev, w, case):
+    """K11 at the LFR cell's tile widths, bit for bit against its plain
+    version, on each kind of row; the columns against the two sorts'
+    (``_prune_select_lanes``) in all but rows with a lane at the
+    threshold, which the two sums' orders may place apart."""
+    n, S = 524288, 128
+    key, val = (torch.from_numpy(x) for x in _k11_tile(np.random.default_rng(w), case, 257,
+                                                        w, n, S))
+    trunc = _k11_check(dev, key, val, n, S)
+    if case == "tie at the cut":
+        assert bool(trunc.all())
+    elif case == "sentinel tail":
+        assert bool(trunc.any()) and not bool(trunc.all())
+    else:
+        assert not bool(trunc.any())
+    from sparse_matrix_with_flops_tpu_torch.ops.select_kernels import prune_select_plain
+
+    old_c, _, old_t = RMCL._prune_select_lanes(key.to(dev), val.to(dev), n, S)
+    new_c, _, new_t = prune_select_plain(key.to(dev), val.to(dev), n, S)
+    apart = int((old_c != new_c).any(dim=1).sum())
+    assert apart <= 2 and int((old_t != new_t).sum()) <= apart
+
+
+@pytest.mark.parametrize("w,shift", [(3, 0), (100, 0), (1027, 0), (128, 1), (16384, 0)])
+def test_k11_off_the_16_byte_grid_and_narrower_than_s(dev, w, shift):
+    """K11's 4-byte loads (a width not a multiple of 4, or a tile off the
+    16-byte grid), tiles narrower than S and the widest of the default
+    ``max_tile``, with rows sharing nothing and written out of order."""
+    n, S, r = 70000, 128, 97
+    key, val = _k11_tile(np.random.default_rng(w), "sentinel tail", r, w, n, S)
+    if shift:  # a contiguous tile that starts 4 bytes past the grid
+        kb = torch.empty(r * w + shift, dtype=torch.int32)
+        vb = torch.empty(r * w + shift)
+        kb[shift:] = torch.from_numpy(key).reshape(-1)
+        vb[shift:] = torch.from_numpy(val).reshape(-1)
+        key_d, val_d = (x.to(dev)[shift:].view(r, w) for x in (kb, vb))
+        assert key_d.data_ptr() % 16
+    else:
+        key_d, val_d = torch.from_numpy(key).to(dev), torch.from_numpy(val).to(dev)
+    rows = torch.from_numpy(np.random.default_rng(1).permutation(r)).to(dev)
+    _k11_check(dev, key_d, val_d, n, S, rows)
+
+
+def test_lfr_step_on_k11_is_captured_bit_for_bit_and_reads_nothing(dev):
+    """An LFR-shaped static step (5,000 nodes: bins of D 16, 32 and 64,
+    W 2,048-8,192, no hub row) on K11: the eager steps make no host read
+    and launch no sort; a scan of the break-even length on a fresh plan
+    (captured at its first iteration, replayed after) equals the eager
+    steps bit for bit."""
+    import os
+    import sys
+
+    from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init
+    from sparse_matrix_with_flops_tpu_torch.ops.select_kernels import prune_select
+    from sparse_matrix_with_flops_tpu_torch.utils import graphs
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import json
+
+    from portbench.reference import lfr
+
+    with open(os.path.join(root, "portbench", "configs", "lfr-524288.json")) as f:
+        rp, ci, _ = lfr.graph(dict(json.load(f), nodes=5000), seed=7)
+    n = rp.shape[0] - 1
+    rows = np.repeat(np.arange(n), np.diff(rp))
+    coo = COO.from_numpy(rows, ci, np.ones(ci.shape[0], np.float32), n, n,
+                         capacity=ci.shape[0] + n, device=dev)
+    mt = rmcl_init(coo).make_ordered()
+    b = graphs.BREAK_EVEN["rmcl_ell_scan"]
+
+    def fresh():
+        plan = RMCL.plan_rmcl_ell(mt, S=128, max_tile=8192)
+        RMCL._plan_tensors(plan, dev)  # the plan's uploads come first
+        return plan, RMCL._dense_huge(mt, plan)
+
+    plan, adh = fresh()
+    assert [d for d, _, _ in plan.bins] == [16, 32, 64] and not plan.huge_rows.size
+    x0 = RMCL.mt_to_ell(mt, 128)
+    RMCL.rmcl_ell_step(plan, mt, adh, *x0)  # builds the kernels
+    torch.cuda.synchronize()
+    before = prune_select.launches
+    hist, (c, v) = [], x0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(b):
+            c, v, st = RMCL.rmcl_ell_step(plan, mt, adh, c, v)
+            hist.append(st)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert prune_select.launches == before + 3 * b  # one a bin: each fits one chunk
+    eager = c, v, {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        RMCL.rmcl_ell_step(plan, mt, adh, *x0)
+        torch.cuda.synchronize()
+    ka = [k.key for k in prof.key_averages() if k.self_device_time_total > 0]
+    assert ka and not [k for k in ka if "sort" in k.lower() and "sdc_kernel" not in k], ka
+    plan, adh = fresh()
+    got = RMCL.rmcl_ell_scan(plan, mt, adh, *x0, b)
+    g = graphs.held(plan, "rmcl_ell_scan")
+    assert g.graph is not None and g.replays == b - 1
+    torch.cuda.synchronize()
+    assert same_bits(tuple(x.cpu() for x in got[:2]), tuple(x.cpu() for x in eager[:2]))
+    assert same_bits({k: x.cpu() for k, x in got[2].items()},
+                     {k: x.cpu() for k, x in eager[2].items()})
+
+
 def test_load_coo_lands_on_the_card_by_default(dev):
     from sparse_matrix_with_flops_tpu_torch.io import load_coo
 

@@ -105,8 +105,11 @@ def test_a_traced_call_names_its_spans_and_counters():
     plan = TR.plan_rmcl_ell(mt, S=128, max_tile=2048)
     lanes = [c for c in counters if c[0] == "rmcl_ell.lanes"]
     hubs = [c for c in counters if c[0] == "rmcl_ell.hub_rows"]
-    assert len(lanes) == len(hubs) == 2  # one a step
+    select = [c for c in counters if c[0] == "rmcl_ell.select_rows"]
+    assert len(lanes) == len(hubs) == len(select) == 2  # one a step
     assert all(c[2] == sum(rid.size * d * 128 for d, rid, _ in plan.bins) for c in lanes)
+    # every bin row goes to K11 (W 2,048), Σ R_b a step; the hub rows do not
+    assert all(c[2] == sum(rid.size for _, rid, _ in plan.bins) > 0 for c in select)
     assert all(c[2] == plan.huge_rows.size > 0 for c in hubs)
     # every read is a span and a count: csr_host 2 (row_ptr and columns, for
     # the plan), ordered 1, to_csr 1 (nnz), history 3

@@ -24,6 +24,10 @@ from sparse_matrix_with_flops_tpu.ops import prune as JPR
 from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR as TCSR
 from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init as t_rmcl_init
 from sparse_matrix_with_flops_tpu_torch.ops import prune as TPR
+from sparse_matrix_with_flops_tpu_torch.ops.select_kernels import (
+    prune_select,
+    prune_select_plain,
+)
 from sparse_matrix_with_flops_tpu_torch.ops.sort_kernels import sort_dedup_compact
 
 from torch_port_util import (
@@ -220,6 +224,68 @@ def test_prune_select_lanes_matches_reference(rng, w, S):
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     assert_close_values(tv.numpy().ravel(), np.asarray(jv).ravel())
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+@pytest.mark.parametrize("S", [2, 3, 5])
+def test_k11_plain_tie_at_the_cut(S):
+    # the tie case above through K11's plain version (the static step's
+    # selection): the same columns and flags as the reference's two sorts
+    key = np.array([[0, 1, 2, 3, 4, 5, 6, 7], [1, 3, 4, 5, 6, 8, 8, 8]], np.int32)
+    val = np.array(
+        [[0.3, 0.2, 0.2, 0.2, 0.1, 0.1, 0.05, 0.05],
+         [0.2, 0.3, 0.2, 0.2, 0.1, 0.0, 0.0, 0.0]],
+        np.float32,
+    )
+    jc, jv, jt = JR._prune_select_lanes(jnp.asarray(key), jnp.asarray(val), 8, S)
+    tc, tv, tt = prune_select_plain(torch.from_numpy(key), torch.from_numpy(val), 8, S)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    assert_close_values(tv.numpy().ravel(), np.asarray(jv).ravel())
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    assert tc[0].tolist() == [0, 1, 2, 3, 8][:S]
+
+
+@pytest.mark.parametrize("w,S,pool", [(16, 8, 0), (64, 32, 0), (256, 16, 0), (2048, 128, 3)])
+def test_k11_plain_matches_reference(rng, w, S, pool):
+    # the reference cases above through K11's plain version, and a tile of
+    # the LFR cell's narrowest width whose values come from a pool of
+    # three: rows over S kept, with runs of equal values across the cut
+    n = 500 if w < 2048 else 50000
+    key = np.sort(rng.choice(n + 1, size=(12, w)), axis=1).astype(np.int32)
+    key[:, 1:][key[:, 1:] == key[:, :-1]] = n  # unique columns, sentinels
+    key = np.sort(key, axis=1)
+    x = rng.choice([0.010, 0.0105, 0.011], size=(12, w)) if pool else rng.random((12, w))
+    val = np.where(key < n, x, 0.0).astype(np.float32)
+    jc, jv, jt = JR._prune_select_lanes(jnp.asarray(key), jnp.asarray(val), n, S)
+    tc, tv, tt = prune_select_plain(torch.from_numpy(key), torch.from_numpy(val), n, S)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    assert_close_values(tv.numpy().ravel(), np.asarray(jv).ravel())
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    if pool:
+        assert tt.all()
+        # the cut falls inside a run of equal values in every row
+        w2 = torch.from_numpy(val) ** 2
+        cut = torch.topk(torch.where(torch.from_numpy(key) < n, w2, -1.0), S + 1).values
+        assert bool((cut[:, S - 1] == cut[:, S]).all())
+
+
+def test_k11_wrapper_writes_its_rows_and_adds_its_counts(rng):
+    # the CPU route of the wrapper: rows written at their destinations,
+    # the other rows untouched, the counters added to
+    n, S, w = 300, 16, 64
+    key = np.sort(rng.choice(n + 1, size=(6, w)), axis=1).astype(np.int32)
+    key[:, 1:][key[:, 1:] == key[:, :-1]] = n
+    key = torch.from_numpy(np.sort(key, axis=1))
+    val = torch.where(key < n, torch.from_numpy(rng.random((6, w)).astype(np.float32)), 0.0)
+    out_c = torch.full((9, S), -1, dtype=torch.int32)
+    out_v = torch.full((9, S), -1.0)
+    counts = torch.tensor([4, 1])
+    rows = torch.tensor([8, 0, 3, 5, 1, 7])
+    prune_select(key, val, n, S, rows, out_c, out_v, counts)
+    sc, sv, st = prune_select_plain(key, val, n, S)
+    assert torch.equal(out_c[rows], sc) and torch.equal(out_v[rows], sv)
+    assert bool((out_c[[2, 4, 6]] == -1).all())
+    assert counts.tolist() == [4 + int((sc < n).sum()), 1 + int(st.sum())]
+    assert prune_select.launches == 0
 
 
 # ---- dedup and drift ---------------------------------------------------------
