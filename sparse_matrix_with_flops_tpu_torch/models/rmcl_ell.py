@@ -52,6 +52,7 @@ import torch
 from ..config import INDEX_DTYPE, QVALUE_DTYPE, true_f32
 from ..formats.coo import COO
 from ..formats.csr import CSR
+from ..ops.densify import ell_rows_to_dense, entries_to_dense
 from ..ops.prune import compute_threshold
 from ..ops.select_kernels import MAX_SELECT_W, prune_select
 from ..ops.sort_kernels import (
@@ -318,67 +319,33 @@ def _prune_select_lanes(key, uval, n: int, S: int):
     return sc.to(INDEX_DTYPE), sw.to(QVALUE_DTYPE), truncated
 
 
-def _select_rows(key, uval, n: int, S: int, rows, out_c, out_v, counts):
-    """Prune, select and renormalise the compacted tile ``key`` /
-    ``uval`` into rows ``rows`` of ``out_c`` / ``out_v``, adding the
-    survivors and the truncated rows to ``counts`` (shared by the
-    single-chip and sharded steps): K11 where the tile's width fits its
-    shared memory, else ``_prune_select_lanes``."""
-    if key.shape[1] <= MAX_SELECT_W:
-        prune_select(key, uval, n, S, rows, out_c, out_v, counts)
-        return
-    sc, sw, truncated = _prune_select_lanes(key, uval, n, S)
-    out_c[rows] = sc
-    out_v[rows] = sw
-    counts[0] += (sc < n).sum()
-    counts[1] += truncated.sum()
-
-
-def _hub_dense_products(
-    a_dense, cols, vals, n: int, precision: str = "f32", krows=None, khp: int = 0,
-):
+def _hub_dense_products(a_dense, cols, vals, n: int, precision: str = "f32", *, krows, khp: int):
     """C_hub = A_hub_dense · dense(iterate) (shared by the single-chip and
     sharded steps).
 
-    With ``krows/khp``, ``a_dense`` is [H, khp] over the union of iterate
-    rows the hub rows reference, and only those rows are densified.  The
-    dense slab stays under 512 MB (the reference's budget); each slab is
-    one ``torch.matmul`` in true f32 (``config.true_f32``).
+    ``a_dense`` is [H, khp] over the union of iterate rows the hub rows
+    reference, ``krows`` (int64 on the iterate's device, -1 padded) those
+    rows, the only ones densified.  The dense slab stays under 512 MB
+    (the reference's budget); each slab is one ``torch.matmul`` in true
+    f32 (``config.true_f32``).
 
     ``precision="bf16"``: the iterate is densified in bf16 and A rounded
     to bf16; the product of two bf16 values is exact in f32 and the sums
     are f32, the arithmetic of a bf16 matmul with f32 accumulation."""
-    S = cols.shape[1]
-    dev = cols.device
-    if krows is not None:
-        kr = krows if isinstance(krows, torch.Tensor) else torch.from_numpy(
-            np.asarray(krows, np.int64)).to(dev)
-        kr = kr.long()
-        safe = kr.clamp(0, n - 1)
-        ok = (kr >= 0)[:, None]
-        cols = torch.where(ok, cols[safe], n)
-        vals = torch.where(ok, vals[safe], 0.0)
-        rows = khp
-    else:
-        rows = n
+    safe = krows.clamp(0, n - 1)
+    ok = (krows >= 0)[:, None]
+    cols = torch.where(ok, cols[safe], n)
+    vals = torch.where(ok, vals[safe], 0.0)
     dt = torch.bfloat16 if precision == "bf16" else QVALUE_DTYPE
-    isz = 2 if precision == "bf16" else 4
     slab = n
-    while rows * slab * isz > _HUB_SLAB_BYTES and slab > 1024:
+    while khp * slab * dt.itemsize > _HUB_SLAB_BYTES and slab > 1024:
         slab = -(-slab // 2)
     a_op = a_dense.to(dt).to(QVALUE_DTYPE)
-    rix = torch.arange(rows, device=dev)[:, None]
-    lane_s = torch.arange(S, device=dev)[None, :]
-    vd = vals.to(dt)
     parts = []
     for s0 in range(0, n, slab):
-        loc = cols.long() - s0
-        # out-of-slab and sentinel lanes land on distinct dummy columns
-        tgt = torch.where((loc >= 0) & (loc < slab), loc, slab + lane_s)
-        md = torch.zeros((rows, slab + S), dtype=dt, device=dev)
-        md[rix, tgt] = vd
+        md = ell_rows_to_dense(cols, vals, n, s0, slab, dt)
         with true_f32():
-            parts.append(torch.matmul(a_op, md[:, :slab].to(QVALUE_DTYPE)))
+            parts.append(torch.matmul(a_op, md.to(QVALUE_DTYPE)))
     out = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     return out[:, :n]
 
@@ -435,25 +402,63 @@ def _tile(a: CSR, mt_cols, mt_vals, src, n: int, width: int):
     return tc, tv
 
 
-def _hub_rows(c_h, n: int, S: int):
-    """Prune/select the dense hub product rows: lanes with a nonzero
-    value are the row's entries."""
+def _hub_rows(c_h, rows, n: int, S: int, out_c, out_v, counts):
+    """Prune/select the dense hub product rows ``c_h`` (lanes with a
+    nonzero value are a row's entries) into rows ``rows`` of ``out_c`` /
+    ``out_v`` and ``counts`` (shared by both steps).  A padding row (-1)
+    lands on the output's last row, a caller's dump, and counts nothing."""
     lanes = torch.arange(c_h.shape[1], device=c_h.device, dtype=INDEX_DTYPE)
     key = torch.where(c_h != 0, lanes[None, :], n)
-    return _prune_select_lanes(key, c_h, n, S)
+    sc, sw, truncated = _prune_select_lanes(key, c_h, n, S)
+    ok = rows >= 0
+    tgt = torch.where(ok, rows, out_c.shape[0] - 1).long()
+    out_c[tgt] = sc
+    out_v[tgt] = sw
+    counts[0] += (ok[:, None] & (sc < n)).sum()
+    counts[1] += (ok & truncated).sum()
 
 
 def _no_span(name: str):
     return _NULL
 
 
+def _reduce_bins(bins, gather, n: int, S: int, out_c, out_v, counts, span):
+    """The degree bins ``(D, rows, src)`` of a step (shared by both
+    steps), in chunks of rows whose tile pair stays under
+    ``_TILE_BYTES``: the tile ``gather(src of the chunk, D · S)`` is
+    sorted, summed and compacted, then pruned, selected and renormalised
+    into ``rows`` of ``out_c`` / ``out_v`` and ``counts`` (K11 where the
+    width fits its shared memory).  Every row is reduced on its own, so
+    the chunks give one whole-bin tile's bits.  ``span`` records
+    ``rmcl_ell.step.gather``, ``.tile`` and ``.select`` once a chunk."""
+    for D, rid, src in bins:
+        W = D * S
+        step = max(_TILE_BYTES // (8 * W), 1)
+        for r0 in range(0, rid.shape[0], step):
+            r1 = min(r0 + step, rid.shape[0])
+            with span("rmcl_ell.step.gather"):
+                tc, tv = gather(src[r0 * D:r1 * D], W)
+            with span("rmcl_ell.step.tile"):
+                key2, uval = _dedup_tile(tc, tv, n, run=S)
+            del tc, tv
+            with span("rmcl_ell.step.select"):
+                if W <= MAX_SELECT_W:
+                    prune_select(key2, uval, n, S, rid[r0:r1], out_c, out_v, counts)
+                else:
+                    sc, sw, truncated = _prune_select_lanes(key2, uval, n, S)
+                    out_c[rid[r0:r1]] = sc
+                    out_v[rid[r0:r1]] = sw
+                    counts[0] += (sc < n).sum()
+                    counts[1] += truncated.sum()
+            del key2, uval
+
+
 def rmcl_ell_step(plan: RmclEllPlan, a: CSR, a_dense_huge, mt_cols, mt_vals):
     """One fused iteration on the ELL iterate.  ``a_dense_huge`` is the
     dense block of Mgt's hub rows over the hub union ([H, hub_kh], from
-    :func:`_dense_huge`).  Each degree bin goes in chunks of rows under
-    ``_TILE_BYTES`` (static shapes: the plan's bins fix them), the same
-    result as one whole-bin tile, bit for bit: every row is reduced on
-    its own.  Returns (new cols, new vals, stats)."""
+    :func:`_dense_huge`).  The degree bins go through
+    :func:`_reduce_bins` (static shapes: the plan's bins fix them).
+    Returns (new cols, new vals, stats)."""
     n, S = plan.n, plan.S
     dev = mt_cols.device
     pt = _plan_tensors(plan, dev)
@@ -464,19 +469,8 @@ def rmcl_ell_step(plan: RmclEllPlan, a: CSR, a_dense_huge, mt_cols, mt_vals):
         new_cols = torch.full((n, S), n, dtype=INDEX_DTYPE, device=dev)
         new_vals = torch.zeros((n, S), dtype=QVALUE_DTYPE, device=dev)
         counts = torch.zeros(2, dtype=torch.int64, device=dev)  # survivors, truncated rows
-        for D, rid, src in pt["bins"]:
-            W = D * S
-            step = max(_TILE_BYTES // (8 * W), 1)
-            for r0 in range(0, rid.shape[0], step):
-                r1 = min(r0 + step, rid.shape[0])
-                with span("rmcl_ell.step.gather"):
-                    tc, tv = _tile(a, mt_cols, mt_vals, src[r0 * D:r1 * D], n, W)
-                with span("rmcl_ell.step.tile"):
-                    key2, uval = _dedup_tile(tc, tv, n, run=S)
-                del tc, tv
-                with span("rmcl_ell.step.select"):
-                    _select_rows(key2, uval, n, S, rid[r0:r1], new_cols, new_vals, counts)
-                del key2, uval
+        _reduce_bins(pt["bins"], lambda src, w: _tile(a, mt_cols, mt_vals, src, n, w),
+                     n, S, new_cols, new_vals, counts, span)
 
         if plan.huge_rows.size:
             # hub rows: dense matmul against the densified iterate,
@@ -486,11 +480,7 @@ def rmcl_ell_step(plan: RmclEllPlan, a: CSR, a_dense_huge, mt_cols, mt_vals):
                     a_dense_huge, mt_cols, mt_vals, n, plan.hub_precision,
                     krows=pt["hub_krows"], khp=plan.hub_kh,
                 )
-                sc, sw, truncated = _hub_rows(c_h, n, S)
-                new_cols[pt["huge_rows"]] = sc
-                new_vals[pt["huge_rows"]] = sw
-                counts[0] += (sc < n).sum()
-                counts[1] += truncated.sum()
+                _hub_rows(c_h, pt["huge_rows"], n, S, new_cols, new_vals, counts)
 
         # convergence drift ||new - old||_F / ||old||_F on merged ELL rows
         with span("rmcl_ell.step.drift"):
@@ -516,10 +506,8 @@ def _dense_huge(mgt: CSR, plan: RmclEllPlan):
     src = torch.from_numpy(plan.huge_src.astype(np.int64)).to(dev)
     kmap = torch.from_numpy(plan.hub_kmap.astype(np.int64)).to(dev)
     kcol = kmap[mgt.col_ind[src].long().clamp(0, plan.n - 1)]
-    a_d = torch.zeros(h * plan.hub_kh, dtype=QVALUE_DTYPE, device=dev)
-    a_d.index_add_(0, rows_rep * plan.hub_kh + kcol.clamp(0, plan.hub_kh - 1),
-                   mgt.values[src])
-    return a_d.view(h, plan.hub_kh)
+    return entries_to_dense(rows_rep, kcol.clamp(0, plan.hub_kh - 1), mgt.values[src],
+                            h, plan.hub_kh)
 
 
 _HIST = (("nnz", INDEX_DTYPE), ("truncated_rows", INDEX_DTYPE), ("differs", QVALUE_DTYPE))

@@ -43,6 +43,7 @@ from ..formats.csr import CSR
 from ..utils import graphs
 from ..utils.nphost import repeat_idx
 from ..utils.timing import TRACE
+from .densify import entries_to_dense
 from .ell_plan import EllPlan, _flat_layout, plan_ell
 from .hub_kernels import MAX_TILES as HUB_MAX_TILES
 from .hub_kernels import META as HUB_META
@@ -314,9 +315,7 @@ def _hub_products(a: CSR, b: CSR, plan: EllPlan, groups: list):
         for _, hc, src, rows_rep in gd["chunks"]:
             kcol = gd["kmap"][a.col_ind[src].long().clamp(0, k_rows - 1)]
             kcol = kcol.clamp(0, g.khp - 1)
-            a_d = torch.zeros(hc * g.khp, dtype=QVALUE_DTYPE, device=a.device)
-            a_d.index_add_(0, rows_rep * g.khp + kcol, a.values[src])
-            a_ds.append(a_d.view(hc, g.khp))
+            a_ds.append(entries_to_dense(rows_rep, kcol, a.values[src], hc, g.khp))
         for sl, (lin, eorder, per_chunk) in enumerate(gd["slabs"]):
             bd = torch.zeros(g.khp * g.slab, dtype=QVALUE_DTYPE, device=b.device)
             bd[lin] = b.values[eorder]

@@ -55,15 +55,16 @@ from ..formats.coo import COO
 from ..formats.csr import CSR
 from ..models.rmcl_ell import (
     _HIST,
-    _dedup_tile,
     _ell_drift_sq,
     _hub_dense_products,
     _hub_rows,
+    _no_span,
     _pow2ceil,
-    _select_rows,
+    _reduce_bins,
     ell_to_csr,
     mt_to_ell,
 )
+from ..ops.densify import ell_rows_to_dense, entries_to_dense
 from ..utils import graphs
 from ..utils.nphost import concat_ranges, fast_repeat
 from . import collectives
@@ -323,33 +324,6 @@ def _segments_gathered(plan, a_rp, a_ci, a_v, g_cols, g_vals):
     return seg_c, seg_v
 
 
-def dense_blocks(lc, lv, n: int):
-    """Every held shard's iterate block [lr, S] as dense rows [L, lr, n], in
-    one plain indexed set: a row holds each real column at most once
-    (the ELL invariant that ``mt_to_ell`` sets and every step keeps,
-    ``models/rmcl_ell.py:147-150``), so only the sentinel column n
-    repeats, and it is cut off.  No accumulation, so no float atomics."""
-    d, lr, _ = lc.shape
-    md = torch.zeros((d, lr, n + 1), dtype=QVALUE_DTYPE, device=lc.device)
-    shard = torch.arange(d, device=lc.device)[:, None, None]
-    rix = torch.arange(lr, device=lc.device)[None, :, None]
-    md.index_put_((shard, rix, lc.long()), lv)
-    return md[:, :, :n]
-
-
-def hub_block(slot, pos, val, hmax: int, width: int):
-    """One (shard, owner) pair's hub entries as the dense [hmax, width]
-    operand of its hub product: one ``index_add_`` into a flat buffer
-    whose extra row takes the -1 pads.  A hub row holds each column once
-    (a CSR row), so a cell receives at most one entry and its sum is
-    exact in any order; a caller's duplicate columns are summed, as the
-    reference's scatter-add sums them.  (An accumulating ``index_put_``
-    serialises the pads, which all land on one cell.)"""
-    flat = torch.zeros((hmax + 1) * width, dtype=QVALUE_DTYPE, device=val.device)
-    flat.index_add_(0, torch.where(slot >= 0, slot, hmax) * width + pos, val)
-    return flat.view(hmax + 1, width)[:hmax]
-
-
 def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True, mesh=None):
     """Per-entry segments of every held shard (+ the hub products when
     ``hub``) through the ring: the iterate blocks rotate rightwards, so
@@ -371,8 +345,8 @@ def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True, mesh=None):
     seg_v = torch.zeros((held, cap + 2, S), dtype=QVALUE_DTYPE, device=dev)
     hmax = plan.hmax if hub else 0
     c_h = md_me = None
-    if hmax:
-        md_me = dense_blocks(lc, lv, n)
+    if hmax:  # every held shard's iterate block as dense rows [L, lr, n]
+        md_me = ell_rows_to_dense(lc.reshape(-1, S), lv.reshape(-1, S), n, 0, n).view(held, lr, n)
         c_h = torch.zeros((held, hmax, n), dtype=QVALUE_DTYPE, device=dev)
     block_c, block_v = lc, lv
     for k in range(d):
@@ -389,7 +363,8 @@ def _segments_ring(plan, smgt, arrays, lc, lv, hub: bool = True, mesh=None):
                 slot = arrays["hub_ent_slot"][i][owner].long()
                 pos = arrays["hub_ent_pos"][i][owner].long()
                 idx = arrays["hub_kidx"][i][owner].long()
-                ab = hub_block(slot, pos, arrays["hub_ent_val"][i][owner], hmax, idx.shape[0])
+                ab = entries_to_dense(slot, pos, arrays["hub_ent_val"][i][owner], hmax,
+                                      idx.shape[0])
                 with true_f32():
                     part = torch.matmul(ab, md_me[i][idx.clamp(0, lr - 1)])
                 c_h[i] = c_h[i] + part
@@ -406,7 +381,7 @@ def fused_hub_operands(plan, arrays, lc, lv, mesh=None):
     owner-major A columns cut from the union-dense operand and each
     shard's dense B block over its own union rows (N padded to a
     multiple of the tile width ``nt``)."""
-    n, lr = plan.n, plan.lr
+    n, S, lr = plan.n, plan.S, plan.lr
     held = lc.shape[0]
     lrk, dev = plan.hub_lrk, lc.device
     pt = _plan_tensors(plan, dev, collectives.local_ranks(mesh, held))
@@ -415,17 +390,13 @@ def fused_hub_operands(plan, arrays, lc, lv, mesh=None):
     a_cols = torch.where(flat >= 0, a_u[:, :, flat.clamp(0, plan.hub_kh - 1)], 0.0)
     ntile = min(2048, 1 << (n - 1).bit_length())
     npad = -(-n // ntile) * ntile
-    # the dense B blocks go through one flat buffer whose last slot takes
-    # the sentinel lanes
     okr = (hol >= 0)[:, :, None]
     safe_r = hol.clamp(0, lr - 1)
     shard = torch.arange(held, device=dev)[:, None]
-    bc = torch.where(okr, lc[shard, safe_r], n).long()  # [L, lrk, S]
+    bc = torch.where(okr, lc[shard, safe_r], n)  # [L, lrk, S]
     bv = torch.where(okr, lv[shard, safe_r], 0.0)
-    base = (shard[:, :, None] * lrk + torch.arange(lrk, device=dev)[None, :, None]) * npad
-    flat_md = torch.zeros(held * lrk * npad + 1, dtype=QVALUE_DTYPE, device=dev)
-    flat_md[torch.where(bc < n, base + bc, held * lrk * npad)] = bv
-    return a_cols.contiguous(), flat_md[:-1].view(held, lrk, npad), ntile
+    md_loc = ell_rows_to_dense(bc.reshape(-1, S), bv.reshape(-1, S), n, 0, npad)
+    return a_cols.contiguous(), md_loc.view(held, lrk, npad), ntile
 
 
 def _fused_hub(plan, arrays, lc, lv, mesh=None):
@@ -441,29 +412,22 @@ def _local_step(plan, a_rp, row_ids, ent_src, huge_rows, seg_c, seg_v, c_h=None)
     n, S, lr = plan.n, plan.S, plan.lr
     dev = seg_c.device
     sent = seg_c.shape[0] - 1
+    # row lr: the dump; a padding row's tile is all sentinel (the
+    # sentinel segment), so it writes (n, 0.0) and counts nothing
     new_cols = torch.full((lr + 1, S), n, dtype=INDEX_DTYPE, device=dev)
     new_vals = torch.zeros((lr + 1, S), dtype=QVALUE_DTYPE, device=dev)
     counts = torch.zeros(2, dtype=torch.int64, device=dev)  # survivors, truncated rows
-    for (dc, rpad), rid, src in zip(plan.bin_shapes, row_ids, ent_src):
+    bins = [(dc, torch.where(rid >= 0, rid, lr).long(), src)
+            for (dc, _), rid, src in zip(plan.bin_shapes, row_ids, ent_src)]
+
+    def gather(src, width):
         s = torch.where(src >= 0, src, sent).long()
-        W = dc * S
-        tc = seg_c[s].reshape(rpad, W)
-        tv = seg_v[s].reshape(rpad, W)
-        key2, uval = _dedup_tile(tc, tv, n, run=S)
-        # row lr: the dump; a padding row's tile is all sentinel (the
-        # sentinel segment), so it writes (n, 0.0) and counts nothing
-        tgt = torch.where(rid >= 0, rid, lr).long()
-        _select_rows(key2, uval, n, S, tgt, new_cols, new_vals, counts)
-    nnz_out, trunc = counts[0], counts[1]
+        return seg_c[s].reshape(-1, width), seg_v[s].reshape(-1, width)
+
+    _reduce_bins(bins, gather, n, S, new_cols, new_vals, counts, _no_span)
     if plan.hmax:
-        sc, sw, truncated = _hub_rows(c_h, n, S)
-        ok = huge_rows >= 0
-        tgt = torch.where(ok, huge_rows, lr).long()
-        new_cols[tgt] = sc
-        new_vals[tgt] = sw
-        nnz_out += (ok[:, None] & (sc < n)).sum()
-        trunc += (ok & truncated).sum()
-    return new_cols[:lr], new_vals[:lr], nnz_out, trunc
+        _hub_rows(c_h, huge_rows, n, S, new_cols, new_vals, counts)
+    return new_cols[:lr], new_vals[:lr], counts[0], counts[1]
 
 
 def _sharded_step(plan, smgt, arrays, lc, lv, exchange: str, mesh=None):

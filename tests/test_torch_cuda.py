@@ -1627,10 +1627,14 @@ def test_sharded_rmcl_scan_makes_no_host_read(dev):
 
 def test_ring_densify_equals_the_accumulating_index_put_on_card(dev):
     """The ring exchange's densifies on the card: the plain set of the
-    iterate blocks and the hub operands' ``index_add_`` give the
-    accumulating index_put_'s bits (one value a cell; the sentinel
-    column and the pads' row cut off)."""
-    from sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell import dense_blocks
+    iterate blocks (``ell_rows_to_dense``) and the hub operands'
+    ``index_add_`` (``entries_to_dense``) give the accumulating
+    index_put_'s bits (one value a cell; the sentinel lanes and the pads'
+    row cut off)."""
+    from sparse_matrix_with_flops_tpu_torch.ops.densify import (
+        ell_rows_to_dense,
+        entries_to_dense,
+    )
 
     t = _rmcl_graph(512, 0.02, (9,), 3)
     plan, arrays, smgt = sharded_plan(t, 4, S=128, max_tile=1024)
@@ -1642,11 +1646,9 @@ def test_ring_densify_equals_the_accumulating_index_put_on_card(dev):
     rix = torch.arange(plan.lr, device=dev)[:, None]
     for me in range(4):
         want[me].index_put_((rix, lc[me].long()), lv[me], accumulate=True)
-    got = dense_blocks(lc, lv, n)
-    assert torch.equal(got, want[:, :, :n])
+    got = ell_rows_to_dense(lc.reshape(-1, 128), lv.reshape(-1, 128), n, 0, n)
+    assert torch.equal(got.view(4, plan.lr, n), want[:, :, :n])
     # and the hub operands of every (shard, owner) pair
-    from sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell import hub_block
-
     hmax = plan.hmax
     assert hmax > 0
     for me in range(4):
@@ -1657,7 +1659,8 @@ def test_ring_densify_equals_the_accumulating_index_put_on_card(dev):
             acc = torch.zeros((hmax + 1, width), device=dev)
             acc.index_put_((torch.where(slot >= 0, slot, hmax).long(), pos.long()), val,
                            accumulate=True)
-            assert torch.equal(hub_block(slot.long(), pos.long(), val, hmax, width), acc[:hmax])
+            got = entries_to_dense(slot.long(), pos.long(), val, hmax, width)
+            assert torch.equal(got, acc[:hmax])
 
 
 # ---- compiled programs: CUDA graphs of the warm SpGEMM and the static scan ----------

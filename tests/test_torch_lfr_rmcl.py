@@ -2,8 +2,8 @@
 the benchmark's LFR generator (``portbench/reference/lfr.py``) at the
 paper's sizes, the port's ``rmcl_ell`` against the benchmark's plain
 float64 R-MCL on such graphs, the tracer's spans and counters inside
-``models/rmcl_ell.py``, and the step's row chunks against one tile a
-degree bin."""
+``models/rmcl_ell.py``, and the single-card and sharded steps' row
+chunks against one tile a degree bin."""
 
 import importlib
 import json
@@ -26,6 +26,7 @@ from sparse_matrix_with_flops_tpu_torch.models.rmcl import rmcl_init  # noqa: E4
 from sparse_matrix_with_flops_tpu_torch.utils.timing import TRACE  # noqa: E402
 
 TR = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl_ell")
+TP = importlib.import_module("sparse_matrix_with_flops_tpu_torch.parallel.rmcl_ell")
 SEEDS = (7, 8, 9)
 CELL = "lfr-524288.rmcl-static-10it"
 
@@ -117,18 +118,37 @@ def test_a_traced_call_names_its_spans_and_counters():
     assert sum(r.name.startswith("read.") for r in records) == 7
 
 
+def _sharded_step_fn(mt, exchange: str):
+    """The stacked sharded step at D = 2 on ``mt``'s first iterate, as
+    ``sharded_rmcl_ell`` sets it up: ``step()`` -> (cols, vals, stats)."""
+    plan, arrays, smgt = TP.plan_sharded_rmcl_ell(mt, 2, S=128, max_tile=8192)
+    assert [d for d, _ in plan.bin_shapes] == [16, 32, 64]
+    cols, vals = TR.mt_to_ell(mt, 128)
+    cols = torch.where(cols >= mt.ncols, plan.n, cols)
+    lc, lv = cols.reshape(2, plan.lr, 128), vals.reshape(2, plan.lr, 128)
+    return lambda: TP._sharded_step(plan, smgt, arrays, lc, lv, exchange)
+
+
+@pytest.mark.parametrize("step", ["single", "ring", "all_gather"])
 @pytest.mark.parametrize("seed", SEEDS)
-def test_row_chunks_give_the_whole_bin_tiles_bits(seed, monkeypatch):
+def test_row_chunks_give_the_whole_bin_tiles_bits(seed, step, monkeypatch):
+    """The single-card step and the stacked sharded step (two exchanges)
+    give one whole-bin tile's bits with their degree bins cut into row
+    chunks."""
     rp, ci, _ = _graph(1000, seed)
     mt = rmcl_init(_coo(rp, ci)).make_ordered()
-    plan = TR.plan_rmcl_ell(mt, S=128, max_tile=8192)
-    cols, vals = TR.mt_to_ell(mt, 128)
-    a_d = TR._dense_huge(mt, plan)
-    whole = TR.rmcl_ell_step(plan, mt, a_d, cols, vals)
-    assert [d for d, _, _ in plan.bins] == [16, 32, 64]
+    if step == "single":
+        plan = TR.plan_rmcl_ell(mt, S=128, max_tile=8192)
+        assert [d for d, _, _ in plan.bins] == [16, 32, 64]
+        cols, vals = TR.mt_to_ell(mt, 128)
+        a_d = TR._dense_huge(mt, plan)
+        run = lambda: TR.rmcl_ell_step(plan, mt, a_d, cols, vals)  # noqa: E731
+    else:
+        run = _sharded_step_fn(mt, step)
+    whole = run()
     # 256 KB a chunk: 16, 8 and 4 rows of the three bins, the last chunk short
     monkeypatch.setattr(TR, "_TILE_BYTES", 256 << 10)
-    chunked = TR.rmcl_ell_step(plan, mt, a_d, cols, vals)
+    chunked = run()
     assert torch.equal(whole[0], chunked[0]) and torch.equal(whole[1], chunked[1])
     for k in whole[2]:
         assert torch.equal(whole[2][k], chunked[2][k]), k

@@ -435,7 +435,8 @@ def _hub_matmul_checks(monkeypatch):
     plan = TR.plan_rmcl_ell(t, S=32, max_tile=256)
     c0, v0 = TR.mt_to_ell(t, 32)
     a_d = TR._dense_huge(t, plan)
-    c_h = TR._hub_dense_products(a_d, c0, v0, t.rows, krows=plan.hub_krows, khp=plan.hub_kh)
+    krows = TR._plan_tensors(plan, c0.device)["hub_krows"]
+    c_h = TR._hub_dense_products(a_d, c0, v0, t.rows, krows=krows, khp=plan.hub_kh)
     assert calls and all(x == (torch.float32, torch.float32) for x in calls)
     # the f64 product over the same union rows
     kr = plan.hub_krows

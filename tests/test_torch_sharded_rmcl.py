@@ -16,6 +16,7 @@ from sparse_matrix_with_flops_tpu.formats.csr import CSR as JCSR
 from sparse_matrix_with_flops_tpu.ops.flops import footprint_row_costs as j_footprint
 from sparse_matrix_with_flops_tpu.parallel import make_mesh as j_make_mesh
 from sparse_matrix_with_flops_tpu.parallel import sharded as JSH
+from sparse_matrix_with_flops_tpu_torch.ops.densify import ell_rows_to_dense, entries_to_dense
 from sparse_matrix_with_flops_tpu_torch.ops.flops import footprint_row_costs as t_footprint
 from sparse_matrix_with_flops_tpu_torch.parallel import make_mesh
 from sparse_matrix_with_flops_tpu_torch.parallel import sharded as TSH
@@ -225,12 +226,13 @@ def _accumulating_densify(lc, lv, n):
 
 @pytest.mark.parametrize("d", [2, 4])
 @pytest.mark.parametrize("source", ["random", "iterate"])
-def test_dense_blocks_equals_the_accumulating_densify(d, source):
-    """The plain indexed set of ``dense_blocks`` equals the accumulating
-    densify bit for bit: each row's real columns are distinct (the ELL
-    invariant) and only the sentinel column n, cut off, repeats.  On a
-    random ELL iterate with padded lanes, and on the hub graph's iterate
-    after one step of the ring exchange."""
+def test_ell_rows_to_dense_equals_the_accumulating_densify(d, source):
+    """The plain indexed set of ``ell_rows_to_dense`` (every held shard's
+    iterate block as dense rows, the ring exchange's B operand) equals
+    the accumulating densify bit for bit: each row's real columns are
+    distinct (the ELL invariant) and the sentinel lanes go to the dump.
+    On a random ELL iterate with padded lanes, and on the hub graph's
+    iterate after one step of the ring exchange."""
     if source == "random":
         rng = np.random.default_rng(d)
         lr, S = 16, 8
@@ -252,17 +254,42 @@ def test_dense_blocks_equals_the_accumulating_densify(d, source):
         lc, lv, _ = TP._sharded_step(plan, smgt, arrays, cols, vals.reshape(d, plan.lr, 32),
                                      "ring")
         assert bool((lc == n).any())  # padded lanes present
-    got = TP.dense_blocks(lc, lv, n)
-    assert got.shape == (d, lc.shape[1], n)
-    assert torch.equal(got, _accumulating_densify(lc, lv, n))
+    got = ell_rows_to_dense(lc.reshape(-1, lc.shape[2]), lv.reshape(-1, lc.shape[2]), n, 0, n)
+    assert got.shape == (d * lc.shape[1], n)
+    assert torch.equal(got.view(d, lc.shape[1], n), _accumulating_densify(lc, lv, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slab", [16, 24, 64])
+def test_ell_rows_to_dense_cuts_column_slabs(dtype, slab):
+    """Column slabs of an ELL block (the single-card hub's operand, 16 and
+    24 of 40 columns: the last slab runs past the sentinel) and one slab
+    wider than the columns (the fused ring's, padded to the tile width)
+    equal the dense block's columns, the columns past n zero."""
+    rng = np.random.default_rng(slab)
+    r, S, n = 12, 8, 40
+    cols = np.full((r, S), n, np.int32)
+    vals = np.zeros((r, S), np.float32)
+    dense = np.zeros((r, -(-n // slab) * slab), np.float32)
+    for i in range(r):
+        k = int(rng.integers(0, S + 1))
+        cols[i, :k] = rng.choice(n, size=k, replace=False)
+        vals[i, :k] = rng.random(k).astype(np.float32) + 0.01
+        dense[i, cols[i, :k]] = vals[i, :k]
+    want = torch.from_numpy(dense).to(dtype)
+    tc, tv = torch.from_numpy(cols), torch.from_numpy(vals)
+    for s0 in range(0, n, slab):
+        got = ell_rows_to_dense(tc, tv, n, s0, slab, dtype)
+        assert got.dtype == dtype and got.shape == (r, slab)
+        assert torch.equal(got, want[:, s0:s0 + slab])
 
 
 @pytest.mark.parametrize("d", [2, 4])
 @pytest.mark.parametrize("kind", ["hub", "odd"])
-def test_hub_block_equals_the_accumulating_densify(d, kind):
+def test_entries_to_dense_equals_the_accumulating_densify(d, kind):
     """The ring exchange's hub operand of every (shard, owner) pair as
-    ``hub_block`` builds it equals the accumulating ``index_put_`` it
-    replaced, bit for bit, -1 pads and all."""
+    ``entries_to_dense`` builds it equals the accumulating ``index_put_``
+    it replaced, bit for bit, -1 pads and all."""
     plan, arrays, _ = TP.plan_sharded_rmcl_ell(port_csr(_graph(kind)), d, S=32, max_tile=256)
     hmax = plan.hmax
     assert hmax > 0
@@ -274,4 +301,4 @@ def test_hub_block_equals_the_accumulating_densify(d, kind):
             width = arrays["hub_kidx"][me][owner].shape[0]
             want = torch.zeros((hmax + 1, width))
             want.index_put_((torch.where(slot >= 0, slot, hmax), pos), val, accumulate=True)
-            assert torch.equal(TP.hub_block(slot, pos, val, hmax, width), want[:hmax])
+            assert torch.equal(entries_to_dense(slot, pos, val, hmax, width), want[:hmax])
