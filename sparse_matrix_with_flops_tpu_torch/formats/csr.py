@@ -146,9 +146,29 @@ class CSR:
         return out
 
     def with_capacity(self, capacity: int) -> "CSR":
-        """Grow or shrink the padding (through the host; nnz must fit)."""
-        rp, ci, v = self.to_numpy()
-        return CSR.from_numpy(rp, ci, v, self.ncols, self.device, capacity)
+        """Grow or shrink the padding on the CSR's own device; the result
+        shares no storage with ``self`` and equals ``from_numpy`` of
+        ``to_numpy()`` at ``capacity`` bit for bit (slots at or past nnz
+        hold ``ncols`` and 0, whatever ``self`` held there).
+
+        Growth makes no host read or write: one fill of each new tensor
+        and a masked copy of the old slots, counted as the slots added
+        (the counter ``csr.pad``).  A shrink reads nnz once (site
+        ``csr.nnz``) and raises ``ValueError`` where it does not fit."""
+        capacity = int(capacity)
+        if capacity < self.capacity:
+            nnz = int(TRACE.host_read("csr.nnz", self.nnz))
+            if capacity < nnz:
+                raise ValueError(f"capacity {capacity} < nnz {nnz}")
+        else:
+            TRACE.count("csr.pad", capacity - self.capacity)
+        keep = min(capacity, self.capacity)
+        valid = self.entry_valid()[:keep]
+        col = torch.full((capacity,), self.ncols, dtype=INDEX_DTYPE, device=self.device)
+        val = torch.zeros(capacity, dtype=QVALUE_DTYPE, device=self.device)
+        col[:keep] = torch.where(valid, self.col_ind[:keep], self.ncols)
+        val[:keep] = torch.where(valid, self.values[:keep], 0.0)
+        return CSR(self.row_ptr.to(INDEX_DTYPE, copy=True), col, val, self.ncols)
 
     def deep_copy(self) -> "CSR":
         """A copy that shares no storage (CSR::deepCopy, CSR.cc:97-106)."""

@@ -18,6 +18,7 @@ from sparse_matrix_with_flops_tpu_torch.ops.segments import exclusive_cumsum
 from sparse_matrix_with_flops_tpu_torch.parallel.mesh import make_mesh
 from sparse_matrix_with_flops_tpu_torch.utils import generate as tgen
 from sparse_matrix_with_flops_tpu_torch.utils import nphost as tnph
+from sparse_matrix_with_flops_tpu_torch.utils.timing import TRACE
 
 from conftest import random_csr_np
 from torch_port_util import trimmed
@@ -57,6 +58,60 @@ def test_from_numpy_round_trip(rng, capacity):
     assert t2.is_equal(t) and t2.capacity == t.capacity
     with pytest.raises(ValueError):
         TCSR.from_numpy(rp, c, v, 7, capacity=int(rp[-1]) - 1, device="cpu")
+
+
+_CAPACITIES = {  # (nnz, capacity) -> the capacity asked for
+    "grow": lambda nnz, cap: cap + 13,
+    "same": lambda nnz, cap: cap,
+    "nnz": lambda nnz, cap: nnz,
+    "between": lambda nnz, cap: nnz + 5,
+    "below": lambda nnz, cap: nnz - 1,
+}
+
+
+@pytest.mark.parametrize("padding", ["clean", "stray"])
+@pytest.mark.parametrize("to", list(_CAPACITIES))
+def test_with_capacity_equals_the_host_round_trip(rng, to, padding):
+    rp, c, v = random_csr_np(rng, 9, 7, 0.4)
+    nnz = int(rp[-1])
+    a = TCSR.from_numpy(rp, c, v, 7, capacity=nnz + 12, device="cpu")
+    if padding == "stray":  # padding slots that break the invariant
+        col, val = a.col_ind.clone(), a.values.clone()
+        col[nnz:] = torch.arange(12, dtype=torch.int32) % 7
+        val[nnz:] = 2.5
+        a = TCSR(a.row_ptr.clone(), col, val, 7)
+    cap = _CAPACITIES[to](nnz, a.capacity)
+    before = [t.clone() for t in (a.row_ptr, a.col_ind, a.values)]
+    if to == "below":
+        for pad in (a.with_capacity, lambda k: TCSR.from_numpy(*a.to_numpy(), 7, "cpu", k)):
+            with pytest.raises(ValueError, match=f"capacity {cap} < nnz {nnz}"):
+                pad(cap)
+        return
+    want = TCSR.from_numpy(*a.to_numpy(), a.ncols, a.device, cap)
+    TRACE.clear()
+    TRACE.enabled = True
+    try:
+        got = a.with_capacity(cap)
+        records, counters = list(TRACE.records), list(TRACE.counters)
+    finally:
+        TRACE.enabled = False
+        TRACE.clear()
+    # growth touches no host; a shrink reads nnz once
+    if cap >= a.capacity:
+        assert records == [] and [(n, k) for n, _, k, _ in counters] == [
+            ("csr.pad", cap - a.capacity)]
+    else:
+        assert [r.name for r in records] == ["read.csr.nnz"]
+        assert [n for n, *_ in counters] == ["reads"]
+    assert got.capacity == cap and got.ncols == want.ncols and got.device == want.device
+    for g, w, old in zip((got.row_ptr, got.col_ind, got.values),
+                         (want.row_ptr, want.col_ind, want.values),
+                         (a.row_ptr, a.col_ind, a.values)):
+        assert g.dtype == w.dtype and g.device == w.device
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))  # bit for bit
+        assert g.untyped_storage().data_ptr() != old.untyped_storage().data_ptr()
+    for t, b in zip((a.row_ptr, a.col_ind, a.values), before):
+        assert torch.equal(t, b)  # the input is left as it was
 
 
 def test_from_dense_and_to_dense_match_reference(rng):

@@ -10,9 +10,12 @@ card.  The card tests run each path under
 
 import importlib
 
+import numpy as np
 import pytest
 import torch
 
+from sparse_matrix_with_flops_tpu_torch.formats.coo import COO
+from sparse_matrix_with_flops_tpu_torch.formats.csr import CSR
 from sparse_matrix_with_flops_tpu_torch.ops import block_spgemm as B
 from sparse_matrix_with_flops_tpu_torch.ops import ell_esc as E
 from sparse_matrix_with_flops_tpu_torch.ops.ell_plan import plan_ell
@@ -20,6 +23,7 @@ from sparse_matrix_with_flops_tpu_torch.utils import timing as TT
 from sparse_matrix_with_flops_tpu_torch.utils.generate import (
     banded_csr,
     planted_partition_coo,
+    rmat_csr,
 )
 
 TR = importlib.import_module("sparse_matrix_with_flops_tpu_torch.models.rmcl")
@@ -56,7 +60,7 @@ def _paths(device="cpu"):
     coo = _graph(device)
     a, bplan = _band(device)
     eplan = plan_ell(a, a)
-    out = {"rmcl": (lambda: _job(coo), 8),
+    out = {"rmcl": (lambda: _job(coo), 5),
            "block": (lambda: B.block_spgemm(a, a, bplan), 1),
            "ell": (lambda: E.spgemm_ell(a, a, eplan), 1)}
     for call, _ in out.values():
@@ -92,8 +96,11 @@ def test_an_rmcl_job_gives_the_span_tree_under_one_trace_id(trace):
     assert names == ["rmcl.init", "rmcl.plan", "rmcl.pad", "rmcl.scan", "rmcl.read"]
     by = {r.name: r for r in kids[top.id]}
     assert [r.name for r in kids[by["rmcl.plan"].id]] == ["read.rmcl.flops"]
-    pad = [r.name for r in kids[by["rmcl.pad"].id]]
-    assert pad == ["read.csr.to_numpy"] * 3 + ["write.csr.from_numpy"] * 3
+    # the pad grows the iterate on the card: no read or write inside it,
+    # one count of the slots it adds
+    assert kids.get(by["rmcl.pad"].id, []) == []
+    pads = [(n, k, t) for n, _, k, t in trace.counters if n == "csr.pad"]
+    assert pads == [("csr.pad", pads[0][1], top.trace)] and pads[0][1] > 0
     steps = kids[by["rmcl.scan"].id]
     assert [r.name for r in steps] == ["rmcl.step"] * 3
     for s in steps:
@@ -121,12 +128,13 @@ def test_reads_are_counted_a_job_or_call(trace, path):
     assert [r.name for r in tops] == [path] * 2
     assert len({r.trace for r in trace.records}) == 2
     # each read is counted under its own call's trace id (the ELL calls
-    # also count their hub rows by route: ``ell.hub.*``)
+    # also count their hub rows by route, ``ell.hub.*``; a job its pad's
+    # slots, ``csr.pad``)
     counted = [t for name, *_, t in trace.counters if name == "reads"]
     assert sorted(counted) == sorted(r.trace for r in reads)
     names = [name for name, *_ in trace.counters]
-    hub = ["ell.hub.sparse", "ell.hub.dense"] if path == "ell" else []
-    assert sorted(names) == sorted(["reads"] * 2 * want + hub * 2)
+    own = {"ell": ["ell.hub.sparse", "ell.hub.dense"], "rmcl": ["csr.pad"]}.get(path, [])
+    assert sorted(names) == sorted(["reads"] * 2 * want + own * 2)
 
 
 def test_a_profiler_session_turns_the_tracer_on():
@@ -175,3 +183,46 @@ def test_every_read_of_a_path_goes_through_host_read(path):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+def _host_pad(csr, capacity):
+    """The pad as the host made it: the matrix read back, padded in numpy
+    and copied up again (the oracle of the card's pad)."""
+    return CSR.from_numpy(*csr.to_numpy(), csr.ncols, csr.device, capacity)
+
+
+@pytest.mark.cuda
+def test_the_pad_grows_on_the_card_and_the_job_keeps_its_bits(trace, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = rmat_csr(13, edge_factor=16, seed=7, device="cpu")  # the s13 cell's shape
+    rp, ci, v = g.to_numpy()
+    coo = COO.from_numpy(np.repeat(np.arange(g.rows), np.diff(rp)), ci, v, g.rows, g.rows,
+                         capacity=ci.size + g.rows, device="cuda")
+    mt0 = TR.rmcl_init(coo)
+    _, cc = TR.plan_capacities(mt0, mt0, 2.5)
+    want = _host_pad(mt0, cc)
+    torch.cuda.synchronize()
+    trace.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = mt0.with_capacity(cc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert trace.records == []
+    assert [(n, k) for n, _, k, _ in trace.counters] == [("csr.pad", cc - mt0.capacity)]
+    for a, b in zip((got.row_ptr, got.col_ind, got.values),
+                    (want.row_ptr, want.col_ind, want.values)):
+        assert a.dtype == b.dtype and a.device == b.device
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # a job, with the card's pad and then with the host's: the same bits
+    jobs = [TR.rmcl(coo, max_iters=5, mode="scan", margin=2.5)]
+    monkeypatch.setattr(CSR, "with_capacity", _host_pad)
+    jobs.append(TR.rmcl(coo, max_iters=5, mode="scan", margin=2.5))
+    (rp1, ci1, v1), (rp0, ci0, v0) = (j.mt.to_numpy() for j in jobs)
+    np.testing.assert_array_equal(rp1, rp0)
+    np.testing.assert_array_equal(ci1, ci0)
+    np.testing.assert_array_equal(v1.view(np.int32), v0.view(np.int32))
+    for k in ("nnz_history", "flops_history", "differs_history"):
+        np.testing.assert_array_equal(getattr(jobs[0], k), getattr(jobs[1], k))
+    assert not jobs[0].overflow and not jobs[1].overflow
